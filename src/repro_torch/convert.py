@@ -1,0 +1,40 @@
+"""Carries specs and states between numpy, the JAX package and the port.
+
+`from_reference` reads a JAX `NetworkSpec` / `NetworkState` by its field
+names (`np.asarray(obj.pe)`, ...), so the port never imports `repro`;
+the parity tests use it to feed both packages the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+
+def _t(x, device) -> torch.Tensor:
+    # np.array copies: a JAX array's host view is read-only
+    return torch.as_tensor(np.array(x, np.float32), dtype=DTYPE, device=device)
+
+
+def spec_from_numpy(pe, pc, Pe, Pc, device=DEFAULT_DEVICE) -> NetworkSpec:
+    """A NetworkSpec of float32 tensors on `device`."""
+    dev = resolve_device(device)
+    return NetworkSpec(pe=_t(pe, dev), pc=_t(pc, dev), Pe=_t(Pe, dev), Pc=_t(Pc, dev))
+
+
+def state_from_numpy(Qe, Qc, device=DEFAULT_DEVICE) -> NetworkState:
+    """A NetworkState of float32 tensors on `device`."""
+    dev = resolve_device(device)
+    return NetworkState(Qe=_t(Qe, dev), Qc=_t(Qc, dev))
+
+
+def from_reference(obj, device=DEFAULT_DEVICE):
+    """The port's twin of a JAX NetworkSpec (fields pe, pc, Pe, Pc) or
+    NetworkState (fields Qe, Qc), found by duck typing."""
+    if all(hasattr(obj, f) for f in ("pe", "pc", "Pe", "Pc")):
+        return spec_from_numpy(obj.pe, obj.pc, obj.Pe, obj.Pc, device)
+    if all(hasattr(obj, f) for f in ("Qe", "Qc")):
+        return state_from_numpy(obj.Qe, obj.Qc, device)
+    raise TypeError(f"from_reference: {type(obj).__name__} is neither a spec nor a state")

@@ -1,0 +1,261 @@
+"""Carbon-intensity sources (paper §V scenarios), in PyTorch.
+
+Counterpart of `repro.core.carbon`. A source is a callable
+`(t: int, seed: int, device) -> (Ce 0-d tensor, Cc [N] tensor)`:
+
+  * RandomCarbonSource     -- Ce(t), Cc_n(t) ~ U{0..700} i.i.d.   (Fig. 2)
+  * UKRegionalTraceSource  -- the synthetic stand-in for the National
+    Grid ESO regional traces of Fig. 3 (diurnal cycle, wind fronts,
+    region means, noise); `from_eso_csv` loads real exports.
+  * ConstantCarbonSource / TableCarbonSource -- tests and playback.
+
+Sources that hold data have `to(device)`, which stages it on the device
+once; the simulator calls it before its loop so that no slot copies host
+data. Random draws come from a generator seeded with fold_in(seed, t) on
+the device itself, so a source is deterministic in (seed, t) on a given
+device type (CPU and CUDA generators differ; tests feed tables).
+
+The table helpers `diurnal_table` and `bursty_table` are numpy, copied
+from the JAX module, so they give bitwise the same tables.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng
+from repro_torch.core.queueing import DTYPE
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+
+class DeviceCache:
+    """Per-device copies of a source's constant tensors (made by the
+    subclass's `_tensors(device)`), filled by `to(device)` or on first
+    use."""
+
+    def _cached(self, device, make):
+        cache = self.__dict__.setdefault("_device_cache", {})
+        device = torch.device(device)
+        if device not in cache:
+            cache[device] = make(device)
+        return cache[device]
+
+    def to(self, device):
+        self._tensors(device)
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomCarbonSource:
+    """Paper Fig. 2: each intensity i.i.d. uniform over {0..cmax}."""
+
+    N: int
+    cmax: int = 700
+
+    def __call__(self, t: int, seed: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        g = rng.generator(rng.fold_in(seed, t), device)
+        vals = torch.randint(0, self.cmax + 1, (self.N + 1,), generator=g, device=device)
+        vals = vals.to(DTYPE)
+        return vals[0], vals[1:]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantCarbonSource(DeviceCache):
+    N: int
+    Ce: float = 200.0
+    Cc: float = 200.0
+
+    def __post_init__(self):
+        if int(self.N) < 1:
+            raise ValueError(f"ConstantCarbonSource needs N >= 1 clouds, got N={self.N}")
+        if np.shape(self.Ce) != ():
+            raise ValueError(f"Ce must be a scalar intensity, got shape {np.shape(self.Ce)}")
+        if np.shape(self.Cc) not in ((), (int(self.N),)):
+            raise ValueError(
+                f"Cc must be a scalar or [N={self.N}] intensities, got shape {np.shape(self.Cc)}"
+            )
+
+    def _tensors(self, device):
+        def make(dev):
+            Cc = torch.as_tensor(np.asarray(self.Cc, np.float32), device=dev)
+            return (torch.as_tensor(np.float32(self.Ce), device=dev),
+                    torch.broadcast_to(Cc, (self.N,)))
+        return self._cached(device, make)
+
+    def __call__(self, t: int, seed: int, device):
+        del t, seed
+        return self._tensors(device)
+
+
+# 2022-ish UK regional profile parameters: (mean gCO2/kWh, diurnal
+# amplitude, wind sensitivity). Region 0 backs the edge server; 1..5 back
+# the five clouds. Cloud columns past the last region reuse it, as the
+# JAX source's clamped gather does.
+_UK_REGIONS = (
+    (180.0, 60.0, 120.0),  # London          (edge)
+    (45.0, 20.0, 35.0),    # North Scotland  (hydro/wind heavy)
+    (330.0, 80.0, 150.0),  # South Wales     (gas heavy)
+    (210.0, 70.0, 130.0),  # Midlands
+    (120.0, 50.0, 90.0),   # North West
+    (260.0, 75.0, 140.0),  # South East
+)
+
+_SLOTS_PER_DAY = 48  # 30-minute slots, as in the ESO dataset
+
+
+@dataclasses.dataclass(frozen=True)
+class UKRegionalTraceSource(DeviceCache):
+    """Synthetic stand-in for National Grid ESO regional traces (Fig. 3).
+
+    Deterministic in (seed, t). The structure is the JAX source's; the
+    Gaussian noise comes from a torch generator, so the traces are not
+    the JAX package's (no threefry twin yet)."""
+
+    N: int = 5
+    seed: int = 2022
+    regions: tuple = _UK_REGIONS
+
+    def _tensors(self, device):
+        def make(dev):
+            R = len(self.regions)
+            rows = [self.regions[min(r, R - 1)] for r in range(self.N + 1)]
+            params = torch.as_tensor(np.asarray(rows, np.float32), device=dev)
+            region = torch.arange(self.N + 1, dtype=DTYPE, device=dev)
+            return params, region
+        return self._cached(device, make)
+
+    def __call__(self, t: int, seed: int, device):
+        del seed  # the trace is a function of (self.seed, t), as in JAX
+        params, region = self._tensors(device)
+        mean, amp, wind = params[:, 0], params[:, 1], params[:, 2]
+        day_phase = 2.0 * math.pi * (t % _SLOTS_PER_DAY) / _SLOTS_PER_DAY
+        # demand peaks around 18:00 -> phase shift; solar dip mid-day
+        diurnal = amp * (
+            math.sin(day_phase - 2.0 * math.pi * 18.0 / 24.0) + 0.3 * math.sin(2.0 * day_phase)
+        )
+        # wind fronts: slow sinusoids with region-coherent + national terms
+        national = math.sin(2 * math.pi * t / (_SLOTS_PER_DAY * 3.3) + 1.7)
+        regional = torch.sin(2 * math.pi * t / (_SLOTS_PER_DAY * 2.1) + region)
+        front = wind * (0.7 * national + 0.3 * regional)
+        g = rng.generator(rng.fold_in(self.seed, t), device)
+        noise = 25.0 * torch.randn((self.N + 1,), generator=g, device=device)
+        vals = torch.clamp(mean + diurnal + front + noise, 5.0, 700.0)
+        return vals[0], vals[1:]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)  # identity hash: array field
+class TableCarbonSource(DeviceCache):
+    """Plays back a precomputed table. table: [T, N+1]; column 0 = edge;
+    rows repeat modulo T."""
+
+    table: object
+
+    def __post_init__(self):
+        shape = getattr(self.table, "shape", None)
+        if shape is None or len(shape) != 2:
+            raise ValueError(
+                "TableCarbonSource.table must be a [T, N+1] array (col 0 = edge), got "
+                f"{'no shape' if shape is None else f'shape {tuple(shape)}'}"
+            )
+        if shape[0] < 1 or shape[1] < 2:
+            raise ValueError(
+                f"TableCarbonSource.table shape {tuple(shape)} needs at least 1 row "
+                "and 2 columns (edge + >=1 cloud)"
+            )
+
+    @property
+    def N(self) -> int:
+        return self.table.shape[1] - 1
+
+    def _tensors(self, device):
+        return self._cached(device, lambda dev: torch.as_tensor(self.table, dtype=DTYPE, device=dev))
+
+    def __call__(self, t: int, seed: int, device):
+        del seed
+        tab = self._tensors(device)
+        row = tab[t % tab.shape[0]]
+        return row[0], row[1:]
+
+
+def from_eso_csv(path: str, n_regions: int) -> TableCarbonSource:
+    """Loads a National Grid ESO regional forecast CSV export: datetime,
+    then one intensity column per region (gCO2/kWh). The first region
+    backs the edge, the next `n_regions` the clouds. Malformed rows are
+    skipped; a file with no usable row raises."""
+    rows = []
+    skipped = 0
+    expected_cols = n_regions + 2  # datetime + edge + n_regions clouds
+    with open(path) as f:
+        f.readline()  # header
+        for line in f:
+            if not line.strip():
+                continue
+            parts = line.strip().split(",")
+            if len(parts) < expected_cols:
+                skipped += 1
+                continue
+            try:
+                rows.append([float(x) for x in parts[1:expected_cols]])
+            except ValueError:
+                skipped += 1
+    if not rows:
+        raise ValueError(
+            f"{path}: no usable data rows (expected >= {expected_cols} comma-separated "
+            f"columns: datetime, edge, {n_regions} cloud regions; skipped {skipped} "
+            "malformed row(s))"
+        )
+    return TableCarbonSource(table=np.asarray(rows, np.float32))
+
+
+# Scenario table generators: numpy, copied from the JAX module, so the
+# same rng gives bitwise the same [T, N+1] table in both packages.
+
+
+def diurnal_table(T: int, N: int, rng: np.random.Generator, mean: float = 220.0,
+                  amp: float = 90.0, noise: float = 20.0,
+                  slots_per_day: int = _SLOTS_PER_DAY) -> np.ndarray:
+    """Smooth day/night cycle with per-region phase/mean jitter."""
+    t = np.arange(T)[:, None]
+    phase = rng.uniform(0, 2 * np.pi, (1, N + 1))
+    means = mean * rng.uniform(0.6, 1.4, (1, N + 1))
+    day = 2 * np.pi * (t % slots_per_day) / slots_per_day
+    tab = means + amp * np.sin(day - phase) + noise * rng.normal(size=(T, N + 1))
+    return np.clip(tab, 5.0, 700.0).astype(np.float32)
+
+
+def bursty_table(T: int, N: int, rng: np.random.Generator, base: float = 120.0,
+                 spike: float = 450.0, p_spike: float = 0.05,
+                 spike_len: int = 6) -> np.ndarray:
+    """Low baseline with rare, multi-slot, region-local intensity spikes."""
+    tab = base * rng.uniform(0.7, 1.3, (T, N + 1))
+    starts = rng.random((T, N + 1)) < p_spike
+    for dt in range(spike_len):
+        rolled = np.roll(starts, dt, axis=0)
+        rolled[:dt] = False
+        tab = np.where(rolled, tab + spike * (1 - dt / spike_len), tab)
+    tab += 15.0 * rng.normal(size=(T, N + 1))
+    return np.clip(tab, 5.0, 700.0).astype(np.float32)
+
+
+def uk_regional_table(T: int, N: int, seed: int = 2022, rotate: int = 0,
+                      device=DEFAULT_DEVICE) -> np.ndarray:
+    """Materializes UKRegionalTraceSource with the ESO region parameters
+    rotated by `rotate` (a fleet of rotations covers every assignment of
+    regions to the edge and clouds)."""
+    R = len(_UK_REGIONS)
+    regions = tuple(_UK_REGIONS[(i + rotate) % R] for i in range(N + 1))
+    return materialize(UKRegionalTraceSource(N=N, seed=seed, regions=regions), T, device=device)
+
+
+def materialize(source, T: int, seed: int = 0, device=DEFAULT_DEVICE) -> np.ndarray:
+    """Renders any source to a [T, N+1] numpy table."""
+    device = resolve_device(device)
+    rows = []
+    for t in range(T):
+        Ce, Cc = source(t, seed, device)
+        rows.append(torch.cat([Ce.reshape(1), Cc]))
+    return torch.stack(rows).cpu().numpy()

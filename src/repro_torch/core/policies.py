@@ -1,0 +1,240 @@
+"""Scheduling policies (counterpart of `repro.core.policies`).
+
+* CarbonIntensityPolicy -- the paper's Algorithm 1 (drift-plus-penalty
+  greedy): one score pass, then the edge row and all N cloud rows in one
+  stacked [N+1, M] greedy fill.
+* QueueLengthPolicy -- the paper's baseline: longest edge queue ->
+  shortest cloud queue; clouds process their longest queues; carbon-blind.
+* RandomPolicy -- feasible random actions (stress/property tests).
+* literal_algorithm1 -- the numpy transcription of Algorithm 1, the
+  oracle the vectorised policy must match.
+
+All policies share the signature
+    policy(state, spec, Ce, Cc, arrivals, key) -> Action
+with `key` an int seed (see core.rng). They run on the device of
+`state`; on the CPU the kernels are replaced by their plain versions.
+Notes vs. the paper's pseudocode (`literal_edge_budget`,
+`stop_at_first_unfit`) are those of the JAX module.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng
+from repro_torch.core.queueing import Action, NetworkSpec, NetworkState
+from repro_torch.kernels import ops
+from repro_torch.telemetry.profile import phase
+
+
+def greedy_fill(scores, unit_energy, max_items, budget, *,
+                stop_at_first_unfit=True, literal_edge_budget=False,
+                sort_key=None, chunk=64):
+    """The one greedy knapsack fill (Algorithm 1, both halves).
+
+    Per lane, items with a negative score are visited in increasing
+    `sort_key` order (default score/unit_energy), ties by index; each
+    takes min(cap, floor(P/e)) and decrements P. `stop_at_first_unfit`
+    reproduces the pseudocode's `break`; `literal_edge_budget` the
+    printed edge line (P -= fits*e, always stopping at the first unfit).
+
+    Accepts [M] or [B, M] inputs with a scalar or [B] budget. `chunk` is
+    the JAX engine's top_k width: it must be >= 1 and changes nothing,
+    since both engines give the counts of the full sequential walk.
+    """
+    if int(chunk) < 1:
+        raise ValueError(f"chunk={chunk!r} must be >= 1")
+    single = scores.dim() == 1
+    if single:
+        scores, unit_energy, max_items = scores[None], unit_energy[None], max_items[None]
+        if sort_key is not None:
+            sort_key = sort_key[None]
+    budget = torch.as_tensor(budget, dtype=torch.float32, device=scores.device).reshape(-1)
+    budget = budget.expand(scores.shape[0])
+    with phase("greedy_fill"):
+        counts = ops.greedy_fill(
+            scores, unit_energy, max_items, budget,
+            stop_at_first_unfit=stop_at_first_unfit,
+            literal_edge_budget=literal_edge_budget, sort_key=sort_key,
+        )
+    return counts[0] if single else counts
+
+
+def _scalar(value: float, device) -> torch.Tensor:
+    # torch.full writes on the device: no host-to-device copy, no sync
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _dispatch_matrix(Qc, n1, d_counts):
+    """d[m, n1[m]] = d_counts[m], zero elsewhere (JAX `.at[...].set`)."""
+    return torch.zeros_like(Qc).scatter_(1, n1.long()[:, None], d_counts[:, None])
+
+
+@dataclasses.dataclass(frozen=True)
+class CarbonIntensityPolicy:
+    """Paper Algorithm 1: carbon-intensity based drift-plus-penalty greedy.
+
+    The score pass always goes through `kernels.ops.carbon_scores` (the
+    CUDA kernel on the card, its plain version on the CPU), so the JAX
+    policy's `score_backend` / `score_block_*` / `score_interpret` fields
+    have no counterpart here. `fill_chunk` is accepted and, as in the
+    JAX package, changes no action.
+    """
+
+    V: float = 0.05
+    stop_at_first_unfit: bool = True
+    literal_edge_budget: bool = False
+    fill_chunk: int = 64
+
+    def _fill_all(self, b, c, pe, pc, Qe, Qc, Pe, Pc):
+        """Edge dispatch + N cloud fills as one stacked [N+1, M] fill.
+        Returns (d_counts [M], w [M, N])."""
+        if self.literal_edge_budget:
+            # the literal pseudocode variant only exists for the edge
+            # branch; clouds keep the corrected budget accounting
+            d_counts = greedy_fill(
+                b, pe, Qe, Pe, literal_edge_budget=True, chunk=self.fill_chunk,
+            )
+            w = greedy_fill(
+                c.T, pc.T, Qc.T, Pc,
+                stop_at_first_unfit=self.stop_at_first_unfit, chunk=self.fill_chunk,
+            ).T
+            return d_counts, w
+        counts = greedy_fill(
+            torch.cat([b[None, :], c.T], dim=0),
+            torch.cat([pe[None, :], pc.T], dim=0),
+            torch.cat([Qe[None, :], Qc.T], dim=0),
+            torch.cat([Pe.reshape(1), Pc], dim=0),
+            stop_at_first_unfit=self.stop_at_first_unfit,
+            chunk=self.fill_chunk,
+        )
+        return counts[0], counts[1:].T
+
+    def _scores(self, state, pe, pc, Ce, Cc, V):
+        """Score pass (c [M,N], n1 [M], b [M]) on pre-scaled intensities."""
+        with phase("policy_score"):
+            return ops.carbon_scores(state.Qc, pc, state.Qe, pe, V * Cc, V * Ce)
+
+    def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
+                 arrivals=None, key=None) -> Action:
+        del arrivals, key
+        dev = state.Qc.device
+        pe, pc, Pe, Pc = spec.as_arrays(dev)
+        V = _scalar(self.V, dev)
+        c, n1, b = self._scores(state, pe, pc, Ce, Cc, V)
+        d_counts, w = self._fill_all(b, c, pe, pc, state.Qe, state.Qc, Pe, Pc)
+        return Action(d=_dispatch_matrix(state.Qc, n1, d_counts), w=w)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueueLengthPolicy:
+    """Paper §V baseline: queue-length based, carbon-blind.
+
+    The same stacked greedy fill as Algorithm 1, ordered by
+    -queue-length (sort_key) and never stopping at an unfit type. n1 is a
+    plain `torch.argmin` (first index on ties), as in the JAX policy."""
+
+    fill_chunk: int = 64
+
+    def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
+                 arrivals=None, key=None) -> Action:
+        del Ce, Cc, arrivals, key
+        pe, pc, Pe, Pc = spec.as_arrays(state.Qc.device)
+        n1 = torch.argmin(state.Qc, dim=1)
+        scores = torch.cat(
+            [
+                torch.where(state.Qe > 0, -state.Qe, 1.0)[None, :],
+                torch.where(state.Qc > 0, -state.Qc, 1.0).T,
+            ],
+            dim=0,
+        )
+        counts = greedy_fill(
+            scores,
+            torch.cat([pe[None, :], pc.T], dim=0),
+            torch.cat([state.Qe[None, :], state.Qc.T], dim=0),
+            torch.cat([Pe.reshape(1), Pc], dim=0),
+            stop_at_first_unfit=False,
+            sort_key=scores,
+            chunk=self.fill_chunk,
+        )
+        return Action(d=_dispatch_matrix(state.Qc, n1, counts[0]), w=counts[1:].T)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomPolicy:
+    """Feasible uniformly-random actions (tests / stress). Random
+    fractions of per-type feasible maxima, with the shared budget divided
+    across types; draws from a generator seeded with `key`."""
+
+    def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
+                 arrivals=None, key=0) -> Action:
+        del Ce, Cc, arrivals
+        dev = state.Qc.device
+        pe, pc, Pe, Pc = spec.as_arrays(dev)
+        M, N = spec.M, spec.N
+        kd, kw = rng.split(key, 2)
+        fd = torch.rand((M, N), generator=rng.generator(kd, dev), device=dev)
+        cap_d = torch.minimum(state.Qe[:, None] / N, (Pe / (M * N)) / pe[:, None])
+        d = torch.floor(fd * torch.clamp_min(cap_d, 0.0))
+        fw = torch.rand((M, N), generator=rng.generator(kw, dev), device=dev)
+        cap_w = torch.minimum(state.Qc, (Pc[None, :] / M) / pc)
+        w = torch.floor(fw * torch.clamp_min(cap_w, 0.0))
+        return Action(d=d, w=w)
+
+
+def _np64(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def literal_algorithm1(state, spec, Ce, Cc, V,
+                       stop_at_first_unfit=True, literal_edge_budget=False):
+    """Pure-Python transcription of Algorithm 1 (numpy float64,
+    data-dependent control flow), copied from the JAX package. Oracle
+    for tests: the vectorised policy must match. Returns an Action of
+    float32 CPU tensors."""
+    pe = _np64(spec.pe)
+    pc = _np64(spec.pc)
+    Qe = _np64(state.Qe).copy()
+    Qc = _np64(state.Qc).copy()
+    Ce = float(Ce)
+    Cc = _np64(Cc)
+    M, N = pc.shape
+    d = np.zeros((M, N))
+    w = np.zeros((M, N))
+
+    n1 = np.argmin(Qc, axis=1)
+    b = V * Ce * pe + Qc[np.arange(M), n1] - Qe
+    order = np.argsort(b / pe, kind="stable")
+    P = float(spec.Pe)
+    for m in order:
+        fits = np.floor(P / pe[m])
+        if fits <= 0:
+            if stop_at_first_unfit or literal_edge_budget:
+                break
+            continue
+        if b[m] < 0:
+            take = min(Qe[m], fits)
+            d[m, n1[m]] = take
+            P -= (fits if literal_edge_budget else take) * pe[m]
+
+    Pc_all = _np64(spec.Pc)
+    for n in range(N):
+        c = V * Cc[n] * pc[:, n] - Qc[:, n]
+        order = np.argsort(c / pc[:, n], kind="stable")
+        P = float(Pc_all[n])
+        for m in order:
+            fits = np.floor(P / pc[m, n])
+            if fits <= 0:
+                if stop_at_first_unfit:
+                    break
+                continue
+            if c[m] < 0:
+                take = min(Qc[m, n], fits)
+                w[m, n] = take
+                P -= take * pc[m, n]
+    return Action(d=torch.as_tensor(d, dtype=torch.float32),
+                  w=torch.as_tensor(w, dtype=torch.float32))

@@ -1,0 +1,46 @@
+"""Device dispatch for the port's kernels (counterpart of
+`repro.kernels.ops`).
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
+launches the hand-written kernel, and a failed build or launch raises.
+There is no fallback from the card to the plain version.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import carbon_score as _cs
+from repro_torch.kernels import greedy_fill as _gf
+
+def _pick(x, plain, cuda, what):
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type == "cuda":
+        return cuda
+    raise ValueError(f"{what}: no kernel for device {x.device}")
+
+
+def carbon_scores(Qc, pc, Qe, pe, VCc, V_Ce):
+    """Fused score pass -> (c [M,N], n1 [M] int32, b [M]). The inputs
+    are pre-scaled, as the JAX kernel contract takes them: VCc = V*Cc
+    and V_Ce = V*Ce (a 0-d tensor)."""
+    fn = _pick(Qc, _cs.carbon_scores_plain, _cs.carbon_scores_cuda, "carbon_scores")
+    return fn(Qc, pc, Qe, pe, VCc, V_Ce)
+
+
+def greedy_fill(scores, unit_energy, max_items, budget, *,
+                stop_at_first_unfit=True, literal_edge_budget=False,
+                sort_key=None):
+    """Batched fill on [B, M] inputs and a [B] budget -> counts [B, M]."""
+    fn = _pick(scores, _gf.greedy_fill_plain, _gf.greedy_fill_cuda, "greedy_fill")
+    return fn(scores, unit_energy, max_items, budget,
+              stop_at_first_unfit=stop_at_first_unfit,
+              literal_edge_budget=literal_edge_budget, sort_key=sort_key)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches of its CUDA kernel so far}."""
+    return {"carbon_scores": _cs.launches, "greedy_fill": _gf.launches}
+
+
+def reset_launch_counts() -> None:
+    _cs.launches = 0
+    _gf.launches = 0

@@ -1,0 +1,91 @@
+"""Boundaries of the PyTorch port.
+
+* No module under src/repro_torch/, and not chip_smoke.py, imports jax
+  or the JAX package `repro` (only these tests import both).
+* Importing repro_torch loads no jax.
+* The entry points default to the CUDA device and raise, rather than
+  fall back to the CPU, where there is none.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small tensors: threads only contend with the other test workers
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, repro_torch, repro_torch.core, repro_torch.serve, repro_torch.convert, "
+        "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.configs.paper_workloads; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable here")
+    from repro_torch.configs.paper_workloads import paper_spec
+    from repro_torch.core import (
+        CarbonIntensityPolicy,
+        ConstantCarbonSource,
+        UniformArrivals,
+        init_state,
+        materialize,
+        simulate,
+    )
+    from repro_torch.convert import spec_from_numpy
+    from repro_torch.serve import serve_loop
+    from repro_torch.serve.loop import main
+
+    args = (CarbonIntensityPolicy(), paper_spec(), ConstantCarbonSource(N=5), UniformArrivals(M=5), 3)
+    for call in (
+        lambda: simulate(*args),
+        lambda: serve_loop(*args),
+        lambda: main(["--slots", "2"]),
+        lambda: init_state(5, 5),
+        lambda: materialize(ConstantCarbonSource(N=5), 2),
+        lambda: spec_from_numpy(np.ones(2), np.ones((2, 2)), 1.0, np.ones(2)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
+    from repro_torch.kernels import ops
+
+    Qc = torch.zeros((2, 3))
+    c, n1, b = ops.carbon_scores(Qc, torch.ones((2, 3)), torch.zeros(2), torch.ones(2),
+                                 torch.ones(3), torch.tensor(1.0))
+    assert c.shape == (2, 3) and n1.dtype == torch.int32 and b.shape == (2,)
+    assert ops.launch_counts() == {"carbon_scores": 0, "greedy_fill": 0}
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
