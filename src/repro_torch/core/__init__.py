@@ -13,6 +13,7 @@ from repro_torch.core.carbon import (
 )
 from repro_torch.core.policies import (
     CarbonIntensityPolicy,
+    LookaheadDPPPolicy,
     QueueLengthPolicy,
     RandomPolicy,
     greedy_fill,
@@ -39,6 +40,7 @@ __all__ = [
     "Action",
     "CarbonIntensityPolicy",
     "ConstantCarbonSource",
+    "LookaheadDPPPolicy",
     "NetworkSpec",
     "NetworkState",
     "PoissonArrivals",

@@ -8,8 +8,9 @@ loop drives them with every tensor on the device and no host sync inside
 the loop (no `.item()`, no copy to or from the host, no tensor used as a
 Python bool), so the device never waits for the host to read a result.
 
-The forecaster / graph / faults / telemetry / deadlines arguments of the
-JAX `simulate` belong to later slices of the port.
+`graph=` routes the run through the WAN transfer layer
+(`repro_torch.network`). The forecaster / faults / telemetry / deadlines
+arguments of the JAX `simulate` belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -123,16 +124,20 @@ def slot_step(loop: SlotLoop, state: NetworkState, t: int):
     return step(state, act, a), act, a, C_t
 
 
-def _record_rows(record, T: int) -> int:
+def record_stride(record, T: int) -> int:
+    """The slot stride at which `record` keeps the post-step state: 1
+    for "full", T for "summary", k for an int stride k dividing T. The
+    state after slot t goes to row (t + 1) // stride - 1 when
+    (t + 1) % stride == 0, so there are T // stride rows."""
     if record == "full":
-        return T
-    if record == "summary":
         return 1
+    if record == "summary":
+        return T
     if not isinstance(record, int) or isinstance(record, bool) or record <= 0 or T % record:
         raise ValueError(
             f"record={record!r} must be 'full', 'summary', or a positive int stride dividing T={T}"
         )
-    return T // record
+    return record
 
 
 def simulate(
@@ -145,6 +150,7 @@ def simulate(
     state0: NetworkState | None = None,
     record: str | int = "full",
     device=DEFAULT_DEVICE,
+    graph=None,
 ) -> SimResult:
     """Runs the network for T slots under `policy` on `device`.
 
@@ -157,8 +163,19 @@ def simulate(
 
     Sources are called as `source(t, seed, device)`; sources with a
     `to(device)` method are staged on the device first.
+
+    When `graph` (a `repro_torch.network.LinkGraph`) is given, the run
+    goes through the WAN transfer layer (`network.simulate_network`):
+    the policy is called with `graph=` / `Qt=` keywords, returns a
+    NetAction, and the result is a NetSimResult.
     """
-    R = _record_rows(record, T)
+    if graph is not None:
+        from repro_torch.network.sim import simulate_network
+
+        return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, seed,
+                                state0=state0, record=record, device=device)
+    stride = record_stride(record, T)
+    R = T // stride
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device)
     dev = loop.device
     M, N = spec.M, spec.N
@@ -170,7 +187,6 @@ def simulate(
     C, disp, proc, ee = zeros(T), zeros(T), zeros(T), zeros(T)
     ec = zeros(T, N)
     Qe_rec, Qc_rec = zeros(R, M), zeros(R, M, N)
-    stride = T if record == "summary" else (1 if record == "full" else record)
     for t in range(T):
         state, act, _, C_t = slot_step(loop, state, t)
         C[t] = C_t

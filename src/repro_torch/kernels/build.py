@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("carbon_score", "greedy_fill")
+SOURCES = ("carbon_score", "route_score", "greedy_fill")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",

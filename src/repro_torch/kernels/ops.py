@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import carbon_score as _cs
 from repro_torch.kernels import greedy_fill as _gf
+from repro_torch.kernels import route_score as _rs
 
 def _pick(x, plain, cuda, what):
     if x.device.type == "cpu":
@@ -26,6 +27,15 @@ def carbon_scores(Qc, pc, Qe, pe, VCc, V_Ce):
     return fn(Qc, pc, Qe, pe, VCc, V_Ce)
 
 
+def route_scores(Qt, pt, Qcr, extra, Qe, pe, VCt, V_Ce):
+    """WAN route-score pass -> (rc [M,L], l1 [M] int32, b [M]). Inputs
+    as the JAX kernel contract takes them (Qcr = Qc[:, dest], VCt =
+    V*Ct, V_Ce = V*Ce a 0-d tensor); `extra` may be None, which selects
+    the rounding of the policy's default route_compute_weight 0."""
+    fn = _pick(Qt, _rs.route_scores_plain, _rs.route_scores_cuda, "route_scores")
+    return fn(Qt, pt, Qcr, extra, Qe, pe, VCt, V_Ce)
+
+
 def greedy_fill(scores, unit_energy, max_items, budget, *,
                 stop_at_first_unfit=True, literal_edge_budget=False,
                 sort_key=None):
@@ -38,9 +48,11 @@ def greedy_fill(scores, unit_energy, max_items, budget, *,
 
 def launch_counts() -> dict:
     """{kernel name: launches of its CUDA kernel so far}."""
-    return {"carbon_scores": _cs.launches, "greedy_fill": _gf.launches}
+    return {"carbon_scores": _cs.launches, "route_scores": _rs.launches,
+            "greedy_fill": _gf.launches}
 
 
 def reset_launch_counts() -> None:
     _cs.launches = 0
+    _rs.launches = 0
     _gf.launches = 0

@@ -1,0 +1,100 @@
+"""Route-aware scheduling policies over a LinkGraph (counterpart of
+`repro.network.policy`).
+
+* NetworkAwareDPPPolicy -- drift-plus-penalty dispatch over the route
+  lattice: each type goes to the route l minimizing
+
+      rc[m,l] = V*Ct[l]*pt[m,l]                (transfer carbon, route l)
+              + route_compute_weight * V*Cc[dest[l]]*pc[m,dest[l]]
+              + Qt[m,l] + Qc[m,dest[l]]        (in-flight + dest drift)
+
+  with the dispatch score b[m] = V*Ce*pe[m] + min_l rc[m,l] - Qe[m]
+  feeding Algorithm 1's greedy fill. The Qt term prices a saturated
+  route out. On `direct_graph` rc collapses bitwise onto the Qc row, so
+  actions equal CarbonIntensityPolicy's (the regression anchor).
+
+* StaticRoutePolicy -- transfer-blind adapter: any edge->cloud policy,
+  its dispatches shipped down the graph's primary routes.
+
+Both are called as policy(state, spec, Ce, Cc, arrivals, key, *, graph,
+Qt) with `graph` staged on the state's device, and return a NetAction.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core.policies import LookaheadDPPPolicy, _scalar
+from repro_torch.core.queueing import NetworkSpec, NetworkState
+from repro_torch.kernels import ops
+from repro_torch.network.graph import LinkGraph
+from repro_torch.network.transfer import NetAction
+from repro_torch.telemetry.profile import phase
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkAwareDPPPolicy(LookaheadDPPPolicy):
+    """Joint route + schedule DPP. V and the fill options come from
+    CarbonIntensityPolicy, the horizon machinery from LookaheadDPPPolicy
+    (H=1 here: myopic unless given a horizon and a forecast).
+
+    route_compute_weight anticipates the destination's compute carbon
+    at dispatch time. It defaults to 0 (strict DPP charges compute carbon
+    when the cloud processes); a nonzero weight breaks the
+    direct-graph parity by design. At 0 the score pass runs in the
+    kernel's mode without `extra`, the rounding the JAX policy has
+    inside its scan.
+    """
+
+    H: int = 1
+    route_compute_weight: float = 0.0
+
+    def _route_scores(self, state, Qt, graph, pe, pc, Ce, Cc, V):
+        """Score pass over the route lattice: (rc [M,L], l1 [M], b [M])."""
+        with phase("route_score"):
+            row = torch.cat([Ce.reshape(1), Cc])                  # [N+1]
+            VCt = V * row.index_select(0, graph.region)           # [L]
+            Qcr = state.Qc.index_select(1, graph.dest)            # [M, L]
+            extra = None
+            if self.route_compute_weight:
+                pcr = pc.index_select(1, graph.dest)
+                VCc_dest = (V * Cc).index_select(0, graph.dest)
+                extra = _scalar(self.route_compute_weight, Qt.device) * VCc_dest[None, :] * pcr
+            return ops.route_scores(Qt, graph.pt, Qcr, extra, state.Qe, pe, VCt, V * Ce)
+
+    def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
+                 key=None, *, graph: LinkGraph, Qt, forecast=None) -> NetAction:
+        del arrivals, key
+        Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
+        dev = state.Qc.device
+        pe, pc, Pe, Pc = spec.as_arrays(dev)
+        V = _scalar(self.V, dev)
+        # cloud half: Algorithm 1's c-matrix; edge half: each type onto
+        # its best route; both fills in the parent's one stacked call
+        c, _, _ = self._scores(state, pe, pc, Ce_eff, Cc_eff, V)
+        _, l1, b = self._route_scores(state, Qt, graph, pe, pc, Ce_eff, Cc_eff, V)
+        d_counts, w = self._fill_all(b, c, pe, pc, state.Qe, state.Qc, Pe, Pc)
+        dt = torch.zeros_like(Qt).scatter_(1, l1.long()[:, None], d_counts[:, None])
+        return NetAction(dt=dt, w=w)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticRoutePolicy:
+    """Transfer-blind adapter: `inner` decides (d, w) as if the clouds
+    were attached directly, and every dispatch to cloud n rides the
+    graph's primary route. Qt, bandwidth and link carbon are invisible
+    to it."""
+
+    inner: Callable
+
+    def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
+                 key=None, *, graph: LinkGraph, Qt, forecast=None) -> NetAction:
+        del Qt
+        kwargs = {} if forecast is None else {"forecast": forecast}
+        act = self.inner(state, spec, Ce, Cc, arrivals, key, **kwargs)
+        # the JAX adapter multiplies d by a one-hot [N, L] matrix; the
+        # index_add_ is the same sum, exact for integral counts
+        dt = torch.zeros((spec.M, graph.L), dtype=act.d.dtype, device=act.d.device)
+        return NetAction(dt=dt.index_add_(1, graph.primary, act.d), w=act.w)

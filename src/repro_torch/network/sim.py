@@ -1,0 +1,142 @@
+"""WAN network simulator (counterpart of `repro.network.sim`): the slot
+loop of `core.simulator.simulate` with the in-flight transfer queue
+threaded through it.
+
+`core.simulator.simulate(..., graph=...)` delegates here. Policies
+receive two extra keywords each slot -- `graph` and the in-flight queue
+`Qt [M, L]` -- and return a `NetAction(dt [M,L], w [M,N])`.
+
+Slot order (eqs. (7)-(8) with the link hop inserted):
+  observe (Ce, Cc), arrivals  ->  act (dt, w)  ->  account emissions
+  (edge + per-region transfer + cloud)  ->  links inject dt, drain one
+  slot of bandwidth, deliver  ->  Qe loses dispatches / gains arrivals,
+  Qc loses w / gains deliveries.
+
+As in `simulate`, a Python loop drives the slots with every tensor on
+the device and no host sync inside the loop. On `direct_graph`
+deliveries equal dispatches in the same slot and the transfer term is
++0.0, so the trajectory is bitwise the link-free `simulate`'s.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import rng
+from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, init_state
+from repro_torch.core.simulator import make_slot_loop, record_stride
+from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.network.graph import LinkGraph
+from repro_torch.network.transfer import (
+    init_links,
+    land_in_clouds,
+    network_emissions,
+    step_links,
+    transfer_energy,
+)
+
+
+class NetSimResult(NamedTuple):
+    emissions: torch.Tensor        # [T] per-slot end-to-end carbon
+    cum_emissions: torch.Tensor    # [T] cumulative sum
+    Qe: torch.Tensor               # [R, M] edge queues (post-step)
+    Qc: torch.Tensor               # [R, M, N] cloud queues (post-step)
+    Qt: torch.Tensor               # [R, M, L] in-flight transfers (post-step)
+    dispatched: torch.Tensor       # [T] tasks put onto links
+    delivered: torch.Tensor        # [T] tasks landed in cloud queues
+    processed: torch.Tensor        # [T] tasks processed
+    energy_edge: torch.Tensor      # [T] edge dispatch energy
+    energy_transfer: torch.Tensor  # [T] WAN transfer energy
+    energy_cloud: torch.Tensor     # [T, N] cloud compute energy
+
+    # R depends on `record` as in SimResult: T for "full", 1 for
+    # "summary", T//k for a stride k.
+
+    @property
+    def final_backlog(self) -> torch.Tensor:
+        return self.Qe[-1].sum() + self.Qc[-1].sum() + self.Qt[-1].sum()
+
+
+def simulate_network(
+    policy: Callable,
+    spec: NetworkSpec,
+    graph: LinkGraph,
+    carbon_source: Callable,
+    arrival_source: Callable,
+    T: int,
+    seed: int = 0,
+    state0: NetworkState | None = None,
+    record: str | int = "full",
+    device=DEFAULT_DEVICE,
+    *,
+    forecaster=None,
+    faults=None,
+    telemetry=None,
+    deadlines=None,
+) -> NetSimResult:
+    """Runs the network + WAN for T slots under a route-aware policy on
+    `device`, starting from empty links. `record` works as in
+    `simulate`; scalar series always cover all T slots. The forecaster,
+    faults, telemetry and deadlines layers of the JAX simulator are not
+    ported yet and raise NotImplementedError."""
+    for name, value, layer in (("forecaster", forecaster, "forecast"),
+                               ("faults", faults, "faults"),
+                               ("telemetry", telemetry, "telemetry"),
+                               ("deadlines", deadlines, "deadlines")):
+        if value is not None:
+            raise NotImplementedError(
+                f"simulate_network({name}=...): repro_torch has no {layer} layer yet; it comes "
+                f"with the port's {layer} slice"
+            )
+    stride = record_stride(record, T)
+    R = T // stride
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device)
+    dev = loop.device
+    g = graph.to(dev)
+    M, N, L = spec.M, spec.N, g.L
+    pe, pc, _, _ = loop.spec.as_arrays(dev)
+    state = init_state(M, N, device=dev) if state0 is None else NetworkState(
+        Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
+    )
+    links = init_links(M, L, device=dev)
+    k_carbon, k_arrive, k_policy = loop.seeds
+    zeros = lambda *shape: torch.zeros(shape, dtype=DTYPE, device=dev)  # noqa: E731
+    C, disp, deliv, proc, ee, et = (zeros(T) for _ in range(6))
+    ec = zeros(T, N)
+    Qe_rec, Qc_rec, Qt_rec = zeros(R, M), zeros(R, M, N), zeros(R, M, L)
+    for t in range(T):
+        Ce, Cc = loop.carbon_source(t, k_carbon, dev)
+        a = loop.arrival_source(t, k_arrive, dev)
+        act = policy(state, loop.spec, Ce, Cc, a, rng.fold_in(k_policy, t), graph=g, Qt=links.Qt)
+        C[t] = network_emissions(loop.spec, g, act, Ce, Cc)
+        links, delivered = step_links(links, g, act.dt)
+        land = land_in_clouds(delivered, g, N)
+        state = NetworkState(
+            Qe=torch.clamp_min(state.Qe - torch.sum(act.dt, dim=1), 0.0) + a,
+            Qc=torch.clamp_min(state.Qc - act.w, 0.0) + land,
+        )
+        disp[t] = torch.sum(act.dt)
+        deliv[t] = torch.sum(delivered)
+        proc[t] = torch.sum(act.w)
+        ee[t] = torch.sum(act.dt * pe[:, None])
+        et[t] = torch.sum(transfer_energy(g, act.dt))
+        ec[t] = torch.sum(act.w * pc, dim=0)
+        if (t + 1) % stride == 0:
+            r = (t + 1) // stride - 1
+            Qe_rec[r] = state.Qe
+            Qc_rec[r] = state.Qc
+            Qt_rec[r] = links.Qt
+    return NetSimResult(
+        emissions=C,
+        cum_emissions=torch.cumsum(C, dim=0),
+        Qe=Qe_rec,
+        Qc=Qc_rec,
+        Qt=Qt_rec,
+        dispatched=disp,
+        delivered=deliv,
+        processed=proc,
+        energy_edge=ee,
+        energy_transfer=et,
+        energy_cloud=ec,
+    )

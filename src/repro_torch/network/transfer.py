@@ -1,0 +1,128 @@
+"""In-flight transfer dynamics over a LinkGraph (counterpart of
+`repro.network.transfer`).
+
+State is an aggregate pipe model per (task type, route):
+
+  Qt   [M,L] -- tasks in flight (integral counts, float32)
+  prog [M,L] -- transfer progress in size-units toward the in-flight
+                pool (fractional; < size[m] once completed tasks leave)
+
+Each slot a route drains up to bw[l] size-units, shared across task
+types in proportion to their remaining work; a task lands in its
+destination's Qc once a full size[m] of progress is booked against it.
+So a lone task needs ceil(size/bw) slots, a backlogged route moves bw
+size-units per slot, Qt changes only by integral dispatches and
+deliveries, and bw = inf delivers everything in the same slot.
+
+Rounding is the contract. Inside the JAX simulator's scan XLA:CPU
+contracts `demand = Qt*size - prog`, `prog + demand*ratio` and the
+residual `prog - delivered*size` into single-rounded FMAs, so all three
+are `fma_f32` here, on the CPU and on the card. The per-route column
+sum of `demand` runs in one fixed order on every device (`column_sum`),
+which keeps the card's trajectory bitwise equal to the CPU's.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core.queueing import DTYPE, NetworkSpec, edge_energy
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels.numerics import fma_f32
+from repro_torch.network.graph import LinkGraph
+from repro_torch.telemetry.profile import phase
+
+_TINY = 1e-30  # drain-ratio denominator guard (no NaN even at bw=inf)
+SUM_BLOCK = 32
+
+
+class LinkState(NamedTuple):
+    Qt: torch.Tensor    # [M, L] tasks in flight per (type, route)
+    prog: torch.Tensor  # [M, L] size-units transferred toward the pool
+
+
+class NetAction(NamedTuple):
+    """One slot of WAN scheduling: dt routes dispatches, w processes."""
+
+    dt: torch.Tensor  # [M, L] tasks dispatched onto route l
+    w: torch.Tensor   # [M, N] tasks processed at cloud n
+
+
+def init_links(M: int, L: int, device=DEFAULT_DEVICE, dtype=DTYPE) -> LinkState:
+    dev = resolve_device(device)
+    return LinkState(Qt=torch.zeros((M, L), dtype=dtype, device=dev),
+                     prog=torch.zeros((M, L), dtype=dtype, device=dev))
+
+
+def column_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x, axis=0) of an [M, L] tensor in a fixed order: rows are
+    added in order within blocks of SUM_BLOCK rows, then the block sums
+    pairwise, neighbours first. Every step is an elementwise float32
+    add, so the result is the same on every device. The in-block order
+    is XLA:CPU's own for M <= 32 and for M = 64 (the parity tests' sizes);
+    pairing the blocks keeps the card at SUM_BLOCK - 1 + log2(M /
+    SUM_BLOCK) launches."""
+    M = x.shape[0]
+    pad = -M % SUM_BLOCK if M > SUM_BLOCK else 0
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    blocks = x.reshape(-1, min(M, SUM_BLOCK), x.shape[1])
+    acc = blocks[:, 0]
+    for i in range(1, blocks.shape[1]):
+        acc = acc + blocks[:, i]
+    while acc.shape[0] > 1:
+        if acc.shape[0] % 2:
+            acc = torch.cat([acc, acc.new_zeros((1, acc.shape[1]))])
+        acc = acc[0::2] + acc[1::2]
+    return acc[0]
+
+
+def step_links(ls: LinkState, graph: LinkGraph, dt: torch.Tensor) -> Tuple[LinkState, torch.Tensor]:
+    """Injects dt [M,L] new transfers, drains one slot of bandwidth and
+    returns (next state, delivered [M,L] task counts). `graph` is staged
+    on the device of `dt` (`LinkGraph.to`)."""
+    with phase("transfer_step"):
+        size = graph.size[:, None]
+        Qt = ls.Qt + dt
+        demand = fma_f32(Qt, size, -ls.prog)  # [M, L] work left
+        total = column_sum(demand)            # [L]
+        ratio = torch.clamp_max(graph.bw / torch.clamp_min(total, _TINY), 1.0)
+        prog = fma_f32(demand, ratio, ls.prog)
+        # Clamp at 0 on both sides of the delivery: cancellation in
+        # `prog - delivered*size` can leave prog at -eps, and
+        # floor(-eps/size) = -1 would deliver a negative task. Where
+        # prog >= 0 both clamps are exact no-ops.
+        delivered = torch.minimum(Qt, torch.clamp_min(torch.floor(prog / size), 0.0))
+        Qt = Qt - delivered
+        prog = torch.clamp_min(fma_f32(-delivered, size, prog), 0.0)
+        return LinkState(Qt=Qt, prog=prog), delivered
+
+
+def land_in_clouds(delivered: torch.Tensor, graph: LinkGraph, N: int) -> torch.Tensor:
+    """Aggregates route deliveries [M,L] into cloud arrivals [M,N]. The
+    JAX module multiplies by a one-hot [L, N] matrix; an `index_add_`
+    over `dest` is the same sum, exact for integral counts, and involves
+    no matrix product that TF32 could round."""
+    out = torch.zeros((delivered.shape[0], N), dtype=delivered.dtype, device=delivered.device)
+    return out.index_add_(1, graph.dest, delivered)
+
+
+def transfer_energy(graph: LinkGraph, dt: torch.Tensor) -> torch.Tensor:
+    """Per-route transfer energy of a dispatch action. Returns [L]."""
+    return torch.sum(dt * graph.pt, dim=0)
+
+
+def network_emissions(spec: NetworkSpec, graph: LinkGraph, action: NetAction, Ce, Cc) -> torch.Tensor:
+    """End-to-end carbon of one slot: edge dispatch energy at the edge
+    intensity, transfer energy priced in each route's carbon region
+    (charged when the transfer starts), compute energy at the
+    destination intensities."""
+    pe, pc, _, _ = spec.as_arrays(action.dt.device)
+    row = torch.cat([Ce.reshape(1), Cc])       # [N+1]
+    Ct = row.index_select(0, graph.region)     # [L]
+    return (
+        Ce * edge_energy(pe, action.dt)
+        + torch.sum(Ct * transfer_energy(graph, action.dt))
+        + torch.sum(Cc * torch.sum(action.w * pc, dim=0))
+    )

@@ -40,7 +40,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.serve, repro_torch.convert, "
-        "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.configs.paper_workloads; "
+        "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.configs.paper_workloads, "
+        "repro_torch.network, repro_torch.configs.fleet_scenarios; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -62,13 +63,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         materialize,
         simulate,
     )
-    from repro_torch.convert import spec_from_numpy
+    from repro_torch.convert import graph_from_numpy, spec_from_numpy
+    from repro_torch.network import NetworkAwareDPPPolicy, direct_graph, init_links
     from repro_torch.serve import serve_loop
     from repro_torch.serve.loop import main
 
     args = (CarbonIntensityPolicy(), paper_spec(), ConstantCarbonSource(N=5), UniformArrivals(M=5), 3)
+    net_args = (NetworkAwareDPPPolicy(),) + args[1:]
     for call in (
         lambda: simulate(*args),
+        lambda: simulate(*net_args, graph=direct_graph(5, 5)),
+        lambda: graph_from_numpy([0], [1.0], [[1.0]], [1], [1.0], [0]),
+        lambda: init_links(5, 5),
         lambda: serve_loop(*args),
         lambda: main(["--slots", "2"]),
         lambda: init_state(5, 5),
@@ -86,6 +92,12 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     c, n1, b = ops.carbon_scores(Qc, torch.ones((2, 3)), torch.zeros(2), torch.ones(2),
                                  torch.ones(3), torch.tensor(1.0))
     assert c.shape == (2, 3) and n1.dtype == torch.int32 and b.shape == (2,)
-    assert ops.launch_counts() == {"carbon_scores": 0, "greedy_fill": 0}
+    for extra in (None, torch.zeros((2, 3))):
+        rc, l1, b = ops.route_scores(Qc, torch.ones((2, 3)), Qc, extra, torch.zeros(2),
+                                     torch.ones(2), torch.ones(3), torch.tensor(1.0))
+        assert rc.shape == (2, 3) and l1.dtype == torch.int32 and b.shape == (2,)
+    assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.route_scores(Qc.to("meta"), Qc, Qc, None, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
