@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths and holds each hand-written kernel
+Drives the port's three main paths and holds each hand-written kernel
 against its plain PyTorch version on the card. The paper's slot loop,
 `simulate` and `serve_loop`, with `CarbonIntensityPolicy` (Algorithm 1)
 and the paper's `QueueLengthPolicy` baseline, runs at M=4096 task types
 x N=256 clouds; the WAN route-aware slot loop, `simulate(graph=)` with
 `NetworkAwareDPPPolicy` and its transfer-blind baseline
 `StaticRoutePolicy(CarbonIntensityPolicy)`, at M=4096 x N=256 x L=512
-routes. Phases, one or more lines each:
+routes; LM serving, `greedy_generate` (prefill + KV-cache decode), for
+GLM-4-9B at full width and depth in bf16, batch 8, 4096-token prompts,
+64 generated tokens. Phases, one or more lines each, run in the order
+1-6, 8, 7 (phase 7 times every kernel with the launch counts of all
+paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the three kernels compiled from csrc/ with nvcc, in parallel;
+2. build: the five kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes);
+3c. the attention kernels vs their plain versions on the card, within
+   |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
+   1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
+   H 32, K 2, S 4096, hd 128, bf16) in all three masks, MHA, MQA,
+   ragged, Sq > Skv, strided (the model's layout) and f32; flash_decode
+   at B 8, H 32, K 2, S 4161, hd 128 for pos 0, 511, 512, 4095, 4160,
+   G = 1 and f32;
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
    counters checked, ms per slot from CUDA events, then again in turns
@@ -34,8 +45,24 @@ routes. Phases, one or more lines each:
    5%);
 6. `serve_loop` at M4096xN256 for 32 slots: p50/p95/p99 decision latency
    and tasks/sec; its trajectory bitwise equal to `simulate` on the card;
+8. LM serving, GLM-4-9B (`configs/glm4_9b.py`, 9.4 B parameters, the
+   port's own seeded init), batch 8, prompts of 4096 tokens from SEED,
+   64 greedy tokens, cache 4161: `greedy_generate` once under sync debug
+   mode "error" (prefill, every decode step and argmax: the loop never
+   syncs), launch counters checked (flash_attention 40, flash_decode
+   40 x 64); then timed with CUDA events (prefill ms, decode ms/step,
+   tokens/s, peak memory), one decode step profiled (device idle share,
+   top kernels); then against the plain attention versions on the card
+   (swapped in for this comparison only), prefill logits and 4
+   teacher-forced decode steps: with float32 activations over the same
+   bf16 weights, kernels vs plain within a relative L2 of 1e-4; in bf16,
+   each path against the float32 plain one, the kernels' relative L2
+   error at most 1.5 x the plain path's; and the greedy tokens'
+   agreement with the plain path;
 7. each kernel's median time (CUDA events) at its main path's shapes
-   beside its bound and its plain version's time.
+   beside its bound, its plain version's time and, for the attention
+   kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
+   never calls it).
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
@@ -54,6 +81,8 @@ Everything is made from SEED.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -63,14 +92,32 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 M_MAIN, N_MAIN = 4096, 256
 A_MAX = 400
 T_MAIN, T_CPU, T_PAPER, T_SERVE = 64, 16, 2000, 32
 T_WAN_CPU, T_WAN_HEADLINE, WAN_INSTANCES, V_WAN = 8, 192, 8, 0.1
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
+LM_CACHE = LM_PROMPT + LM_GEN + 1
+# teacher-forced logits, kernels vs plain attention: with float32
+# activations (the same bf16 weights) both kernels agree with their plain
+# versions to float32 summation order, so the relative L2 gap stays far
+# below LOGIT_F32_TOL, which a wrong kernel exceeds; in bf16, where 40
+# random layers amplify one bf16 rounding step to about 2%, each path is
+# held against the float32 plain path and the kernels' relative L2 error
+# may be at most LOGIT_ERR_RATIO times the plain path's
+LM_TEACHER_STEPS, LOGIT_F32_TOL, LOGIT_ERR_RATIO = 4, 1e-4, 1.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
+BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
+# kernels vs plain attention, |err| <= abs + rel * |plain|: both sides
+# compute in float32 and round once to the output type. In float32 they
+# differ by summation order (tests/test_kernels.py's 2e-5); in bf16 that
+# rounding can fall either side, one bf16 step, at most 2**-7 * |plain|,
+# plus an absolute floor for outputs near 0
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0**-7)}
 
 
 def say(*parts) -> None:
@@ -183,6 +230,14 @@ def profile_slots(run, slots: int):
     return per, host
 
 
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
 class TableArrivals:
     """Plays back a numpy [T, M] arrival table on any device (staged
     once by `to`), so the card and the CPU see the same arrivals."""
@@ -245,8 +300,10 @@ def drive_path(tag, size, policies, sim, expected, ops, dev):
         torch.cuda.synchronize()
         host_s = time.perf_counter() - host0
         launches = ops.launch_counts()
-        if launches != expected[pname]:
-            fail(f"{pname}: kernel launches {launches}, expected {expected[pname]}")
+        want = dict.fromkeys(launches, 0)  # kernels the path does not name: none
+        want.update(expected[pname])
+        if launches != want:
+            fail(f"{pname}: kernel launches {launches}, expected {want}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         if not (torch.isfinite(res.emissions).all() and torch.isfinite(res.Qc).all()):
@@ -356,14 +413,22 @@ def main() -> int:
     from repro_torch.configs.paper_workloads import V_PAPER, paper_spec
     from repro_torch.core import carbon
     from repro_torch.kernels import build, ops
+    from repro_torch.configs import registry
     from repro_torch.kernels import carbon_score as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import greedy_fill as gf
     from repro_torch.kernels import route_score as rs
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import build_model
     from repro_torch.serve import serve_loop
 
     dev = torch.device("cuda", 0)
+    # full float32 products, and bf16 products accumulated in float32 (as
+    # the JAX einsums are), so kernel-vs-plain gaps are the kernels' own
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # ---- 1. device -------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -467,6 +532,64 @@ def main() -> int:
         check_fill(S, E, C, torch.zeros_like(P), f"[{B},{M}] zero budget")
         check_fill(S.abs(), E, C, P, f"[{B},{M}] non-negative scores")
         check_fill(S, E, torch.zeros_like(C), P, f"[{B},{M}] zero caps")
+
+    # ---- 3c. attention kernels vs plain versions on the card ---------
+    max_err["flash_attention"] = max_err["flash_decode"] = 0.0
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    def held(kname, got, want, label):
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[want.dtype]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            fail(f"{kname} {label}: max abs err {err:.3e} beyond {atol:g} + {rtol:g}*|plain|")
+        max_err[kname] = max(max_err[kname], err)
+        say(f"[3c kernels] {kname} {label}: max abs err {err:.3e} vs plain (tolerance {atol:g} + "
+            f"{rtol:g}*|plain|)")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    attn_cases = [  # B, H, K, Sq, Skv, hd, dtype, mask, prefix_len
+        (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, bf16, "causal", 0),
+        (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, bf16, "prefix", 1000),
+        (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, bf16, "full", 0),
+        (2, 8, 8, 1024, 1024, 128, bf16, "causal", 0),    # MHA
+        (2, 16, 1, 1024, 1024, 64, bf16, "causal", 0),    # MQA
+        (1, 4, 2, 1000, 777, 128, bf16, "causal", 0),     # ragged, Sq > Skv
+        (2, 8, 2, 333, 1025, 32, bf16, "full", 0),        # ragged
+        (1, 4, 2, 100, 37, 16, bf16, "prefix", 20),       # ragged, hd 16
+        (2, 32, 2, 1024, 1024, 128, f32, "causal", 0),
+        (1, 8, 2, 513, 513, 64, f32, "prefix", 100),
+    ]
+    attn_main = None
+    for B, H, K, Sq, Skv, hd, dt, mode, pl in attn_cases:
+        q, k, v = randn((B, H, Sq, hd), dt), randn((B, K, Skv, hd), dt), randn((B, K, Skv, hd), dt)
+        held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode=mode, prefix_len=pl),
+             fa.flash_attention_plain(q, k, v, mask_mode=mode, prefix_len=pl),
+             f"B{B} H{H} K{K} Sq{Sq} Skv{Skv} hd{hd} {str(dt)[6:]} {mode}"
+             + (f" prefix_len {pl}" if mode == "prefix" else ""))
+        if attn_main is None:
+            attn_main = (q, k, v)
+    # the model's [B,S,H,hd] projections, passed transposed (strided)
+    q, k, v = randn((2, 300, 32, 128), bf16), randn((2, 300, 2, 128), bf16), randn((2, 300, 2, 128), bf16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
+         "B2 H32 K2 S300 hd128 bf16 causal, strided [B,S,H,hd] views")
+    del q, k, v, qt, kt, vt
+
+    decode_cases = [(LM_BATCH, 32, 2, LM_CACHE, 128, bf16, pos)
+                    for pos in (0, 511, 512, 4095, LM_CACHE - 1)]
+    decode_cases += [(LM_BATCH, 32, 32, LM_CACHE, 128, bf16, LM_CACHE - 1),  # G = 1
+                     (LM_BATCH, 32, 2, LM_CACHE, 128, f32, LM_CACHE - 1),
+                     (2, 8, 2, 1000, 64, f32, 255)]
+    for B, H, K, S, hd, dt, pos in decode_cases:
+        q, k, v = randn((B, H, hd), dt), randn((B, S, K, hd), dt), randn((B, S, K, hd), dt)
+        p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        held("flash_decode", fd.flash_decode_cuda(q, k, v, p), fd.flash_decode_plain(q, k, v, p),
+             f"B{B} H{H} K{K} S{S} hd{hd} {str(dt)[6:]} pos {pos}")
+    del q, k, v
 
     # ---- 4. main path at M4096xN256 --------------------------------
     inst = main_instance(convert, carbon, dev)
@@ -584,6 +707,146 @@ def main() -> int:
         f"p50 {rep.p50_us:.1f} us, p95 {rep.p95_us:.1f} us, p99 {rep.p99_us:.1f} us; "
         f"{rep.tasks_per_sec:,.0f} tasks/sec; trajectory bitwise equal to simulate")
 
+    # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
+    lm_cfg = registry.get_config(LM_ARCH)
+    model = build_model(lm_cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    say(f"[8 lm] {lm_cfg.name}: {n_params:,} parameters ({lm_cfg.param_dtype}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, prompts of {LM_PROMPT} tokens, "
+        f"{LM_GEN} generated, cache {LM_CACHE}")
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, lm_cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    lm_launches = ops.launch_counts()
+    toks_h = toks.cpu()
+    host_s = time.perf_counter() - t0
+    lm_expected = {k: 0 for k in lm_launches}
+    lm_expected.update(flash_attention=lm_cfg.n_layers, flash_decode=lm_cfg.n_layers * LM_GEN)
+    if lm_launches != lm_expected:
+        fail(f"LM path: kernel launches {lm_launches}, expected {lm_expected}")
+    if (toks_h.shape != (LM_BATCH, LM_GEN) or toks_h.dtype != torch.int32
+            or int(toks_h.min()) < 0 or int(toks_h.max()) >= lm_cfg.vocab_size):
+        fail(f"LM path: tokens {tuple(toks_h.shape)} {toks_h.dtype} out of shape or range")
+    say(f"[8 lm] greedy_generate under sync debug mode 'error': launches {lm_launches}; "
+        f"{host_s:.2f} s host; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"first tokens {toks_h[0, :8].tolist()}")
+
+    def timed_generate():
+        """(prefill ms, decode ms per step incl. argmax, cache) from CUDA
+        events, greedy_generate's own steps without the debug mode."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        logits, cache = model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+        ev[1].record()
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        for _ in range(LM_GEN):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        ev[2].record()
+        ev[2].synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / LM_GEN, cache, tok
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = [timed_generate() for _ in range(2)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prefill_ms, decode_ms, cache, tok = runs[-1]
+    say(f"[8 lm] timed (CUDA events, 2 runs): prefill "
+        + " / ".join(f"{r[0]:.1f}" for r in runs) + " ms for "
+        f"{LM_BATCH}x{LM_PROMPT} tokens; decode " + " / ".join(f"{r[1]:.3f}" for r in runs)
+        + f" ms/step ({LM_BATCH * 1e3 / decode_ms:,.1f} tokens/s at batch {LM_BATCH}); "
+        f"whole request {prefill_ms + LM_GEN * decode_ms:.1f} ms "
+        f"({LM_BATCH * LM_GEN * 1e3 / (prefill_ms + LM_GEN * decode_ms):,.1f} generated tokens/s); "
+        f"peak memory {peak_gib:.2f} GiB")
+    # one more step at pos 4160 (the cache's last slot), under the profiler
+    prof, host = profile_slots(lambda: model.decode_step(params, tok, cache), slots=1)
+    if prof is None:
+        say("[8 lm] decode step device time not measured (the profiler recorded no device time)")
+    else:
+        busy = prof.pop("total")
+        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
+        say(f"[8 lm] one decode step under the profiler: device busy {busy:.3f} ms of "
+            f"{decode_ms:.3f} ms/step (idle share {1.0 - busy / decode_ms:.3f}); "
+            f"{sum(v[1] for k, v in host.items() if k.startswith('aten::')):.0f} aten op calls; "
+            "top kernels " + ", ".join(f"{k[:56]} {v:.3f} ms" for v, k in top[:8]))
+    del cache, runs
+
+    @contextlib.contextmanager
+    def plain_attention():
+        """The model's attention through the plain versions, on the card,
+        for the comparison below only."""
+        saved = ops.flash_attention, ops.flash_decode
+        ops.flash_attention = fa.flash_attention_plain
+        ops.flash_decode = fd.flash_decode_plain
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.flash_decode = saved
+
+    def teacher_forced(m, ctx):
+        """Prefill logits and LM_TEACHER_STEPS decode-step logits, every
+        step fed the kernel run's greedy tokens."""
+        with ctx():
+            logits, cache = m.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+            out = [logits]
+            for t in range(LM_TEACHER_STEPS):
+                logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
+                out.append(logits)
+        return out
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    steps = {"kernels": teacher_forced(model, contextlib.nullcontext),
+             "plain": teacher_forced(model, plain_attention)}
+    # float32 activations over the same bf16 weights (cast per use)
+    ref_model = build_model(dataclasses.replace(lm_cfg, compute_dtype="float32"), dev)
+    t0 = time.perf_counter()
+    steps["f32"] = teacher_forced(ref_model, plain_attention)
+    steps["f32 kernels"] = teacher_forced(ref_model, contextlib.nullcontext)
+    say(f"[8 lm] float32 activations (bf16 weights cast per use), plain attention and kernels: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i, (a, r) in enumerate(zip(steps["f32 kernels"], steps["f32"])):
+        what = "prefill" if i == 0 else f"decode step {i}"
+        gap = rel_l2(a, r)
+        say(f"[8 lm] {what} logits in float32: kernels vs plain attention relative L2 {gap:.3e} "
+            f"(limit {LOGIT_F32_TOL:g}), max abs {float((a - r).abs().max()):.3e} (max |logit| "
+            f"{float(r.abs().max()):.3f}); argmax agreement "
+            f"{float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
+        if not (torch.isfinite(a).all() and gap <= LOGIT_F32_TOL):
+            fail(f"LM {what}: float32 logits through the kernels are {gap:.3e} from the plain "
+                 f"attention path's, beyond {LOGIT_F32_TOL:g}")
+    for i, (a, b, r) in enumerate(zip(steps["kernels"], steps["plain"], steps["f32"])):
+        what = "prefill" if i == 0 else f"decode step {i}"
+        err_k, err_p = rel_l2(a, r), rel_l2(b, r)
+        say(f"[8 lm] {what} logits: relative L2 error vs the float32 reference, kernels "
+            f"{err_k:.3e}, plain attention {err_p:.3e} (ratio {err_k / err_p:.3f}, limit "
+            f"{LOGIT_ERR_RATIO:g}); kernels vs plain {rel_l2(a, b):.3e}, max abs "
+            f"{float((a - b).abs().max()):.3e} (max |logit| {float(b.abs().max()):.3f}); argmax "
+            f"agreement kernels/plain {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}, "
+            f"kernels/f32 {float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
+        if not (torch.isfinite(a).all() and err_k <= LOGIT_ERR_RATIO * err_p):
+            fail(f"LM {what}: the kernels' logits are {err_k:.3e} from the float32 reference, "
+                 f"beyond {LOGIT_ERR_RATIO:g} x the plain path's {err_p:.3e}")
+    del steps, ref_model
+    with plain_attention():
+        toks_plain = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE).cpu()
+    same = toks_plain == toks_h
+    first = [int(row.logical_not().nonzero()[0]) if not bool(row.all()) else LM_GEN for row in same]
+    say(f"[8 lm] greedy tokens, kernels vs plain attention: {float(same.float().mean()):.4f} equal; "
+        f"first divergence per sequence {first} (of {LM_GEN})")
+
     # ---- 7. kernel times at the main path's shapes -------------------
     # inputs as the main path's last slot hands them to each kernel
     st, st_ql = finals["CarbonIntensity"], finals["QueueLength"]
@@ -601,19 +864,21 @@ def main() -> int:
     M, N, B = M_MAIN, N_MAIN, N_MAIN + 1
     rows = []
 
-    def row(kname, source, replaces, launches, times, call_ms, plain_ms, nbytes, nops):
+    def row(kname, source, replaces, launches, times, call_ms, plain_ms, nbytes, nops,
+            ops_per_s=FP32_OPS_PER_S, library_ms=None):
         warm_ms, ms = times
-        bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+        bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err[kname], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
-            "bound_by": "bytes" if bound_b >= bound_o else "operations", "library_ms": None,
+            "bound_by": "bytes" if bound_b >= bound_o else "operations", "library_ms": library_ms,
         })
         say(f"[7 time] {kname}: {ms:.5f} ms device time from a cold L2, {warm_ms:.5f} ms warm "
             f"(CUDA graph replay, CUDA events, median) vs bound {max(bound_b, bound_o):.5f} ms "
             f"({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} M ops); {call_ms:.5f} ms per eager call; "
-            f"plain version {plain_ms:.3f} ms")
+            f"plain version {plain_ms:.3f} ms"
+            + (f"; library call {library_ms:.5f} ms" if library_ms is not None else ""))
 
     ms = graph_ms(lambda: cs.carbon_scores_cuda(*score_args), reps=20, inner=50)
     call_ms = cuda_ms(lambda: cs.carbon_scores_cuda(*score_args), reps=20, inner=50)
@@ -665,6 +930,47 @@ def main() -> int:
     say(f"[7 time] route_scores with extra (route_compute_weight != 0): {cold_x:.5f} ms from a "
         f"cold L2, {warm_x:.5f} ms warm vs bound "
         f"{4 * (5 * M * Lw + 4 * M + Lw + 1) / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes)")
+
+    # flash_attention: the prefill shape (phase 3c's first case); the
+    # library yardstick is PyTorch's fused attention on the same inputs
+    q, k, v = attn_main
+    B, H, S, hd = q.shape
+    Ka = k.shape[1]
+    ms = graph_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=3, inner=2)
+    call_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=3, inner=2)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), reps=2, inner=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                            enable_gqa=True), reps=3, inner=5)
+    nops = 4 * B * H * hd * S * (S + 1) // 2  # q.k and p.v over the causal pairs
+    row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:87", lm_launches["flash_attention"], ms, call_ms,
+        plain_ms, nbytes=2 * (2 * B * H * S * hd + 2 * B * Ka * S * hd), nops=nops,
+        ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
+    say(f"[7 time] flash_attention: the same {nops / 1e12:.3f} TFLOP on the float32 CUDA cores "
+        f"this kernel uses bound it at {nops / FP32_OPS_PER_S * 1e3:.2f} ms; x {lm_cfg.n_layers} "
+        f"layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
+    del q, k, v, attn_main
+
+    # flash_decode: layer 0's cache after the serving prefill (4096
+    # positions written, the rest zero), read up to pos 4160 as the last
+    # decode step reads it; the library call attends over the same slice
+    _, dcache = model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+    kd, vd = dcache["k"][0], dcache["v"][0]
+    posd = torch.full((1,), LM_CACHE - 1, dtype=torch.int32, device=dev)
+    qd = randn((LM_BATCH, lm_cfg.n_heads, lm_cfg.resolved_head_dim), bf16)
+    ms = graph_ms(lambda: fd.flash_decode_cuda(qd, kd, vd, posd), reps=20, inner=50)
+    call_ms = cuda_ms(lambda: fd.flash_decode_cuda(qd, kd, vd, posd), reps=20, inner=50)
+    plain_ms = cuda_ms(lambda: fd.flash_decode_plain(qd, kd, vd, posd), reps=5, inner=3)
+    kv_t, vv_t = kd[:, :LM_CACHE].transpose(1, 2), vd[:, :LM_CACHE].transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t,
+                                                            enable_gqa=True), reps=20, inner=50)
+    B, H, hd = qd.shape
+    Kd, n_valid = kd.shape[2], LM_CACHE
+    row("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:76", lm_launches["flash_decode"], ms, call_ms,
+        plain_ms, nbytes=2 * (2 * B * H * hd + 2 * B * n_valid * Kd * hd),
+        nops=4 * B * H * n_valid * hd, ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
+    del dcache, kd, vd
 
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it

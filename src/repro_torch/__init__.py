@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of the carbon-neutralized task scheduler.
 
 `repro_torch` mirrors the JAX package `repro` module for module, for the
-slice that has been ported so far: the paper's slot loop (`simulate`,
-`serve_loop`) with its two hand-written Hopper kernels, the DPP score
-pass (`kernels/csrc/carbon_score.cu`) and the greedy budget fill
-(`kernels/csrc/greedy_fill.cu`).
+slices that have been ported so far: the paper's slot loop (`simulate`,
+`serve_loop`), the WAN route-aware loop (`network`, `simulate(graph=)`)
+and LM serving for the dense family (`models`, `launch.serve`), with
+five hand-written Hopper kernels under `kernels/csrc/`: the DPP score
+pass, the WAN route-score pass, the greedy budget fill, GQA flash
+attention (prefill) and split-S flash decoding (decode).
 
 It imports torch and numpy only. Every entry point runs on the CUDA
 device unless the caller passes `device="cpu"`, in which case each kernel

@@ -6,6 +6,9 @@ and the port.
 (`np.asarray(obj.pe)`, ...), so the port never imports `repro`; the
 parity tests use them to feed both packages the same numbers, and
 `queues_numpy` to read both packages' recorded queues.
+`params_from_reference` and `cache_from_reference` carry an LM's
+parameter and KV-cache pytrees (nested dicts of arrays) over, leaf for
+leaf and bit for bit, bf16 included; `cache_to_numpy` reads a cache back.
 """
 from __future__ import annotations
 
@@ -64,3 +67,52 @@ def queues_numpy(result) -> dict:
 
     names = ("Qe", "Qc", "Qt") if hasattr(result, "Qt") else ("Qe", "Qc")
     return {n: host(getattr(result, n)) for n in names}
+
+
+def _leaf(x, device) -> torch.Tensor:
+    """An array-like (numpy, or anything np.asarray reads, bf16 from
+    ml_dtypes included) as a tensor of the same dtype and bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)
+
+
+def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
+    """The port's parameters from the JAX package's pytree of a dense
+    model (`Model(cfg).init(key)`), given as nested dicts of arrays:
+    the same names, shapes (the stacked layer axis included), dtypes and
+    bits."""
+    from repro_torch.models.transformer import require_dense
+
+    require_dense(cfg)
+    out = _tree(params, resolve_device(device))
+    if tuple(out["embed"].shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"params_from_reference: embed {tuple(out['embed'].shape)} does not "
+                         f"fit {cfg.name}")
+    return out
+
+
+def cache_from_reference(cache, device=DEFAULT_DEVICE) -> dict:
+    """A dense KV cache {"k", "v", "pos"} from the JAX package's, with
+    pos as a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    return {"k": _leaf(cache["k"], dev), "v": _leaf(cache["v"], dev),
+            "pos": torch.full((), int(np.asarray(cache["pos"])), dtype=torch.int32, device=dev)}
+
+
+def cache_to_numpy(cache) -> dict:
+    """A cache of either package as numpy: k, v as float32, pos an int."""
+    def host(x):
+        if torch.is_tensor(x):
+            return x.detach().float().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    return {"k": host(cache["k"]), "v": host(cache["v"]), "pos": int(np.asarray(
+        cache["pos"].cpu() if torch.is_tensor(cache["pos"]) else cache["pos"]))}

@@ -123,15 +123,20 @@ extern "C" int greedy_fill_launch(const void* scores, const void* energy, const 
                                   int B, int M, int Mp, int threads, int stops,
                                   int literal, void* stream) {
   const size_t smem = static_cast<size_t>(Mp) * 12;
-  // Dynamic plus static shared memory above 48 KiB needs an opt-in. It is
-  // made once per larger size, so later launches (including ones captured
-  // into a CUDA graph) skip the call.
-  static size_t opted_in = 0;
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // Dynamic plus static shared memory above 48 KiB needs an opt-in, which
+  // holds for the current device only. It is made once per device and
+  // larger size, so later launches there (including ones captured into a
+  // CUDA graph) skip the call.
+  constexpr int kMaxDevices = 64;
+  static size_t opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || smem > opted_in[dev]) {
+    err = cudaFuncSetAttribute(
         greedy_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
+    if (dev < kMaxDevices) opted_in[dev] = smem;
   }
   greedy_fill_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scores), static_cast<const float*>(energy),

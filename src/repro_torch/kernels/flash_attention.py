@@ -1,0 +1,107 @@
+"""GQA flash-attention forward: plain PyTorch version and CUDA wrapper.
+
+Counterpart of `repro.kernels.flash_attention.flash_attention` (Pallas)
+and of its oracle `repro.kernels.ref.flash_attention_ref`, with their
+layout: q [B,H,Sq,hd], k/v [B,K,Skv,hd], query head h reading kv head
+h*K//H; masks causal (k_pos <= q_pos), prefix (causal, or k_pos <
+prefix_len) and full, positions counted from 0. Scores, softmax and the
+output sum are float32; the output has q's dtype. A rejected score is
+-1e30 (the kernels' mask value; the JAX model uses finfo(f32).min / 2,
+and both give weight exactly 0 beside one valid key). The kernel lives in
+`csrc/flash_attention.cu`; its source note gives its bound and design.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+MODES = {"causal": 0, "prefix": 1, "full": 2}
+HEAD_DIMS = (16, 32, 64, 128)
+QUERY_CHUNK = 512  # rows per score block of the plain version
+
+# Launches of the CUDA kernel in this process (read by chip_smoke.py).
+launches = 0
+
+
+def _check_mode(mask_mode):
+    if mask_mode not in MODES:
+        raise ValueError(f"flash_attention: mask_mode {mask_mode!r} is not one of {tuple(MODES)}")
+
+
+def flash_attention_plain(q, k, v, *, mask_mode="causal", prefix_len=0):
+    """-> [B,H,Sq,hd] in q's dtype. Exact attention computed in query
+    chunks of QUERY_CHUNK rows (the peak is one [B,K,G,chunk,Skv]
+    float32 score block); chunking changes no row's arithmetic."""
+    _check_mode(mask_mode)
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"flash_attention: H={H} is not a multiple of K={K}")
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(Skv, device=q.device)
+    out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    for s0 in range(0, Sq, QUERY_CHUNK):
+        c = min(QUERY_CHUNK, Sq - s0)
+        qg = (q[:, :, s0:s0 + c].float() * scale).reshape(B, K, G, c, hd)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf)
+        if mask_mode != "full":
+            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if mask_mode == "prefix":
+                mask = mask | (k_pos[None, :] < prefix_len)
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        y = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
+        out[:, :, s0:s0 + c] = y.reshape(B, H, c, hd).to(q.dtype)
+    return out
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q, k, v, *, mask_mode="causal", prefix_len=0):
+    """Launches csrc/flash_attention.cu on PyTorch's current stream.
+    q, k, v may be strided views (the head dimension contiguous), such
+    as the model's [B,S,H,hd] projections transposed; the output takes
+    q's layout when q is dense, so the caller's transpose back is free."""
+    global launches
+    _check_mode(mask_mode)
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: dtype {q.dtype}; the kernel takes float32 or bfloat16")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.device != dev or tuple(x.shape) != (B, K, Skv, hd):
+            raise ValueError(f"flash_attention: {name} must be {q.dtype} {(B, K, Skv, hd)} on "
+                             f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if hd not in HEAD_DIMS or H % K or Sq < 1 or Skv < 1:
+        raise ValueError(f"flash_attention: unsupported shape H={H} K={K} Sq={Sq} Skv={Skv} "
+                         f"hd={hd} (hd one of {HEAD_DIMS}, H a multiple of K)")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    lib = _lib()
+    status = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if q.dtype == torch.float32 else 1, B, H, K, Sq, Skv, hd, strides, MODES[mask_mode],
+        int(prefix_len), 1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, status, "flash_attention")
+    launches += 1
+    return out

@@ -1,0 +1,96 @@
+"""Single-query attention over a KV cache: plain PyTorch version and CUDA
+wrapper.
+
+Counterpart of `repro.kernels.flash_decode.flash_decode` (Pallas) and of
+its oracle `repro.kernels.ref.flash_decode_ref`, with their layout: q
+[B,H,hd], k/v [B,S,K,hd], `pos` the last valid cache index (inclusive),
+G = H/K query heads per kv head (head h reads kv head h // G). Scores,
+softmax and the output sum are float32; the output has q's dtype; a
+rejected position scores -1e30. The kernel lives in
+`csrc/flash_decode.cu`; its source note gives its bound and design.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import HEAD_DIMS, NEG_INF
+
+MAX_GROUP = 32  # queries per kv head the kernel takes
+
+# Launches of the CUDA kernel pair (split + combine) in this process.
+launches = 0
+
+
+def flash_decode_plain(q, k, v, pos):
+    """-> [B,H,hd] in q's dtype, attending over cache[:, :pos+1]. `pos`
+    may be a 0-d tensor on the inputs' device (read there, no sync)."""
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"flash_decode: H={H} is not a multiple of K={K}")
+    G = H // K
+    qf = q.reshape(B, K, G, hd).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
+    valid = torch.arange(S, device=q.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _lib():
+    lib = build.load("flash_decode")
+    if lib.flash_decode_launch.argtypes is None:
+        lib.flash_decode_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_decode_launch.restype = ctypes.c_int
+        lib.flash_decode_chunks.argtypes = [ctypes.c_int]
+        lib.flash_decode_chunks.restype = ctypes.c_int
+    return lib
+
+
+def flash_decode_cuda(q, k, v, pos):
+    """Launches csrc/flash_decode.cu (split over cache chunks, then a
+    combine) on PyTorch's current stream. `pos` is an int32 tensor of
+    one element on the device: the kernels read it there, so a decode
+    loop never waits for the host. Scratch for the partial softmax
+    state comes from PyTorch's allocator."""
+    global launches
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_decode: dtype {q.dtype}; the kernel takes float32 or bfloat16")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.device != dev or tuple(x.shape) != (B, S, K, hd):
+            raise ValueError(f"flash_decode: {name} must be {q.dtype} {(B, S, K, hd)} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {name} must be contiguous and 16-byte aligned")
+    if not (torch.is_tensor(pos) and pos.dtype == torch.int32 and pos.device == dev
+            and pos.numel() == 1):
+        raise ValueError("flash_decode: pos must be a one-element int32 tensor on the device")
+    if hd not in HEAD_DIMS or H % K or not 1 <= H // K <= MAX_GROUP or S < 1:
+        raise ValueError(f"flash_decode: unsupported shape H={H} K={K} S={S} hd={hd} (hd one "
+                         f"of {HEAD_DIMS}, 1 <= H/K <= {MAX_GROUP})")
+    G = H // K
+    q = q.contiguous()
+    lib = _lib()
+    nc = lib.flash_decode_chunks(S)
+    m_part = torch.empty((B, K, nc, G), dtype=torch.float32, device=dev)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((B, K, nc, G, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    status = lib.flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        0 if q.dtype == torch.float32 else 1, B, S, K, G, hd, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, status, "flash_decode")
+    launches += 1
+    return out

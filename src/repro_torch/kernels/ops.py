@@ -8,6 +8,8 @@ There is no fallback from the card to the plain version.
 from __future__ import annotations
 
 from repro_torch.kernels import carbon_score as _cs
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import greedy_fill as _gf
 from repro_torch.kernels import route_score as _rs
 
@@ -46,13 +48,29 @@ def greedy_fill(scores, unit_energy, max_items, budget, *,
               literal_edge_budget=literal_edge_budget, sort_key=sort_key)
 
 
+def flash_attention(q, k, v, *, mask_mode="causal", prefix_len=0):
+    """GQA attention forward: q [B,H,Sq,hd], k/v [B,K,Skv,hd] ->
+    [B,H,Sq,hd]; mask_mode causal | prefix | full."""
+    fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda, "flash_attention")
+    return fn(q, k, v, mask_mode=mask_mode, prefix_len=prefix_len)
+
+
+def flash_decode(q, k, v, pos):
+    """One query per (sequence, head) over a KV cache: q [B,H,hd], k/v
+    [B,S,K,hd], cache positions 0..pos valid -> [B,H,hd]."""
+    fn = _pick(q, _fd.flash_decode_plain, _fd.flash_decode_cuda, "flash_decode")
+    return fn(q, k, v, pos)
+
+
+_MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,
+            "flash_attention": _fa, "flash_decode": _fd}
+
+
 def launch_counts() -> dict:
     """{kernel name: launches of its CUDA kernel so far}."""
-    return {"carbon_scores": _cs.launches, "route_scores": _rs.launches,
-            "greedy_fill": _gf.launches}
+    return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    _cs.launches = 0
-    _rs.launches = 0
-    _gf.launches = 0
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,118 @@
+"""Dense decoder stack (counterpart of the dense parts of
+`repro.models.transformer`).
+
+Parameters are nested dicts with the JAX package's names, and the layer
+stack keeps its leading layer axis ([L, ...] per leaf), so
+`convert.params_from_reference` maps a JAX pytree onto them leaf for
+leaf. Where the JAX package scans over the layer axis, the port loops
+over it in Python. There is no rematerialisation: this is the inference
+path. MoE, SSM, hybrid, VLM and enc-dec stacks, and the training loss,
+are later slices (ROADMAP Queue 1 item 12).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models import layers as L
+
+
+def require_dense(cfg) -> None:
+    if cfg.family != "dense" or cfg.n_experts or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 12); the port serves the dense family")
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i of a stacked parameter tree, as views."""
+    return tree_map(lambda t: t[i], stacked)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_ffn(gen, cfg, dtype):
+    return {"mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.n_layers, dtype)}
+
+
+def _init_dense_layer(gen, cfg, dtype):
+    p = {
+        "ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+        "attn": L.init_attention(gen, cfg, dtype),
+        "ln2": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+    }
+    p.update(_init_ffn(gen, cfg, dtype))
+    return p
+
+
+def _stack(make, n: int):
+    """n trees from `make()` stacked on a new leading axis, filled one
+    layer at a time (the peak is the stack plus one layer, not two
+    stacks)."""
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+
+    def put(dst, src, i):
+        for key, val in src.items():
+            if isinstance(val, dict):
+                put(dst[key], val, i)
+            else:
+                dst[key][i].copy_(val)
+
+    put(out, first, 0)
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
+
+
+def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
+    """Random parameters on the generator's device (the port's own
+    init: torch's normals, not jax.random's)."""
+    require_dense(cfg)
+    dtype = L.dtype_of(cfg.param_dtype)
+    p: Dict[str, Any] = {
+        "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
+        "final_norm": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                    scale=1.0 / math.sqrt(cfg.d_model), dtype=dtype)
+    p["layers"] = _stack(lambda: _init_dense_layer(gen, cfg, dtype), cfg.n_layers)
+    return p
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _apply_ffn(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    return L.apply_mlp(p["mlp"], x, cfg.activation, cfg.compute_dtype)
+
+
+def _dense_block(x, lp, cfg, mask_mode, prefix_len):
+    h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    y = L.gqa_attention(lp["attn"], h, cfg, mask_mode=mask_mode, prefix_len=prefix_len)
+    x, h = L.residual_norm(lp["ln2"], x, y, cfg.norm)
+    return x + _apply_ffn(lp, h, cfg)
+
+
+def backbone(params, x: torch.Tensor, cfg, *, mask_mode="causal", prefix_len=0):
+    """Runs the decoder stack on embedded inputs x [B,S,D]."""
+    require_dense(cfg)
+    for i in range(cfg.n_layers):
+        x = _dense_block(x, layer(params["layers"], i), cfg, mask_mode, prefix_len)
+    return L.apply_norm(params["final_norm"], x, cfg.norm)
+
+
+def _unembed_weight(params, cfg) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]  # [D, V]

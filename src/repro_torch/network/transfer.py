@@ -18,8 +18,9 @@ Rounding is the contract. Inside the JAX simulator's scan XLA:CPU
 contracts `demand = Qt*size - prog`, `prog + demand*ratio` and the
 residual `prog - delivered*size` into single-rounded FMAs, so all three
 are `fma_f32` here, on the CPU and on the card. The per-route column
-sum of `demand` runs in one fixed order on every device (`column_sum`),
-which keeps the card's trajectory bitwise equal to the CPU's.
+sum of `demand` runs in XLA:CPU's order on every device (`column_sum`),
+which keeps the card's trajectory bitwise equal to the CPU's and both
+bitwise equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -56,26 +57,27 @@ def init_links(M: int, L: int, device=DEFAULT_DEVICE, dtype=DTYPE) -> LinkState:
 
 
 def column_sum(x: torch.Tensor) -> torch.Tensor:
-    """sum(x, axis=0) of an [M, L] tensor in a fixed order: rows are
-    added in order within blocks of SUM_BLOCK rows, then the block sums
-    pairwise, neighbours first. Every step is an elementwise float32
-    add, so the result is the same on every device. The in-block order
-    is XLA:CPU's own for M <= 32 and for M = 64 (the parity tests' sizes);
-    pairing the blocks keeps the card at SUM_BLOCK - 1 + log2(M /
-    SUM_BLOCK) launches."""
-    M = x.shape[0]
-    pad = -M % SUM_BLOCK if M > SUM_BLOCK else 0
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
-    blocks = x.reshape(-1, min(M, SUM_BLOCK), x.shape[1])
-    acc = blocks[:, 0]
-    for i in range(1, blocks.shape[1]):
-        acc = acc + blocks[:, i]
-    while acc.shape[0] > 1:
-        if acc.shape[0] % 2:
-            acc = torch.cat([acc, acc.new_zeros((1, acc.shape[1]))])
-        acc = acc[0::2] + acc[1::2]
-    return acc[0]
+    """sum(x, axis=0) of an [M, L] tensor in XLA:CPU's order. While more
+    than SUM_BLOCK rows remain, the rows are padded with zeros to a
+    multiple of SUM_BLOCK, half the pad before and the rest after
+    (`reduce-window` with `pad=lo_hi`, lo = pad // 2), and each window
+    of SUM_BLOCK rows is summed in row order; the last <= SUM_BLOCK sums
+    are then added in order. Every step is an elementwise float32 add,
+    so the result is the same on every device: SUM_BLOCK - 1 launches
+    per window level plus one per final add (65 at M = 4096)."""
+    while x.shape[0] > SUM_BLOCK:
+        pad = -x.shape[0] % SUM_BLOCK
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        blocks = x.reshape(-1, SUM_BLOCK, x.shape[1])
+        acc = blocks[:, 0]
+        for i in range(1, SUM_BLOCK):
+            acc = acc + blocks[:, i]
+        x = acc
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
 
 
 def step_links(ls: LinkState, graph: LinkGraph, dt: torch.Tensor) -> Tuple[LinkState, torch.Tensor]:

@@ -1,0 +1,122 @@
+"""The port's flash-attention plain version against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both packages (bf16
+inputs rounded from the same float32 numbers on each side). The oracle
+is `repro.kernels.ops.flash_attention_ref` over `tests/test_kernels.py`'s
+sweep (MHA, GQA, MQA, rectangular, all three masks, f32 and bf16), plus
+ragged Sq / Skv and Sq > Skv under causal; a few cases also go against
+the Pallas kernel in interpret mode. Tolerances are test_kernels.py's:
+2e-5 in f32, 2e-2 in bf16. The CUDA kernel is held against this plain
+version on the card by chip_smoke.py (phase 3c).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small tensors: threads only contend with the other test workers
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_module  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(B, H, K, Sq, Skv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, Sq, hd), (B, K, Skv, hd), (B, K, Skv, hd))]
+    tdt, jdt = DTYPES[dtype]
+    return ([torch.from_numpy(a).to(tdt) for a in arrs], [jnp.asarray(a).astype(jdt) for a in arrs])
+
+
+def _check(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol(dtype))
+
+
+SWEEP = [
+    (1, 4, 4, 128, 128, 64),   # MHA
+    (2, 4, 2, 256, 256, 64),   # GQA 2:1
+    (1, 8, 1, 128, 256, 32),   # MQA, rectangular
+    (2, 2, 2, 64, 64, 128),    # small seq
+    (1, 4, 2, 384, 256, 64),   # non-equal q/kv lens
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,K,Sq,Skv,hd", SWEEP)
+@pytest.mark.parametrize("mode", ["causal", "full", "prefix"])
+def test_plain_matches_reference_sweep(B, H, K, Sq, Skv, hd, mode, dtype):
+    (tq, tk, tv), (jq, jk, jv) = _inputs(B, H, K, Sq, Skv, hd, dtype, seed=B * H + Sq)
+    prefix = 32 if mode == "prefix" else 0
+    got = ops.flash_attention(tq, tk, tv, mask_mode=mode, prefix_len=prefix)
+    assert got.dtype == tq.dtype and got.shape == (B, H, Sq, hd)
+    _check(got, jops.flash_attention_ref(jq, jk, jv, mask_mode=mode, prefix_len=prefix), dtype)
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Skv,hd,mode", [
+    (1, 4, 2, 100, 37, 16, "causal"),
+    (1, 4, 2, 100, 37, 16, "prefix"),
+    (2, 6, 3, 77, 130, 32, "full"),
+    (2, 6, 3, 77, 130, 32, "causal"),
+    (1, 4, 2, 300, 100, 64, "causal"),   # Sq > Skv: late rows see every key
+    (1, 2, 1, 1, 1, 16, "causal"),
+])
+def test_plain_matches_reference_ragged(B, H, K, Sq, Skv, hd, mode):
+    (tq, tk, tv), (jq, jk, jv) = _inputs(B, H, K, Sq, Skv, hd, "float32", seed=Sq * Skv)
+    got = ops.flash_attention(tq, tk, tv, mask_mode=mode, prefix_len=20)
+    _check(got, jops.flash_attention_ref(jq, jk, jv, mask_mode=mode, prefix_len=20), "float32")
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Skv,hd,bq,mode,dtype", [
+    (1, 4, 2, 128, 128, 64, 64, "causal", "float32"),
+    (1, 8, 1, 128, 256, 32, 64, "prefix", "bfloat16"),
+    (2, 4, 2, 256, 256, 64, 128, "full", "float32"),
+])
+def test_plain_matches_pallas_interpret(B, H, K, Sq, Skv, hd, bq, mode, dtype):
+    (tq, tk, tv), (jq, jk, jv) = _inputs(B, H, K, Sq, Skv, hd, dtype, seed=7)
+    got = ops.flash_attention(tq, tk, tv, mask_mode=mode, prefix_len=32)
+    want = jops.flash_attention(jq, jk, jv, mask_mode=mode, prefix_len=32, bq=bq, bk=bq,
+                                interpret=True)
+    _check(got, want, dtype)
+
+
+def test_plain_matches_model_chunked_attention():
+    """The contract the model serves with: the JAX model's query-chunked
+    attention (grouped layout [B,S,K,G,hd]) equals the plain version."""
+    from repro.models.layers import attention_scores_chunked
+
+    B, H, K, S, hd = 2, 4, 2, 96, 32
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, S, K, H // K, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    want = attention_scores_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    mask_mode="causal", q_offset=0, chunk=32)
+    tq = torch.from_numpy(q).reshape(B, S, H, hd).transpose(1, 2)
+    got = ops.flash_attention(tq, torch.from_numpy(k).transpose(1, 2),
+                              torch.from_numpy(v).transpose(1, 2))
+    np.testing.assert_allclose(got.transpose(1, 2).reshape(B, S, K, H // K, hd).numpy(),
+                               np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_query_chunking_changes_nothing(chunk, monkeypatch):
+    (tq, tk, tv), _ = _inputs(1, 4, 2, 200, 150, 16, "float32", seed=3)
+    whole = flash_attention_plain(tq, tk, tv, mask_mode="prefix", prefix_len=40)
+    monkeypatch.setattr(fa_module, "QUERY_CHUNK", chunk)
+    part = flash_attention_plain(tq, tk, tv, mask_mode="prefix", prefix_len=40)
+    np.testing.assert_allclose(part.numpy(), whole.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_bad_mask_mode_raises():
+    (tq, tk, tv), _ = _inputs(1, 2, 1, 4, 4, 16, "float32", seed=0)
+    with pytest.raises(ValueError, match="mask_mode"):
+        ops.flash_attention(tq, tk, tv, mask_mode="sliding")

@@ -41,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.serve, repro_torch.convert, "
         "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.configs.paper_workloads, "
-        "repro_torch.network, repro_torch.configs.fleet_scenarios; "
+        "repro_torch.network, repro_torch.configs.fleet_scenarios, repro_torch.models, "
+        "repro_torch.launch.serve, repro_torch.configs.registry, repro_torch.configs.glm4_9b, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.flash_decode; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -65,6 +67,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     )
     from repro_torch.convert import graph_from_numpy, spec_from_numpy
     from repro_torch.network import NetworkAwareDPPPolicy, direct_graph, init_links
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import Model, build_model
     from repro_torch.serve import serve_loop
     from repro_torch.serve.loop import main
 
@@ -80,6 +86,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: init_state(5, 5),
         lambda: materialize(ConstantCarbonSource(N=5), 2),
         lambda: spec_from_numpy(np.ones(2), np.ones((2, 2)), 1.0, np.ones(2)),
+        lambda: build_model(get_smoke_config("glm4_9b")).init(torch.Generator()),
+        lambda: params_from_reference({"embed": np.zeros((512, 64), np.float32)},
+                                      get_smoke_config("glm4_9b")),
+        lambda: lm_serve.greedy_generate(Model(get_smoke_config("glm4_9b"), torch.device("cuda")),
+                                         {}, torch.zeros((1, 2), dtype=torch.int32), 1, 4),
+        lambda: lm_serve.main(["--arch", "glm4_9b", "--smoke"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -96,8 +108,37 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
         rc, l1, b = ops.route_scores(Qc, torch.ones((2, 3)), Qc, extra, torch.zeros(2),
                                      torch.ones(2), torch.ones(3), torch.tensor(1.0))
         assert rc.shape == (2, 3) and l1.dtype == torch.int32 and b.shape == (2,)
-    assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0}
+    q, k = torch.zeros((1, 2, 3, 16)), torch.zeros((1, 1, 3, 16))
+    assert ops.flash_attention(q, k, k).shape == (1, 2, 3, 16)
+    assert ops.flash_decode(q[:, :, 0], k.transpose(1, 2), k.transpose(1, 2), 1).shape == (1, 2, 16)
+    assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
+                                   "flash_attention": 0, "flash_decode": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
     with pytest.raises(ValueError, match="no kernel"):
         ops.route_scores(Qc.to("meta"), Qc, Qc, None, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_decode(q[:, :, 0].to("meta"), k.to("meta"), k.to("meta"), 1)
+
+
+def test_cuda_wrappers_check_their_inputs_before_building():
+    """The kernel wrappers refuse what the kernels do not take (dtype,
+    head dim, group size, pos on the host) before any build or launch,
+    so a bad call cannot fall through to a plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    q, k = torch.zeros((1, 2, 3, 16), dtype=torch.float16), torch.zeros((1, 1, 3, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="hd"):
+        fa.flash_attention_cuda(torch.zeros((1, 2, 3, 24)), torch.zeros((1, 1, 3, 24)),
+                                torch.zeros((1, 1, 3, 24)))
+    kc = torch.zeros((1, 3, 1, 16))
+    with pytest.raises(ValueError, match="pos"):
+        fd.flash_decode_cuda(torch.zeros((1, 2, 16)), kc, kc, 1)
+    with pytest.raises(ValueError, match="H/K"):
+        fd.flash_decode_cuda(torch.zeros((1, 64, 16)), kc, kc, torch.zeros(1, dtype=torch.int32))
+    assert fa.launches == 0 and fd.launches == 0

@@ -6,8 +6,8 @@ one [T, M] arrival table played back on each side. Integral quantities
 (Qe, Qc, Qt, dispatched, delivered, processed) are bitwise equal to the
 reference; emissions and energies agree to rtol 1e-6 (sums in another
 order). The link step rounds where XLA:CPU contracts inside the scan
-(three FMAs) and sums each route's demand in 32-row blocks, XLA:CPU's
-order at the sizes tested here (M <= 32 and M = 64).
+(three FMAs) and sums each route's demand in XLA:CPU's order (32-row
+windows, the pad split before and after, level by level).
 """
 import numpy as np
 import pytest
@@ -195,25 +195,38 @@ def test_infinite_bandwidth_delivers_same_slot():
     assert float(ls.Qt.abs().max()) == 0.0 and float(ls.prog.abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("M", [1, 5, 32, 33, 64, 100, 257])
+def _xla_cpu_column_sum(x):
+    """numpy model of XLA:CPU's order for jit(jnp.sum(x, 0)), read from
+    the compiled HLO: while more than 32 rows remain, a `reduce-window`
+    of size and stride 32 whose zero pad is split lo = pad // 2 before,
+    the rest after, each window summed in row order; then the last <= 32
+    sums added in order."""
+    x = np.asarray(x, f32)
+    while x.shape[0] > 32:
+        pad = -x.shape[0] % 32
+        x = np.concatenate([np.zeros((pad // 2, x.shape[1]), f32), x,
+                            np.zeros((pad - pad // 2, x.shape[1]), f32)])
+        windows = x.reshape(-1, 32, x.shape[1])
+        acc = windows[:, 0].copy()
+        for i in range(1, 32):
+            acc = (acc + windows[:, i]).astype(f32)
+        x = acc
+    acc = x[0].copy()
+    for row in x[1:]:
+        acc = (acc + row).astype(f32)
+    return acc
+
+
+@pytest.mark.parametrize("M", [1, 5, 32, 33, 40, 48, 64, 100, 256, 257, 1100])
 def test_column_sum_order(M):
-    """Rows in order within 32-row blocks, then the block sums paired
-    neighbours first; at M <= 32 and M = 64 that is XLA:CPU's order."""
+    """The port's column sum, the numpy model of XLA:CPU's order and
+    jit(jnp.sum(x, 0)) agree bitwise at every M."""
     rng = np.random.default_rng(M)
     x = (rng.uniform(0, 1, (M, 7)) * rng.choice([1.0, 1e3, 1e-3], (M, 7))).astype(f32)
-    blocks = []
-    for s in range(0, M, 32):
-        acc = x[s].copy()
-        for row in x[s + 1:s + 32]:
-            acc = (acc + row).astype(f32)
-        blocks.append(acc)
-    while len(blocks) > 1:
-        blocks = [(blocks[i] + blocks[i + 1]).astype(f32) if i + 1 < len(blocks) else blocks[i]
-                  for i in range(0, len(blocks), 2)]
+    want = _xla_cpu_column_sum(x)
     got = column_sum(torch.from_numpy(x)).numpy()
-    np.testing.assert_array_equal(got, blocks[0])
-    if M <= 32 or M == 64:
-        np.testing.assert_array_equal(got, np.asarray(jax.jit(lambda a: jnp.sum(a, 0))(x)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, np.asarray(jax.jit(lambda a: jnp.sum(a, 0))(x)))
 
 
 # ------------------------------------------------------------ whole runs
@@ -238,6 +251,12 @@ def _policies(name):
     ("multi-region-uk-wan", 64, 8, "aware"),
     ("star", 64, 8, "aware"),
     ("star", 5, 5, "blind"),
+    # M where the column sum pads its 32-row windows (flipped deliveries
+    # against JAX before it followed XLA:CPU's order)
+    ("congested-uplink", 40, 5, "aware"),
+    ("congested-uplink", 48, 8, "aware"),
+    ("congested-uplink", 100, 16, "aware"),
+    ("star", 256, 8, "aware"),
 ])
 def test_simulate_graph_matches_jax(kind, M, N, pname):
     tspec, tgraph, jspec, table, jgraph, amax, _ = _scenario(kind, M, N)
