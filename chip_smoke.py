@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths and holds each hand-written kernel
+Drives the port's four main paths and holds each hand-written kernel
 against its plain PyTorch version on the card. The paper's slot loop,
 `simulate` and `serve_loop`, with `CarbonIntensityPolicy` (Algorithm 1)
 and the paper's `QueueLengthPolicy` baseline, runs at M=4096 task types
@@ -12,13 +12,15 @@ x N=256 clouds; the WAN route-aware slot loop, `simulate(graph=)` with
 `StaticRoutePolicy(CarbonIntensityPolicy)`, at M=4096 x N=256 x L=512
 routes; LM serving, `greedy_generate` (prefill + KV-cache decode), for
 GLM-4-9B at full width and depth in bf16, batch 8, 4096-token prompts,
-64 generated tokens. Phases, one or more lines each, run in the order
-1-6, 8, 7 (phase 7 times every kernel with the launch counts of all
+64 generated tokens; SSM serving, the same `greedy_generate` (prefill +
+state decode), for mamba2-1.3B at full width and depth in bf16 at the
+same batch and lengths. Phases, one or more lines each, run in the order
+1-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
 paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the five kernels compiled from csrc/ with nvcc, in parallel;
+2. build: the six kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes);
@@ -29,6 +31,13 @@ paths):
    ragged, Sq > Skv, strided (the model's layout) and f32; flash_decode
    at B 8, H 32, K 2, S 4161, hd 128 for pos 0, 511, 512, 4095, 4160,
    G = 1 and f32;
+3d. ssd_chunk_intra vs its plain version on the card, within
+   |err| <= 2e-5 * max(1, sum|terms|) + 2e-5*|plain| (sum|terms|: the plain
+   version on |x|, |B|, |C|), `total` bitwise (the prefix sums' order),
+   at mamba2-1.3B's prefill shape (B 8, nc 16,
+   l 256, H 64, P 64, N 128) with strong, weak and the init's decays, a
+   ragged chunk (l 100), H not a multiple of the 8-head group, B = nc = 1,
+   and small, ragged and l = 1 shapes;
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
    counters checked, ms per slot from CUDA events, then again in turns
@@ -59,6 +68,10 @@ paths):
    each path against the float32 plain one, the kernels' relative L2
    error at most 1.5 x the plain path's; and the greedy tokens'
    agreement with the plain path;
+9. SSM serving, mamba2-1.3B (`configs/mamba2_1_3b.py`, 1.45 B parameters,
+   the port's seeded init): as phase 8, with ssd_chunk_intra 48 launches
+   (one per layer of the prefill; the decode step runs no kernel) and
+   the plain SSD intra-chunk step swapped in for the comparison;
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
@@ -100,6 +113,7 @@ A_MAX = 400
 T_MAIN, T_CPU, T_PAPER, T_SERVE = 64, 16, 2000, 32
 T_WAN_CPU, T_WAN_HEADLINE, WAN_INSTANCES, V_WAN = 8, 192, 8, 0.1
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
+SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and length
 LM_CACHE = LM_PROMPT + LM_GEN + 1
 # teacher-forced logits, kernels vs plain attention: with float32
 # activations (the same bf16 weights) both kernels agree with their plain
@@ -118,6 +132,13 @@ BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 # rounding can fall either side, one bf16 step, at most 2**-7 * |plain|,
 # plus an absolute floor for outputs near 0
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0**-7)}
+# ssd_chunk_intra vs its plain version, |err| <= SSD_TOL * max(1, sum|terms|)
+# + SSD_TOL * |plain| (tests/test_kernels.py's f32, with the absolute part
+# scaled by the plain version's sum of |terms|): y sums up to 256 terms
+# of mixed sign, each a sum of N = 128 products, and two summation orders
+# of a float32 sum differ by up to about (terms) x 2**-24 x sum|terms|, far
+# more than 2e-5 where y is near 0
+SSD_TOL = 2e-5
 
 
 def say(*parts) -> None:
@@ -400,6 +421,181 @@ def wan_instance(convert, fleet_scenarios, M, N, T_tab, dev, j=0):
     )
 
 
+def rel_l2(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@contextlib.contextmanager
+def swapped(ops, plain):
+    """The `ops` dispatchers named in `plain` replaced by the given plain
+    versions, on the card, for a comparison only."""
+    saved = {name: getattr(ops, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_generate):
+    """One LM serving phase (8 dense, 9 ssm) at `cfg`'s full size with
+    the port's seeded init: batch LM_BATCH, prompts of LM_PROMPT tokens
+    from SEED, LM_GEN greedy tokens. `greedy_generate` once under sync
+    debug mode "error" with the launch counters set to 0 just before and
+    checked against `expected` just after (every other kernel 0); timed
+    with CUDA events (prefill ms, decode ms/step, tokens/s, peak memory);
+    one decode step profiled; then against the plain versions `plain`
+    ({ops name: function}, swapped in for this comparison only), prefill
+    logits and LM_TEACHER_STEPS teacher-forced decode steps: with float32
+    activations over the same bf16 weights, kernels vs plain within a
+    relative L2 of LOGIT_F32_TOL; in bf16, each path against the float32
+    plain one, the kernels' relative L2 error at most LOGIT_ERR_RATIO x
+    the plain path's; and the greedy tokens' agreement. Returns (the
+    launch counts of the greedy run, model, params, prompts)."""
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    say(f"[{tag}] {cfg.name}: {n_params:,} parameters ({cfg.param_dtype}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, prompts of {LM_PROMPT} tokens, "
+        f"{LM_GEN} generated, cache {LM_CACHE}")
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30  # weights and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = ops.launch_counts()
+    toks_h = toks.cpu()
+    host_s = time.perf_counter() - t0
+    want = {k: 0 for k in launches}
+    want.update(expected)
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches}, expected {want}")
+    if (toks_h.shape != (LM_BATCH, LM_GEN) or toks_h.dtype != torch.int32
+            or int(toks_h.min()) < 0 or int(toks_h.max()) >= cfg.vocab_size):
+        fail(f"{tag}: tokens {tuple(toks_h.shape)} {toks_h.dtype} out of shape or range")
+    say(f"[{tag}] greedy_generate under sync debug mode 'error': launches {launches}; "
+        f"{host_s:.2f} s host; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"first tokens {toks_h[0, :8].tolist()}")
+
+    def timed_generate():
+        """(prefill ms, decode ms per step incl. argmax, cache) from CUDA
+        events, greedy_generate's own steps without the debug mode."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        logits, cache = model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+        ev[1].record()
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        for _ in range(LM_GEN):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        ev[2].record()
+        ev[2].synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / LM_GEN, cache, tok
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = [timed_generate() for _ in range(2)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prefill_ms, decode_ms, cache, tok = runs[-1]
+    say(f"[{tag}] timed (CUDA events, 2 runs): prefill "
+        + " / ".join(f"{r[0]:.1f}" for r in runs) + " ms for "
+        f"{LM_BATCH}x{LM_PROMPT} tokens; decode " + " / ".join(f"{r[1]:.3f}" for r in runs)
+        + f" ms/step ({LM_BATCH * 1e3 / decode_ms:,.1f} tokens/s at batch {LM_BATCH}); "
+        f"whole request {prefill_ms + LM_GEN * decode_ms:.1f} ms "
+        f"({LM_BATCH * LM_GEN * 1e3 / (prefill_ms + LM_GEN * decode_ms):,.1f} generated tokens/s); "
+        f"peak memory {peak_gib:.2f} GiB ({held_gib:.2f} GiB allocated before the phase's "
+        "first run, weights included)")
+    prof, _ = profile_slots(lambda: model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE),
+                            slots=1)
+    if prof is not None:
+        busy = prof.pop("total")
+        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
+        say(f"[{tag}] one prefill under the profiler: device busy {busy:.1f} ms of {prefill_ms:.1f} "
+            "ms; top kernels " + ", ".join(f"{k[:56]} {v:.1f} ms" for v, k in top[:8]))
+    # one more step (for a KV cache, at its last slot), under the profiler
+    prof, host = profile_slots(lambda: model.decode_step(params, tok, cache), slots=1)
+    if prof is None:
+        say(f"[{tag}] decode step device time not measured (the profiler recorded no device time)")
+    else:
+        busy = prof.pop("total")
+        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
+        say(f"[{tag}] one decode step under the profiler: device busy {busy:.3f} ms of "
+            f"{decode_ms:.3f} ms/step (idle share {1.0 - busy / decode_ms:.3f}); "
+            f"{sum(v[1] for k, v in host.items() if k.startswith('aten::')):.0f} aten op calls; "
+            "top kernels " + ", ".join(f"{k[:56]} {v:.3f} ms" for v, k in top[:8]))
+    del cache, runs
+
+    def plain_ctx():
+        return swapped(ops, plain)
+
+    def teacher_forced(m, ctx):
+        """Prefill logits and LM_TEACHER_STEPS decode-step logits, every
+        step fed the kernel run's greedy tokens; through the plain
+        versions, none of the swapped kernels may launch."""
+        ops.reset_launch_counts()
+        with ctx():
+            logits, cache = m.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+            out = [logits]
+            for t in range(LM_TEACHER_STEPS):
+                logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
+                out.append(logits)
+        counts = ops.launch_counts()
+        if ctx is plain_ctx and any(counts[name] for name in plain):
+            fail(f"{tag}: the plain path launched kernels {counts}")
+        return out
+
+    steps = {"kernels": teacher_forced(model, contextlib.nullcontext),
+             "plain": teacher_forced(model, plain_ctx)}
+    # float32 activations over the same bf16 weights (cast per use)
+    ref_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"), dev)
+    t0 = time.perf_counter()
+    steps["f32"] = teacher_forced(ref_model, plain_ctx)
+    steps["f32 kernels"] = teacher_forced(ref_model, contextlib.nullcontext)
+    say(f"[{tag}] float32 activations (bf16 weights cast per use), {what} and kernels: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i, (a, r) in enumerate(zip(steps["f32 kernels"], steps["f32"])):
+        step = "prefill" if i == 0 else f"decode step {i}"
+        gap = rel_l2(a, r)
+        say(f"[{tag}] {step} logits in float32: kernels vs {what} relative L2 {gap:.3e} "
+            f"(limit {LOGIT_F32_TOL:g}), max abs {float((a - r).abs().max()):.3e} (max |logit| "
+            f"{float(r.abs().max()):.3f}); argmax agreement "
+            f"{float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
+        if not (torch.isfinite(a).all() and gap <= LOGIT_F32_TOL):
+            fail(f"{tag} {step}: float32 logits through the kernels are {gap:.3e} from the "
+                 f"{what} path's, beyond {LOGIT_F32_TOL:g}")
+    for i, (a, b, r) in enumerate(zip(steps["kernels"], steps["plain"], steps["f32"])):
+        step = "prefill" if i == 0 else f"decode step {i}"
+        err_k, err_p = rel_l2(a, r), rel_l2(b, r)
+        say(f"[{tag}] {step} logits: relative L2 error vs the float32 reference, kernels "
+            f"{err_k:.3e}, {what} {err_p:.3e} (ratio {err_k / err_p:.3f}, limit "
+            f"{LOGIT_ERR_RATIO:g}); kernels vs plain {rel_l2(a, b):.3e}, max abs "
+            f"{float((a - b).abs().max()):.3e} (max |logit| {float(b.abs().max()):.3f}); argmax "
+            f"agreement kernels/plain {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}, "
+            f"kernels/f32 {float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
+        if not (torch.isfinite(a).all() and err_k <= LOGIT_ERR_RATIO * err_p):
+            fail(f"{tag} {step}: the kernels' logits are {err_k:.3e} from the float32 reference, "
+                 f"beyond {LOGIT_ERR_RATIO:g} x the {what} path's {err_p:.3e}")
+    del steps, ref_model
+    with plain_ctx():
+        toks_plain = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE).cpu()
+    same = toks_plain == toks_h
+    first = [int(row.logical_not().nonzero()[0]) if not bool(row.all()) else LM_GEN for row in same]
+    say(f"[{tag}] greedy tokens, kernels vs {what}: {float(same.float().mean()):.4f} equal; "
+        f"first divergence per sequence {first} (of {LM_GEN})")
+    return launches, model, params, prompts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -419,6 +615,7 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import greedy_fill as gf
     from repro_torch.kernels import route_score as rs
+    from repro_torch.kernels import ssd_chunk as sdc
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import build_model
     from repro_torch.serve import serve_loop
@@ -591,6 +788,68 @@ def main() -> int:
              f"B{B} H{H} K{K} S{S} hd{hd} {str(dt)[6:]} pos {pos}")
     del q, k, v
 
+    # ---- 3d. ssd_chunk_intra vs its plain version on the card -----------
+    max_err["ssd_chunk_intra"] = 0.0
+
+    def ssd_inputs(B, nc, l, H, P, N, decays):
+        """Seeded inputs: decays "strong" a = -softplus(N(0,1))
+        (tests/test_kernels.py's), "weak" 0.01 x that (the whole triangle
+        and S_c from position 0 carry weight), "init" a = dt * A with the
+        repo's init (A = -U(1,16), dt = softplus(N(0,1)))."""
+        sp = F.softplus(torch.randn((B, nc, l, H), generator=g, device=dev))
+        if decays == "strong":
+            a = -sp
+        elif decays == "weak":
+            a = -0.01 * sp
+        else:
+            a = sp * -(torch.rand((H,), generator=g, device=dev) * 15.0 + 1.0)
+        return (a.contiguous(), torch.randn((B, nc, l, H, P), generator=g, device=dev),
+                torch.randn((B, nc, l, N), generator=g, device=dev),
+                torch.randn((B, nc, l, N), generator=g, device=dev))
+
+    ssd_cases = [  # B, nc, l, H, P, N, decays
+        (LM_BATCH, 16, 256, 64, 64, 128, "strong"),  # mamba2-1.3B's prefill shape
+        (LM_BATCH, 16, 256, 64, 64, 128, "weak"),
+        (LM_BATCH, 16, 256, 64, 64, 128, "init"),
+        (LM_BATCH, 1, 100, 64, 64, 128, "weak"),     # chunk = min(256, S) at S = 100
+        (LM_BATCH, 1, 100, 64, 64, 128, "init"),
+        (2, 3, 256, 12, 64, 128, "weak"),            # H not a multiple of the 8-head group
+        (1, 1, 256, 64, 64, 128, "weak"),            # B = 1, nc = 1
+        (2, 3, 32, 16, 8, 16, "strong"),             # tests/test_kernels.py's sweep shape
+        (1, 2, 17, 5, 33, 40, "weak"),               # ragged everything
+        (1, 1, 1, 3, 16, 8, "init"),                 # l = 1
+    ]
+    ssd_main = None
+    for B, nc, l, H, P, N, decays in ssd_cases:
+        args = ssd_inputs(B, nc, l, H, P, N, decays)
+        got = sdc.ssd_chunk_intra_cuda(*args)
+        want = sdc.ssd_chunk_intra_plain(*args)
+        a, x, Bm, Cm = args
+        sum_abs = sdc.ssd_chunk_intra_plain(a, x.abs(), Bm.abs(), Cm.abs())
+        torch.cuda.synchronize()
+        parts = []
+        for part, gv, wv, av in zip(("y_diag", "S_c", "total"), got, want, sum_abs):
+            diff = (gv - wv).abs()
+            err = float(diff.max())
+            over_f32 = float((diff / (SSD_TOL + SSD_TOL * wv.abs())).max())
+            over = float((diff / (SSD_TOL * av.clamp_min(1.0) + SSD_TOL * wv.abs())).max())
+            if not (torch.isfinite(gv).all() and over <= 1.0):
+                fail(f"ssd_chunk_intra B{B} nc{nc} l{l} H{H} P{P} N{N} {decays}: {part} max abs "
+                     f"err {err:.3e} beyond {SSD_TOL:g} * max(1, sum|terms|) + {SSD_TOL:g}*|plain|")
+            # total = exp(ci_last) has no dot product: the same prefix-sum
+            # order (hazard 11) and expf give the same bits
+            if part == "total" and not torch.equal(gv, wv):
+                fail(f"ssd_chunk_intra B{B} nc{nc} l{l} H{H} P{P} N{N} {decays}: total differs "
+                     f"from the plain version's ({err:.3e}): the prefix sums' order differs")
+            max_err["ssd_chunk_intra"] = max(max_err["ssd_chunk_intra"], err)
+            parts.append(f"{part} {err:.3e} ({over:.3f} of the limit; {over_f32:.3f} of "
+                         f"{SSD_TOL:g} + {SSD_TOL:g}*|plain|)")
+        say(f"[3d kernels] ssd_chunk_intra B{B} nc{nc} l{l} H{H} P{P} N{N} {decays} decays: max abs "
+            "err vs plain " + ", ".join(parts))
+        if ssd_main is None:
+            ssd_main = args
+        del args, got, want, sum_abs, a, x, Bm, Cm
+
     # ---- 4. main path at M4096xN256 --------------------------------
     inst = main_instance(convert, carbon, dev)
     spec_d, state0_d = inst["spec"](dev), inst["state0"](dev)
@@ -709,143 +968,17 @@ def main() -> int:
 
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
     lm_cfg = registry.get_config(LM_ARCH)
-    model = build_model(lm_cfg, dev)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in leaves(params))
-    say(f"[8 lm] {lm_cfg.name}: {n_params:,} parameters ({lm_cfg.param_dtype}) made on the card in "
-        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, prompts of {LM_PROMPT} tokens, "
-        f"{LM_GEN} generated, cache {LM_CACHE}")
-    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, lm_cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        toks = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    lm_launches = ops.launch_counts()
-    toks_h = toks.cpu()
-    host_s = time.perf_counter() - t0
-    lm_expected = {k: 0 for k in lm_launches}
-    lm_expected.update(flash_attention=lm_cfg.n_layers, flash_decode=lm_cfg.n_layers * LM_GEN)
-    if lm_launches != lm_expected:
-        fail(f"LM path: kernel launches {lm_launches}, expected {lm_expected}")
-    if (toks_h.shape != (LM_BATCH, LM_GEN) or toks_h.dtype != torch.int32
-            or int(toks_h.min()) < 0 or int(toks_h.max()) >= lm_cfg.vocab_size):
-        fail(f"LM path: tokens {tuple(toks_h.shape)} {toks_h.dtype} out of shape or range")
-    say(f"[8 lm] greedy_generate under sync debug mode 'error': launches {lm_launches}; "
-        f"{host_s:.2f} s host; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"first tokens {toks_h[0, :8].tolist()}")
+    lm_launches, model, params, prompts = serve_lm(
+        "8 lm", lm_cfg, dict(flash_attention=lm_cfg.n_layers, flash_decode=lm_cfg.n_layers * LM_GEN),
+        dict(flash_attention=fa.flash_attention_plain, flash_decode=fd.flash_decode_plain),
+        "plain attention", dev, ops, build_model, greedy_generate)
 
-    def timed_generate():
-        """(prefill ms, decode ms per step incl. argmax, cache) from CUDA
-        events, greedy_generate's own steps without the debug mode."""
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        logits, cache = model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
-        ev[1].record()
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        for _ in range(LM_GEN):
-            logits, cache = model.decode_step(params, tok, cache)
-            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        ev[2].record()
-        ev[2].synchronize()
-        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / LM_GEN, cache, tok
-
-    torch.cuda.reset_peak_memory_stats()
-    runs = [timed_generate() for _ in range(2)]
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    prefill_ms, decode_ms, cache, tok = runs[-1]
-    say(f"[8 lm] timed (CUDA events, 2 runs): prefill "
-        + " / ".join(f"{r[0]:.1f}" for r in runs) + " ms for "
-        f"{LM_BATCH}x{LM_PROMPT} tokens; decode " + " / ".join(f"{r[1]:.3f}" for r in runs)
-        + f" ms/step ({LM_BATCH * 1e3 / decode_ms:,.1f} tokens/s at batch {LM_BATCH}); "
-        f"whole request {prefill_ms + LM_GEN * decode_ms:.1f} ms "
-        f"({LM_BATCH * LM_GEN * 1e3 / (prefill_ms + LM_GEN * decode_ms):,.1f} generated tokens/s); "
-        f"peak memory {peak_gib:.2f} GiB")
-    # one more step at pos 4160 (the cache's last slot), under the profiler
-    prof, host = profile_slots(lambda: model.decode_step(params, tok, cache), slots=1)
-    if prof is None:
-        say("[8 lm] decode step device time not measured (the profiler recorded no device time)")
-    else:
-        busy = prof.pop("total")
-        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
-        say(f"[8 lm] one decode step under the profiler: device busy {busy:.3f} ms of "
-            f"{decode_ms:.3f} ms/step (idle share {1.0 - busy / decode_ms:.3f}); "
-            f"{sum(v[1] for k, v in host.items() if k.startswith('aten::')):.0f} aten op calls; "
-            "top kernels " + ", ".join(f"{k[:56]} {v:.3f} ms" for v, k in top[:8]))
-    del cache, runs
-
-    @contextlib.contextmanager
-    def plain_attention():
-        """The model's attention through the plain versions, on the card,
-        for the comparison below only."""
-        saved = ops.flash_attention, ops.flash_decode
-        ops.flash_attention = fa.flash_attention_plain
-        ops.flash_decode = fd.flash_decode_plain
-        try:
-            yield
-        finally:
-            ops.flash_attention, ops.flash_decode = saved
-
-    def teacher_forced(m, ctx):
-        """Prefill logits and LM_TEACHER_STEPS decode-step logits, every
-        step fed the kernel run's greedy tokens."""
-        with ctx():
-            logits, cache = m.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
-            out = [logits]
-            for t in range(LM_TEACHER_STEPS):
-                logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
-                out.append(logits)
-        return out
-
-    def rel_l2(a, b):
-        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-
-    steps = {"kernels": teacher_forced(model, contextlib.nullcontext),
-             "plain": teacher_forced(model, plain_attention)}
-    # float32 activations over the same bf16 weights (cast per use)
-    ref_model = build_model(dataclasses.replace(lm_cfg, compute_dtype="float32"), dev)
-    t0 = time.perf_counter()
-    steps["f32"] = teacher_forced(ref_model, plain_attention)
-    steps["f32 kernels"] = teacher_forced(ref_model, contextlib.nullcontext)
-    say(f"[8 lm] float32 activations (bf16 weights cast per use), plain attention and kernels: "
-        f"{time.perf_counter() - t0:.1f} s")
-    for i, (a, r) in enumerate(zip(steps["f32 kernels"], steps["f32"])):
-        what = "prefill" if i == 0 else f"decode step {i}"
-        gap = rel_l2(a, r)
-        say(f"[8 lm] {what} logits in float32: kernels vs plain attention relative L2 {gap:.3e} "
-            f"(limit {LOGIT_F32_TOL:g}), max abs {float((a - r).abs().max()):.3e} (max |logit| "
-            f"{float(r.abs().max()):.3f}); argmax agreement "
-            f"{float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
-        if not (torch.isfinite(a).all() and gap <= LOGIT_F32_TOL):
-            fail(f"LM {what}: float32 logits through the kernels are {gap:.3e} from the plain "
-                 f"attention path's, beyond {LOGIT_F32_TOL:g}")
-    for i, (a, b, r) in enumerate(zip(steps["kernels"], steps["plain"], steps["f32"])):
-        what = "prefill" if i == 0 else f"decode step {i}"
-        err_k, err_p = rel_l2(a, r), rel_l2(b, r)
-        say(f"[8 lm] {what} logits: relative L2 error vs the float32 reference, kernels "
-            f"{err_k:.3e}, plain attention {err_p:.3e} (ratio {err_k / err_p:.3f}, limit "
-            f"{LOGIT_ERR_RATIO:g}); kernels vs plain {rel_l2(a, b):.3e}, max abs "
-            f"{float((a - b).abs().max()):.3e} (max |logit| {float(b.abs().max()):.3f}); argmax "
-            f"agreement kernels/plain {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}, "
-            f"kernels/f32 {float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
-        if not (torch.isfinite(a).all() and err_k <= LOGIT_ERR_RATIO * err_p):
-            fail(f"LM {what}: the kernels' logits are {err_k:.3e} from the float32 reference, "
-                 f"beyond {LOGIT_ERR_RATIO:g} x the plain path's {err_p:.3e}")
-    del steps, ref_model
-    with plain_attention():
-        toks_plain = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE).cpu()
-    same = toks_plain == toks_h
-    first = [int(row.logical_not().nonzero()[0]) if not bool(row.all()) else LM_GEN for row in same]
-    say(f"[8 lm] greedy tokens, kernels vs plain attention: {float(same.float().mean()):.4f} equal; "
-        f"first divergence per sequence {first} (of {LM_GEN})")
+    # ---- 9. SSM serving: mamba2-1.3B, prefill + state decode --------
+    ssm_cfg = registry.get_config(SSM_ARCH)
+    ssm_launches, *_ = serve_lm(
+        "9 ssm", ssm_cfg, dict(ssd_chunk_intra=ssm_cfg.n_layers),
+        dict(ssd_chunk_intra=sdc.ssd_chunk_intra_plain), "plain SSD", dev, ops, build_model,
+        greedy_generate)
 
     # ---- 7. kernel times at the main path's shapes -------------------
     # inputs as the main path's last slot hands them to each kernel
@@ -971,6 +1104,26 @@ def main() -> int:
         plain_ms, nbytes=2 * (2 * B * H * hd + 2 * B * n_valid * Kd * hd),
         nops=4 * B * H * n_valid * hd, ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
     del dcache, kd, vd
+
+    # ssd_chunk_intra: the prefill shape of phase 9 (phase 3d's first
+    # case); y counts the causal (i, j) pairs, S_c every (j, n) pair, the
+    # scores C.B once per (batch, chunk) over the causal pairs; no single
+    # PyTorch call computes (y_diag, S_c, total)
+    a, x, Bm, Cm = ssd_main
+    B, nc, l, H = a.shape
+    P, N = x.shape[-1], Bm.shape[-1]
+    ms = graph_ms(lambda: sdc.ssd_chunk_intra_cuda(*ssd_main), reps=3, inner=2)
+    call_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_cuda(*ssd_main), reps=3, inner=2)
+    plain_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_plain(*ssd_main), reps=2, inner=1)
+    pairs = l * (l + 1) // 2
+    nops = B * nc * (H * pairs * (2 * P + 1) + H * l * P * (2 * N + 1) + pairs * 2 * N)
+    row("ssd_chunk_intra", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk.py:62", ssm_launches["ssd_chunk_intra"], ms, call_ms,
+        plain_ms, nbytes=4 * (2 * B * nc * l * H * P + B * nc * l * H + 2 * B * nc * l * N
+                              + B * nc * H * N * P + B * nc * H), nops=nops)
+    say(f"[7 time] ssd_chunk_intra: x {ssm_cfg.n_layers} layers = {ms[1] * ssm_cfg.n_layers:.1f} "
+        "ms of the prefill")
+    del ssd_main, a, x, Bm, Cm
 
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it

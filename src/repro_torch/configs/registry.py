@@ -5,9 +5,9 @@ the ten arch ids.
 Every ported architecture has a module `repro_torch/configs/<id>.py`
 exporting `CONFIG` (full size) and `SMOKE` (a reduced config of the same
 family, used by the CPU tests), copied from the JAX package as they are.
-The dense family is ported (GLM-4-9B, Qwen1.5-0.5B, InternLM2-20B,
-StarCoder2-15B); the other families raise NotImplementedError naming the
-ROADMAP item that ports them.
+The dense family (GLM-4-9B, Qwen1.5-0.5B, InternLM2-20B, StarCoder2-15B)
+and the SSM family (Mamba2-1.3B) are ported; the other families raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -185,13 +185,13 @@ class ModelConfig:
 
 
 DENSE_ARCHS = ("starcoder2_15b", "internlm2_20b", "glm4_9b", "qwen1_5_0_5b")
-NOT_PORTED = {
-    "arctic_480b": "MoE (ROADMAP Queue 1 item 12, after mamba2)",
-    "qwen2_moe_a2_7b": "MoE (ROADMAP Queue 1 item 12, after mamba2)",
-    "paligemma_3b": "VLM prefix-LM (ROADMAP Queue 1 item 12)",
-    "seamless_m4t_medium": "enc-dec (ROADMAP Queue 1 item 12)",
-    "mamba2_1_3b": "SSM with ssd_chunk_intra (ROADMAP Queue 1 item 12, next slice)",
-    "jamba_1_5_large_398b": "hybrid (ROADMAP Queue 1 item 12)",
+SSM_ARCHS = ("mamba2_1_3b",)
+NOT_PORTED = {  # items of ROADMAP Queue 1's list of next slices
+    "arctic_480b": "MoE (ROADMAP Queue 1, next slices 3.2)",
+    "qwen2_moe_a2_7b": "MoE (ROADMAP Queue 1, next slices 3.2)",
+    "jamba_1_5_large_398b": "hybrid attention + SSM + MoE (ROADMAP Queue 1, next slices 3.3)",
+    "paligemma_3b": "VLM prefix-LM (ROADMAP Queue 1, next slices 3.4)",
+    "seamless_m4t_medium": "enc-dec (ROADMAP Queue 1, next slices 3.5)",
 }
 
 

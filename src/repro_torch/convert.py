@@ -7,8 +7,9 @@ and the port.
 parity tests use them to feed both packages the same numbers, and
 `queues_numpy` to read both packages' recorded queues.
 `params_from_reference` and `cache_from_reference` carry an LM's
-parameter and KV-cache pytrees (nested dicts of arrays) over, leaf for
-leaf and bit for bit, bf16 included; `cache_to_numpy` reads a cache back.
+parameter and cache pytrees (nested dicts of arrays; a dense KV cache or
+an SSM state cache) over, leaf for leaf and bit for bit, bf16 included;
+`cache_to_numpy` reads a cache back.
 """
 from __future__ import annotations
 
@@ -85,13 +86,14 @@ def _tree(tree, device):
 
 
 def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
-    """The port's parameters from the JAX package's pytree of a dense
-    model (`Model(cfg).init(key)`), given as nested dicts of arrays:
+    """The port's parameters from the JAX package's pytree of a dense or
+    ssm model (`Model(cfg).init(key)`), given as nested dicts of arrays:
     the same names, shapes (the stacked layer axis included), dtypes and
-    bits."""
-    from repro_torch.models.transformer import require_dense
+    bits (an SSM layer's A_log, D and dt_bias stay float32 in a bf16
+    model)."""
+    from repro_torch.models.transformer import require_ported
 
-    require_dense(cfg)
+    require_ported(cfg)
     out = _tree(params, resolve_device(device))
     if tuple(out["embed"].shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"params_from_reference: embed {tuple(out['embed'].shape)} does not "
@@ -100,19 +102,24 @@ def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
 
 
 def cache_from_reference(cache, device=DEFAULT_DEVICE) -> dict:
-    """A dense KV cache {"k", "v", "pos"} from the JAX package's, with
-    pos as a 0-d int32 tensor."""
+    """A cache from the JAX package's: a dense KV cache {"k", "v", "pos"}
+    with pos as a 0-d int32 tensor, or an SSM cache {"ssm", "conv"}."""
     dev = resolve_device(device)
+    if "ssm" in cache:
+        return {"ssm": _leaf(cache["ssm"], dev), "conv": _leaf(cache["conv"], dev)}
     return {"k": _leaf(cache["k"], dev), "v": _leaf(cache["v"], dev),
             "pos": torch.full((), int(np.asarray(cache["pos"])), dtype=torch.int32, device=dev)}
 
 
 def cache_to_numpy(cache) -> dict:
-    """A cache of either package as numpy: k, v as float32, pos an int."""
+    """A cache of either package as numpy: k, v (or ssm, conv) as
+    float32, pos (for a KV cache) an int."""
     def host(x):
         if torch.is_tensor(x):
             return x.detach().float().cpu().numpy()
         return np.asarray(x, np.float32)
 
+    if "ssm" in cache:
+        return {"ssm": host(cache["ssm"]), "conv": host(cache["conv"])}
     return {"k": host(cache["k"]), "v": host(cache["v"]), "pos": int(np.asarray(
         cache["pos"].cpu() if torch.is_tensor(cache["pos"]) else cache["pos"]))}

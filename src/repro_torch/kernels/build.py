@@ -9,8 +9,8 @@ source is rebuilt and a stale library is never loaded.
 Flags: `sm_90a`, `-O3`, and `-fmad=false`, with no fast math. The only
 fused multiply-adds are the explicit `__fmaf_rn` calls: in the scheduler's
 kernels exactly where the JAX reference rounds once (see
-`numerics.fma_f32`), in the attention kernels in their dot products and
-sums, whose contract is a tolerance.
+`numerics.fma_f32`), in the attention and SSD kernels in their dot products
+and sums, whose contract is a tolerance.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines that have no nvcc.
@@ -26,7 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("carbon_score", "route_score", "greedy_fill", "flash_attention", "flash_decode")
+SOURCES = ("carbon_score", "route_score", "greedy_fill", "flash_attention", "flash_decode",
+           "ssd_chunk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",

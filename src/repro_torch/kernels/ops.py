@@ -12,6 +12,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import greedy_fill as _gf
 from repro_torch.kernels import route_score as _rs
+from repro_torch.kernels import ssd_chunk as _ssd
 
 def _pick(x, plain, cuda, what):
     if x.device.type == "cpu":
@@ -62,8 +63,16 @@ def flash_decode(q, k, v, pos):
     return fn(q, k, v, pos)
 
 
+def ssd_chunk_intra(a, x, Bm, Cm):
+    """Mamba-2 SSD intra-chunk step: a [B,nc,l,H], x [B,nc,l,H,P],
+    Bm/Cm [B,nc,l,N] -> (y_diag [B,nc,l,H,P], S_c [B,nc,H,N,P], total
+    [B,nc,H]), float32."""
+    fn = _pick(a, _ssd.ssd_chunk_intra_plain, _ssd.ssd_chunk_intra_cuda, "ssd_chunk_intra")
+    return fn(a, x, Bm, Cm)
+
+
 _MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,
-            "flash_attention": _fa, "flash_decode": _fd}
+            "flash_attention": _fa, "flash_decode": _fd, "ssd_chunk_intra": _ssd}
 
 
 def launch_counts() -> dict:

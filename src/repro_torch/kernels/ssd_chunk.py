@@ -1,0 +1,93 @@
+"""Mamba-2 SSD intra-chunk step: plain PyTorch version and CUDA wrapper.
+
+Counterpart of `repro.kernels.ssd_chunk.ssd_chunk_intra` (Pallas) and of
+its oracle `repro.kernels.ref.ssd_chunk_intra_ref`, with their contract:
+a [B,nc,l,H] log-decays, x [B,nc,l,H,P] dt-weighted inputs, Bm/Cm
+[B,nc,l,N] -> (y_diag [B,nc,l,H,P], S_c [B,nc,H,N,P], total [B,nc,H]),
+all float32. With ci the prefix sum of a over each chunk,
+  y_diag[i] = sum_{j<=i} (C_i . B_j) exp(ci_i - ci_j) x_j,
+  S_c       = sum_j B_j (x) x_j exp(ci_last - ci_j),   total = exp(ci_last).
+ci is summed in XLA:CPU's order (`numerics.cumsum_xla`), as the JAX
+package computes it: with the decays of the repo's init |ci| reaches
+thousands within a 256-long chunk, where a sum in another order moves
+exp(ci_i - ci_j) by up to 5e-4 relative. The kernel lives in
+`csrc/ssd_chunk.cu`; its source note gives its bound and design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.numerics import cumsum_xla
+
+MAX_L, MAX_P, MAX_N = 256, 64, 256  # what the kernel takes
+
+# Launches of the CUDA kernel in this process (read by chip_smoke.py).
+launches = 0
+
+
+def ssd_chunk_intra_plain(a, x, Bm, Cm):
+    """-> (y_diag, S_c, total), float32, as `kernels/ref.py` writes them.
+    One batch row at a time (the peak is one [nc,l,l,H] decay block);
+    that changes no entry's arithmetic."""
+    a, x, Bm, Cm = a.float(), x.float(), Bm.float(), Cm.float()
+    B, nc, l, H = a.shape
+    ci = cumsum_xla(a, dim=2)  # [B,nc,l,H]
+    tril = torch.ones((l, l), dtype=torch.bool, device=a.device).tril()[..., None]
+    y = torch.empty_like(x)
+    for b in range(B):
+        diff = ci[b, :, :, None, :] - ci[b, :, None, :, :]  # [nc,i,j,H]
+        Lmat = torch.where(tril, torch.exp(diff), 0.0)
+        scores = torch.einsum("cin,cjn->cij", Cm[b], Bm[b])
+        y[b] = torch.einsum("cijh,cjhp->cihp", scores[..., None] * Lmat, x[b])
+    decay_end = torch.exp(ci[:, :, -1:, :] - ci)  # [B,nc,l,H]
+    S_c = torch.einsum("bcjn,bcjhp->bchnp", Bm, x * decay_end[..., None])
+    total = torch.exp(ci[:, :, -1, :])
+    return y, S_c, total
+
+
+def _lib():
+    lib = build.load("ssd_chunk")
+    if lib.ssd_chunk_intra_launch.argtypes is None:
+        lib.ssd_chunk_intra_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        lib.ssd_chunk_intra_launch.restype = ctypes.c_int
+    return lib
+
+
+def ssd_chunk_intra_cuda(a, x, Bm, Cm):
+    """Launches csrc/ssd_chunk.cu on PyTorch's current stream. Takes
+    contiguous float32 tensors on one CUDA device, l <= 256, P <= 64,
+    N <= 256, and raises on anything else (before any build)."""
+    global launches
+    if a.dim() != 4:
+        raise ValueError(f"ssd_chunk_intra: a must be [B,nc,l,H], got {tuple(a.shape)}")
+    B, nc, l, H = a.shape
+    P, N = x.shape[-1], Bm.shape[-1]
+    dev = a.device
+    want = {"a": (a, (B, nc, l, H)), "x": (x, (B, nc, l, H, P)), "Bm": (Bm, (B, nc, l, N)),
+            "Cm": (Cm, (B, nc, l, N))}
+    for name, (t, shape) in want.items():
+        if t.dtype != torch.float32 or t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"ssd_chunk_intra: {name} must be float32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_chunk_intra: {name} must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_chunk_intra: the kernel runs on a CUDA device, not {dev}")
+    if not (1 <= l <= MAX_L and 1 <= P <= MAX_P and 1 <= N <= MAX_N and min(B, nc, H) >= 1
+            and max(B, nc) <= 65535):
+        raise ValueError(f"ssd_chunk_intra: unsupported shape l={l} P={P} N={N} B={B} nc={nc} "
+                         f"H={H} (l <= {MAX_L}, P <= {MAX_P}, N <= {MAX_N})")
+    lib = _lib()
+    y = torch.empty((B, nc, l, H, P), dtype=torch.float32, device=dev)
+    S_c = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
+    total = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
+    status = lib.ssd_chunk_intra_launch(
+        a.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), S_c.data_ptr(),
+        total.data_ptr(), B, nc, l, H, P, N, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, status, "ssd_chunk_intra")
+    launches += 1
+    return y, S_c, total

@@ -1,7 +1,9 @@
 """Serving CLI (counterpart of `repro.launch.serve`): batched prefill
-and greedy decode with KV caches, for the dense family.
+and greedy decode, for the dense family (KV caches) and the ssm family
+(state caches).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_1_3b --smoke --device cpu
 
 Runs on the CUDA card by default; --device cpu runs the kernels' plain
 versions. Parameters are random, from a seeded torch Generator.
@@ -21,8 +23,10 @@ from repro_torch.models import build_model
 
 def greedy_generate(model, params, prompts, gen_len: int, cache_len: int) -> torch.Tensor:
     """prompts [B,S] int32 on the model's device -> [B, gen_len] int32
-    tokens on the device. Every decode step and argmax stays on the
-    device: the loop never waits for the host."""
+    tokens on the device. The cache is whatever the model's prefill
+    returns (cache_len sizes a KV cache; an SSM cache has a fixed size).
+    Every decode step and argmax stays on the device: the loop never
+    waits for the host."""
     resolve_device(model.device)
     if prompts.device != model.device:
         raise ValueError(f"greedy_generate: prompts on {prompts.device}, model on {model.device}")

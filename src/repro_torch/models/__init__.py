@@ -1,5 +1,6 @@
-"""LM stack of the port: the dense family's layers, decoder stack,
-serving entry points (prefill + KV-cache decode) and Model API."""
+"""LM stack of the port: the dense and ssm families' layers, decoder
+stacks, serving entry points (prefill + KV-cache or state decode) and
+Model API."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -1,5 +1,5 @@
 """The Model API of the port (counterpart of `repro.models.model`), for
-the dense family.
+the dense and ssm families.
 
 `build_model(cfg, device)` gives a `Model` with
   init(generator) -> params
@@ -43,9 +43,16 @@ class Model:
 
     def cache_specs(self, seq_len: int, batch: int) -> Dict[str, tuple]:
         cfg = self.cfg
-        transformer.require_dense(cfg)
-        kv = ((cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim),
-              L.dtype_of(cfg.compute_dtype))
+        transformer.require_ported(cfg)
+        cd = L.dtype_of(cfg.compute_dtype)
+        if cfg.family == "ssm":  # fixed size: seq_len is not read
+            return {
+                "ssm": ((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                        torch.float32),
+                "conv": ((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                          cfg.d_inner + 2 * cfg.ssm_state), cd),
+            }
+        kv = ((cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim), cd)
         return {"k": kv, "v": kv, "pos": ((), torch.int32)}
 
     def init_cache(self, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
@@ -54,5 +61,5 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE) -> Model:
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     return Model(cfg, resolve_device(device))

@@ -1,13 +1,17 @@
-"""Serving entry points for the dense family (counterpart of
-`repro.models.serving`): prefill (build the KV cache) and one-token
-decode.
+"""Serving entry points for the dense and ssm families (counterpart of
+`repro.models.serving`): prefill (build the cache) and one-token decode.
 
-Cache: {"k" [L,B,C,K,hd], "v" [L,B,C,K,hd] in the compute dtype, "pos"
-a 0-d int32 tensor on the device}, C the cache capacity. The cache holds
-the rotated keys. `decode_step` writes into "k" and "v" IN PLACE (the
-JAX function returns new arrays) and returns a new "pos"; nothing in a
-step reads device data on the host. Every other family raises
-NotImplementedError.
+Caches:
+  dense: {"k" [L,B,C,K,hd], "v" [L,B,C,K,hd] in the compute dtype, "pos"
+         a 0-d int32 tensor on the device}, C the cache capacity. The
+         cache holds the rotated keys.
+  ssm:   {"ssm" [L,B,H,N,P] float32, "conv" [L,B,W-1,C] in the compute
+         dtype}: fixed size, no position (a prefill's cache_len is not
+         read).
+`decode_step` writes the dense step's k/v, and the ssm step's states, IN
+PLACE into the cache it is given (the JAX function returns new arrays);
+the dense step returns a new "pos". Nothing in a step reads device data
+on the host. Every other family raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -17,11 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models.transformer import (
     _apply_ffn,
     _unembed_weight,
     layer,
-    require_dense,
+    require_ported,
 )
 
 
@@ -38,8 +43,11 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, cache_len: int | None =
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """batch {"tokens": [B,S] int on the device} -> (logits of the last
     position [B,V] float32, cache of capacity cache_len (default S),
-    zero beyond S, pos = S)."""
-    require_dense(cfg)
+    zero beyond S, pos = S); for the ssm family (logits, the states
+    after the prompt), which needs S >= ssm_conv - 1."""
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        return _prefill_ssm(params, batch, cfg)
     cd = L.dtype_of(cfg.compute_dtype)
     x = F.embedding(batch["tokens"], params["embed"]).to(cd)
     B, S, _ = x.shape
@@ -65,8 +73,11 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, cache_len: int | None =
 def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], cfg
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token [B,1] int on the device -> (logits [B,V] float32, cache with
-    the step's k/v written at pos and pos + 1)."""
-    require_dense(cfg)
+    the step's k/v written at pos and pos + 1; for the ssm family, the
+    cache with its states advanced by the token)."""
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        return _decode_ssm(params, token, cache, cfg)
     cd = L.dtype_of(cfg.compute_dtype)
     x = F.embedding(token, params["embed"]).to(cd)  # [B,1,D]
     pos = cache["pos"]
@@ -78,3 +89,31 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], cfg
         x = x + _apply_ffn(lp, h, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, x[:, -1], cfg), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def _prefill_ssm(params, batch, cfg):
+    cd = L.dtype_of(cfg.compute_dtype)
+    x = F.embedding(batch["tokens"], params["embed"]).to(cd)
+    B = x.shape[0]
+    ssm = torch.empty((cfg.n_layers, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                      dtype=torch.float32, device=x.device)
+    conv = torch.empty((cfg.n_layers, B, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                       dtype=cd, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        y, (ssm[i], conv[i]) = mamba2.mamba_forward(lp["mamba"], h, cfg, return_state=True)
+        x = x + y
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    return _logits(params, x[:, -1], cfg), {"ssm": ssm, "conv": conv}
+
+
+def _decode_ssm(params, token, cache, cfg):
+    cd = L.dtype_of(cfg.compute_dtype)
+    x = F.embedding(token, params["embed"]).to(cd)  # [B,1,D]
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        x = x + mamba2.mamba_decode_step(lp["mamba"], h, cfg, cache["ssm"][i], cache["conv"][i])
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    return _logits(params, x[:, -1], cfg), {"ssm": cache["ssm"], "conv": cache["conv"]}

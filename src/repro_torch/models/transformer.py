@@ -1,13 +1,13 @@
-"""Dense decoder stack (counterpart of the dense parts of
-`repro.models.transformer`).
+"""Dense and SSM decoder stacks (counterpart of the dense and ssm parts
+of `repro.models.transformer`).
 
 Parameters are nested dicts with the JAX package's names, and the layer
 stack keeps its leading layer axis ([L, ...] per leaf), so
 `convert.params_from_reference` maps a JAX pytree onto them leaf for
 leaf. Where the JAX package scans over the layer axis, the port loops
 over it in Python. There is no rematerialisation: this is the inference
-path. MoE, SSM, hybrid, VLM and enc-dec stacks, and the training loss,
-are later slices (ROADMAP Queue 1 item 12).
+path. MoE, hybrid, VLM and enc-dec stacks, and the training loss, are
+later slices (ROADMAP Queue 1, next slices 3).
 """
 from __future__ import annotations
 
@@ -17,13 +17,17 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 
 
-def require_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.n_experts or cfg.is_encoder_decoder:
+def require_ported(cfg) -> None:
+    """Admits the families the port serves, dense and ssm; raises
+    NotImplementedError for the rest."""
+    ported = cfg.family == "ssm" or (cfg.family == "dense" and not cfg.n_experts)
+    if not ported or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 12); the port serves the dense family")
+            "(ROADMAP Queue 1, next slices 3); the port serves the dense and ssm families")
 
 
 def tree_map(fn, tree):
@@ -55,6 +59,13 @@ def _init_dense_layer(gen, cfg, dtype):
     return p
 
 
+def _init_ssm_layer(gen, cfg, dtype):
+    return {
+        "ln1": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+        "mamba": mamba2.init_ssm_layer(gen, cfg, dtype),
+    }
+
+
 def _stack(make, n: int):
     """n trees from `make()` stacked on a new leading axis, filled one
     layer at a time (the peak is the stack plus one layer, not two
@@ -78,7 +89,7 @@ def _stack(make, n: int):
 def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
     """Random parameters on the generator's device (the port's own
     init: torch's normals, not jax.random's)."""
-    require_dense(cfg)
+    require_ported(cfg)
     dtype = L.dtype_of(cfg.param_dtype)
     p: Dict[str, Any] = {
         "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
@@ -87,7 +98,8 @@ def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         p["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                     scale=1.0 / math.sqrt(cfg.d_model), dtype=dtype)
-    p["layers"] = _stack(lambda: _init_dense_layer(gen, cfg, dtype), cfg.n_layers)
+    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
+    p["layers"] = _stack(lambda: init_layer(gen, cfg, dtype), cfg.n_layers)
     return p
 
 
@@ -106,11 +118,20 @@ def _dense_block(x, lp, cfg, mask_mode, prefix_len):
     return x + _apply_ffn(lp, h, cfg)
 
 
+def _ssm_block(x, lp, cfg):
+    h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    return x + mamba2.mamba_forward(lp["mamba"], h, cfg)
+
+
 def backbone(params, x: torch.Tensor, cfg, *, mask_mode="causal", prefix_len=0):
     """Runs the decoder stack on embedded inputs x [B,S,D]."""
-    require_dense(cfg)
+    require_ported(cfg)
     for i in range(cfg.n_layers):
-        x = _dense_block(x, layer(params["layers"], i), cfg, mask_mode, prefix_len)
+        lp = layer(params["layers"], i)
+        if cfg.family == "ssm":
+            x = _ssm_block(x, lp, cfg)
+        else:
+            x = _dense_block(x, lp, cfg, mask_mode, prefix_len)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 

@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.configs.paper_workloads, "
         "repro_torch.network, repro_torch.configs.fleet_scenarios, repro_torch.models, "
         "repro_torch.launch.serve, repro_torch.configs.registry, repro_torch.configs.glm4_9b, "
-        "repro_torch.kernels.flash_attention, repro_torch.kernels.flash_decode; "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.flash_decode, "
+        "repro_torch.kernels.ssd_chunk, repro_torch.kernels.numerics, repro_torch.models.mamba2, "
+        "repro_torch.configs.mamba2_1_3b; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -87,6 +89,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: materialize(ConstantCarbonSource(N=5), 2),
         lambda: spec_from_numpy(np.ones(2), np.ones((2, 2)), 1.0, np.ones(2)),
         lambda: build_model(get_smoke_config("glm4_9b")).init(torch.Generator()),
+        lambda: build_model(get_smoke_config("mamba2_1_3b")),
         lambda: params_from_reference({"embed": np.zeros((512, 64), np.float32)},
                                       get_smoke_config("glm4_9b")),
         lambda: lm_serve.greedy_generate(Model(get_smoke_config("glm4_9b"), torch.device("cuda")),
@@ -111,8 +114,11 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     q, k = torch.zeros((1, 2, 3, 16)), torch.zeros((1, 1, 3, 16))
     assert ops.flash_attention(q, k, k).shape == (1, 2, 3, 16)
     assert ops.flash_decode(q[:, :, 0], k.transpose(1, 2), k.transpose(1, 2), 1).shape == (1, 2, 16)
+    y, S_c, total = ops.ssd_chunk_intra(torch.zeros((1, 1, 4, 2)), torch.zeros((1, 1, 4, 2, 8)),
+                                        torch.zeros((1, 1, 4, 3)), torch.zeros((1, 1, 4, 3)))
+    assert y.shape == (1, 1, 4, 2, 8) and S_c.shape == (1, 1, 2, 3, 8) and total.shape == (1, 1, 2)
     assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
-                                   "flash_attention": 0, "flash_decode": 0}
+                                   "flash_attention": 0, "flash_decode": 0, "ssd_chunk_intra": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
     with pytest.raises(ValueError, match="no kernel"):
