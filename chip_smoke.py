@@ -28,7 +28,10 @@ paths):
    |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
    1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
    H 32, K 2, S 4096, hd 128, bf16) in all three masks, MHA, MQA,
-   ragged, Sq > Skv, strided (the model's layout) and f32; flash_decode
+   ragged, Sq > Skv, strided (the model's layout, hd 128 and 64) and
+   f32; for the bf16 tensor-core route also each hd (16, 32, 64, 128)
+   off the 128-row tiles, prefix_len off a tile edge and past Sq,
+   causal Sq > Skv and a single block (B 1, H 1, S 64); flash_decode
    at B 8, H 32, K 2, S 4161, hd 128 for pos 0, 511, 512, 4095, 4160,
    G = 1 and f32;
 3d. ssd_chunk_intra vs its plain version on the card, within
@@ -97,6 +100,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -249,6 +253,20 @@ def profile_slots(run, slots: int):
         return None, host
     per["total"] = total
     return per, host
+
+
+def ptxas_lines(log: str, entry: str) -> list:
+    """The register and spill lines of ptxas's -v report for the entry
+    functions whose names contain `entry`, each tagged with the entry's
+    integer template arguments (`<128>`)."""
+    out, keep, tag = [], False, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = entry in ln
+            tag = "<" + ",".join(re.findall(r"ILi(\d+)E", ln)) + ">"
+        elif keep and ("registers" in ln or "spill" in ln):
+            out.append(f"{entry}{tag} " + ln.split(":", 1)[-1].strip())
+    return out
 
 
 def leaves(tree):
@@ -759,6 +777,16 @@ def main() -> int:
         (1, 4, 2, 100, 37, 16, bf16, "prefix", 20),       # ragged, hd 16
         (2, 32, 2, 1024, 1024, 128, f32, "causal", 0),
         (1, 8, 2, 513, 513, 64, f32, "prefix", 100),
+        # the tensor-core route's edges: every hd with Sq, Skv off the
+        # 128-row tiles, prefix off a tile edge and past Sq, Sq > Skv, one block
+        (1, 4, 2, 200, 300, 16, bf16, "causal", 0),
+        (1, 4, 2, 333, 250, 32, bf16, "full", 0),
+        (2, 8, 2, 777, 555, 64, bf16, "causal", 0),
+        (1, 8, 2, 900, 1100, 128, bf16, "full", 0),
+        (1, 8, 2, 1000, 1000, 128, bf16, "prefix", 333),
+        (1, 8, 2, 300, 300, 64, bf16, "prefix", 500),
+        (1, 4, 2, 600, 200, 128, bf16, "causal", 0),
+        (1, 1, 1, 64, 64, 128, bf16, "causal", 0),
     ]
     attn_main = None
     for B, H, K, Sq, Skv, hd, dt, mode, pl in attn_cases:
@@ -774,6 +802,10 @@ def main() -> int:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
          "B2 H32 K2 S300 hd128 bf16 causal, strided [B,S,H,hd] views")
+    q, k, v = randn((2, 437, 16, 64), bf16), randn((2, 437, 4, 64), bf16), randn((2, 437, 4, 64), bf16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
+         "B2 H16 K4 S437 hd64 bf16 causal, strided [B,S,H,hd] views")
     del q, k, v, qt, kt, vt
 
     decode_cases = [(LM_BATCH, 32, 2, LM_CACHE, 128, bf16, pos)
@@ -1079,9 +1111,12 @@ def main() -> int:
         "src/repro/kernels/flash_attention.py:87", lm_launches["flash_attention"], ms, call_ms,
         plain_ms, nbytes=2 * (2 * B * H * S * hd + 2 * B * Ka * S * hd), nops=nops,
         ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
-    say(f"[7 time] flash_attention: the same {nops / 1e12:.3f} TFLOP on the float32 CUDA cores "
-        f"this kernel uses bound it at {nops / FP32_OPS_PER_S * 1e3:.2f} ms; x {lm_cfg.n_layers} "
-        f"layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
+    issued = nops * 3 // 2  # q.k, p_hi.v and p_lo.v on the tensor cores
+    say(f"[7 time] flash_attention: bf16 runs on the tensor cores (wgmma, TMA), float32 on the "
+        f"CUDA cores; the bf16 kernel issues {issued / 1e12:.3f} TFLOP of tensor-core work "
+        f"(1.5x the function's, the split of P), {issued / BF16_OPS_PER_S * 1e3:.3f} ms at the "
+        f"peak; {' | '.join(ptxas_lines(built['flash_attention'][1], 'attention_tc'))}; "
+        f"x {lm_cfg.n_layers} layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
     del q, k, v, attn_main
 
     # flash_decode: layer 0's cache after the serving prefill (4096

@@ -63,7 +63,8 @@ def library_path(name: str) -> Path:
 def build_all(names=SOURCES) -> dict:
     """Compiles every missing library in parallel (one nvcc per source,
     all started together) and returns {name: (seconds, ptxas report)};
-    a library that was already built reports (0.0, "cached")."""
+    a library that was already built reports 0.0 seconds and the report
+    kept beside it (`<library>.log`)."""
     out = {}
     procs = {}
     build_dir().mkdir(parents=True, exist_ok=True)
@@ -71,7 +72,8 @@ def build_all(names=SOURCES) -> dict:
     for name in names:
         lib = library_path(name)
         if lib.exists():
-            out[name] = (0.0, "cached")
+            log = lib.with_suffix(".log")
+            out[name] = (0.0, log.read_text() if log.exists() else "cached")
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -84,6 +86,7 @@ def build_all(names=SOURCES) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
+        lib.with_suffix(".log").write_text(log.strip())
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
         out[name] = (time.perf_counter() - t0, log.strip())
     return out

@@ -1,4 +1,5 @@
-// GQA flash-attention forward for Hopper (sm_90a), CUDA cores, f32 math.
+// GQA flash-attention forward for Hopper (sm_90a): bf16 on the tensor
+// cores (wgmma, TMA, warp-specialised), float32 on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas `_kernel`), which the port runs where the JAX model's prefill
@@ -8,33 +9,83 @@
 // over the keys j the mask admits: causal j <= i; prefix j <= i or
 // j < prefix_len; full every j (positions counted from 0). Scores,
 // softmax state and the output sum are float32 for f32 and bf16 inputs;
-// the output is divided by max(l, 1e-30) and rounded to the input type,
-// as in the Pallas kernel.
+// the output is divided by max(l, 1e-30) and rounded once to the input
+// type, as in the Pallas kernel. A key the mask rejects gets weight
+// exactly 0 and never enters the running max, and a row with no valid
+// key in a tile is left as it was (exp(-1e30 - -1e30) = 1 cannot occur).
 //
-// Bound: operations. At the prefill shape (B 8, H 32, S 4096, hd 128,
-// causal) one launch does about 1.10 TFLOP against 570 MB of traffic,
-// so the card's floor is the tensor-core rate (1.11 ms at 989 TFLOP/s
-// bf16); this kernel uses the float32 CUDA cores, whose floor is 16.4
-// ms at 67 TFLOP/s. Tensor cores (wgmma) and TMA are later work.
+// Bound: operations. At GLM-4-9B's prefill (B 8, H 32, K 2, S 4096,
+// hd 128, causal) one launch does 1.100 TFLOP (q.k and p.v over the
+// causal pairs) against 570 MB of traffic: 1.112 ms at the 989 TFLOP/s
+// of the bf16 tensor cores, 0.17 ms of bytes at 3.35 TB/s.
 //
-// Design: one block of 128 threads per (64 query rows, head, batch),
-// looping over 32-key tiles up to the last one its mask can reach (the
-// causal and prefix limits are loop bounds, so tiles wholly above the
-// diagonal are never read, and ragged Sq / Skv are masked by bounds;
-// the Pallas kernel's Sq % bq == 0 has no counterpart). The query tile
-// (pre-scaled), the key and value tiles and the probability tile live in
-// shared memory as float32, rows padded by one word against bank
-// conflicts; each thread owns 4 query rows, 4 key columns of a score
-// tile and hd/8 output columns, and keeps the online-softmax state
-// (m, l) and its output sums in registers. The 8 lanes that share a row
-// combine max and sum with shuffles. A key the mask rejects gets weight
-// exactly 0 and never enters the max, and a row whose running max is
-// still empty is left untouched, so a tile with no valid key for a row
-// (a tile past the causal limit of an early row) cannot add exp(0) = 1
-// where the -1e30 sentinel would meet itself. Sums use explicit
-// __fmaf_rn (the library is built with -fmad=false). Strided q, k, v and
-// out (last dimension contiguous) let the model pass its [B,S,H,hd]
-// projections without a transpose.
+// bf16 route (`attention_tc`, every bf16 call): tensor cores.
+// - Why P is split. The usual flash-attention step rounds the
+//   probabilities P to bf16 once before P.V. Held against the float32
+//   plain version under the one-rounding-step tolerance 1e-4 +
+//   2^-7*|plain|, that misses on 5.6% of the outputs at B2 H8 K2 hd128
+//   S256 causal (max error 0.0156) and 3.5% at S1024 (a float32
+//   emulation on the CPU, as tests/test_torch_flash_attention.py runs
+//   it): rows with few keys, where sum p*v cancels. So P is split in
+//   registers into hi = bf16(p)
+//   and lo = bf16(p - hi) and O += P_hi.V + P_lo.V: 0 misses at both
+//   sizes (max 0.0039, the output's own rounding step). The tensor cores
+//   therefore issue 1.5x the function's work (3 products, not 2): 1.650
+//   TFLOP at the prefill shape, 1.668 ms at the peak.
+// - Grid. One block per (128 query rows, head, batch); the query tile
+//   is the slowest grid index and runs in reverse, so the heaviest
+//   causal tiles start first and the last wave holds the light ones.
+//   Consecutive blocks are the heads of one KV group, which share K/V
+//   tiles in L2. Key tiles wholly above the causal or prefix limit are
+//   never loaded.
+// - Warp specialisation. Three warpgroups: two consumers of 64 query
+//   rows each (setmaxnreg 232) and a producer (setmaxnreg 40). ptxas 12.8
+//   still fits the whole kernel in the 168 registers that 384 threads
+//   allow (setmaxnreg trims its spills, it does not lift the cap; 256
+//   threads with 255 registers ran no faster), so the key tile is 96
+//   keys: 64, 96 and 128 were timed, 128 spills most. An FA3-style
+//   pipeline (S of the next tile issued beside P.V) and ping-pong
+//   scheduling of the two consumers ran no faster either.
+// - Loads. One producer thread moves tiles with TMA
+//   (cp.async.bulk.tensor.4d over the strided [B, heads, S, hd] views,
+//   128-byte swizzle, boxes of 64 head-dim values): Q once, then K and V
+//   tiles into 2-stage rings guarded by full / empty mbarriers (the TMA's
+//   byte count completes "full"; one arrival per consumer warp completes
+//   "empty", K's as soon as S is computed, V's after P.V). Rows past Sq
+//   or Skv and head-dim columns past hd (hd 16, 32 ride in 64-wide boxes)
+//   arrive as zeros. No thread computes an address or waits at a
+//   __syncthreads in the loop.
+// - Consumers, per tile: S = Q.K^T with wgmma m64n96k16, both operands
+//   from shared memory (K-major descriptors); the online softmax in
+//   registers, with the scale log2(e)/sqrt(hd) applied to S in float32
+//   inside the exponent's FMA (not folded into a bf16 Q), ex2.approx,
+//   max and sum over each row's quad by shuffles; masks only on tiles
+//   that straddle the causal diagonal, the prefix edge or the ragged end,
+//   each element's (row, key) read from the accumulator's fragment layout;
+//   P split straight into the A-operand fragments (the accumulator and
+//   the A layout coincide for 16-bit types); O rescaled in registers
+//   (skipped when every alpha of the warp is exactly 1); O += P.V with A
+//   from registers and V from shared memory through the transposed-B
+//   form (MN-major descriptor). While one warpgroup is in its softmax,
+//   the other's products keep the tensor cores busy. The epilogue divides
+//   by max(l, 1e-30) and stores bf16 pairs through the output strides.
+// - What holds it back (chip_smoke phase 7, PERF.md): per 96-key tile a
+//   consumer spends about as long in the softmax and the split on the
+//   CUDA cores (one warp per scheduler, latency-bound) as in its two
+//   products, so the tensor cores are busy a bit over half the time; the
+//   split's third product; the 168-register cap above.
+//
+// float32 route (`attention_f32`, only float32 inputs): the CUDA cores.
+// One block of 128 threads per (64 query rows, head, batch) over 32-key
+// tiles staged in shared memory as float32; each thread owns 4 rows x 4
+// key columns of a score tile and hd/8 output columns; sums are explicit
+// __fmaf_rn (the library is built with -fmad=false). Its floor is 16.4 ms
+// at the prefill shape (67 TFLOP/s); only float32 activations take it.
+//
+// Both routes take strided q, k, v (last dimension contiguous), so the
+// model passes its [B,S,H,hd] projections without a transpose; the bf16
+// route needs 16-byte aligned bases and strides (the wrapper checks).
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,28 +93,41 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 32;        // keys per tile
-constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
-constexpr int kRows = kBQ / 16;
-constexpr int kCols = kBK / 8;
 constexpr int kMaxDevices = 64;  // shared-memory opt-ins are kept per device
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct Strides {
   long long b, h, s;
 };
 
-template <typename T, int HD>
+// Raises the dynamic shared-memory limit of `kern` to `bytes` on the
+// current device, once per device and instantiation, at the first launch
+// there (before any graph capture).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kern, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// ===================== float32: CUDA cores =====================
+namespace f32 {
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kBK = 32;        // keys per tile
+constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
+constexpr int kRows = kBQ / 16;
+constexpr int kCols = kBK / 8;
+
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H, int K, int Sq,
-                       int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
-                       int prefix_len, float scale) {
+attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int H, int K, int Sq,
+              int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
+              int prefix_len, float scale) {
   constexpr int QP = HD + 1;  // padded row strides (floats)
   constexpr int PP = kBK + 1;
   constexpr int kOut = HD / 8;
@@ -81,14 +145,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kh = h / (H / K);
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kh * ks.h;
-  const T* vb = v + b * vs.b + kh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
 
   for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int qi = q0 + r;
-    Qs[r * QP + d] = qi < Sq ? to_f32(qb[qi * qs.s + d]) * scale : 0.0f;
+    Qs[r * QP + d] = qi < Sq ? qb[qi * qs.s + d] * scale : 0.0f;
   }
 
   // the last key any row of this block may see, plus one
@@ -112,8 +176,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / HD, d = idx % HD;
       const int kj = k0 + r;
       const bool in = kj < Skv;
-      Ks[r * QP + d] = in ? to_f32(kb[kj * ks.s + d]) : 0.0f;
-      Vs[r * HD + d] = in ? to_f32(vb[kj * vs.s + d]) : 0.0f;
+      Ks[r * QP + d] = in ? kb[kj * ks.s + d] : 0.0f;
+      Vs[r * HD + d] = in ? vb[kj * vs.s + d] : 0.0f;
     }
     __syncthreads();
 
@@ -187,60 +251,584 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + b * os.b + h * os.h;
+  float* ob = out + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + tr + 16 * i;
     if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) store(ob + qi * os.s + tc + 8 * j, acc[i][j] / den);
+    for (int j = 0; j < kOut; ++j) ob[qi * os.s + tc + 8 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int K, int Sq,
-           int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode, int prefix_len,
-           float scale, cudaStream_t stream) {
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int H, int K, int Sq,
+              int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode, int prefix_len,
+              float scale, cudaStream_t stream) {
   constexpr int smem_floats = kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
   constexpr int smem = smem_floats * static_cast<int>(sizeof(float));
-  auto kern = flash_attention_kernel<T, HD>;
-  // The opt-in holds for the current device only: made once per device
-  // and instantiation, at the first launch there (before any graph capture).
+  auto kern = attention_f32<HD>;
   static bool opted_in[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in(kern, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) opted_in[dev] = true;
-  }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), static_cast<T*>(out), H, K,
+  kern<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                         static_cast<const float*>(v), static_cast<float*>(out), H, K,
                                          Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out, int B, int H,
-                int K, int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
-                int prefix_len, float scale, cudaStream_t s) {
+int launch(int hd, const void* q, const void* k, const void* v, void* out, int B, int H, int K,
+           int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
+           int prefix_len, float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
+    case 16: return launch_hd<16>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
+    case 32: return launch_hd<32>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
+    case 64: return launch_hd<64>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
+    case 128: return launch_hd<128>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+}  // namespace f32
+
+// ===================== bf16: tensor cores =====================
+namespace tc {
+
+constexpr int kBQ = 128;           // query rows per block: two consumer warpgroups of 64
+constexpr int kBK = 96;            // keys per tile (64, 96 and 128 timed on the card)
+constexpr int kStages = 2;         // depth of the K ring and of the V ring
+constexpr int kConsumers = 256;    // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kProducerRegs = 40;  // setmaxnreg targets (multiples of 8)
+constexpr int kConsumerRegs = 232;
+constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16 head-dim values
+constexpr long long kSpinLimit = 1ll << 26;  // a deadlocked wait traps instead of hanging
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > kSpinLimit) __trap();
+  }
+}
+
+// One TMA box of the 4-D map (hd, S, heads, B) into shared memory,
+// completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d,
+                                         int s, int head, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s), "r"(head), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma operands
+// across the asynchronous issue / wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// m64nNk16, f32 += bf16 * bf16. ss: A and B from shared memory (both
+// K-major); rs: A from registers, B from shared memory transposed
+// (MN-major). scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  else wgmma_rs_n64(d, a, db, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared memory: Q [HDP/64][kBQ][64], then kStages K tiles and kStages V
+// tiles, each [HDP/64][kBK][64] (128-byte swizzled rows, every box
+// 1024-aligned), then the barriers: q_full, full_k, full_v, empty_k,
+// empty_v (kStages each).
+template <int HDP>
+struct Layout {
+  static constexpr int kQBytes = kBQ * HDP * 2;
+  static constexpr int kTileBytes = kBK * HDP * 2;  // one K or V tile
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
+};
+
+// 2^x, flushed to 0 below 2^-126 (x <= 0 here: a weight that small
+// is 0 to the float32 sum it enters), ex2(-inf) = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Per-thread state of one consumer warpgroup's 64 query rows. The m64nN
+// accumulator fragment puts register 4j + 2i + e at row r0 + 8i, column
+// 8j + 2qd + e; rows r0 and r0 + 8 are this thread's. m is the running
+// max of the raw scores Q.K (the scale is positive); p = 2^(s*c - m*c)
+// with c = log2(e)/sqrt(hd), the scale applied to S in float32.
+struct Softmax {
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};  // this thread's columns only; summed over the quad at the end
+  float alpha[2] = {1.0f, 1.0f};
+
+  // sc: raw scores of the tile at k0 -> probabilities. kEdge: the tile
+  // straddles the causal diagonal, the prefix edge or the end of the keys.
+  // Branch-free, both rows at once, so their chains of max, shuffle and
+  // exp overlap.
+  template <bool kEdge>
+  __device__ __forceinline__ void step(float (&sc)[kBK / 2], int k0, int r0, int qd, int Skv,
+                                       int mode, int prefix_len, float c) {
+    float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * i + e];
+          if constexpr (kEdge) {
+            const int key = k0 + 8 * j + 2 * qd + e, row = r0 + 8 * i;
+            if (!(key < Skv && (mode == 2 || key <= row || (mode == 1 && key < prefix_len))))
+              x = -INFINITY;
+          }
+          mx[i][j % 2] = fmaxf(mx[i][j % 2], x);
+        }
+    float mc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mt = fmaxf(mx[i][0], mx[i][1]);
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[i], mt);
+      // no valid key yet (m_new = -inf): weights 0 and state untouched;
+      // else alpha is 0 while m was empty and exactly 1 if m holds
+      const bool empty_row = m_new == -INFINITY;
+      alpha[i] = empty_row ? 1.0f : ex2((m[i] - m_new) * c);
+      mc[i] = empty_row ? 0.0f : m_new * c;
+      m[i] = m_new;
+    }
+    float ps[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * i + e];
+          x = ex2(__fmaf_rn(x, c, -mc[i]));  // a masked -inf gives 0
+          ps[i][j % 2] += x;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = __fmaf_rn(alpha[i], l[i], ps[i][0] + ps[i][1]);
+  }
+};
+
+// P = hi + lo in bf16, laid out as the A fragments of P.V (for 16-bit
+// types the accumulator layout is the A layout).
+__device__ __forceinline__ void split_p(const float (&p)[kBK / 2], uint32_t (&hi)[kBK / 16][4],
+                                        uint32_t (&lo)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float p0 = p[8 * kk + 2 * r], p1 = p[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(h2);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[kk][r] = pack_bf16(p0 - hf.x, p1 - hf.y);
+    }
+}
+
+template <int HDP>
+__device__ __forceinline__ void rescale(float (&o)[HDP / 2], const float (&alpha)[2]) {
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) return;  // o * 1 = o
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+// S = Q K^T over the head dim, 16 at a time (4 steps per swizzled row).
+template <int HDP>
+__device__ __forceinline__ void issue_scores(float (&sc)[kBK / 2], uint32_t qa, uint32_t ka) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint32_t step = kk / 4, within = (kk % 4) * 32;
+    wgmma_ss_n96(sc, desc(qa + step * kBQ * kRowBytes + within, 16, 8 * kRowBytes),
+                 desc(ka + step * kBK * kRowBytes + within, 16, 8 * kRowBytes), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P_hi V + P_lo V, 16 keys a step (8-key groups 1024 bytes apart,
+// 64-wide head-dim boxes kBK rows apart: the MN-major layout).
+template <int HDP>
+__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2], uint32_t (&hi)[kBK / 16][4],
+                                         uint32_t (&lo)[kBK / 16][4], uint32_t va) {
+  fence_regs(o);
+  fence_regs(hi);
+  fence_regs(lo);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t dv = desc(va + kk * 16 * kRowBytes, kBK * kRowBytes, 8 * kRowBytes);
+    mma_rs<HDP>(o, hi[kk], dv);
+    mma_rs<HDP>(o, lo[kk], dv);
+  }
+  wgmma_commit();
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int H,
+             int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
+             float scale_log2) {
+  using L = Layout<HDP>;
+  constexpr int kAtoms = HDP / 64;  // 64-wide head-dim boxes per row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full_k = q_full + 8, full_v = full_k + 8 * kStages;  // + 8 * stage
+  const uint32_t empty_k = full_v + 8 * kStages, empty_v = empty_k + 8 * kStages;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / K);
+  const int q0 = qt * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
+  int k_end = Skv;  // the last key any row of this block may see, plus one
+  if (mode == 0) k_end = min(Skv, q_end);
+  if (mode == 1) k_end = min(Skv, max(q_end, prefix_len));
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a)
+        tma_load(sq + a * kBQ * kRowBytes, &qmap, q_full, 64 * a, q0, h, b);
+      // tile t of K (or V) into stage t % kStages, once both consumer
+      // warpgroups have released tile t - kStages there
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint32_t full = (kv ? full_v : full_k) + 8 * s;
+          if (t >= kStages) mbar_wait((kv ? empty_v : empty_k) + 8 * s, (t / kStages - 1) & 1);
+          mbar_expect_tx(full, L::kTileBytes);
+#pragma unroll
+          for (int a = 0; a < kAtoms; ++a)
+            tma_load((kv ? sv : sk) + s * L::kTileBytes + a * kBK * kRowBytes, kv ? &vmap : &kmap,
+                     full, 64 * a, t * kBK, kh, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each; per tile S = Q K^T, the online
+    // softmax, P split, O += P V. While one warpgroup is in its softmax
+    // the other's products keep the tensor cores busy. ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32, qd = lane % 4;
+    const int row_first = q0 + 64 * c;
+    const int r0 = row_first + 16 * (tid / 32) + lane / 4;
+    const uint32_t qa = sq + c * 64 * kRowBytes;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float o[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.0f;
+    Softmax sm;
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, parity = (t / kStages) & 1, k0 = t * kBK;
+      float sc[kBK / 2];
+      mbar_wait(full_k + 8 * s, parity);
+      issue_scores<HDP>(sc, qa, sk + s * L::kTileBytes);
+      wgmma_wait_all();
+      fence_regs(sc);
+      release(empty_k + 8 * s);
+      // mask only a tile that straddles the causal diagonal, the prefix
+      // edge or the end of the keys for these rows
+      const bool edge = k0 + kBK > Skv || (mode != 2 && k0 + kBK - 1 > row_first &&
+                                           !(mode == 1 && k0 + kBK - 1 < prefix_len));
+      if (edge) sm.step<true>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
+      else sm.step<false>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
+      uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
+      split_p(sc, hi, lo);
+      rescale<HDP>(o, sm.alpha);
+      mbar_wait(full_v + 8 * s, parity);
+      issue_pv<HDP>(o, hi, lo, sv + s * L::kTileBytes);
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(hi);
+      fence_regs(lo);
+      release(empty_v + 8 * s);
+    }
+
+    // epilogue: the row sums over the quad, O / max(l, 1e-30), bf16 pairs
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = sm.l[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = r0 + 8 * i;
+      if (row >= Sq) continue;
+      const float den = fmaxf(l, 1e-30f);
+      __nv_bfloat16* orow = out + b * os.b + h * os.h + row * os.s;
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int col = 8 * j + 2 * qd;
+        if (col < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime,
+// so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int kEncodeError = 100000;  // returned as kEncodeError + CUresult
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (hd, S, heads, B) of a strided bf16 view; boxes of 64
+// head-dim values x `rows` positions, zeros past either end.
+int encode(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B, Strides st,
+           int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+template <int HDP>
+int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
+               int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os, int mode,
+               int prefix_len, float scale, cudaStream_t stream) {
+  using L = Layout<HDP>;
+  auto kern = attention_tc<HDP>;
+  static bool opted_in[kMaxDevices] = {};
+  cudaError_t err = opt_in(kern, L::kBytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // setmaxnreg moves registers inside the block's allocation: the entry
+  // count must cover the producer's 40 plus the consumers' 232, or the
+  // consumers would wait for registers forever.
+  static int entry_regs = 0;
+  if (entry_regs == 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kern);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    entry_regs = attr.numRegs;
+  }
+  if (entry_regs * kThreads < kProducerRegs * 128 + kConsumerRegs * kConsumers)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  alignas(64) CUtensorMap maps[3];
+  int status = encode(&maps[0], q, hd, Sq, H, B, qs, kBQ);
+  if (status == 0) status = encode(&maps[1], k, hd, Skv, K, B, ks, kBK);
+  if (status == 0) status = encode(&maps[2], v, hd, Skv, K, B, vs, kBK);
+  if (status != 0) return status;
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  kern<<<grid, kThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
+                                              static_cast<__nv_bfloat16*>(out), H, K, Sq, Skv, hd,
+                                              os, mode, prefix_len, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(int hd, const void* q, const void* k, const void* v, void* out, int B, int H, int K,
+           int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
+           int prefix_len, float scale, cudaStream_t s) {
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 64)  // hd 16 and 32 ride in 64-wide boxes, zero-padded by the TMA
+    return launch_hdp<64>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
+                          scale, s);
+  return launch_hdp<128>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
+                         scale, s);
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. mode: 0 causal, 1 prefix, 2 full.
-// Strides are in elements, [b, h, s] for each of q, k, v, out; the head
-// dimension is contiguous. hd must be 16, 32, 64 or 128.
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). mode: 0
+// causal, 1 prefix, 2 full. Strides are in elements, [b, h, s] for each
+// of q, k, v, out; the head dimension is contiguous. hd must be 16, 32,
+// 64 or 128. For bf16, q, k, v need 16-byte aligned bases and strides.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int dtype, int B, int H, int K, int Sq, int Skv, int hd,
                                       const long long* strides, int mode, int prefix_len,
@@ -251,12 +839,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides os{strides[9], strides[10], strides[11]};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode,
-                              prefix_len, scale, s);
-  return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode,
-                                    prefix_len, scale, s);
+    return f32::launch(hd, q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len,
+                       scale, s);
+  return tc::launch(hd, q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
 }
 
 extern "C" const char* repro_error_string(int status) {
+  if (status >= tc::kEncodeError) return "cuTensorMapEncodeTiled refused the tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

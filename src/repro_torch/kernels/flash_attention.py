@@ -7,8 +7,10 @@ h*K//H; masks causal (k_pos <= q_pos), prefix (causal, or k_pos <
 prefix_len) and full, positions counted from 0. Scores, softmax and the
 output sum are float32; the output has q's dtype. A rejected score is
 -1e30 (the kernels' mask value; the JAX model uses finfo(f32).min / 2,
-and both give weight exactly 0 beside one valid key). The kernel lives in
-`csrc/flash_attention.cu`; its source note gives its bound and design.
+and both give weight exactly 0 beside one valid key). The kernels live in
+`csrc/flash_attention.cu`: bf16 inputs run on the tensor cores (wgmma,
+TMA), float32 inputs on the CUDA cores; its source note gives the bound
+and the design.
 """
 from __future__ import annotations
 
@@ -74,11 +76,36 @@ def _lib():
     return lib
 
 
+def _kernel_strides(x):
+    """x's [b, h, s] strides in elements, each of an extent-1 dimension
+    replaced by the packed value (its index is always 0, and TMA wants
+    every stride a multiple of 16 bytes)."""
+    out, packed = [], x.shape[-1]
+    for dim in (2, 1, 0):  # s, h, b
+        out.append(x.stride(dim) if x.shape[dim] > 1 else packed)
+        packed = out[-1] * x.shape[dim]
+    return out[::-1]
+
+
+def _check_tma(name, x):
+    """The bf16 kernel loads q, k, v with TMA, which takes a base aligned
+    to 16 bytes and strides that are multiples of 16 bytes. A view that
+    breaks either is refused; it is not copied and not routed elsewhere."""
+    nbytes = x.element_size()
+    strides = [st * nbytes for st in _kernel_strides(x)]
+    if x.data_ptr() % 16 or any(st % 16 for st in strides):
+        raise ValueError(f"flash_attention: TMA needs {name} with a 16-byte aligned base and "
+                         f"[b, h, s] strides that are multiples of 16 bytes; got base offset "
+                         f"{x.data_ptr() % 16} and strides {strides} bytes")
+
+
 def flash_attention_cuda(q, k, v, *, mask_mode="causal", prefix_len=0):
-    """Launches csrc/flash_attention.cu on PyTorch's current stream.
-    q, k, v may be strided views (the head dimension contiguous), such
-    as the model's [B,S,H,hd] projections transposed; the output takes
-    q's layout when q is dense, so the caller's transpose back is free."""
+    """Launches csrc/flash_attention.cu on PyTorch's current stream: bf16
+    on the tensor cores, float32 on the CUDA cores. q, k, v may be strided
+    views (the head dimension contiguous), such as the model's [B,S,H,hd]
+    projections transposed; for bf16 their bases and strides must be
+    16-byte multiples (`_check_tma`). The output takes q's layout when q
+    is dense, so the caller's transpose back is free."""
     global launches
     _check_mode(mask_mode)
     B, H, Sq, hd = q.shape
@@ -94,8 +121,11 @@ def flash_attention_cuda(q, k, v, *, mask_mode="causal", prefix_len=0):
         raise ValueError(f"flash_attention: unsupported shape H={H} K={K} Sq={Sq} Skv={Skv} "
                          f"hd={hd} (hd one of {HEAD_DIMS}, H a multiple of K)")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, x)
     out = torch.empty_like(q)
-    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in _kernel_strides(x)))
     lib = _lib()
     status = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -120,3 +120,60 @@ def test_bad_mask_mode_raises():
     (tq, tk, tv), _ = _inputs(1, 2, 1, 4, 4, 16, "float32", seed=0)
     with pytest.raises(ValueError, match="mask_mode"):
         ops.flash_attention(tq, tk, tv, mask_mode="sliding")
+
+
+# --- why the bf16 CUDA kernel splits its probabilities ------------------
+# csrc/flash_attention.cu runs P.V on bf16 tensor cores. These float32
+# emulations of its online softmax (128-key tiles, causal) show what
+# rounding P to bf16 once would do against chip_smoke.py phase 3c's bf16
+# tolerance, and that the hi + lo split it uses stays inside it.
+
+BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7  # chip_smoke.py ATTN_TOL: one bf16 rounding step
+
+
+def _tiled_emulation(q, k, v, *, split, bk=128):
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    qf = q.float().reshape(B, K, H // K, S, hd)
+    s_all = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * (1.0 / np.sqrt(hd))
+    pos = torch.arange(S)
+    s_all = torch.where(pos[None, :] <= pos[:, None], s_all, -np.inf)
+    m = torch.full(s_all.shape[:-1], -np.inf)
+    l = torch.zeros(s_all.shape[:-1])
+    o = torch.zeros(s_all.shape[:-1] + (hd,))
+    for k0 in range(0, S, bk):
+        s = s_all[..., k0:k0 + bk]
+        m_new = torch.maximum(m, s.amax(-1))  # key 0 is in tile 0: never -inf
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        vt = v.float()[:, :, None, k0:k0 + bk]
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        o = alpha[..., None] * o + pv
+        m = m_new
+    return (o / l.clamp_min(1e-30)[..., None]).reshape(B, H, S, hd).to(torch.bfloat16)
+
+
+def _misses(got, want):
+    diff = (got.float() - want.float()).abs()
+    return int((diff > BF16_ATOL + BF16_RTOL * want.float().abs()).sum())
+
+
+def _split_case():
+    (tq, tk, tv), _ = _inputs(2, 8, 2, 256, 256, 128, "bfloat16", seed=0)
+    return tq, tk, tv, flash_attention_plain(tq, tk, tv)
+
+
+def test_bf16_probabilities_would_miss_one_step():
+    tq, tk, tv, want = _split_case()
+    assert _misses(_tiled_emulation(tq, tk, tv, split=False), want) > 1000
+
+
+def test_split_probabilities_keep_one_step():
+    tq, tk, tv, want = _split_case()
+    got = _tiled_emulation(tq, tk, tv, split=True)
+    assert _misses(got, want) == 0
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8

@@ -142,9 +142,41 @@ def test_cuda_wrappers_check_their_inputs_before_building():
     with pytest.raises(ValueError, match="hd"):
         fa.flash_attention_cuda(torch.zeros((1, 2, 3, 24)), torch.zeros((1, 1, 3, 24)),
                                 torch.zeros((1, 1, 3, 24)))
+    # bf16 goes through TMA: a base off 16 bytes, or an s stride of 34 bytes
+    bf = torch.bfloat16
+    qb, kb = torch.zeros((1, 2, 3, 16), dtype=bf), torch.zeros((1, 1, 3, 16), dtype=bf)
+    shifted = torch.zeros(3 * 16 + 1, dtype=bf)[1:].view(1, 1, 3, 16)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_cuda(qb, shifted, kb)
+    wide = torch.zeros((1, 1, 3, 17), dtype=bf)[..., :16]
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_cuda(qb, kb, wide)
     kc = torch.zeros((1, 3, 1, 16))
     with pytest.raises(ValueError, match="pos"):
         fd.flash_decode_cuda(torch.zeros((1, 2, 16)), kc, kc, 1)
     with pytest.raises(ValueError, match="H/K"):
         fd.flash_decode_cuda(torch.zeros((1, 64, 16)), kc, kc, torch.zeros(1, dtype=torch.int32))
     assert fa.launches == 0 and fd.launches == 0
+
+
+# PyTorch's fused attention, the compiler, and packages of finished kernels
+LIBRARY_CALLS = ("scaled_dot_product_attention", "torch.compile", "flash_attn", "xformers",
+                 "flashinfer", "transformer_engine", "apex", "liger_kernel")
+
+
+def test_port_calls_no_library_attention():
+    """The port computes attention with its own kernels only: no module
+    under src/repro_torch/ names a library attention call, torch.compile
+    or a finished-kernel package (chip_smoke.py times SDPA as a yardstick
+    and is not part of the package)."""
+    found = []
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*")):
+        if path.suffix not in (".py", ".cu", ".cuh", ".h"):
+            continue
+        text = path.read_text()
+        found += [f"{path.relative_to(ROOT)}: {name}" for name in LIBRARY_CALLS if name in text]
+        if path.suffix == ".py":
+            for mod in _imported_modules(path):
+                if mod.split(".")[0] in LIBRARY_CALLS:
+                    found.append(f"{path.relative_to(ROOT)} imports {mod}")
+    assert not found, found
