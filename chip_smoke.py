@@ -32,8 +32,11 @@ paths):
    f32; for the bf16 tensor-core route also each hd (16, 32, 64, 128)
    off the 128-row tiles, prefix_len off a tile edge and past Sq,
    causal Sq > Skv and a single block (B 1, H 1, S 64); flash_decode
-   at B 8, H 32, K 2, S 4161, hd 128 for pos 0, 511, 512, 4095, 4160,
-   G = 1 and f32;
+   at B 8, H 32, K 2, S 4161, hd 128 for pos 0, 127, 128 (a tile edge),
+   511, 512, 527, 528 (a split edge), 4095, 4160, G = 1, 8 and 32, hd
+   16, 32, 64 off the 128-key tile, B = 1 and f32; and the LM layers'
+   emulations of XLA:CPU (rope_angles at positions 0-32767 for every
+   dense config, gelu_tanh, apply_rope) bitwise equal to the CPU's;
 3d. ssd_chunk_intra vs its plain version on the card, within
    |err| <= 2e-5 * max(1, sum|terms|) + 2e-5*|plain| (sum|terms|: the plain
    version on |x|, |B|, |C|), `total` bitwise (the prefix sums' order),
@@ -78,7 +81,9 @@ paths):
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
-   never calls it).
+   never calls it); flash_decode and SDPA also in turns (A, B, B, A),
+   both from CUDA-graph replay, with the decode kernel's ptxas
+   registers and spills.
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
@@ -636,6 +641,7 @@ def main() -> int:
     from repro_torch.kernels import ssd_chunk as sdc
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import build_model
+    from repro_torch.models import layers as lm_layers
     from repro_torch.serve import serve_loop
 
     dev = torch.device("cuda", 0)
@@ -748,6 +754,35 @@ def main() -> int:
         check_fill(S.abs(), E, C, P, f"[{B},{M}] non-negative scores")
         check_fill(S, E, torch.zeros_like(C), P, f"[{B},{M}] zero caps")
 
+    # the LM layers' float emulations of XLA:CPU (rope's glibc sinf/cosf
+    # and FMAs, tanh, GELU): one chain of elementwise torch calls each,
+    # so the card must give the CPU's bits
+    for arch in registry.DENSE_ARCHS:
+        cfg = registry.get_config(arch)
+        rot = int(cfg.resolved_head_dim * cfg.rope_fraction)
+        positions = torch.arange(32768, device=dev)
+        got = lm_layers.rope_angles(positions, rot, cfg.rope_theta)
+        want = lm_layers.rope_angles(positions.cpu(), rot, cfg.rope_theta)
+        for part, a, b in zip(("cos", "sin"), got, want):
+            if not torch.equal(a.cpu(), b):
+                fail(f"rope_angles {arch} {part}: the card differs from the CPU")
+        say(f"[3 numerics] rope_angles {arch} (rot {rot}, theta {cfg.rope_theta:g}) at positions "
+            "0-32767: cos, sin bitwise equal on the card and the CPU")
+    gc = torch.Generator().manual_seed(SEED)
+    xg = torch.cat([torch.linspace(-12, 12, 200001), torch.randn(100000, generator=gc) * 300])
+    xr = torch.randn((2, 64, 4, 128), generator=gc)
+    cos, sin = lm_layers.rope_angles(torch.arange(64), 128, 1e6)
+    for dt in (torch.float32, torch.bfloat16):
+        x = xg.to(dt)
+        if not torch.equal(lm_layers.gelu_tanh(x.to(dev)).cpu(), lm_layers.gelu_tanh(x)):
+            fail(f"gelu_tanh {dt}: the card differs from the CPU")
+        x = xr.to(dt)
+        got = lm_layers.apply_rope(x.to(dev), cos.to(dev), sin.to(dev), 1.0)
+        if not torch.equal(got.cpu(), lm_layers.apply_rope(x, cos, sin, 1.0)):
+            fail(f"apply_rope {dt}: the card differs from the CPU")
+    say("[3 numerics] gelu_tanh (XLA's tanh) and apply_rope (FMAs) in float32 and bfloat16: "
+        "bitwise equal on the card and the CPU")
+
     # ---- 3c. attention kernels vs plain versions on the card ---------
     max_err["flash_attention"] = max_err["flash_decode"] = 0.0
 
@@ -813,6 +848,19 @@ def main() -> int:
     decode_cases += [(LM_BATCH, 32, 32, LM_CACHE, 128, bf16, LM_CACHE - 1),  # G = 1
                      (LM_BATCH, 32, 2, LM_CACHE, 128, f32, LM_CACHE - 1),
                      (2, 8, 2, 1000, 64, f32, 255)]
+    # the tensor-core route's edges: G 8 and 32 (two row tiles), hd 16,
+    # 32, 64, S off the 128-key tile, pos at a tile edge and at the edge of
+    # the first split (528 positions at GLM-4-9B's B*K), B = 1 (many splits)
+    decode_cases += [(LM_BATCH, 32, 4, LM_CACHE, 128, bf16, LM_CACHE - 1),
+                     (2, 64, 2, 1000, 128, bf16, 999),
+                     (2, 8, 2, 777, 16, bf16, 700), (2, 8, 2, 777, 32, bf16, 776),
+                     (2, 16, 2, 1500, 64, bf16, 1499),
+                     (LM_BATCH, 32, 2, LM_CACHE, 128, bf16, 127),
+                     (LM_BATCH, 32, 2, LM_CACHE, 128, bf16, 128),
+                     (LM_BATCH, 32, 2, LM_CACHE, 128, bf16, 527),
+                     (LM_BATCH, 32, 2, LM_CACHE, 128, bf16, 528),
+                     (1, 32, 2, LM_CACHE, 128, bf16, LM_CACHE - 1),
+                     (1, 32, 2, LM_CACHE, 128, bf16, 300)]
     for B, H, K, S, hd, dt, pos in decode_cases:
         q, k, v = randn((B, H, hd), dt), randn((B, S, K, hd), dt), randn((B, S, K, hd), dt)
         p = torch.full((1,), pos, dtype=torch.int32, device=dev)
@@ -1130,8 +1178,20 @@ def main() -> int:
     call_ms = cuda_ms(lambda: fd.flash_decode_cuda(qd, kd, vd, posd), reps=20, inner=50)
     plain_ms = cuda_ms(lambda: fd.flash_decode_plain(qd, kd, vd, posd), reps=5, inner=3)
     kv_t, vv_t = kd[:, :LM_CACHE].transpose(1, 2), vd[:, :LM_CACHE].transpose(1, 2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t,
-                                                            enable_gqa=True), reps=20, inner=50)
+    def sdpa():
+        return F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t, enable_gqa=True)
+
+    lib_ms = cuda_ms(sdpa, reps=20, inner=50)
+    # device times in turns (kernel, SDPA, SDPA, kernel), both replayed
+    # from CUDA graphs, so the yardstick is read under the same conditions
+    turns = []
+    for fn in ("kernel", "sdpa", "sdpa", "kernel"):
+        turns.append(graph_ms(sdpa if fn == "sdpa" else
+                              (lambda: fd.flash_decode_cuda(qd, kd, vd, posd)), reps=20, inner=50))
+    say("[7 time] flash_decode vs SDPA in turns (kernel, SDPA, SDPA, kernel; CUDA graph replay, "
+        "ms cold / warm): " + ", ".join(f"{c:.5f} / {w:.5f}" for w, c in turns)
+        + f"; SDPA eager {lib_ms:.5f} ms per call; "
+        + " | ".join(ptxas_lines(built["flash_decode"][1], "decode_tc")))
     B, H, hd = qd.shape
     Kd, n_valid = kd.shape[2], LM_CACHE
     row("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",

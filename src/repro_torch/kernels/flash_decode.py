@@ -21,7 +21,8 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS, NEG_INF
 
 MAX_GROUP = 32  # queries per kv head the kernel takes
 
-# Launches of the CUDA kernel pair (split + combine) in this process.
+# Launches of the CUDA kernel (bf16: one kernel; float32: split + combine)
+# in this process.
 launches = 0
 
 
@@ -46,19 +47,48 @@ def _lib():
     lib = build.load("flash_decode")
     if lib.flash_decode_launch.argtypes is None:
         lib.flash_decode_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_decode_launch.restype = ctypes.c_int
-        lib.flash_decode_chunks.argtypes = [ctypes.c_int]
-        lib.flash_decode_chunks.restype = ctypes.c_int
+        lib.flash_decode_scratch.argtypes = [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+        lib.flash_decode_scratch.restype = ctypes.c_int
     return lib
 
 
+_SCRATCH: dict = {}  # (dtype code, B, S, K, G, hd, device) -> (floats, tickets)
+_TICKETS: dict = {}  # device -> zeroed int32 tickets, grown by doubling
+_RETIRED: list = []  # outgrown ticket buffers, kept alive for captured graphs
+
+
+def _scratch_sizes(lib, key):
+    sizes = _SCRATCH.get(key)
+    if sizes is None:
+        floats, tickets = ctypes.c_longlong(), ctypes.c_int()
+        build.check(lib, lib.flash_decode_scratch(*key[:6], ctypes.byref(floats),
+                                                  ctypes.byref(tickets)), "flash_decode")
+        sizes = _SCRATCH[key] = (floats.value, tickets.value)
+    return sizes
+
+
+def _tickets(dev, n):
+    """The device's zeroed ticket counters: each launch leaves them zero."""
+    buf = _TICKETS.get(dev)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = _TICKETS[dev] = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel()), 1024),
+                                          dtype=torch.int32, device=dev)
+    return buf
+
+
 def flash_decode_cuda(q, k, v, pos):
-    """Launches csrc/flash_decode.cu (split over cache chunks, then a
-    combine) on PyTorch's current stream. `pos` is an int32 tensor of
-    one element on the device: the kernels read it there, so a decode
-    loop never waits for the host. Scratch for the partial softmax
-    state comes from PyTorch's allocator."""
+    """Launches csrc/flash_decode.cu on PyTorch's current stream: bf16 on
+    the tensor cores in one launch (splits of the cache, the last block
+    of each group combining them), float32 on the CUDA cores (split and
+    combine). `pos` is an int32 tensor of one element on the device: the
+    kernels read it there, so a decode loop never waits for the host. The
+    partial softmax state lives in one float32 scratch tensor a call;
+    the combine's tickets in a zeroed buffer kept per device."""
     global launches
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -80,15 +110,14 @@ def flash_decode_cuda(q, k, v, pos):
     G = H // K
     q = q.contiguous()
     lib = _lib()
-    nc = lib.flash_decode_chunks(S)
-    m_part = torch.empty((B, K, nc, G), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, K, nc, G, hd), dtype=torch.float32, device=dev)
+    code = 0 if q.dtype == torch.float32 else 1
+    floats, n_tickets = _scratch_sizes(lib, (code, B, S, K, G, hd, dev))
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, n_tickets)
     out = torch.empty_like(q)
     status = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        0 if q.dtype == torch.float32 else 1, B, S, K, G, hd, 1.0 / math.sqrt(hd),
+        scratch.data_ptr(), tickets.data_ptr(), code, B, S, K, G, hd, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, status, "flash_decode")

@@ -8,7 +8,14 @@ emulates one in float64 and corrects the one case where that rounds
 twice. The CUDA kernels use `__fmaf_rn` at the same places.
 
 XLA:CPU also sums a `jnp.cumsum` in its own blocked order, which
-`cumsum_xla` follows (`torch.cumsum` runs one sequential sum).
+`cumsum_xla` follows (`torch.cumsum` runs one sequential sum); computes
+float32 `tanh` with its own rational approximation (`tanh_xla`); and
+calls the C library's `sinf`/`cosf` for float32 `sin`/`cos`, which
+`sincos_glibc` reproduces in float64 and int64 operations.
+
+Every function here is a chain of separate elementwise torch calls, so
+it gives the same bits on the CPU and on the card: one torch call does
+one IEEE operation, which no compiler can contract with another.
 """
 from __future__ import annotations
 
@@ -20,30 +27,198 @@ import torch.nn.functional as F
 SCAN_BLOCK = 16  # the block length of XLA:CPU's compiled cumsum (read from its HLO)
 
 
+_F32_MID_MASK = (1 << 29) - 1  # the float64 fraction bits below float32's 23
+_F32_MID = 1 << 28  # ... as they stand in a float32 midpoint: 1 then zeros
+
+
 def fma_f32(a, b, c) -> torch.Tensor:
-    """Single-rounded float32 `a*b + c`, elementwise with broadcasting.
+    """Single-rounded float32 `a*b + c`, elementwise with broadcasting
+    (a or b a tensor; any of them may be a Python float).
 
     The product of two float32 values is exact in float64, so the only
     error is in the sum: `s = fl64(p + c)` is rounded once to float64 and
     again to float32. The second rounding is wrong only when `s` lands
     exactly on a float32 midpoint while the exact sum does not (about
     one element in 2**27 on random data). TwoSum gives the exact error
-    `err` of `s`; where `s` is a midpoint and `err != 0`, the result is
-    the float32 neighbour on the side of the exact sum.
+    `err` of `s`; a midpoint `s` moved one float64 step towards `err`
+    rounds to the float32 on the side of the exact sum (err = 0 leaves
+    the tie to ties-to-even). The midpoint test reads the float64 bits,
+    which holds for results in float32's normal range and for zero.
     """
-    p = torch.as_tensor(a).double() * torch.as_tensor(b).double()
-    q = torch.as_tensor(c).double()
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else float(x)
+
+    p = f64(a) * f64(b)
+    q = f64(c)
     s = p + q
     bb = s - p
     err = (p - (s - bb)) + (q - bb)  # TwoSum: s + err == p + q exactly
-    r = s.float()
-    r64 = r.double()
-    above = s > r64
-    nb = torch.nextafter(r, torch.where(above, math.inf, -math.inf).float())
-    # float32 neighbours and their midpoint are exact in float64
-    mid = (s != r64) & (s - r64 == nb.double() - s)
-    fix = mid & (err != 0) & ((err > 0) == above)
+    mid = (s.view(torch.int64) & _F32_MID_MASK) == _F32_MID
+    return torch.where(mid, torch.nextafter(s, s + err * 1e300), s).float()
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)  # s + err == a + b exactly
+
+
+def _split(a):
+    c = a * 134217729.0  # 2**27 + 1: Veltkamp's split into two 26-bit halves
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b):
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl  # p + err == a*b exactly
+
+
+def fma_f64(a, b, c) -> torch.Tensor:
+    """Single-rounded float64 `a*b + c`, as an x86 `vfmadd` gives it.
+
+    Dekker's product and TwoSum carry a*b + c exactly as s + u + v with
+    |u| near an ulp of s and |v| near an ulp of u (for operands whose sum
+    does not cancel, which holds for every call in this module); s + u
+    rounds right unless it falls exactly on a midpoint, where v decides,
+    as in `fma_f32`. Inputs must stay far from overflow and underflow.
+    """
+    p, e = _two_prod(a, b)
+    s, t = _two_sum(p, c)
+    u, v = _two_sum(t, e)
+    r, w = _two_sum(s, u)  # a*b + c == r + w + v exactly
+    nb = torch.nextafter(r, torch.where(w > 0, math.inf, -math.inf).to(r.dtype))
+    fix = (w != 0) & (nb - r == 2 * w) & (v != 0) & ((v > 0) == (w > 0))
     return torch.where(fix, nb, r)
+
+
+# XLA:CPU's float32 tanh (its elemental IR emitter's rational approximation,
+# read from the optimized LLVM IR and the object code of jit(jnp.tanh),
+# jax 0.9.0): |x| < 0.0004 returns x, |x| >= 20 returns sign(x), and
+# otherwise x clamped to [-7.99..., 7.99...] goes through
+# x * P(x^2) / Q(x^2), each polynomial in Horner form with one FMA a step.
+_TANH_SMALL = float.fromhex("0x1.a36e2ep-12")
+_TANH_CLAMP = float.fromhex("0x1.ffec88p+2")
+_TANH_P = tuple(float.fromhex(h) for h in (
+    "-0x1.3e4b8p-52", "0x1.c266fcp-43", "-0x1.7a6ffep-34", "0x1.b80082p-25",
+    "0x1.f28694p-17", "0x1.4e1bdap-11", "0x1.40b3b8p-8"))
+_TANH_Q = tuple(float.fromhex(h) for h in (
+    "0x1.41a7b0p-20", "0x1.f12bacp-14", "0x1.29540ap-9", "0x1.40b3bap-8"))
+
+
+def tanh_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 tanh bitwise as XLA:CPU computes it under `jit`."""
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = torch.full_like(x2, _TANH_P[0])
+    for coef in _TANH_P[1:]:
+        p = fma_f32(x2, p, coef)
+    q = torch.full_like(x2, _TANH_Q[0])
+    for coef in _TANH_Q[1:]:
+        q = fma_f32(x2, q, coef)
+    y = (xc * p) / q
+    y = torch.where(x.abs() < _TANH_SMALL, x, y)
+    return torch.where(x.abs() >= 20.0, torch.copysign(torch.ones_like(x), x), y)
+
+
+# glibc's float32 sinf/cosf (sysdeps/ieee754/flt-32 s_sinf.c, s_cosf.c,
+# sincosf.h; the x86-64 FMA build, whose multiply-adds are single-rounded),
+# constants read from libm's .rodata: pi/2 and its inverse scaled by 2**24,
+# the cosine and sine polynomials of __sincosf_table[0] (table 1 is its
+# cosine negated), pi * 2**-62, and 4/pi in 32-bit words (__inv_pio4).
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")
+_HPI = float.fromhex("0x1.921fb54442d18p+0")
+_HPI_HI = float.fromhex("0x1.921fb58p+0")  # _HPI's first 26 bits, and the rest:
+_HPI_LO = float.fromhex("-0x1.dde974p-27")  # n * each is exact for |n| < 2**7
+_COS_C = tuple(float.fromhex(h) for h in (
+    "0x1p+0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10",
+    "0x1.99343027bf8c3p-16"))
+_SIN_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
+_PI63 = float.fromhex("0x1.921fb54442d18p-62")
+INV_PIO4 = (
+    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415, 0x4e441529,
+    0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5, 0x57d1f534, 0xd1f534dd,
+    0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295, 0xdb629599, 0x6295993c, 0x95993c43,
+    0x993c4390, 0x3c439041)
+_M32 = 0xFFFFFFFF
+
+
+_TABLES: dict = {}  # device -> INV_PIO4 as an int64 tensor
+
+
+def _inv_pio4(device) -> torch.Tensor:
+    """INV_PIO4 on `device`, filled there from Python scalars (no copy
+    from the host, so no synchronisation inside a decode loop) once per
+    device."""
+    table = _TABLES.get(device)
+    if table is None:
+        table = _TABLES[device] = torch.stack(
+            [torch.full((), w, dtype=torch.int64, device=device) for w in INV_PIO4])
+    return table
+
+
+def _reduce_large(xi: torch.Tensor):
+    """glibc's reduce_large: the float with bits xi (>= 2**7 in size) mod
+    pi/2 from 4/pi's bits in 32x32 -> 64-bit products, carried here as
+    32-bit halves so no int64 operation overflows. Returns the quadrant n
+    and the remainder as a float64 tensor."""
+    table = _inv_pio4(xi.device)
+    i = (xi >> 26) & 15
+    m = ((xi & 0x7FFFFF) | 0x800000) << ((xi >> 23) & 7)  # < 2**31
+    r0 = (m * table[i]) & _M32  # the low word of a 32-bit product
+    r1 = m * table[i + 4]  # < 2**63
+    r2 = m * table[i + 8]
+    lo = (r2 >> 32) + (r1 & _M32)
+    hi = (r0 + (r1 >> 32) + (lo >> 32)) & _M32  # res0 = hi:lo mod 2**64
+    lo = lo & _M32
+    n = ((hi + (1 << 29)) & _M32) >> 30  # (res0 + 2**61) >> 62
+    hi = (hi - (n << 30)) & _M32
+    hi = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)  # res0 as int64, high word
+    v = hi.double() * 4294967296.0 + lo.double()  # one rounding, as cvtsi2sd
+    return n, v * _PI63
+
+
+def sincos_glibc(x: torch.Tensor):
+    """float32 x -> (sinf(x), cosf(x)) bitwise as glibc 2.36's x86-64 FMA
+    build computes them (and so as XLA:CPU's jitted sin/cos, which call
+    it): below |x| = 120 the reduction by pi/2 in double, from 120 the
+    reduction against 4/pi's bits, then the double polynomials rounded
+    once to float. Non-finite x gives NaN."""
+    xi = x.view(torch.int32).to(torch.int64) & _M32
+    top = (xi >> 20) & 0x7FF
+    xd = x.double()
+    small = top < 0x3F4  # |x| < pi/4: no reduction
+    fast = ~small & (top < 0x42F)  # |x| < 120
+    # reduce_fast: n = round(x * 2/pi) from the 2**24-scaled product, and
+    # x - n*pi/2 with one rounding (the FMA), exact from the split of pi/2
+    t = (torch.where(fast, xd, 0.0) * _HPI_INV).to(torch.int64)
+    nf = (t + 0x800000) >> 24
+    nfd = nf.double()
+    rf = (xd - nfd * _HPI_HI) - nfd * _HPI_LO
+    nl, rl = _reduce_large(xi)
+    sign = xi >> 31
+    zero = torch.zeros_like(nf)
+    n = torch.where(small, zero, torch.where(fast, nf, nl))  # picks the polynomial
+    q = torch.where(small, zero, torch.where(fast, nf, nl + sign))  # picks the signs
+    r = torch.where(small, xd, torch.where(fast, rf, rl))
+    xs = torch.where((q & 3 == 1) | (q & 3 == 2), -r, r)
+    x2 = r * r
+    x3 = x2 * xs
+    s = fma_f64(fma_f64(x2, _SIN_S[2], _SIN_S[1]), x2 * x3, fma_f64(x3, _SIN_S[0], xs))
+    x4 = x2 * x2
+    c0, c1, c2, c3, c4 = _COS_C
+    c = fma_f64(fma_f64(x2, c4, c3), x2 * x4, fma_f64(x4, c2, fma_f64(x2, c1, c0)))
+    c = torch.where(q & 2 == 2, -c, c)
+    odd = n & 1 == 1
+    sin, cos = torch.where(odd, c, s).float(), torch.where(odd, s, c).float()
+    tiny = top < 0x398  # |x| < 2**-12: sin x = x, cos x = 1
+    sin = torch.where(tiny, x, sin)
+    cos = torch.where(tiny, torch.ones_like(x), cos)
+    bad = top >= 0x7F8
+    return sin.masked_fill(bad, math.nan), cos.masked_fill(bad, math.nan)
 
 
 def cumsum_xla(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -15,12 +15,14 @@ The JAX `shard_hint` is a no-op on one device and has no counterpart.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.numerics import fma_f32, sincos_glibc, tanh_xla
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -85,20 +87,45 @@ def residual_norm(p, x: torch.Tensor, y: torch.Tensor, kind: str):
 # --------------------------------------------------------------------------
 
 def rope_angles(positions: torch.Tensor, rot_dim: int, theta: float):
-    """positions [S] -> (cos, sin), each [S, rot_dim/2] float32. The
-    inverse frequencies are taken in float64 and rounded once, which is
-    what XLA's constant folding of the JAX expression gives (a float32
-    pow differs by an ulp at some theta)."""
+    """positions [S] -> (cos, sin), each [S, rot_dim/2] float32, bitwise
+    as XLA:CPU computes them. The inverse frequencies are taken in
+    float64 and rounded once, which is what XLA's constant folding of the
+    JAX expression gives (a float32 pow differs by an ulp at some theta);
+    the float32 angles go through glibc's cosf/sinf, which XLA:CPU calls
+    (`numerics.sincos_glibc`: torch.cos and torch.sin differ from them by
+    an ulp on about 5% of the angles)."""
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float64, device=positions.device) / rot_dim
     inv = (1.0 / (theta ** exps)).float()
     ang = positions.float()[..., None] * inv
-    return torch.cos(ang), torch.sin(ang)
+    sin, cos = sincos_glibc(ang)
+    return cos, sin
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_table(rot_dim: int, theta: float, n: int, device: torch.device):
+    return rope_angles(torch.arange(n, device=device), rot_dim, theta)
+
+
+def rope_tables(cfg, positions: torch.Tensor, n: int):
+    """(cos, sin) of `cfg`'s rotary dims at positions [S] (each < n), or
+    None when the config does not rotate. The table of positions 0..n-1
+    is computed once per (config, n, device) and kept, so a decode step
+    only gathers its row: the same numbers as `rope_angles(positions)`
+    for a few calls instead of several hundred. Computed once per
+    prefill or decode step and handed to every layer."""
+    if not (cfg.rope_fraction > 0 and cfg.n_heads):
+        return None
+    rot = int(cfg.resolved_head_dim * cfg.rope_fraction)
+    cos, sin = _rope_table(rot, float(cfg.rope_theta), n, positions.device)
+    return cos.index_select(0, positions), sin.index_select(0, positions)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, fraction: float):
     """x [B,S,H,hd]; cos/sin [S, rot/2]. Rotates the first int(hd *
     fraction) dims as two halves and passes the rest through; the
-    products promote to float32 and the result is cast back once."""
+    products promote to float32 and the result is cast back once. Each
+    half is one single-rounded FMA over a rounded product, as XLA:CPU
+    contracts the JAX expression under `jit`."""
     hd = x.shape[-1]
     rot = int(hd * fraction)
     if rot == 0:
@@ -106,9 +133,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, fraction: 
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-    y1 = x1 * cos - x2 * sin
-    y2 = x2 * cos + x1 * sin
-    return torch.cat([y1, y2, xp.to(y1.dtype)], dim=-1).to(x.dtype)
+    y1 = fma_f32(x1, cos, -(x2 * sin))  # x * sin: a float32 product (x promotes)
+    y2 = fma_f32(x2, cos, x1 * sin)
+    return torch.cat([y1, y2, xp.float()], dim=-1).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -145,45 +172,45 @@ def _out_proj(y: torch.Tensor, wo: torch.Tensor, cd) -> torch.Tensor:
     return y.reshape(B, S, H * hd) @ wo.to(cd).reshape(H * hd, -1)
 
 
-def qkv_rotated(p, x: torch.Tensor, cfg, positions: torch.Tensor):
-    """q [B,S,H,hd], k, v [B,S,K,hd] of x [B,S,D], q and k rotated at
-    `positions` [S] (the keys as the cache stores them)."""
+def qkv_rotated(p, x: torch.Tensor, cfg, rope):
+    """q [B,S,H,hd], k, v [B,S,K,hd] of x [B,S,D], q and k rotated by
+    `rope`, the (cos, sin) of `rope_tables` at x's positions (the keys as
+    the cache stores them)."""
     cd = dtype_of(cfg.compute_dtype)
-    hd = cfg.resolved_head_dim
     q = _project(x, p["wq"], p.get("bq"), cd)
     k = _project(x, p["wk"], p.get("bk"), cd)
     v = _project(x, p["wv"], p.get("bv"), cd)
-    if cfg.rope_fraction > 0 and cfg.n_heads:
-        cos, sin = rope_angles(positions, int(hd * cfg.rope_fraction), cfg.rope_theta)
-        q = apply_rope(q, cos, sin, cfg.rope_fraction)
-        k = apply_rope(k, cos, sin, cfg.rope_fraction)
+    if rope is not None:  # q and k rotated in one pass (fewer calls a layer)
+        qk = apply_rope(torch.cat([q, k], dim=2), *rope, cfg.rope_fraction)
+        q, k = qk[:, :, :q.shape[2]], qk[:, :, q.shape[2]:]
     return q, k, v
 
 
-def gqa_attention(p, x: torch.Tensor, cfg, *, mask_mode: str = "causal", prefix_len: int = 0,
-                  return_kv: bool = False):
+def gqa_attention(p, x: torch.Tensor, cfg, rope, *, mask_mode: str = "causal",
+                  prefix_len: int = 0, return_kv: bool = False):
     """Self-attention over x [B,S,D] -> [B,S,D] (and, with return_kv,
-    the rotated k and v [B,S,K,hd] for the cache). The kernel reads the
-    [B,S,H,hd] projections through strides, so the transposes to its
-    [B,H,S,hd] layout and back copy nothing."""
+    the rotated k and v [B,S,K,hd] for the cache); `rope` is
+    `rope_tables(cfg, arange(S), n)`. The kernel reads the [B,S,H,hd]
+    projections through strides, so the transposes to its [B,H,S,hd]
+    layout and back copy nothing."""
     cd = dtype_of(cfg.compute_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = qkv_rotated(p, x, cfg, positions)
+    q, k, v = qkv_rotated(p, x, cfg, rope)
     y = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             mask_mode=mask_mode, prefix_len=prefix_len).transpose(1, 2)
     out = _out_proj(y, p["wo"], cd)
     return (out, (k, v)) if return_kv else out
 
 
-def decode_attention(p, x: torch.Tensor, cfg, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
-    """One decode step: x [B,1,D], caches [B,C,K,hd], pos a 0-d int32
-    tensor on x's device. Writes the rotated k and v at `pos` into the
-    caches IN PLACE (the JAX function returns updated copies), then
-    attends over positions 0..pos. Returns [B,1,D]."""
+def decode_attention(p, x: torch.Tensor, cfg, rope, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One decode step: x [B,1,D], `rope` = `rope_tables(cfg, pos[None], C)`,
+    caches [B,C,K,hd], pos a 0-d int32 tensor on x's device. Writes the
+    rotated k and v at `pos` into the caches IN PLACE (the JAX function
+    returns updated copies), then attends over positions 0..pos. Returns
+    [B,1,D]."""
     cd = dtype_of(cfg.compute_dtype)
     index = pos.reshape(1).long()
-    q, k, v = qkv_rotated(p, x, cfg, pos.reshape(1))
+    q, k, v = qkv_rotated(p, x, cfg, rope)
     cache_k.index_copy_(1, index, k.to(cache_k.dtype))
     cache_v.index_copy_(1, index, v.to(cache_v.dtype))
     y = ops.flash_decode(q[:, 0], cache_k, cache_v, pos.reshape(1))  # [B,H,hd]
@@ -213,15 +240,35 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu (the tanh form) as XLA:CPU computes it under `jit`:
+    0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))) * x, op by op in
+    x's dtype with the constants rounded to it, and tanh as XLA's float32
+    approximation (`numerics.tanh_xla`). In float32 the one multiply-add
+    x + x^3 * c is contracted into an FMA; in bfloat16 every op rounds,
+    so nothing is (both read from the compiled HLO and object code)."""
+    def const(c):
+        return torch.tensor(c, dtype=x.dtype).item()
+
+    x3 = (x * x) * x
+    if x.dtype == torch.float32:
+        inner = fma_f32(x3, const(0.044715), x)
+    else:
+        inner = x + x3 * const(0.044715)
+    t = inner * const(math.sqrt(2.0 / math.pi))
+    th = tanh_xla(t.float()).to(x.dtype)
+    return x * ((th + 1.0) * 0.5)
+
+
 def apply_mlp(p, x: torch.Tensor, activation: str, compute_dtype) -> torch.Tensor:
     cd = dtype_of(compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
     h = x @ p["w_in"].to(cd)
     if activation == "swiglu":
         h = silu(x @ p["w_gate"].to(cd)) * h
     elif activation == "geglu":
-        h = F.gelu(x @ p["w_gate"].to(cd), approximate="tanh") * h
+        h = gelu_tanh(x @ p["w_gate"].to(cd)) * h
     elif activation == "gelu":
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        h = gelu_tanh(h)  # jax.nn.gelu's default
     elif activation == "relu":
         h = F.relu(h)
     else:

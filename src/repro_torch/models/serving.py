@@ -57,10 +57,11 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, cache_len: int | None =
     K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     ks = torch.zeros((cfg.n_layers, B, C, K, hd), dtype=cd, device=x.device)
     vs = torch.zeros_like(ks)
+    rope = L.rope_tables(cfg, torch.arange(S, device=x.device), C)
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
-        y, (k, v) = L.gqa_attention(lp["attn"], h, cfg, mask_mode="causal", return_kv=True)
+        y, (k, v) = L.gqa_attention(lp["attn"], h, cfg, rope, mask_mode="causal", return_kv=True)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
         x, h = L.residual_norm(lp["ln2"], x, y, cfg.norm)
@@ -81,10 +82,11 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], cfg
     cd = L.dtype_of(cfg.compute_dtype)
     x = F.embedding(token, params["embed"]).to(cd)  # [B,1,D]
     pos = cache["pos"]
+    rope = L.rope_tables(cfg, pos.reshape(1), cache["k"].shape[2])
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
-        y = L.decode_attention(lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos)
+        y = L.decode_attention(lp["attn"], h, cfg, rope, cache["k"][i], cache["v"][i], pos)
         x, h = L.residual_norm(lp["ln2"], x, y, cfg.norm)
         x = x + _apply_ffn(lp, h, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)

@@ -111,9 +111,9 @@ def _apply_ffn(p, x: torch.Tensor, cfg) -> torch.Tensor:
     return L.apply_mlp(p["mlp"], x, cfg.activation, cfg.compute_dtype)
 
 
-def _dense_block(x, lp, cfg, mask_mode, prefix_len):
+def _dense_block(x, lp, cfg, rope, mask_mode, prefix_len):
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
-    y = L.gqa_attention(lp["attn"], h, cfg, mask_mode=mask_mode, prefix_len=prefix_len)
+    y = L.gqa_attention(lp["attn"], h, cfg, rope, mask_mode=mask_mode, prefix_len=prefix_len)
     x, h = L.residual_norm(lp["ln2"], x, y, cfg.norm)
     return x + _apply_ffn(lp, h, cfg)
 
@@ -126,12 +126,14 @@ def _ssm_block(x, lp, cfg):
 def backbone(params, x: torch.Tensor, cfg, *, mask_mode="causal", prefix_len=0):
     """Runs the decoder stack on embedded inputs x [B,S,D]."""
     require_ported(cfg)
+    S = x.shape[1]
+    rope = None if cfg.family == "ssm" else L.rope_tables(cfg, torch.arange(S, device=x.device), S)
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         if cfg.family == "ssm":
             x = _ssm_block(x, lp, cfg)
         else:
-            x = _dense_block(x, lp, cfg, mask_mode, prefix_len)
+            x = _dense_block(x, lp, cfg, rope, mask_mode, prefix_len)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 

@@ -84,3 +84,109 @@ def test_positions_past_pos_are_ignored():
     tv[:, 41:] = -1e4
     after = ops.flash_decode(tq, tk, tv, torch.tensor(40, dtype=torch.int32))
     assert torch.equal(before, after)
+
+
+# --- the bf16 CUDA kernel's arithmetic -----------------------------------
+# csrc/flash_decode.cu's bf16 route (`decode_tc`) splits the cache into
+# `_split_len` positions per block, scores 128-key tiles with each of 8
+# warps on 16 keys and its own online softmax (scores q.k in float32, the
+# scale log2(e)/sqrt(hd) inside exp2), runs P.V on bf16 tensor cores with
+# P split into hi + lo, merges the warps, then the splits. This float32
+# emulation of that order is held to chip_smoke.py phase 3c's bf16
+# tolerance against the plain version, at 3c's decode shapes with B cut
+# to 1-2; rounding P once instead misses it.
+
+BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7  # chip_smoke.py ATTN_TOL: one bf16 rounding step
+SMS, TILE, WARP_KEYS, MIN_SPLIT, MAX_SPLITS = 132, 128, 16, 256, 64  # as csrc/flash_decode.cu
+
+
+def _split_len(units, S):
+    splits = max(1, min(MAX_SPLITS, SMS // units))
+    n = -(-S // splits)
+    return max(-(-n // 16) * 16, MIN_SPLIT)
+
+
+def _decode_emulation(q, k, v, pos, *, split=True):
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    c = (1.0 / np.sqrt(hd)) * np.log2(np.e)
+    n = _split_len(B * K * -(-G // 16), S)
+    last = min(pos, S - 1)
+    qf = q.float().reshape(B, K, G, hd)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B,K,S,hd]
+    parts = []
+    for s0 in range(0, last + 1, n):
+        s1 = min(s0 + n, last + 1)
+        warps = []
+        for w in range(TILE // WARP_KEYS):
+            m = torch.full((B, K, G), -np.inf)
+            l = torch.zeros((B, K, G))
+            o = torch.zeros((B, K, G, hd))
+            for t0 in range(s0, s1, TILE):
+                a, e = t0 + w * WARP_KEYS, min(t0 + (w + 1) * WARP_KEYS, s1)
+                if a >= e:
+                    continue
+                sc = qf @ kf[:, :, a:e].transpose(-1, -2)  # raw scores [B,K,G,keys]
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp2((m - m_new) * c)
+                p = torch.exp2(sc * c - (m_new * c)[..., None])
+                l = alpha * l + p.sum(-1)
+                hi = p.bfloat16().float()
+                pv = hi @ vf[:, :, a:e]
+                if split:
+                    pv = pv + (p - hi).bfloat16().float() @ vf[:, :, a:e]
+                o = alpha[..., None] * o + pv
+                m = m_new
+            warps.append((m, l, o))
+        M = torch.stack([w[0] for w in warps]).amax(0)
+        f = [torch.where(w[0] == -np.inf, 0.0, torch.exp2((w[0] - M) * c)) for w in warps]
+        parts.append((M, sum(fi * w[1] for fi, w in zip(f, warps)),
+                      sum(fi[..., None] * w[2] for fi, w in zip(f, warps))))
+    M = torch.stack([p[0] for p in parts]).amax(0)
+    f = [torch.exp2((p[0] - M) * c) for p in parts]
+    L = sum(fi * p[1] for fi, p in zip(f, parts))
+    O = sum(fi[..., None] * p[2] for fi, p in zip(f, parts))
+    return (O / L.clamp_min(1e-30)[..., None]).reshape(B, H, hd).to(torch.bfloat16)
+
+
+def _misses(got, want):
+    diff = (got.float() - want.float()).abs()
+    return int((diff > BF16_ATOL + BF16_RTOL * want.float().abs()).sum())
+
+
+DECODE_CASES = [  # chip_smoke 3c's bf16 decode cases with B cut: B, H, K, S, hd, pos
+    (2, 32, 2, 4161, 128, 0), (2, 32, 2, 4161, 128, 511), (2, 32, 2, 4161, 128, 512),
+    (2, 32, 2, 4161, 128, 4095), (2, 32, 2, 4161, 128, 4160),
+    (2, 32, 32, 4161, 128, 4160),  # G = 1
+    (2, 32, 4, 4161, 128, 4160),   # G = 8
+    (1, 64, 2, 1000, 128, 999),    # G = 32: two row tiles
+    (2, 8, 2, 777, 16, 700), (2, 8, 2, 777, 32, 776), (2, 16, 2, 1500, 64, 1499),
+    (1, 32, 2, 4161, 128, 4159),   # B = 1: many splits
+    (1, 32, 2, 4161, 128, 127), (1, 32, 2, 4161, 128, 128),  # a tile edge
+]
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,pos", DECODE_CASES)
+def test_kernel_arithmetic_keeps_one_step(B, H, K, S, hd, pos):
+    (tq, tk, tv), _ = _inputs(B, H, K, S, hd, "bfloat16", seed=S + pos + H)
+    want = ops.flash_decode(tq, tk, tv, pos)
+    got = _decode_emulation(tq, tk, tv, pos)
+    assert _misses(got, want) == 0
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -6
+
+
+def test_split_edge_of_the_kernel():
+    """pos on and past the first split's last position, for GLM-4-9B's
+    decode at batch 8 (8 splits of 528 positions)."""
+    assert _split_len(8 * 2, 4161) == 528
+    (tq, tk, tv), _ = _inputs(8, 32, 2, 4161, 128, "bfloat16", seed=7)
+    for pos in (527, 528):
+        want = ops.flash_decode(tq, tk, tv, pos)
+        assert _misses(_decode_emulation(tq, tk, tv, pos), want) == 0
+
+
+def test_single_rounded_probabilities_would_miss():
+    (tq, tk, tv), _ = _inputs(2, 32, 2, 4161, 128, "bfloat16", seed=4161 + 511 + 32)
+    want = ops.flash_decode(tq, tk, tv, 511)
+    assert _misses(_decode_emulation(tq, tk, tv, 511, split=False), want) > 0
