@@ -43,7 +43,15 @@ paths):
    at mamba2-1.3B's prefill shape (B 8, nc 16,
    l 256, H 64, P 64, N 128) with strong, weak and the init's decays, a
    ragged chunk (l 100), H not a multiple of the 8-head group, B = nc = 1,
-   and small, ragged and l = 1 shapes;
+   and small, ragged and l = 1 shapes; and at the kernel's tile edges
+   (64-row y tiles, 16- and 32-position steps, 128-state S_c passes,
+   16-column x blocks, 32 heads a y block, 2 an S_c block): l 64, 65,
+   128, 255; N 8, 136; P 8, 48; H 1, 3, 40 (with N 256); and inputs taken
+   every other head from a 26-head tensor (H 13, a strided view the
+   wrapper refuses, then its contiguous copy); x, B and C 4 bytes off a
+   16-byte boundary (rows moved 4 bytes at a time); at the prefill shape
+   y_diag and S_c bitwise equal to the plain version's (the kernel sums
+   in its order: phase 9's float32 gate needs the same bits);
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
    counters checked, ms per slot from CUDA events, then again in turns
@@ -83,7 +91,12 @@ paths):
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
    never calls it); flash_decode and SDPA also in turns (A, B, B, A),
    both from CUDA-graph replay, with the decode kernel's ptxas
-   registers and spills.
+   registers and spills; ssd_chunk_intra (its two launches timed
+   together; phase 9's prefill profile names each) with its bound on the
+   float32 CUDA cores and beside it the bytes' bound and the bound of the
+   same work as 3xTF32 on the tensor cores, ptxas registers and spills,
+   and the count of its SASS's FFMA
+   and tf32 tensor-core (HGMMA/HMMA ...TF32) instructions (cuobjdump).
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
@@ -135,6 +148,7 @@ LM_TEACHER_STEPS, LOGIT_F32_TOL, LOGIT_ERR_RATIO = 4, 1e-4, 1.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
 BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12    # H100 SXM data sheet, dense tf32 tensor cores
 # kernels vs plain attention, |err| <= abs + rel * |plain|: both sides
 # compute in float32 and round once to the output type. In float32 they
 # differ by summation order (tests/test_kernels.py's 2e-5); in bf16 that
@@ -546,6 +560,11 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
         top = sorted(((v, k) for k, v in prof.items()), reverse=True)
         say(f"[{tag}] one prefill under the profiler: device busy {busy:.1f} ms of {prefill_ms:.1f} "
             "ms; top kernels " + ", ".join(f"{k[:56]} {v:.1f} ms" for v, k in top[:8]))
+        # ssd_chunk_intra launches two kernels; name both
+        ssd = [f"{re.search(r'ssd_[a-z]+_kernel', k).group()} {v:.1f} ms" for v, k in top
+               if re.search(r"ssd_[a-z]+_kernel", k)]
+        if ssd:
+            say(f"[{tag}] ssd_chunk_intra's two kernels in that prefill: " + ", ".join(ssd))
     # one more step (for a KV cache, at its last slot), under the profiler
     prof, host = profile_slots(lambda: model.decode_step(params, tok, cache), slots=1)
     if prof is None:
@@ -898,10 +917,49 @@ def main() -> int:
         (2, 3, 32, 16, 8, 16, "strong"),             # tests/test_kernels.py's sweep shape
         (1, 2, 17, 5, 33, 40, "weak"),               # ragged everything
         (1, 1, 1, 3, 16, 8, "init"),                 # l = 1
+        # the tile edges of the kernel: 64-row y tiles (l 64, 65, 128), a
+        # ragged last 16- and 32-position step (l 255), 128-state S_c
+        # passes (N 8, 136), 16-column x blocks (P 8, 48), heads past the
+        # y block's 8 warps and the S_c block's 2 heads (H 1, 3), a second
+        # 32-head y block with two S_c passes (H 40, N 256)
+        (2, 2, 64, 8, 64, 128, "init"),
+        (2, 2, 65, 8, 64, 128, "strong"),
+        (1, 3, 128, 8, 64, 128, "weak"),
+        (1, 2, 255, 8, 64, 128, "init"),
+        (1, 2, 256, 8, 64, 8, "weak"),
+        (1, 2, 256, 8, 64, 136, "strong"),
+        (1, 2, 256, 8, 8, 128, "init"),
+        (1, 2, 256, 8, 48, 128, "weak"),
+        (1, 2, 256, 1, 64, 128, "strong"),
+        (1, 2, 256, 3, 64, 128, "init"),
+        (1, 2, 256, 40, 64, 256, "init"),
+        # every other head of a 26-head tensor: H 13, not a multiple of the
+        # group, as a strided view (refused) and then its contiguous copy
+        (1, 2, 256, 13, 64, 128, "strided"),
+        # x, B and C contiguous but 4 bytes past a 16-byte boundary: the
+        # kernel moves their rows 4 bytes at a time
+        (1, 2, 256, 8, 64, 128, "shifted"),
     ]
     ssd_main = None
     for B, nc, l, H, P, N, decays in ssd_cases:
-        args = ssd_inputs(B, nc, l, H, P, N, decays)
+        if decays == "strided":
+            a2, x2, Bm, Cm = ssd_inputs(B, nc, l, 2 * H, P, N, "init")
+            a, x = a2[..., ::2], x2[..., ::2, :]
+            try:
+                sdc.ssd_chunk_intra_cuda(a, x, Bm, Cm)
+                fail("ssd_chunk_intra took a strided view; the kernel reads contiguous rows")
+            except ValueError:
+                pass
+            args = (a.contiguous(), x.contiguous(), Bm, Cm)
+            del a2, x2
+        elif decays == "shifted":
+            a, x, Bm, Cm = ssd_inputs(B, nc, l, H, P, N, "init")
+            args = (a, *(torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                         for t in (x, Bm, Cm)))
+            if not all(t.is_contiguous() and t.data_ptr() % 16 == 4 for t in args[1:]):
+                fail("ssd_chunk_intra: the shifted case's inputs are not 4 bytes off 16")
+        else:
+            args = ssd_inputs(B, nc, l, H, P, N, decays)
         got = sdc.ssd_chunk_intra_cuda(*args)
         want = sdc.ssd_chunk_intra_plain(*args)
         a, x, Bm, Cm = args
@@ -923,11 +981,20 @@ def main() -> int:
                      f"from the plain version's ({err:.3e}): the prefix sums' order differs")
             max_err["ssd_chunk_intra"] = max(max_err["ssd_chunk_intra"], err)
             parts.append(f"{part} {err:.3e} ({over:.3f} of the limit; {over_f32:.3f} of "
-                         f"{SSD_TOL:g} + {SSD_TOL:g}*|plain|)")
+                         f"{SSD_TOL:g} + {SSD_TOL:g}*|plain|; {int((gv != wv).sum())} of "
+                         f"{gv.numel()} entries differ)")
         say(f"[3d kernels] ssd_chunk_intra B{B} nc{nc} l{l} H{H} P{P} N{N} {decays} decays: max abs "
             "err vs plain " + ", ".join(parts))
         if ssd_main is None:
             ssd_main = args
+        # at the prefill shape the kernel sums in the plain version's order
+        # (cuBLAS's), and phase 9's float32 gate needs those bits: 48
+        # float32 layers move the logits about 3e-4 for any other (PR 17)
+        if (B, nc, l, H, P, N) == (LM_BATCH, 16, 256, 64, 64, 128):
+            for part, gv, wv in zip(("y_diag", "S_c"), got, want):
+                if not torch.equal(gv, wv):
+                    fail(f"ssd_chunk_intra B{B} nc{nc} l{l} H{H} P{P} N{N} {decays}: {part} "
+                         f"differs from the plain version's in {int((gv != wv).sum())} entries")
         del args, got, want, sum_abs, a, x, Bm, Cm
 
     # ---- 4. main path at M4096xN256 --------------------------------
@@ -1210,12 +1277,31 @@ def main() -> int:
     ms = graph_ms(lambda: sdc.ssd_chunk_intra_cuda(*ssd_main), reps=3, inner=2)
     call_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_cuda(*ssd_main), reps=3, inner=2)
     plain_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_plain(*ssd_main), reps=2, inner=1)
+    # bound: the float32 operations on the CUDA cores (the kernel must sum
+    # in the plain version's order); beside it the bytes' bound and the
+    # same work as 3xTF32 on the tensor cores (three tf32 products each)
     pairs = l * (l + 1) // 2
-    nops = B * nc * (H * pairs * (2 * P + 1) + H * l * P * (2 * N + 1) + pairs * 2 * N)
+    products = B * nc * (H * pairs * 2 * P + H * l * P * 2 * N + pairs * 2 * N)
+    nops = products + B * nc * (H * pairs + H * l * P)
+    nbytes = 4 * (2 * B * nc * l * H * P + B * nc * l * H + 2 * B * nc * l * N
+                  + B * nc * H * N * P + B * nc * H)
+    tc_ms = (3 * products / TF32_OPS_PER_S + (nops - products) / FP32_OPS_PER_S) * 1e3
     row("ssd_chunk_intra", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "src/repro/kernels/ssd_chunk.py:62", ssm_launches["ssd_chunk_intra"], ms, call_ms,
-        plain_ms, nbytes=4 * (2 * B * nc * l * H * P + B * nc * l * H + 2 * B * nc * l * N
-                              + B * nc * H * N * P + B * nc * H), nops=nops)
+        plain_ms, nbytes=nbytes, nops=nops)
+    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+                           str(build.library_path("ssd_chunk"))],
+                          capture_output=True, text=True, timeout=120).stdout.splitlines()
+    n_ffma = sum("FFMA" in ln for ln in sass)
+    n_tf32 = sum(("HGMMA" in ln or "HMMA" in ln) and "TF32" in ln for ln in sass)
+    say(f"[7 time] ssd_chunk_intra bounds: float32 CUDA cores {nops / FP32_OPS_PER_S * 1e3:.5f} "
+        f"ms ({nops / 1e9:.2f} GFLOP at 67 TFLOP/s), bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"({nbytes / 1e6:.2f} MB at 3.35 TB/s), the same work as 3xTF32 on the tensor cores "
+        f"{tc_ms:.5f} ms (3 x {products / 1e9:.2f} GFLOP at 495 TFLOP/s + "
+        f"{(nops - products) / 1e9:.2f} at 67); SASS: {n_ffma} FFMA, {n_tf32} tf32 tensor-core "
+        "instructions; "
+        + " | ".join(ptxas_lines(built["ssd_chunk"][1], "ssd_y_kernel")
+                     + ptxas_lines(built["ssd_chunk"][1], "ssd_state_kernel")))
     say(f"[7 time] ssd_chunk_intra: x {ssm_cfg.n_layers} layers = {ms[1] * ssm_cfg.n_layers:.1f} "
         "ms of the prefill")
     del ssd_main, a, x, Bm, Cm

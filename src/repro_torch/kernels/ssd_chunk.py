@@ -48,6 +48,25 @@ def ssd_chunk_intra_plain(a, x, Bm, Cm):
     return y, S_c, total
 
 
+def ssd_chunk_intra_f64(a, x, Bm, Cm):
+    """The same step evaluated in float64 (the prefix sum in index order:
+    at float64 its order is immaterial) -> (y_diag, S_c, total), float64:
+    an oracle for the accuracy of the float32 versions."""
+    a, x, Bm, Cm = a.double(), x.double(), Bm.double(), Cm.double()
+    ci = torch.cumsum(a, dim=2)
+    l = a.shape[2]
+    tril = torch.ones((l, l), dtype=torch.bool, device=a.device).tril()[..., None]
+    y = torch.empty_like(x)
+    for b in range(a.shape[0]):
+        diff = torch.where(tril, ci[b, :, :, None, :] - ci[b, :, None, :, :], 0.0)
+        Lmat = torch.where(tril, torch.exp(diff), 0.0)
+        scores = torch.einsum("cin,cjn->cij", Cm[b], Bm[b])
+        y[b] = torch.einsum("cijh,cjhp->cihp", scores[..., None] * Lmat, x[b])
+    decay_end = torch.exp(ci[:, :, -1:, :] - ci)
+    S_c = torch.einsum("bcjn,bcjhp->bchnp", Bm, x * decay_end[..., None])
+    return y, S_c, torch.exp(ci[:, :, -1, :])
+
+
 def _lib():
     lib = build.load("ssd_chunk")
     if lib.ssd_chunk_intra_launch.argtypes is None:

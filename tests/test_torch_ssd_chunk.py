@@ -160,3 +160,122 @@ def test_cuda_wrapper_checks_its_inputs_before_building():
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssd_chunk_intra(a.to("meta"), x.to("meta"), Bm.to("meta"), Cm.to("meta"))
     assert ssd_chunk.launches == 0
+
+
+# ---- a tensor-core route's arithmetic, emulated on the CPU --------------
+# The kernel (csrc/ssd_chunk.cu) sums on the float32 CUDA cores in the
+# plain version's order, because the float32 model needs its bits (its
+# source note). On the tensor cores the products would run in TF32: each
+# float32 operand v split into big = tf32(v) and small = tf32(v - big)
+# (cvt.rna.tf32.f32: round to nearest, ties away from zero, 10 mantissa
+# bits), a product accumulating small.big + big.small + big.big in float32,
+# one k8 step at a time. The emulation follows that order of splits and
+# steps, with each product instruction's 8 products and the accumulator
+# summed exactly (float64) and rounded once to float32 toward zero, as the
+# tensor cores truncate their float32 accumulator, and holds the result to
+# chip_smoke 3d's bound: |err| <= SSD_TOL * max(1, sum|terms|) + SSD_TOL *
+# |plain|. It shows which of the two routes 3d's contract would admit.
+SSD_TOL = 2e-5
+
+
+def _tf32(v):
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(v):
+    """(big, small) of v."""
+    big = _tf32(v)
+    return big, _tf32((v - big).astype(np.float32))
+
+
+def _step(acc, a, b):
+    """acc + a . b with the products summed exactly, rounded once toward
+    zero."""
+    exact = acc.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64)
+    out = exact.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)  # rounded away from zero
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def _steps(acc, a, b, terms):
+    """acc [M,N] += a [M,K] . b [K,N], K in steps of 8, each step's
+    products as the kernel issues them (3: small.big, big.small, big.big;
+    1: big.big), every product sum rounded once to float32 toward zero."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    pairs = [(as_, bb), (ab, bs), (ab, bb)] if terms == 3 else [(ab, bb)]
+    for k in range(0, a.shape[1], 8):
+        for pa, pb in pairs:
+            acc = _step(acc, pa[:, k:k + 8], pb[k:k + 8])
+    return acc
+
+
+def _tensor_core_emulation(a, x, Bm, Cm, terms):
+    """(y_diag, S_c) of the tensor-core route for one batch row: the
+    scores with big.big and small terms in two accumulators each, by the
+    parity of the k8 step, then (big.big) + (small); the weights
+    G * exp(ci_i - ci_j) in float32, 0 above the diagonal; y and S_c over
+    the positions j, the k order inside a step being irrelevant to an
+    exact step sum."""
+    _, nc, l, H = a.shape
+    ci = cumsum_xla(torch.from_numpy(a), dim=2).numpy()
+    y = np.zeros(x.shape, np.float32)
+    S_c = np.zeros((1, nc, H, Bm.shape[-1], x.shape[-1]), np.float32)
+    tril = np.tril(np.ones((l, l), bool))
+    for c in range(nc):
+        C, B = Cm[0, c], Bm[0, c]
+        parts = []
+        for par in (0, 1):
+            big = np.zeros((l, l), np.float32)
+            small = np.zeros((l, l), np.float32)
+            for k in range(8 * par, C.shape[1], 16):
+                (cb, cs), (bb, bs) = _split(C[:, k:k + 8]), _split(B[:, k:k + 8])
+                if terms == 3:
+                    small = _step(small, cs, bb.T)
+                    small = _step(small, cb, bs.T)
+                big = _step(big, cb, bb.T)
+            parts.append((big, small))
+        G = (parts[0][0] + parts[1][0]) + (parts[0][1] + parts[1][1])
+        last = ci[0, c, -1]
+        for h in range(H):
+            cih = ci[0, c, :, h]
+            diff = np.where(tril, cih[:, None] - cih[None, :], np.float32(0))  # 0 above: no overflow
+            W = np.where(tril, G * np.exp(diff), np.float32(0))
+            y[0, c, :, h] = _steps(np.zeros((l, x.shape[-1]), np.float32), W,
+                                   x[0, c, :, h], terms)
+            xd = (x[0, c, :, h] * np.exp(last[h] - cih)[:, None]).astype(np.float32)
+            S_c[0, c, h] = _steps(np.zeros(S_c.shape[-2:], np.float32), np.ascontiguousarray(B.T),
+                                  xd, terms)
+    return y, S_c
+
+
+def _worst_over_tolerance(kind, terms):
+    """Largest |err| / bound of the emulation against the plain version
+    at one batch row of mamba2-1.3B's chunk (l 256, N 128, P 64), 8 heads."""
+    a, x, Bm, Cm = _chunk_inputs(1, 2, 256, 8, 64, 128, kind)
+    t = [torch.from_numpy(v) for v in (a, x, Bm, Cm)]
+    want = ssd_chunk.ssd_chunk_intra_plain(*t)
+    sum_abs = ssd_chunk.ssd_chunk_intra_plain(t[0], t[1].abs(), t[2].abs(), t[3].abs())
+    got = _tensor_core_emulation(a, x, Bm, Cm, terms)
+    worst = 0.0
+    for g, w, s in zip(got, want, sum_abs):
+        w, s = w.numpy(), s.numpy()
+        bound = SSD_TOL * np.maximum(s, 1.0) + SSD_TOL * np.abs(w)
+        worst = max(worst, float((np.abs(g - w) / bound).max()))
+    return worst
+
+
+@pytest.mark.parametrize("kind", ["strong", "weak", "init"])
+def test_single_tf32_would_miss(kind):
+    """One TF32 product (operands rounded to 10 mantissa bits) falls
+    outside 3d's float32 bound: the split is needed."""
+    assert _worst_over_tolerance(kind, terms=1) > 1.0
+
+
+@pytest.mark.parametrize("kind", ["strong", "weak", "init"])
+def test_three_tf32_keeps_the_tolerance(kind):
+    """3xTF32 stays well inside 3d's bound (with a 10x margin for the
+    card's own accumulation order); it is phase 9's float32 gate, not 3d,
+    that needs the plain version's bits (ROADMAP hazard 17)."""
+    assert _worst_over_tolerance(kind, terms=3) <= 0.1
