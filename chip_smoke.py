@@ -23,7 +23,13 @@ paths):
 2. build: the six kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
-   of its rounding modes);
+   of its rounding modes); for greedy_fill also the classified walk's
+   edges (4096 lanes of 2 items with P0 on, one ulp below and one ulp
+   above the first item's T and U from `fill_thresholds` on the card), a
+   4096-item lane at the least budget `fill_certified` passes and one
+   ulp short of it (certified, and walking every item), M 16384 and 16383
+   (16385 refused), non-integer, negative and NaN caps, and budgets of
+   inf and NaN;
 3c. the attention kernels vs their plain versions on the card, within
    |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
    1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
@@ -96,7 +102,13 @@ paths):
    float32 CUDA cores and beside it the bytes' bound and the bound of the
    same work as 3xTF32 on the tensor cores, ptxas registers and spills,
    and the count of its SASS's FFMA
-   and tf32 tensor-core (HGMMA/HMMA ...TF32) instructions (cuobjdump).
+   and tf32 tensor-core (HGMMA/HMMA ...TF32) instructions (cuobjdump);
+   greedy_fill with the QueueLength inputs too, its parts (every budget
+   0: no walk; every score non-negative: keys only), each input's longest
+   uncertified walk and its exact steps from `fill_walk_profile`, with
+   that walk's chain at 4 cycles a step at clocks.max.sm, a class A
+   step's measured cost (one lane walking all of its items against the
+   same lane certified), and its ptxas registers and spills.
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
@@ -286,6 +298,14 @@ def ptxas_lines(log: str, entry: str) -> list:
         elif keep and ("registers" in ln or "spill" in ln):
             out.append(f"{entry}{tag} " + ln.split(":", 1)[-1].strip())
     return out
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal float32 tensors, any NaN equal to any NaN (the card's
+    arithmetic returns its own NaN)."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
 
 
 def leaves(tree):
@@ -747,18 +767,28 @@ def main() -> int:
         "sort_key": dict(stop_at_first_unfit=False, sort_key=True),
     }
 
+    def variant_inputs(S, C, kw):
+        """The variant's scores and keyword arguments (sort_key: the
+        QueueLength ordering, longest queue first)."""
+        kw = dict(kw)
+        if kw.pop("sort_key", False):
+            S = torch.where(C > 0, -C, 1.0)
+            kw["sort_key"] = S
+        return S, kw
+
+    def check_fill_variant(S_v, E, C, P, kw, label):
+        got = gf.greedy_fill_cuda(S_v, E, C, P, **kw)
+        want = gf.greedy_fill_plain(S_v, E, C, P, **kw)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            fail(f"greedy_fill {label}: counts differ from the plain version")
+        max_err["greedy_fill"] = max(max_err["greedy_fill"],
+                                     float((got - want).abs().nan_to_num().max()))
+
     def check_fill(S, E, C, P, label):
         for vname, kw in variants.items():
-            kw, S_v = dict(kw), S
-            if kw.pop("sort_key", False):
-                S_v = torch.where(C > 0, -C, 1.0)
-                kw["sort_key"] = S_v
-            got = gf.greedy_fill_cuda(S_v, E, C, P, **kw)
-            want = gf.greedy_fill_plain(S_v, E, C, P, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"greedy_fill {label} {vname}: counts differ from the plain version")
-            max_err["greedy_fill"] = max(max_err["greedy_fill"], float((got - want).abs().max()))
+            S_v, kw = variant_inputs(S, C, kw)
+            check_fill_variant(S_v, E, C, P, kw, f"{label} {vname}")
         say(f"[3 kernels] greedy_fill {label}: counts bitwise equal to plain in "
             f"{', '.join(variants)}")
 
@@ -772,6 +802,88 @@ def main() -> int:
         check_fill(S, E, C, torch.zeros_like(P), f"[{B},{M}] zero budget")
         check_fill(S.abs(), E, C, P, f"[{B},{M}] non-negative scores")
         check_fill(S, E, torch.zeros_like(C), P, f"[{B},{M}] zero caps")
+
+    # the classified walk (csrc/greedy_fill.cu): every class boundary, the
+    # certificate at its edge, the largest lanes, inputs off the integers
+    def walk_order(S_v, E, C, kw):
+        key = kw["sort_key"] if "sort_key" in kw else S_v / E
+        key = torch.where((S_v < 0) & torch.isfinite(key), key, torch.inf)
+        order = torch.sort(key, dim=-1, stable=True).indices
+        return E.gather(1, order), C.gather(1, order), torch.isfinite(key.gather(1, order))
+
+    def ulp(x, d):
+        return torch.nextafter(x, torch.full_like(x, d * torch.inf))
+
+    B, M = 4096, 2
+    S, E, C = rand((B, M), -100, -1), rand((B, M), 0.5, 10), ints((B, M), 50) + 2
+    for vname, kw in variants.items():
+        S_v, kw = variant_inputs(S, C, kw)
+        e_w, c_w, _ = walk_order(S_v, E, C, kw)
+        T, U = gf.fill_thresholds(e_w[:, 0], c_w[:, 0])  # the first item's, on the card
+        if bool(T.isnan().any()) or not bool((T > U).all()):
+            fail(f"greedy_fill boundary lanes {vname}: a first item without finite T > U")
+        edges = torch.stack([T, ulp(T, -1), ulp(T, 1), U, ulp(U, -1), ulp(U, 1)])
+        P = edges.gather(0, (torch.arange(B, device=dev) % 6)[None])[0]
+        check_fill_variant(S_v, E, C, P, kw, f"boundary lanes [{B},{M}] {vname}")
+    say(f"[3 kernels] greedy_fill boundary lanes [{B},{M}] (P0 on, one ulp below and above the "
+        f"first item's T and U from fill_thresholds on the card): counts bitwise equal to plain "
+        f"in {', '.join(variants)}")
+
+    def tight_budgets(S_v, E, C, kw):
+        """Each lane's least float32 budget that fill_certified passes
+        (bisection on the bits), on the CPU."""
+        e_w, c_w, live = (x.cpu() for x in walk_order(S_v, E, C, kw))
+        T = gf.fill_thresholds(e_w, c_w)[0]
+
+        def passes(bits):
+            P0 = torch.tensor(bits, dtype=torch.int32).view(torch.float32)
+            return gf.fill_certified(e_w, c_w, T, live, P0).tolist()
+
+        lo, hi = [0] * len(e_w), [int(torch.tensor(3e38).view(torch.int32))] * len(e_w)
+        while max(h - l_ for l_, h in zip(lo, hi)) > 1:
+            mid = [(l_ + h) // 2 for l_, h in zip(lo, hi)]
+            ok = passes(mid)
+            lo = [l_ if o else m for l_, m, o in zip(lo, mid, ok)]
+            hi = [m if o else h for h, m, o in zip(hi, mid, ok)]
+        if not all(passes(hi)) or any(passes([h - 1 for h in hi])):
+            fail("greedy_fill certificate lanes: no tight budget found")
+        return torch.tensor(hi, dtype=torch.int32).view(torch.float32).to(dev)
+
+    B, M = 2, M_MAIN
+    S, E, C = rand((B, M), -100, -1), rand((B, M), 0.5, 10), ints((B, M), 50) + 1
+    tight = {}
+    for vname, kw in variants.items():
+        S_v, kw = variant_inputs(S, C, kw)
+        order = "sort_key" if "sort_key" in kw else "score/e"  # literal: the stop order
+        if order not in tight:
+            tight[order] = tight_budgets(S_v, E, C, kw)
+        P = torch.stack([tight[order][0], ulp(tight[order][1], -1)])
+        check_fill_variant(S_v, E, C, P, kw, f"certificate lanes [{B},{M}] {vname}")
+    say(f"[3 kernels] greedy_fill [{B},{M}] every item negative, lane 0 at the least budget the "
+        f"certificate passes (fill_certified), lane 1 one ulp short of its own (walks all {M} "
+        f"items): counts bitwise equal to plain in {', '.join(variants)}")
+
+    for M in (gf.MAX_ITEMS, gf.MAX_ITEMS - 1):
+        S, E, C = rand((4, M), -100, 50), rand((4, M), 0.5, 10), ints((4, M), 50)
+        cover = (C * E * (S < 0)).sum(-1)
+        P = torch.stack([rand((), 1, 500), cover[1] * 1.01, cover[2] * 0.5, cover[3] * 0.99])
+        check_fill(S, E, C, P, f"[4,{M}] (budgets: small, covering, half, just short)")
+    try:
+        gf.greedy_fill_cuda(*(torch.zeros((1, gf.MAX_ITEMS + 1), device=dev) for _ in range(3)),
+                            torch.zeros(1, device=dev))
+    except ValueError:
+        say(f"[3 kernels] greedy_fill M={gf.MAX_ITEMS + 1}: refused (ValueError), as it must be")
+    else:
+        fail(f"greedy_fill M={gf.MAX_ITEMS + 1} was not refused")
+
+    B, M = 33, 300
+    S, E, C = rand((B, M), -200, 50), rand((B, M), 0.5, 20), ints((B, M), 100)
+    P = rand((B,), 0, 2000)
+    check_fill(S, E, rand((B, M), 0, 50), P, f"[{B},{M}] non-integer caps")
+    check_fill(S, E, -C, P, f"[{B},{M}] negative caps")
+    check_fill(S, E, torch.where(C > 80, torch.nan, C), P, f"[{B},{M}] NaN caps")
+    check_fill(S, E, C, torch.full_like(P, torch.inf), f"[{B},{M}] inf budget")
+    check_fill(S, E, C, torch.full_like(P, torch.nan), f"[{B},{M}] NaN budget")
 
     # the LM layers' float emulations of XLA:CPU (rope's glibc sinf/cosf
     # and FMAs, tanh, GELU): one chain of elementwise torch calls each,
@@ -1186,6 +1298,69 @@ def main() -> int:
     say(f"[7 time] greedy_fill with QueueLength inputs (sort_key, no stop): {ms_ql:.5f} ms device "
         f"time (cold L2), {n_neg_ql} negative-score items; the row above had CarbonIntensity inputs, "
         f"{n_neg} negative-score items over {B} lanes")
+    # where the time goes, same inputs: with every budget 0 no lane
+    # certifies or walks past its first item (keys, sort, thresholds);
+    # with every score non-negative no item is live (keys only)
+    parts = {}
+    for label, args, kw in (("CarbonIntensity", fill_args, {}),
+                            ("QueueLength", ql_args,
+                             dict(stop_at_first_unfit=False, sort_key=ql_scores))):
+        zero_P = torch.zeros_like(args[3])
+        no_live = (args[0].abs(), *args[1:])
+        no_live_kw = dict(kw, sort_key=no_live[0]) if "sort_key" in kw else kw
+        parts[label] = (
+            graph_ms(lambda: gf.greedy_fill_cuda(*args[:3], zero_P, **kw), reps=10, inner=10)[1],
+            graph_ms(lambda: gf.greedy_fill_cuda(*no_live, **no_live_kw), reps=10, inner=10)[1])
+    say("[7 time] greedy_fill's parts, cold: " + "; ".join(
+        f"{label} inputs with every budget 0 (keys, sort, thresholds; no walk) {a:.5f} ms, "
+        f"with every score non-negative (keys only) {k:.5f} ms" for label, (a, k) in parts.items())
+        + f"; the full fills above {ms[1]:.5f} and {ms_ql:.5f} ms")
+    # what the classified walk leaves on the chain, from the design in
+    # plain PyTorch on the same inputs (its counts checked against the kernel)
+    clk_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    for label, args, kw in (("CarbonIntensity (stop)", fill_args, {}),
+                            ("CarbonIntensity (no stop)", fill_args,
+                             dict(stop_at_first_unfit=False)),
+                            ("CarbonIntensity (literal)", fill_args,
+                             dict(literal_edge_budget=True)),
+                            ("QueueLength (sort_key, no stop)", ql_args,
+                             dict(stop_at_first_unfit=False, sort_key=ql_scores))):
+        counts, certified, steps, exact = gf.fill_walk_profile(*args, **kw)
+        if not same_bits(counts, gf.greedy_fill_cuda(*args, **kw)):
+            fail(f"greedy_fill {label}: fill_walk_profile's counts differ from the kernel's")
+        walked = torch.where(certified, -1, steps)
+        lane = int(walked.argmax())
+        n_steps, n_exact = max(0, int(walked[lane])), int(exact[lane])
+        say(f"[7 time] greedy_fill walk, {label} inputs (fill_walk_profile): "
+            f"{int(certified.sum())} of {B} lanes certified (edge lane "
+            f"{'certified' if bool(certified[0]) else 'walks'}); longest uncertified walk "
+            f"{n_steps} steps (lane {lane}), {n_exact} of them exact; its chain {n_steps} x 4 "
+            f"cycles at {clk_mhz:.0f} MHz (clocks.max.sm) = {n_steps * 4 / clk_mhz:.4f} us")
+    # a class A step's cost: one lane of M items, every score negative,
+    # whose budget covers all but half the last item (it walks every item;
+    # the last binds), against the same lane certified (it walks none)
+    S1, E1, C1 = rand((1, M), -100, -1), rand((1, M), 0.5, 10), ints((1, M), 49) + 1
+    cover = float((C1.double() * E1.double()).sum())
+    last = float((C1 * E1)[0, torch.sort(S1 / E1, stable=True).indices[0, -1]])
+    lane_ms = {}
+    for label, P0 in (("walks", cover - last / 2), ("certified", cover * 1.01)):
+        P1 = torch.full((1,), P0, device=dev)
+        got, (_, certified, steps, _) = (gf.greedy_fill_cuda(S1, E1, C1, P1),
+                                         gf.fill_walk_profile(S1, E1, C1, P1))
+        if not same_bits(got, gf.greedy_fill_plain(S1, E1, C1, P1)):
+            fail(f"greedy_fill step lane ({label}): counts differ from the plain version")
+        lane_ms[label] = (graph_ms(lambda: gf.greedy_fill_cuda(S1, E1, C1, P1), reps=10,
+                                   inner=5)[1], int(steps[0]), bool(certified[0]))
+    (walk_ms, walk_steps, _), (cert_ms, _, cert_ok) = lane_ms["walks"], lane_ms["certified"]
+    step_ns = (walk_ms - cert_ms) * 1e6 / max(1, walk_steps)
+    say(f"[7 time] greedy_fill class A step: one lane of {M} items walking all {walk_steps} "
+        f"(the last binds) {walk_ms:.5f} ms cold, the same lane certified ({cert_ok}) "
+        f"{cert_ms:.5f} ms: {step_ns:.2f} ns = {step_ns * clk_mhz / 1e3:.1f} cycles a step at "
+        f"{clk_mhz:.0f} MHz")
+    say("[7 time] greedy_fill_kernel: "
+        + " | ".join(ptxas_lines(built["greedy_fill"][1], "greedy_fill_kernel")))
 
     # route_scores: inputs as the WAN path's last NetworkAwareDPP slot
     # hands them, in the mode without extra that the path runs; the
