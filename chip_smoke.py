@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths and holds each hand-written kernel
+Drives the port's main paths and holds each hand-written kernel
 against its plain PyTorch version on the card. The paper's slot loop,
 `simulate` and `serve_loop`, with `CarbonIntensityPolicy` (Algorithm 1)
 and the paper's `QueueLengthPolicy` baseline, runs at M=4096 task types
-x N=256 clouds; the WAN route-aware slot loop, `simulate(graph=)` with
+x N=256 clouds, its arrivals drawn from JAX's threefry stream by the
+draw kernel; the scenario fleet, `simulate_fleet`, at the JAX bench's
+512 lanes of M5xN5 and at 16 lanes of M4096xN256; `simulate_vsweep` on
+the paper's Fig. 2 setup; the WAN route-aware slot loop, `simulate(graph=)` with
 `NetworkAwareDPPPolicy` and its transfer-blind baseline
 `StaticRoutePolicy(CarbonIntensityPolicy)`, at M=4096 x N=256 x L=512
 routes; LM serving, `greedy_generate` (prefill + KV-cache decode), for
@@ -20,7 +23,7 @@ paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the six kernels compiled from csrc/ with nvcc, in parallel;
+2. build: the seven kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes); for greedy_fill also the classified walk's
@@ -29,7 +32,17 @@ paths):
    4096-item lane at the least budget `fill_certified` passes and one
    ulp short of it (certified, and walking every item), M 16384 and 16383
    (16385 refused), non-integer, negative and NaN caps, and budgets of
-   inf and NaN;
+   inf and NaN; carbon_scores with a lane axis (F16 x M4096 x N256 and
+   F512 x M5 x N5 with one V a lane, F3 ragged) and F = 1 equal to the
+   [M, N] call;
+3e. threefry_draw vs its plain version, bitwise: keys PRNGKey(0),
+   PRNGKey(-1), PRNGKey(2**31-1) at n 1, 5, 4096 and split lanes [512, 5]
+   and [16, 4096]; t none, 0, 1, 191, 1999, 2**31-1; raw bits, uniform
+   (three ranges), randint (spans 1, 2, 401, 701, 2**31-1), the
+   RandomCarbonSource and RandomPolicy splits, the UK source's fold per
+   region, the fleet's floor(u * (amax + 1)) and poisson's key walks
+   (chain); and known answers of jax 0.9.0 pasted below (THREEFRY_KNOWN,
+   CHAIN_KNOWN);
 3c. the attention kernels vs their plain versions on the card, within
    |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
    1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
@@ -60,15 +73,32 @@ paths):
    in its order: phase 9's float32 gate needs the same bits);
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
-   counters checked, ms per slot from CUDA events, then again in turns
-   (A, B, B, A); then T=16 on the card and through the CPU plain
-   versions: queues bitwise, emissions within rtol 1e-6;
+   counters checked (threefry_draw once a slot: the arrivals), ms per
+   slot from CUDA events, then again in turns (A, B, B, A); then T=16 on
+   the card and through the CPU plain versions: queues bitwise,
+   emissions within rtol 1e-6;
 4b. WAN path, M4096xN256xL512 on the congested-uplink topology: the same
    for both WAN policies (T=64, launch counters per policy, idle share),
    then T=8 on the card and through the CPU plain versions: Qe, Qc, Qt
    bitwise, emissions within rtol 1e-6;
+4c. the scenario fleet: A, `build_fleet(["diurnal"], per_kind=512)`
+   (M5xN5, T=192, the JAX bench's fleet_summary/F512), and B, four kinds
+   x 4 lanes at M4096xN256 (T=64), with CarbonIntensity (V=0.05) and
+   QueueLength (B): each once under sync debug mode "error" with its
+   launches per slot, then in turns (ms per slot, us per lane-slot),
+   device busy and idle share per slot (profiler, 8 slots); A's summary
+   scalars equal to its full record; B's lanes 0 and 15 equal to each
+   instance run alone through `simulate`, and B's first two lanes on the
+   card equal to the CPU plain path (T=4), queues and counts bitwise,
+   emissions within rtol 1e-6; the kernels' times at both fleets'
+   shapes; the registry fleet (6 kinds x 16, T=200) and its mean
+   emission reduction beside JAX's;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
+   then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
+   PRNGKey(0)): the reductions at V 0.01 and 0.05 held to JAX's
+   (FIG2_JAX), and `simulate_vsweep` over six V values, card vs CPU
+   bitwise and each lane equal to its single-V run;
 5b. WAN headline: congested-uplink at M5xN5, T=192, V=0.1, route-aware
    vs transfer-blind emission reduction over 8 instances (must exceed
    5%);
@@ -110,6 +140,12 @@ paths):
    step's measured cost (one lane walking all of its items against the
    same lane certified), and its ptxas registers and spills.
 
+Phase 7 also times threefry_draw at the main path's arrivals (its
+bound: the draw's own integer operations at a quarter of the float32
+rate) and, from phase 4c, carbon_scores, greedy_fill and the draw at
+both fleets' shapes (the rows' "fleet" entries), and a PoissonArrivals
+slot at M4096 (two chain draws), beside the same slot on the plain walk.
+
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
 falls back to the CPU. The main-path configuration: the spec of the
@@ -117,9 +153,9 @@ repo's M4096xN256 bench rows (`benchmarks/paper_benches.py`
 `_random_instance`: pe~U(1,8), pc~U(2,100) kWh) with budgets scaled to
 the paper's loads (edge 0.86, clouds 0.33 at a_m(t)~U{0..400}), starting
 from that instance's backlog Qe, Qc~U{0..999}; carbon from a numpy
-`diurnal_table`; arrivals from a numpy table (so CPU and card draw the
-same numbers). The WAN configuration is the WAN subsystem's acceptance
-scenario, `configs/fleet_scenarios.py::congested_uplink` (Table-I spec
+`diurnal_table`; arrivals U{0..400} from `UniformArrivals` (JAX's
+stream, the same numbers on the CPU and the card). The WAN
+configuration is the WAN subsystem's acceptance scenario, `configs/fleet_scenarios.py::congested_uplink` (Table-I spec
 tiled to M x N, two routes per cloud, the clean alternates' bandwidth at
 the offered load, arrivals U{0..240}) seeded as `build_network_fleet`
 seeds lane 0, from a backlog Qe, Qc~U{0..999} and empty links.
@@ -145,6 +181,97 @@ SEED = 0
 M_MAIN, N_MAIN = 4096, 256
 A_MAX = 400
 T_MAIN, T_CPU, T_PAPER, T_SERVE = 64, 16, 2000, 32
+# the fleet (phase 4c): A is the JAX bench's fleet_summary/F512 row (512
+# diurnal lanes of M5xN5, T=192); B four kinds x 4 lanes at the main
+# path's width; the registry fleet the bench's fleet/F96xT200 row
+T_FLEET_A, FLEET_A_LANES, T_FLEET_B, FLEET_B_PER_KIND = 192, 512, 64, 4
+FLEET_B_KINDS = ("diurnal", "bursty", "heterogeneous-fleet", "overload")
+T_FLEET_CPU, T_REGISTRY, REGISTRY_PER_KIND = 4, 200, 16
+VSWEEP = (0.005, 0.01, 0.02, 0.05, 0.1, 0.2)
+# JAX's own numbers on the paper's Fig. 2 setup (RandomCarbonSource(N=5),
+# UniformArrivals(M=5), PRNGKey(0), T=2000): emission reduction of
+# CarbonIntensity(V) vs QueueLength in %, from jax 0.9.0 on the CPU
+# (`tests/test_torch_fleet.py::test_fig2_reductions_pinned` pins them);
+# the card's run differs only by its float32 sums' order (emissions
+# within rtol 1e-6), so within FIG2_TOL points
+FIG2_JAX = {0.01: 38.01082353974602, 0.05: 58.72058679671891}
+FIG2_TOL = 1e-3
+# the registry fleet's mean reduction in JAX (fleet/F96xT200); the port's
+# multi-region-uk tables differ from JAX's in a few ulps (the twin's
+# normal, ROADMAP hazard 5), so the card's value is held within 0.5 points
+REGISTRY_JAX, REGISTRY_TOL = 18.13128662109375, 0.5
+# known answers of jax 0.9.0 (jax_threefry_partitionable, x64 off), as
+# printed by jax on the CPU: for (seed, t), k = fold_in(PRNGKey(seed), t):
+# bits(k, (3,)), uniform(k, (3,)) as uint32, randint(k, (3,), 0, 401),
+# then RandomCarbonSource(N=5)(t, PRNGKey(seed)): Ce and the 5 Cc
+THREEFRY_KNOWN = {
+    (0, 0): (
+        3617712097, 783310428, 975722988, 1062707686, 1044038008, 1047044448, 273, 287, 41, 45,
+        416, 438, 498, 324, 447),
+    (0, 1): (
+        31327077, 89727312, 2497208264, 1005519104, 1017848832, 1058330718, 384, 265, 57, 245,
+        399, 563, 234, 231, 655),
+    (0, 191): (
+        543545720, 2481940912, 234799875, 1040291680, 1058271080, 1029696544, 50, 74, 11, 390,
+        130, 99, 121, 216, 611),
+    (0, 1999): (
+        687750587, 2087171489, 1730193244, 1042544880, 1056493416, 1053704524, 351, 210, 190,
+        170, 275, 46, 492, 629, 401),
+    (0, 2147483647): (
+        3910006613, 2989248242, 2519893887, 1063849462, 1060252750, 1058419334, 14, 347, 394,
+        646, 568, 379, 148, 77, 12),
+    (-1, 0): (
+        3917993853, 594088678, 2364685701, 1063880662, 1041081416, 1057813052, 202, 0, 189, 164,
+        308, 640, 124, 22, 684),
+    (-1, 1): (
+        944004320, 1565343559, 399852139, 1046548848, 1052416636, 1035905552, 110, 243, 345, 21,
+        316, 556, 621, 11, 674),
+    (-1, 191): (
+        2541464656, 220356828, 1190150728, 1058503596, 1028793856, 1049485444, 341, 182, 154,
+        617, 260, 335, 29, 115, 211),
+    (-1, 1999): (
+        1385597949, 1886305101, 2259345895, 1051012372, 1054924148, 1057401568, 292, 344, 141,
+        513, 408, 663, 513, 36, 151),
+    (-1, 2147483647): (
+        3508836959, 1581205559, 3103252440, 1062282394, 1052540560, 1060698078, 56, 283, 214,
+        357, 640, 449, 383, 579, 295),
+    (2147483647, 0): (
+        3845134602, 3672592896, 3272731171, 1063596056, 1062922066, 1061360106, 332, 301, 155,
+        198, 339, 121, 487, 581, 624),
+    (2147483647, 1): (
+        3316644445, 3230149795, 2441697680, 1061531642, 1061193772, 1058113880, 18, 325, 71, 58,
+        410, 311, 673, 63, 462),
+    (2147483647, 191): (
+        3812138357, 583099379, 499073091, 1063467164, 1040909704, 1039006208, 210, 163, 309,
+        474, 274, 292, 666, 124, 649),
+    (2147483647, 1999): (
+        1776856719, 820901870, 105760095, 1054069084, 1044625368, 1019852928, 373, 285, 181, 0,
+        629, 309, 586, 682, 257),
+    (2147483647, 2147483647): (
+        2111541414, 1345954618, 3675835155, 1056683808, 1050702660, 1062934730, 368, 391, 58,
+        381, 311, 72, 131, 641, 90),
+}
+# known answers of jax 0.9.0 for the key walk of its samplers' loops, k =
+# fold_in(PRNGKey(seed), t): three rounds of `rng, sub = split(rng)`,
+# uniform(sub, (2,)), then two of `rng, a, b = split(rng, 3)`, uniform(a,
+# (2,)) and uniform(b, (2,)), each float32 as uint32 (threefry_draw's chain)
+CHAIN_KNOWN = {
+    (0, 0): (1037407792, 1051729700, 1034497072, 1061675434, 1009690496, 1057317694,
+             1037407792, 1051729700, 1047132152, 1060959150, 1034497072, 1061675434,
+             1037557648, 1050940200),
+    (0, 1999): (1014840832, 1048662988, 1063447974, 1048756640, 1056493952, 1061388498,
+                1014840832, 1048662988, 1057074894, 1049115160, 1063447974, 1048756640,
+                1060306694, 1051888020),
+    (-1, 0): (1060731916, 1061075730, 1055573404, 1059494742, 1064461466, 1060296742,
+              1060731916, 1061075730, 1063188844, 1053281672, 1055573404, 1059494742,
+              1063761466, 1063820022),
+    (2147483647, 1999): (1056634264, 1032084000, 1065221360, 1056633116, 1047776536,
+                         1063174034, 1056634264, 1032084000, 1058299756, 1058355086,
+                         1065221360, 1056633116, 1063210856, 1051125312),
+}
+# PoissonArrivals at the main path's width (phase 7): rates across both of
+# poisson's samplers (Knuth below 10, rejection from 10 up)
+POISSON_RATE_LO, POISSON_RATE_HI, POISSON_SLOTS = 0.5, 400.0, 16
 T_WAN_CPU, T_WAN_HEADLINE, WAN_INSTANCES, V_WAN = 8, 192, 8, 0.1
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
 SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and length
@@ -158,6 +285,15 @@ LM_CACHE = LM_PROMPT + LM_GEN + 1
 # may be at most LOGIT_ERR_RATIO times the plain path's
 LM_TEACHER_STEPS, LOGIT_F32_TOL, LOGIT_ERR_RATIO = 4, 1e-4, 1.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the data sheet gives no int32 rate: Hopper's SM issues 64 int32
+# operations a clock against 128 float32 FMAs (2 operations each), so a
+# quarter of the float32 rate
+INT32_OPS_PER_S = 67e12 / 4
+# integer operations of one threefry2x32 hash as csrc/threefry.cu issues
+# it: 20 rounds of add, funnel-shift rotate and xor, 5 key injections of
+# three adds, the key schedule's two xors and the first two adds, and the
+# xor of its two words into 32 bits
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 4 + 1
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
 BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 TF32_OPS_PER_S = 495e12    # H100 SXM data sheet, dense tf32 tensor cores
@@ -174,6 +310,13 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0**-7)}
 # of a float32 sum differ by up to about (terms) x 2**-24 x sum|terms|, far
 # more than 2e-5 where y is near 0
 SSD_TOL = 2e-5
+
+
+def draw_ops(lanes, n, lane_hashes, value_hashes, value_ops):
+    """Integer operations of a draw of n values a lane, as the function
+    needs them: `lane_hashes` hashes a lane (its fold_in and splits),
+    `value_hashes` hashes and `value_ops` more operations a value."""
+    return lanes * (lane_hashes * THREEFRY_OPS + n * (value_hashes * THREEFRY_OPS + value_ops))
 
 
 def say(*parts) -> None:
@@ -334,7 +477,7 @@ class TableArrivals:
         return self.to(device)._on[torch.device(device)][t % self.table.shape[0]]
 
 
-def main_instance(convert, carbon, dev):
+def main_instance(convert, carbon, UniformArrivals, dev):
     """The M4096xN256 main-path configuration (see the module docstring)."""
     rng = np.random.default_rng(SEED)
     M, N = M_MAIN, N_MAIN
@@ -347,12 +490,11 @@ def main_instance(convert, carbon, dev):
     Qc0 = rng.integers(0, 1000, (M, N)).astype(np.float32)
     T_tab = max(T_MAIN, T_SERVE)
     table = carbon.diurnal_table(T_tab, N, rng)
-    arrivals = rng.integers(0, A_MAX + 1, (T_tab, M)).astype(np.float32)
     return dict(
         spec=lambda d: convert.spec_from_numpy(pe, pc, Pe, Pc, d),
         state0=lambda d: convert.state_from_numpy(Qe0, Qc0, d),
         carbon=carbon.TableCarbonSource(table=table).to(dev).to("cpu"),
-        arrivals=TableArrivals(arrivals).to(dev).to("cpu"),
+        arrivals=UniformArrivals(M=M, amax=A_MAX),
     )
 
 
@@ -458,6 +600,79 @@ def card_vs_cpu(tag, policies, sim, T, queues, dev):
         say(f"[{tag}] {pname} T={T} card vs CPU plain path: {', '.join(queues)} bitwise equal "
             f"over {T} slots, emissions max rel diff {rel:.3e} (limit 1e-6); "
             f"{time.perf_counter() - t0:.1f} s")
+
+
+def same_result(a, b, names=("Qe", "Qc", "emissions", "cum_emissions", "dispatched",
+                                 "processed", "energy_edge", "energy_cloud")) -> list:
+    """The fields of two SimResults whose bits differ."""
+    return [n for n in names if not same_bits(getattr(a, n).cpu(), getattr(b, n).cpu())]
+
+
+def emission_rtol(a, b) -> float:
+    """The largest relative difference of two emission series."""
+    ea, eb = a.emissions.cpu().double(), b.emissions.cpu().double()
+    return float(((ea - eb).abs() / eb.abs().clamp_min(1e-30)).max())
+
+
+COUNTED = ("Qe", "Qc", "dispatched", "processed")
+
+
+def drive_fleets(tag, runs, ops, dev):
+    """Each fleet run once under sync debug mode "error", the launch
+    counters set to 0 just before and read just after it. `runs`: {name:
+    (fn(T, record), T, F, expected launches per slot)}. Returns ({name:
+    ms/slot from CUDA events}, {name: result}, {name: launches})."""
+    ms, results, counts = {}, {}, {}
+    for name, (fn, T, nl, per_slot) in runs.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            res = fn(T, "summary")
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * T for k, v in per_slot.items()})
+        if launches != want:
+            fail(f"{tag} {name}: kernel launches {launches}, expected {want}")
+        if not (torch.isfinite(res.emissions).all() and torch.isfinite(res.Qc).all()):
+            fail(f"{tag} {name}: non-finite emissions or queues")
+        if res.Qc.shape[:2] != (nl, 1) or res.emissions.shape != (nl, T):
+            fail(f"{tag} {name}: unexpected result shapes {tuple(res.Qc.shape)}")
+        ms[name], results[name], counts[name] = start.elapsed_time(end) / T, res, launches
+        say(f"[{tag}] {name} F={nl} T={T} record=summary under sync debug mode 'error': "
+            f"launches per slot " + ", ".join(f"{k} {v / T:g}" for k, v in launches.items() if v)
+            + f"; {ms[name]:.4f} ms/slot, {1e3 * ms[name] / nl:.4f} us per lane-slot (CUDA "
+            f"events); cum emissions summed over lanes {float(res.cum_emissions[:, -1].sum()):.6e}")
+    return ms, results, counts
+
+
+def fleet_turns(tag, runs):
+    """ms/slot of each run in turns (A, B, ..., ..., B, A; CUDA events, no
+    sync debug mode), with us per lane-slot."""
+    names = list(runs)
+    times = {n: [] for n in names}
+    for name in names + names[::-1]:
+        fn, T, _, _ = runs[name]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(T, "summary")
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / T)
+    say(f"[{tag}] in turns {' / '.join(names + names[::-1])}: " + "; ".join(
+        f"{n} " + " / ".join(f"{x:.4f}" for x in v) + " ms/slot ("
+        + " / ".join(f"{1e3 * x / runs[n][2]:.4f}" for x in v) + " us per lane-slot)"
+        for n, v in times.items()))
+    return times
 
 
 def wan_instance(convert, fleet_scenarios, M, N, T_tab, dev, j=0):
@@ -678,6 +893,8 @@ def main() -> int:
     from repro_torch.kernels import greedy_fill as gf
     from repro_torch.kernels import route_score as rs
     from repro_torch.kernels import ssd_chunk as sdc
+    from repro_torch.kernels import threefry as tfk
+    from repro_torch import random as jr
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import build_model
     from repro_torch.models import layers as lm_layers
@@ -709,7 +926,8 @@ def main() -> int:
         say(f"[2 build] {kname}: {secs:.2f} s; " + " | ".join(regs))
 
     # ---- 3. kernels vs plain versions on the card -------------------
-    max_err = {"carbon_scores": 0.0, "route_scores": 0.0, "greedy_fill": 0.0}
+    max_err = {"carbon_scores": 0.0, "route_scores": 0.0, "greedy_fill": 0.0,
+               "threefry_draw": 0.0}
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
 
@@ -736,6 +954,23 @@ def main() -> int:
     check_scores(ints((M_MAIN, N_MAIN), 4), rand((M_MAIN, N_MAIN), 1, 100), ints((M_MAIN,), 5),
                  rand((M_MAIN,), 1, 10), rand((N_MAIN,), 0, 35), rand((), 0, 35),
                  f"{M_MAIN}x{N_MAIN} tie-heavy Qc")
+    # the lane axis (the fleet's and the V sweep's form): F16 at the main
+    # width with one V*Ce a lane, the bench fleet's F512 x M5 x N5, a
+    # ragged one; and F = 1 against the [M, N] call
+    for nl, M, N in ((16, M_MAIN, N_MAIN), (FLEET_A_LANES, 5, 5), (3, 257, 129)):
+        check_scores(ints((nl, M, N), 5000), rand((nl, M, N), 1, 100), ints((nl, M), 5000),
+                     rand((nl, M), 1, 10), rand((nl, N), 0, 35), rand((nl,), 0, 35),
+                     f"lanes F{nl}xM{M}xN{N} (per-lane V)")
+    one_args = (ints((M_MAIN, N_MAIN), 5000), rand((M_MAIN, N_MAIN), 1, 100),
+                ints((M_MAIN,), 5000), rand((M_MAIN,), 1, 10), rand((N_MAIN,), 0, 35),
+                rand((), 0, 35))
+    one = cs.carbon_scores_cuda(*one_args)
+    lane = cs.carbon_scores_cuda(*(x[None] for x in one_args))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b[0]) for a, b in zip(one, lane)):
+        fail("carbon_scores: F = 1 differs from the [M, N] call")
+    say(f"[3 kernels] carbon_scores F=1 x M{M_MAIN} x N{N_MAIN}: c, n1, b bitwise equal to the "
+        "[M, N] call")
 
     def check_routes(Qt, pt, Qcr, extra, Qe, pe, vct, vce, label):
         for mode, ex in (("with extra", extra), ("without extra", None)):
@@ -913,6 +1148,78 @@ def main() -> int:
             fail(f"apply_rope {dt}: the card differs from the CPU")
     say("[3 numerics] gelu_tanh (XLA's tanh) and apply_rope (FMAs) in float32 and bfloat16: "
         "bitwise equal on the card and the CPU")
+
+    # ---- 3e. threefry_draw vs its plain version, and JAX's answers --------
+    t0 = time.perf_counter()
+    draw_keys = {
+        "PRNGKey(0)": jr.PRNGKey(0, device=dev),
+        "PRNGKey(-1)": jr.PRNGKey(-1, device=dev),
+        "PRNGKey(2**31-1)": jr.PRNGKey(2**31 - 1, device=dev),
+        "split(PRNGKey(0), 512)": jr.split(jr.PRNGKey(0, device=dev), FLEET_A_LANES),
+        "split(PRNGKey(7), 16)": jr.split(jr.PRNGKey(7, device=dev), 16),
+    }
+    finishes = [("bits", {})] + [
+        ("uniform", dict(minval=lo, maxval=hi))
+        for lo, hi in ((0.0, 1.0), (jr.NORMAL_LO, 1.0), (-3.5, 7.25))] + [
+        ("randint", dict(minval=0, maxval=span)) for span in (1, 2, 401, 701, 2**31 - 1)] + [
+        ("randint_f32", dict(minval=0, maxval=401)),
+        ("randint_f32", dict(minval=0, maxval=701, seg=1)),   # RandomCarbonSource's split
+        ("uniform", dict(seg="half")),                        # RandomPolicy's split
+        ("uniform", dict(minval=jr.NORMAL_LO, maxval=1.0, fold_each=True)),  # the UK noise
+        ("floor", dict(scale="amax")),                        # the fleet's arrivals
+        ("uniform", dict(chain=(64, 1))),                     # poisson's Knuth walk
+        ("uniform", dict(chain=(24, 2))),                     # its rejection walk
+        ("bits", dict(chain=(3, 2))),
+    ]
+    n_draws = 0
+    for kname, keys in draw_keys.items():
+        shapes = (1, 5, M_MAIN) if keys.dim() == 1 else ((5,) if keys.shape[0] > 16 else (M_MAIN,))
+        for n in shapes:
+            amax = rand(tuple(keys.shape[:-1]) + (n,), 0, 4000).floor()
+            for t in (None, 0, 1, 191, 1999, 2**31 - 1):
+                for finish, kw in finishes:
+                    if "chain" in kw and t not in (None, 191, 2**31 - 1):
+                        continue  # the long walks at three slots: the plain walk is slow
+                    kw = dict(kw)
+                    if kw.get("seg") == "half":
+                        kw["seg"] = n // 2
+                    if kw.get("scale") == "amax":
+                        kw["scale"] = amax + 1.0
+                    got = tfk.threefry_draw_cuda(keys, t, n, finish=finish, **kw)
+                    want = tfk.threefry_draw_plain(keys, t, n, finish=finish, **kw)
+                    torch.cuda.synchronize()
+                    ok = (same_bits(got, want) if got.dtype == torch.float32
+                          else torch.equal(got, want))
+                    if not ok:
+                        fail(f"threefry_draw {kname} t={t} n={n} {finish} {kw}: differs from "
+                             "the plain version")
+                    n_draws += 1
+    for (seed, t), want in THREEFRY_KNOWN.items():
+        k = jr.PRNGKey(seed, device=dev)
+        bits = tfk.threefry_draw_cuda(k, t, 3, finish="bits").tolist()
+        u = tfk.threefry_draw_cuda(k, t, 3, finish="uniform").view(torch.int32).cpu().numpy()
+        r = tfk.threefry_draw_cuda(k, t, 3, finish="randint", minval=0, maxval=401).tolist()
+        Ce, Cc = core.RandomCarbonSource(N=5)(t, k, dev)
+        got = tuple(bits + [int(x) for x in u.view(np.uint32)] + r
+                    + [int(Ce)] + [int(x) for x in Cc.tolist()])
+        if got != want:
+            fail(f"threefry_draw PRNGKey({seed}) t={t}: {got} is not jax 0.9.0's {want}")
+    for (seed, t), want in CHAIN_KNOWN.items():
+        k = jr.PRNGKey(seed, device=dev)
+        walks = (tfk.threefry_draw_cuda(k, t, 2, chain=(3, 1)),
+                 tfk.threefry_draw_cuda(k, t, 2, chain=(2, 2)))
+        got = tuple(int(x) for w in walks
+                    for x in w.reshape(-1).view(torch.int32).cpu().numpy().view(np.uint32))
+        if got != want:
+            fail(f"threefry_draw chain PRNGKey({seed}) t={t}: {got} is not jax 0.9.0's {want}")
+    say(f"[3e kernels] threefry_draw: {n_draws} draws bitwise equal to the plain version (keys "
+        f"{', '.join(draw_keys)}; n 1, 5, {M_MAIN} a key; t none, 0, 1, 191, 1999, 2**31-1; "
+        "bits, uniform [0,1) / [nextafter(-1,0),1) / [-3.5,7.25), randint spans 1, 2, 401, 701, "
+        "2**31-1, RandomCarbonSource's and RandomPolicy's splits, fold_each, the fleet's floor, "
+        "poisson's key walks (chain 64 x 1, 24 x 2; 3 x 2 bits) at t none, 191, 2**31-1); "
+        f"{len(THREEFRY_KNOWN)} known answers and {len(CHAIN_KNOWN)} key walks of jax 0.9.0 "
+        "equal; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3c. attention kernels vs plain versions on the card ---------
     max_err["flash_attention"] = max_err["flash_decode"] = 0.0
@@ -1110,7 +1417,7 @@ def main() -> int:
         del args, got, want, sum_abs, a, x, Bm, Cm
 
     # ---- 4. main path at M4096xN256 --------------------------------
-    inst = main_instance(convert, carbon, dev)
+    inst = main_instance(convert, carbon, core.UniformArrivals, dev)
     spec_d, state0_d = inst["spec"](dev), inst["state0"](dev)
     spec_h, state0_h = inst["spec"]("cpu"), inst["state0"]("cpu")
     policies = {
@@ -1123,9 +1430,12 @@ def main() -> int:
         return core.simulate(pol, spec, inst["carbon"], inst["arrivals"], T, SEED,
                              state0=state0, record=record, device=d)
 
+    # the arrivals are the twin's UniformArrivals: one threefry_draw a slot
     expected = {
-        "CarbonIntensity": {"carbon_scores": T_MAIN, "route_scores": 0, "greedy_fill": T_MAIN},
-        "QueueLength": {"carbon_scores": 0, "route_scores": 0, "greedy_fill": T_MAIN},
+        "CarbonIntensity": {"carbon_scores": T_MAIN, "route_scores": 0, "greedy_fill": T_MAIN,
+                            "threefry_draw": T_MAIN},
+        "QueueLength": {"carbon_scores": 0, "route_scores": 0, "greedy_fill": T_MAIN,
+                        "threefry_draw": T_MAIN},
     }
     main_ms, results, main_launches = drive_path("4 main", f"M{M_MAIN}xN{N_MAIN}", policies, sim,
                                                  expected, ops, dev)
@@ -1165,6 +1475,149 @@ def main() -> int:
     in_turns("4b wan", wan_policies, wan_sim, dev)
     card_vs_cpu("4b wan", wan_policies, wan_sim, T_WAN_CPU, ("Qe", "Qc", "Qt"), dev)
 
+    # ---- 4c. the scenario fleet -------------------------------------
+    t0 = time.perf_counter()
+    fleet_a = fleet_scenarios.build_fleet(["diurnal"], per_kind=FLEET_A_LANES, Tc=96,
+                                          seed=SEED, device=dev).to(dev)
+    fleet_b_h = fleet_scenarios.build_fleet(FLEET_B_KINDS, per_kind=FLEET_B_PER_KIND, M=M_MAIN,
+                                            N=N_MAIN, Tc=96, seed=SEED, device=dev)
+    fleet_b = fleet_b_h.to(dev)
+    F_B = fleet_b.F
+    lane_bytes = sum(x[0].numel() * 4 for x in (fleet_b.spec.pc, fleet_b.carbon)) + 4 * (
+        3 * M_MAIN * N_MAIN)  # pc, table, and Qc, c, the fill's rows
+    say(f"[4c fleet] built fleet A (F={fleet_a.F}, M5xN5) and fleet B (F={F_B}, "
+        f"M{M_MAIN}xN{N_MAIN}, {F_B * lane_bytes / 2**30:.2f} GiB of lane state) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ci, ql = policies["CarbonIntensity"], policies["QueueLength"]
+
+    def fleet_run(pol, fleet):
+        return lambda T, record, d=dev: core.simulate_fleet(pol, fleet, T, SEED, record=record,
+                                                            device=d)
+
+    fleet_runs = {
+        "A CarbonIntensity": (fleet_run(ci, fleet_a), T_FLEET_A, fleet_a.F,
+                              {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}),
+        "B CarbonIntensity": (fleet_run(ci, fleet_b), T_FLEET_B, F_B,
+                              {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}),
+        "B QueueLength": (fleet_run(ql, fleet_b), T_FLEET_B, F_B,
+                          {"greedy_fill": 1, "threefry_draw": 1}),
+    }
+    fleet_ms, fleet_results, fleet_launches = drive_fleets("4c fleet", fleet_runs, ops, dev)
+    fleet_turns("4c fleet", fleet_runs)
+    for run, (fn, T, _, _) in fleet_runs.items():
+        prof, host = profile_slots(lambda fn=fn: fn(8, "summary"), slots=8)
+        n_aten = sum(v[1] for k, v in host.items() if k.startswith("aten::"))
+        if prof is None:
+            say(f"[4c profile] {run}: device time per slot not measured (the profiler "
+                f"recorded no device time); {n_aten:.1f} aten op calls/slot")
+            continue
+        busy = prof.pop("total")
+        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
+        say(f"[4c profile] {run}: device busy {busy:.4f} ms/slot of {fleet_ms[run]:.4f} "
+            f"(idle share {1.0 - busy / fleet_ms[run]:.3f}), {n_aten:.1f} aten op calls/slot; "
+            "top kernels per slot " + ", ".join(f"{k[:48]} {v:.4f} ms" for v, k in top[:5]))
+    # fleet A: the summary scalars equal the full record's
+    full_a = fleet_runs["A CarbonIntensity"][0](T_FLEET_A, "full")
+    bad = same_result(full_a, fleet_results["A CarbonIntensity"],
+                      ("emissions", "cum_emissions", "dispatched", "processed", "energy_edge",
+                       "energy_cloud"))
+    if bad or not torch.equal(full_a.Qc[:, -1], fleet_results["A CarbonIntensity"].Qc[:, 0]):
+        fail(f"fleet A: summary differs from full in {bad or ['the final state']}")
+    say(f"[4c fleet] A: summary scalars and final state bitwise equal to record='full'")
+    del full_a
+    # fleet B: lanes 0 and F-1 alone through the card's simulate
+    keys_b = jr.split(jr.PRNGKey(SEED, device=dev), F_B)
+    for pname, pol in (("CarbonIntensity", ci), ("QueueLength", ql)):
+        res = fleet_results[f"B {pname}"]
+        for f in (0, F_B - 1):
+            spec_f = core.NetworkSpec(*(x[f] for x in fleet_b.spec))
+            one = core.simulate(pol, spec_f, core.TableCarbonSource(table=fleet_b.carbon[f]),
+                                core.FleetArrivals(amax=fleet_b.arrival_amax[f]), T_FLEET_B,
+                                keys_b[f], record="summary", device=dev)
+            lane = res._replace(**{n: getattr(res, n)[f] for n in res._fields})
+            bad, rel = same_result(one, lane, COUNTED), emission_rtol(one, lane)
+            if bad or rel > 1e-6:
+                fail(f"fleet B {pname}: lane {f} differs from its instance alone in {bad}, "
+                     f"emissions rtol {rel:.3e}")
+            say(f"[4c fleet] B {pname}: lane {f} bitwise equal to its instance run alone through "
+                f"simulate on the card (Qe, Qc, dispatched, processed; T={T_FLEET_B}); "
+                f"emissions max rel diff {rel:.3e}, identical bits: "
+                f"{not same_result(one, lane, ('emissions',))}")
+    # fleet B's first two lanes, card vs the CPU plain path
+    t0 = time.perf_counter()
+    two_h = fleet_b_h._replace(spec=core.FleetSpec(*(x[:2] for x in fleet_b_h.spec)),
+                               carbon=fleet_b_h.carbon[:2], arrival_amax=fleet_b_h.arrival_amax[:2])
+    for pname, pol in (("CarbonIntensity", ci), ("QueueLength", ql)):
+        gpu = core.simulate_fleet(pol, two_h.to(dev), T_FLEET_CPU, SEED, device=dev)
+        cpu = core.simulate_fleet(pol, two_h, T_FLEET_CPU, SEED, device="cpu")
+        bad = [n for n in ("Qe", "Qc", "dispatched", "processed")
+               if not torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n))]
+        em_g, em_c = gpu.emissions.cpu().double(), cpu.emissions.double()
+        rel = float(((em_g - em_c).abs() / em_c.abs().clamp_min(1e-30)).max())
+        if bad or rel > 1e-6:
+            fail(f"fleet B F2 {pname}: card and CPU differ in {bad}, emissions rtol {rel:.3e}")
+        say(f"[4c fleet] B F2xM{M_MAIN}xN{N_MAIN} {pname} T={T_FLEET_CPU} card vs CPU plain "
+            f"path: Qe, Qc, dispatched, processed bitwise equal, emissions max rel diff "
+            f"{rel:.3e} (limit 1e-6)")
+    say(f"[4c fleet] card vs CPU: {time.perf_counter() - t0:.1f} s")
+    del two_h
+    # the kernels at the fleets' shapes, on each fleet's last-slot inputs
+    # (timed here, reported in phase 7 beside the main path's times)
+    fleet_times = {}
+    for fname, fleet, T in (("A", fleet_a, T_FLEET_A), ("B", fleet_b, T_FLEET_B)):
+        st_f = fleet_results[f"{fname} CarbonIntensity"]
+        Qe_f, Qc_f = st_f.Qe[:, 0], st_f.Qc[:, 0]
+        nl, M, N = Qc_f.shape
+        pe_f, pc_f, Pe_f, Pc_f = fleet.spec
+        row_t = fleet.carbon[:, (T - 1) % fleet.carbon.shape[1]]
+        sargs = (Qc_f, pc_f, Qe_f, pe_f, V_PAPER * row_t[:, 1:], V_PAPER * row_t[:, 0])
+        c_f, _, b_f = cs.carbon_scores_cuda(*sargs)
+        fargs = (torch.cat([b_f[:, None], c_f.transpose(1, 2)], 1).reshape(-1, M),
+                 torch.cat([pe_f[:, None], pc_f.transpose(1, 2)], 1).reshape(-1, M),
+                 torch.cat([Qe_f[:, None], Qc_f.transpose(1, 2)], 1).reshape(-1, M),
+                 torch.cat([Pe_f[:, None], Pc_f], 1).reshape(-1))
+        keys_f = jr.split(jr.split(jr.PRNGKey(SEED, device=dev), nl), 3)[:, 1]
+        scale_f = fleet.arrival_amax + 1.0
+        n_neg_f = int((fargs[0] < 0).sum())
+        fleet_times[fname] = dict(
+            shape=f"F{nl}xM{M}xN{N}",
+            scores=graph_ms(lambda: cs.carbon_scores_cuda(*sargs), reps=10, inner=20),
+            scores_bytes=4 * (3 * nl * M * N + 4 * nl * M + nl * N + nl),
+            fill=graph_ms(lambda: gf.greedy_fill_cuda(*fargs), reps=5, inner=5),
+            fill_rows=fargs[0].shape[0], fill_neg=n_neg_f,
+            fill_bytes=4 * (3 * fargs[0].numel() + n_neg_f + fargs[0].shape[0]),
+            draw=graph_ms(lambda: tfk.threefry_draw_cuda(keys_f, T - 1, M, finish="floor",
+                                                         scale=scale_f), reps=10, inner=20),
+            draw_n=nl * M, draw_ops=draw_ops(nl, M, 1, 1, 2),
+            launches={k: v for k, v in fleet_launches[f"{fname} CarbonIntensity"].items() if v})
+        ft = fleet_times[fname]
+        say(f"[4c time] fleet {fname} {ft['shape']}: carbon_scores {ft['scores'][1]:.5f} ms cold "
+            f"({ft['scores'][0]:.5f} warm) vs byte bound "
+            f"{ft['scores_bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms; greedy_fill over "
+            f"{ft['fill_rows']} rows of {M} {ft['fill'][1]:.5f} ms cold "
+            f"({ft['fill'][0]:.5f} warm), "
+            f"{n_neg_f} negative-score items; threefry_draw (the fleet's arrivals, {nl}x{M}) "
+            f"{ft['draw'][1]:.5f} ms cold ({ft['draw'][0]:.5f} warm) vs operation bound "
+            f"{ft['draw_ops'] / INT32_OPS_PER_S * 1e3:.6f} ms "
+            "(CUDA graph replay, CUDA events, median)")
+        del sargs, fargs, c_f, b_f
+
+    # the registry fleet (the JAX bench's fleet/F96xT200): mean reduction
+    t0 = time.perf_counter()
+    reg = fleet_scenarios.build_fleet(per_kind=REGISTRY_PER_KIND, Tc=96, seed=SEED,
+                                      device=dev).to(dev)
+    finals_reg = {p: core.simulate_fleet(pol, reg, T_REGISTRY, SEED, record="summary",
+                                         device=dev).cum_emissions[:, -1].double()
+                  for p, pol in (("CarbonIntensity", ci), ("QueueLength", ql))}
+    ratio = finals_reg["CarbonIntensity"] / finals_reg["QueueLength"]
+    reg_red = 100.0 * float(1.0 - ratio.mean())
+    say(f"[4c fleet] registry fleet F={reg.F}xT{T_REGISTRY} (6 kinds x {REGISTRY_PER_KIND}): "
+        f"mean emission reduction CarbonIntensity(V={V_PAPER}) vs QueueLength {reg_red:.6f}% "
+        f"(JAX {REGISTRY_JAX:.6f}%); {time.perf_counter() - t0:.1f} s")
+    if not abs(reg_red - REGISTRY_JAX) <= REGISTRY_TOL:
+        fail(f"registry fleet reduction {reg_red:.4f}% is not within {REGISTRY_TOL} of JAX's")
+    del reg
+
     # ---- 5. paper headline -----------------------------------------
     pspec = paper_spec().to(dev)
     uk = core.UKRegionalTraceSource(N=5).to(dev)
@@ -1187,6 +1640,46 @@ def main() -> int:
         fail(f"paper headline reduction {reduction:.2f}% is not a reduction")
     say(f"[5 paper] emission reduction CarbonIntensity(V={V_PAPER}) vs QueueLength on the "
         f"UK-regional source: {reduction:.2f}% (paper: 54%)")
+
+    # Fig. 2 on JAX's streams: RandomCarbonSource, UniformArrivals, PRNGKey(0)
+    rand_src = core.RandomCarbonSource(N=5)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        base = core.simulate(policies["QueueLength"], pspec, rand_src, arrive, T_PAPER, SEED,
+                             record="summary", device=dev)
+        single = {V: core.simulate(core.CarbonIntensityPolicy(V=V), pspec, rand_src, arrive,
+                                   T_PAPER, SEED, record="summary", device=dev) for V in VSWEEP}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fig2 = {V: 100.0 * (1.0 - float(single[V].cum_emissions[-1]) / float(base.cum_emissions[-1]))
+            for V in VSWEEP}
+    for V, want in FIG2_JAX.items():
+        if not abs(fig2[V] - want) <= FIG2_TOL:
+            fail(f"Fig. 2 reduction at V={V}: {fig2[V]:.6f}% is not JAX's {want:.6f}%")
+    say(f"[5 paper] Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals, PRNGKey({SEED}), "
+        f"T={T_PAPER}, under sync debug mode 'error'): reduction CarbonIntensity vs QueueLength "
+        + ", ".join(f"V={V} {fig2[V]:.6f}% (JAX {FIG2_JAX[V]:.6f}%)" for V in FIG2_JAX)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sweep = core.simulate_vsweep(lambda V: core.CarbonIntensityPolicy(V=V), VSWEEP, pspec,
+                                 rand_src, arrive, T_PAPER, SEED, device=dev)
+    sweep_h = core.simulate_vsweep(lambda V: core.CarbonIntensityPolicy(V=V), VSWEEP,
+                                   paper_spec(), rand_src, arrive, T_PAPER, SEED, device="cpu")
+    if same_result(sweep, sweep_h, ("Qe", "Qc", "dispatched", "processed")):
+        fail("simulate_vsweep: card and CPU queues differ")
+    for i, V in enumerate(VSWEEP):
+        lane = sweep._replace(**{n: getattr(sweep, n)[i] for n in sweep._fields})
+        bad = same_result(single[V], lane, ("dispatched", "processed"))
+        rel = emission_rtol(single[V], lane)
+        if bad or rel > 1e-6 or not torch.equal(lane.Qc[-1], single[V].Qc[0]):
+            fail(f"simulate_vsweep lane V={V} differs from simulate in {bad or ['Qc']}, "
+                 f"emissions rtol {rel:.3e}")
+    say(f"[5 paper] simulate_vsweep V {VSWEEP}, T={T_PAPER}: card vs CPU queues bitwise equal; "
+        "each lane's queues and counts bitwise equal to its single-V simulate, emissions within "
+        "rtol 1e-6; reductions "
+        + ", ".join(f"{V} {fig2[V]:.4f}%" for V in VSWEEP) + f"; {time.perf_counter() - t0:.1f} s")
+    del sweep, sweep_h, single
 
     # ---- 5b. WAN headline -------------------------------------------
     # the JAX bench's network/congested-uplink rows: M5xN5, V=0.1, T=192,
@@ -1294,6 +1787,15 @@ def main() -> int:
         "src/repro/core/policies.py:53", main_launches["greedy_fill"], ms, call_ms, plain_ms,
         nbytes=4 * (3 * B * M + n_neg + B),
         nops=B * (2 * M + (1 << (L - 1)) * L * (L + 1) // 2) + 4 * n_neg)
+    for ft in fleet_times.values():
+        rows[0].setdefault("fleet", []).append({
+            "shape": ft["shape"], "launches": ft["launches"].get("carbon_scores", 0),
+            "ms": ft["scores"][1], "bound_ms": ft["scores_bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"})
+        rows[1].setdefault("fleet", []).append({
+            "shape": f"{ft['fill_rows']}x{ft['shape'].split('xN')[0].split('M')[1]}",
+            "launches": ft["launches"].get("greedy_fill", 0), "ms": ft["fill"][1],
+            "bound_ms": ft["fill_bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
     n_neg_ql = int((ql_scores < 0).sum())
     say(f"[7 time] greedy_fill with QueueLength inputs (sort_key, no stop): {ms_ql:.5f} ms device "
         f"time (cold L2), {n_neg_ql} negative-score items; the row above had CarbonIntensity inputs, "
@@ -1481,9 +1983,69 @@ def main() -> int:
         "ms of the prefill")
     del ssd_main, a, x, Bm, Cm
 
+    # threefry_draw: the main path's arrivals (UniformArrivals at M4096);
+    # the bound counts the function's own integer operations, not the
+    # kernel's (which recomputes each element's key chain): one fold_in
+    # and randint's split (three hashes) for the draw, two hashes and the
+    # span's remainders an element; and the bytes of its keys and output;
+    # no PyTorch call draws JAX's stream
+    k_arr = jr.split(jr.PRNGKey(SEED, device=dev), 3)[1]
+    draw_kw = dict(finish="randint_f32", minval=0, maxval=A_MAX + 1)
+    ms = graph_ms(lambda: tfk.threefry_draw_cuda(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
+                  reps=20, inner=50)
+    call_ms = cuda_ms(lambda: tfk.threefry_draw_cuda(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
+                      reps=20, inner=50)
+    plain_ms = cuda_ms(lambda: tfk.threefry_draw_plain(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
+                       reps=5, inner=3)
+    row("threefry_draw", "src/repro_torch/kernels/csrc/threefry.cu",
+        "src/repro/core/simulator.py:45", main_launches["threefry_draw"], ms, call_ms, plain_ms,
+        nbytes=4 * M_MAIN + 16, nops=draw_ops(1, M_MAIN, 3, 2, 12),
+        ops_per_s=INT32_OPS_PER_S)
+    rows[-1]["fleet"] = [{
+        "shape": f"{ft['shape']} arrivals ({ft['draw_n']} values)",
+        "launches": ft["launches"].get("threefry_draw", 0), "ms": ft["draw"][1],
+        "bound_ms": max(ft["draw_ops"] / INT32_OPS_PER_S,
+                        8 * ft["draw_n"] / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations"} for ft in fleet_times.values()]
+
+    # PoissonArrivals at M4096 (no main path runs it): a slot's arrivals
+    # are two chain draws (poisson's Knuth and rejection walks, the fold
+    # inside them) and the samplers' eager elementwise passes; beside it
+    # the same slot with the plain walk (the eager twin: split and uniform
+    # a round); the draws' mean held to the rates' within 6 standard errors
+    rates = np.linspace(POISSON_RATE_LO, POISSON_RATE_HI, M_MAIN)
+    pois = core.PoissonArrivals(rates=tuple(rates.tolist()))
+    k_pois = jr.split(jr.PRNGKey(SEED, device=dev), 3)[1]
+    pois(0, k_pois, dev)  # stages the rates on the card
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    draws = torch.stack([pois(t, k_pois, dev) for t in range(POISSON_SLOTS)]).double()
+    pois_draws = ops.launch_counts()["threefry_draw"] / POISSON_SLOTS
+    se = float(np.sqrt(rates.mean() / draws.numel()))
+    gap = abs(float(draws.mean()) - float(rates.mean()))
+    if not (gap < 6 * se and bool((draws >= 0).all()) and bool((draws == draws.floor()).all())
+            and pois_draws == 2):
+        fail(f"PoissonArrivals: mean {float(draws.mean()):.3f} vs rates' {rates.mean():.3f} "
+             f"(6 se {6 * se:.3f}), {pois_draws} draws a slot (2 expected)")
+    pois_ms = cuda_ms(lambda: pois(T_MAIN - 1, k_pois, dev), reps=10, inner=5)
+    prof, host = profile_slots(lambda: [pois(t, k_pois, dev) for t in range(POISSON_SLOTS)],
+                               slots=POISSON_SLOTS)
+    n_aten = sum(v[1] for k, v in host.items() if k.startswith("aten::"))
+    busy = "not measured" if prof is None else f"{prof['total']:.4f} ms"
+    with swapped(ops, dict(threefry_draw=tfk.threefry_draw_plain)):
+        pois_plain_ms = cuda_ms(lambda: pois(T_MAIN - 1, k_pois, dev), reps=3, inner=1)
+        _, host_plain = profile_slots(lambda: pois(T_MAIN - 1, k_pois, dev), slots=1)
+    n_aten_plain = sum(v[1] for k, v in host_plain.items() if k.startswith("aten::"))
+    say(f"[7 time] PoissonArrivals M{M_MAIN} (rates {POISSON_RATE_LO}-{POISSON_RATE_HI}): "
+        f"{pois_ms:.5f} ms a slot (CUDA events, eager, median), {pois_draws:g} threefry_draw "
+        f"launches and {n_aten:.1f} aten op calls a slot, device busy {busy} a slot; with the "
+        f"plain walk {pois_plain_ms:.5f} ms, {n_aten_plain:.0f} aten op calls; mean of "
+        f"{draws.numel()} draws {float(draws.mean()):.4f} vs rates' {rates.mean():.4f} "
+        f"(6 se {6 * se:.4f})")
+
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
 

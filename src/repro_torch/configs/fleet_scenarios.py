@@ -1,11 +1,33 @@
-"""WAN topology scenarios (counterpart of the network part of
+"""Fleet scenario registry and WAN topology scenarios (counterpart of
 `repro.configs.fleet_scenarios`).
 
-Each generator makes ONE instance (NetworkSpec, carbon table [Tc, N+1],
-arrival caps amax [M], LinkGraph) from an instance-local numpy
-generator, drawing in the JAX generator's order, so the spec, the graph
-and the `diurnal_table` tables are bitwise the JAX scenario's. Task data
-volumes scale with compute cost: size[m] = pc[m, 0] / 20.
+Each generator makes ONE instance from an instance-local numpy
+generator, drawing in the JAX generator's order, so specs, graphs and
+the `diurnal_table` / `bursty_table` tables are bitwise the JAX
+scenario's. `build_fleet` fans a list of scenario names out to
+`per_kind` instances each (generator `default_rng((seed, i, j))`, as
+the JAX builder seeds them) and stacks them into a `FleetScenario` for
+`simulate_fleet`. The scenarios (NetworkSpec, carbon table [Tc, N+1],
+arrival caps amax [M]):
+
+  * diurnal             -- paper workload mix under day/night carbon
+                           cycles with per-region phase jitter.
+  * diurnal-slack       -- diurnal carbon at ~60% load.
+  * bursty              -- rare multi-slot carbon spikes + heavy-tailed
+                           per-type arrival caps.
+  * heterogeneous-fleet -- per-instance scaling of task energies and
+                           cloud budgets.
+  * overload            -- ~1.8x the diurnal load.
+  * multi-region-uk     -- UK regional traces with the region -> site
+                           assignment rotated per instance. Its table
+                           comes from the port's `uk_regional_table`,
+                           whose noise is the twin's `normal` (about 1%
+                           of draws an ulp or so off JAX's), so parity
+                           tests feed JAX's fleet through
+                           `convert.fleet_from_reference`.
+
+The WAN scenarios add a LinkGraph. Task data volumes scale with compute
+cost: size[m] = pc[m, 0] / 20.
 
   * star                -- one finite direct link per cloud.
   * congested-uplink    -- per cloud a wide, dirty primary and a clean,
@@ -15,20 +37,21 @@ volumes scale with compute cost: size[m] = pc[m, 0] / 20.
                            relayed routes.
 
 multi-region-uk-wan renders its table with the port's
-`uk_regional_table` on `device`, whose noise comes from that device's
-torch generator (not the JAX threefry stream), so that table is the
-port's own; parity tests feed both packages one table. The fleet
-builder (`build_network_fleet`) comes with the fleet slice.
+`uk_regional_table` on `device`, as multi-region-uk does. The WAN fleet
+builder (`build_network_fleet`) comes with the WAN fleet (ROADMAP Queue
+1 item 2.2b).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 
 from repro_torch.configs.paper_workloads import A_MAX, paper_spec
-from repro_torch.core.carbon import _UK_REGIONS, diurnal_table, uk_regional_table
+from repro_torch.core.carbon import _UK_REGIONS, bursty_table, diurnal_table, uk_regional_table
 from repro_torch.core.queueing import NetworkSpec
+from repro_torch.core.simulator import FleetScenario, stack_scenarios
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.network.graph import congested_uplink_graph, multi_region_wan_graph, star_graph
 
@@ -46,6 +69,86 @@ def _base(M: int, N: int) -> NetworkSpec:
         Pe=float(base.Pe) * (M / base.M),
         Pc=np.full((N,), float(np.asarray(base.Pc)[0]) * scale / N, np.float32),
     )
+
+
+def diurnal(M: int, N: int, Tc: int, rng: np.random.Generator, device=DEFAULT_DEVICE):
+    spec = _base(M, N)
+    amax = np.full((M,), float(A_MAX), np.float32)
+    return spec, diurnal_table(Tc, N, rng), amax
+
+
+def bursty(M: int, N: int, Tc: int, rng: np.random.Generator, device=DEFAULT_DEVICE):
+    spec = _base(M, N)
+    # heavy-tailed workload mix: a few hot types, many cold ones
+    amax = np.round(A_MAX * rng.pareto(1.5, M).clip(0.05, 4.0)).astype(np.float32)
+    return spec, bursty_table(Tc, N, rng), amax
+
+
+def heterogeneous_fleet(M: int, N: int, Tc: int, rng: np.random.Generator,
+                        device=DEFAULT_DEVICE):
+    base = _base(M, N)
+    # mixed hardware generations: per-cloud efficiency and budget spread,
+    # per-type edge-link cost spread
+    eff = rng.uniform(0.5, 2.0, (1, N)).astype(np.float32)
+    spec = dataclasses.replace(
+        base,
+        pe=np.asarray(base.pe) * rng.uniform(0.5, 2.0, M).astype(np.float32),
+        pc=np.asarray(base.pc) * eff,
+        Pc=np.asarray(base.Pc) * rng.uniform(0.4, 1.6, N).astype(np.float32),
+    )
+    amax = np.round(A_MAX * rng.uniform(0.3, 1.5, M)).astype(np.float32)
+    return spec, diurnal_table(Tc, N, rng), amax
+
+
+def diurnal_slack(M: int, N: int, Tc: int, rng: np.random.Generator, device=DEFAULT_DEVICE):
+    """Diurnal carbon with ~40% capacity headroom: arrivals scaled down
+    so deferring work out of intensity peaks is feasible."""
+    spec = _base(M, N)
+    amax = np.full((M,), round(0.6 * A_MAX), np.float32)
+    return spec, diurnal_table(Tc, N, rng, amp=110.0, noise=15.0), amax
+
+
+def overload(M: int, N: int, Tc: int, rng: np.random.Generator, device=DEFAULT_DEVICE):
+    """Offered load ~1.8x the plain diurnal scenario: no policy clears
+    these queues."""
+    spec = _base(M, N)
+    amax = np.round(1.8 * A_MAX * rng.uniform(0.9, 1.1, M)).astype(np.float32)
+    return spec, diurnal_table(Tc, N, rng), amax
+
+
+def multi_region_uk(M: int, N: int, Tc: int, rng: np.random.Generator,
+                    device=DEFAULT_DEVICE):
+    spec = _base(M, N)
+    amax = np.full((M,), float(A_MAX), np.float32)
+    table = uk_regional_table(Tc, N, seed=int(rng.integers(1 << 30)),
+                              rotate=int(rng.integers(len(_UK_REGIONS))), device=device)
+    return spec, table, amax
+
+
+SCENARIOS: Dict[str, Callable] = {
+    "diurnal": diurnal,
+    "diurnal-slack": diurnal_slack,
+    "bursty": bursty,
+    "heterogeneous-fleet": heterogeneous_fleet,
+    "multi-region-uk": multi_region_uk,
+    "overload": overload,
+}
+
+
+def build_fleet(kinds: Sequence[str] = tuple(SCENARIOS), per_kind: int = 16, M: int = 5,
+                N: int = 5, Tc: int = 96, seed: int = 0, device=DEFAULT_DEVICE) -> FleetScenario:
+    """Stacks `per_kind` instances of every named scenario (F =
+    len(kinds) * per_kind). Unknown names raise KeyError listing the
+    registry. `device` renders multi-region-uk's tables."""
+    instances = []
+    for i, kind in enumerate(kinds):
+        try:
+            gen = SCENARIOS[kind]
+        except KeyError:
+            raise KeyError(f"unknown scenario {kind!r}; registered: {sorted(SCENARIOS)}") from None
+        for j in range(per_kind):
+            instances.append(gen(M, N, Tc, np.random.default_rng((seed, i, j)), device=device))
+    return stack_scenarios(instances)
 
 
 def _task_sizes(spec: NetworkSpec) -> np.ndarray:

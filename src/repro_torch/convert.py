@@ -6,6 +6,8 @@ and the port.
 (`np.asarray(obj.pe)`, ...), so the port never imports `repro`; the
 parity tests use them to feed both packages the same numbers, and
 `queues_numpy` to read both packages' recorded queues.
+`key_from_reference` takes a JAX key's uint32 pair (`jax.random.key_data`)
+and `fleet_from_reference` a JAX `FleetScenario`'s arrays, as numpy.
 `params_from_reference` and `cache_from_reference` carry an LM's
 parameter and cache pytrees (nested dicts of arrays; a dense KV cache or
 an SSM state cache) over, leaf for leaf and bit for bit, bf16 included;
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState
+from repro_torch.core.simulator import FleetScenario, FleetSpec
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.network.graph import LinkGraph, make_graph
 
@@ -57,6 +60,31 @@ def graph_from_reference(graph, device=DEFAULT_DEVICE) -> LinkGraph:
     """The port's twin of a JAX LinkGraph, read by its field names."""
     return graph_from_numpy(*(np.asarray(getattr(graph, f)) for f in LinkGraph._fields),
                             device=device)
+
+
+def key_from_reference(key_u32, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """The port's key ([..., 2] int64) of a JAX key's uint32 data, e.g.
+    `np.asarray(jax.random.key_data(k))` or a raw `PRNGKey` array."""
+    a = np.asarray(key_u32)
+    if a.dtype != np.uint32 or a.shape[-1:] != (2,):
+        raise ValueError(f"key_from_reference: want uint32 [..., 2], got {a.dtype} {a.shape}")
+    return torch.as_tensor(a.astype(np.int64), device=resolve_device(device))
+
+
+def fleet_from_reference(fleet) -> FleetScenario:
+    """The port's FleetScenario (float32 numpy arrays) of a JAX
+    FleetScenario, read by field names. A JAX fleet with a graph,
+    forecast-error, fault or deadline axis keeps it, for
+    `simulate_fleet` to refuse by name."""
+    f32 = lambda x: np.array(x, np.float32)  # noqa: E731
+    extra = {f: getattr(fleet, f, None) for f in ("graph", "err_bias", "err_noise", "faults",
+                                                   "deadlines")}
+    return FleetScenario(
+        spec=FleetSpec(*(f32(getattr(fleet.spec, f)) for f in FleetSpec._fields)),
+        carbon=f32(fleet.carbon),
+        arrival_amax=f32(fleet.arrival_amax),
+        **extra,
+    )
 
 
 def queues_numpy(result) -> dict:

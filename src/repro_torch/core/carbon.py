@@ -1,7 +1,9 @@
 """Carbon-intensity sources (paper §V scenarios), in PyTorch.
 
 Counterpart of `repro.core.carbon`. A source is a callable
-`(t: int, seed: int, device) -> (Ce 0-d tensor, Cc [N] tensor)`:
+`(t: int, key, device) -> (Ce 0-d tensor, Cc [N] tensor)`, `key` a
+threefry key on the device (`repro_torch.random`; [F, 2] for F lanes,
+which give Ce [F] and Cc [F, N]):
 
   * RandomCarbonSource     -- Ce(t), Cc_n(t) ~ U{0..700} i.i.d.   (Fig. 2)
   * UKRegionalTraceSource  -- the synthetic stand-in for the National
@@ -11,9 +13,11 @@ Counterpart of `repro.core.carbon`. A source is a callable
 
 Sources that hold data have `to(device)`, which stages it on the device
 once; the simulator calls it before its loop so that no slot copies host
-data. Random draws come from a generator seeded with fold_in(seed, t) on
-the device itself, so a source is deterministic in (seed, t) on a given
-device type (CPU and CUDA generators differ; tests feed tables).
+data. Random draws are JAX's threefry streams, each one launch of the
+draw kernel with the slot folded in (`ops.threefry_draw`): the same key
+gives the JAX source's values, bitwise for `RandomCarbonSource`; the UK
+source's Gaussian noise goes through `normal`'s erfinv, which agrees
+with XLA's on about 99% of draws (`repro_torch.random`).
 
 The table helpers `diurnal_table` and `bursty_table` are numpy, copied
 from the JAX module, so they give bitwise the same tables.
@@ -27,9 +31,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.core import rng
 from repro_torch.core.queueing import DTYPE
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.numerics import erfinv_xla
 
 
 class DeviceCache:
@@ -56,11 +63,12 @@ class RandomCarbonSource:
     N: int
     cmax: int = 700
 
-    def __call__(self, t: int, seed: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        g = rng.generator(rng.fold_in(seed, t), device)
-        vals = torch.randint(0, self.cmax + 1, (self.N + 1,), generator=g, device=device)
-        vals = vals.to(DTYPE)
-        return vals[0], vals[1:]
+    def __call__(self, t: int, key, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        # ke, kc = split(fold_in(key, t)); Ce = randint(ke, ()), Cc =
+        # randint(kc, (N,)): one draw, the edge from the first half
+        vals = ops.threefry_draw(rng.key_of(key, device), t, self.N + 1, finish="randint_f32",
+                                 seg=1, minval=0, maxval=self.cmax + 1)
+        return vals[..., 0], vals[..., 1:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +94,8 @@ class ConstantCarbonSource(DeviceCache):
                     torch.broadcast_to(Cc, (self.N,)))
         return self._cached(device, make)
 
-    def __call__(self, t: int, seed: int, device):
-        del t, seed
+    def __call__(self, t: int, key, device):
+        del t, key
         return self._tensors(device)
 
 
@@ -111,9 +119,11 @@ _SLOTS_PER_DAY = 48  # 30-minute slots, as in the ESO dataset
 class UKRegionalTraceSource(DeviceCache):
     """Synthetic stand-in for National Grid ESO regional traces (Fig. 3).
 
-    Deterministic in (seed, t). The structure is the JAX source's; the
-    Gaussian noise comes from a torch generator, so the traces are not
-    the JAX package's (no threefry twin yet)."""
+    Deterministic in (seed, t). The structure and the noise's keys are
+    the JAX source's (`fold_in(fold_in(PRNGKey(seed), t), region)`); the
+    deterministic part is computed in float64 and the noise's erfinv
+    agrees with XLA's on about 99% of draws, so the trace is close to
+    the JAX package's, not bitwise (ROADMAP hazard 5)."""
 
     N: int = 5
     seed: int = 2022
@@ -121,16 +131,16 @@ class UKRegionalTraceSource(DeviceCache):
 
     def _tensors(self, device):
         def make(dev):
-            R = len(self.regions)
-            rows = [self.regions[min(r, R - 1)] for r in range(self.N + 1)]
+            last = len(self.regions) - 1
+            rows = [self.regions[min(r, last)] for r in range(self.N + 1)]
             params = torch.as_tensor(np.asarray(rows, np.float32), device=dev)
             region = torch.arange(self.N + 1, dtype=DTYPE, device=dev)
-            return params, region
+            return params, region, R.PRNGKey(self.seed, device=dev)
         return self._cached(device, make)
 
-    def __call__(self, t: int, seed: int, device):
-        del seed  # the trace is a function of (self.seed, t), as in JAX
-        params, region = self._tensors(device)
+    def __call__(self, t: int, key, device):
+        del key  # the trace is a function of (self.seed, t), as in JAX
+        params, region, base = self._tensors(device)
         mean, amp, wind = params[:, 0], params[:, 1], params[:, 2]
         day_phase = 2.0 * math.pi * (t % _SLOTS_PER_DAY) / _SLOTS_PER_DAY
         # demand peaks around 18:00 -> phase shift; solar dip mid-day
@@ -141,26 +151,30 @@ class UKRegionalTraceSource(DeviceCache):
         national = math.sin(2 * math.pi * t / (_SLOTS_PER_DAY * 3.3) + 1.7)
         regional = torch.sin(2 * math.pi * t / (_SLOTS_PER_DAY * 2.1) + region)
         front = wind * (0.7 * national + 0.3 * regional)
-        g = rng.generator(rng.fold_in(self.seed, t), device)
-        noise = 25.0 * torch.randn((self.N + 1,), generator=g, device=device)
+        # normal(fold_in(fold_in(PRNGKey(seed), t), region)): one draw
+        u = ops.threefry_draw(base, t, self.N + 1, finish="uniform", fold_each=True,
+                              minval=R.NORMAL_LO, maxval=1.0)
+        noise = 25.0 * (R.SQRT2 * erfinv_xla(u))
         vals = torch.clamp(mean + diurnal + front + noise, 5.0, 700.0)
         return vals[0], vals[1:]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # identity hash: array field
 class TableCarbonSource(DeviceCache):
-    """Plays back a precomputed table. table: [T, N+1]; column 0 = edge;
-    rows repeat modulo T."""
+    """Plays back a precomputed table. table: [T, N+1] (or [F, T, N+1]
+    for F lanes, as the fleet holds them); column 0 = edge; rows repeat
+    modulo T."""
 
     table: object
 
     def __post_init__(self):
         shape = getattr(self.table, "shape", None)
-        if shape is None or len(shape) != 2:
+        if shape is None or len(shape) not in (2, 3):
             raise ValueError(
                 "TableCarbonSource.table must be a [T, N+1] array (col 0 = edge), got "
                 f"{'no shape' if shape is None else f'shape {tuple(shape)}'}"
             )
+        shape = shape[-2:]
         if shape[0] < 1 or shape[1] < 2:
             raise ValueError(
                 f"TableCarbonSource.table shape {tuple(shape)} needs at least 1 row "
@@ -169,16 +183,16 @@ class TableCarbonSource(DeviceCache):
 
     @property
     def N(self) -> int:
-        return self.table.shape[1] - 1
+        return self.table.shape[-1] - 1
 
     def _tensors(self, device):
         return self._cached(device, lambda dev: torch.as_tensor(self.table, dtype=DTYPE, device=dev))
 
-    def __call__(self, t: int, seed: int, device):
-        del seed
+    def __call__(self, t: int, key, device):
+        del key
         tab = self._tensors(device)
-        row = tab[t % tab.shape[0]]
-        return row[0], row[1:]
+        row = tab[..., t % tab.shape[-2], :]
+        return row[..., 0], row[..., 1:]
 
 
 def from_eso_csv(path: str, n_regions: int) -> TableCarbonSource:
@@ -251,11 +265,13 @@ def uk_regional_table(T: int, N: int, seed: int = 2022, rotate: int = 0,
     return materialize(UKRegionalTraceSource(N=N, seed=seed, regions=regions), T, device=device)
 
 
-def materialize(source, T: int, seed: int = 0, device=DEFAULT_DEVICE) -> np.ndarray:
-    """Renders any source to a [T, N+1] numpy table."""
+def materialize(source, T: int, seed=0, device=DEFAULT_DEVICE) -> np.ndarray:
+    """Renders any source to a [T, N+1] numpy table; `seed` an int
+    (`PRNGKey(seed)`, the JAX function's default key at 0) or a key."""
     device = resolve_device(device)
+    key = rng.key_of(seed, device)
     rows = []
     for t in range(T):
-        Ce, Cc = source(t, seed, device)
+        Ce, Cc = source(t, key, device)
         rows.append(torch.cat([Ce.reshape(1), Cc]))
     return torch.stack(rows).cpu().numpy()

@@ -13,8 +13,12 @@
 
 All policies share the signature
     policy(state, spec, Ce, Cc, arrivals, key) -> Action
-with `key` an int seed (see core.rng). They run on the device of
-`state`; on the CPU the kernels are replaced by their plain versions.
+with `key` a threefry key, an int seed or the simulator's
+`rng.SlotKey` (see core.rng). They run on the device of `state`; on the
+CPU the kernels are replaced by their plain versions. The state and
+spec may carry a leading lane axis (Qe [F, M], Qc [F, M, N], the spec's
+fields likewise, Ce [F], Cc [F, N]): the fleet's lanes, or V values
+(`V` an [F] tensor) for `simulate_vsweep`.
 Notes vs. the paper's pseudocode (`literal_edge_budget`,
 `stop_at_first_unfit`) are those of the JAX module.
 """
@@ -71,8 +75,30 @@ def _scalar(value: float, device) -> torch.Tensor:
 
 
 def _dispatch_matrix(Qc, n1, d_counts):
-    """d[m, n1[m]] = d_counts[m], zero elsewhere (JAX `.at[...].set`)."""
-    return torch.zeros_like(Qc).scatter_(1, n1.long()[:, None], d_counts[:, None])
+    """d[..., m, n1[m]] = d_counts[m], zero elsewhere (JAX `.at[...].set`)."""
+    return torch.zeros_like(Qc).scatter_(-1, n1.long()[..., None], d_counts[..., None])
+
+
+def _stack_rows(first, rest):
+    """Every lane's edge row `first` [..., M] over its N cloud rows
+    `rest` [..., N, M], as the fill's [lanes * (N+1), M] rows."""
+    rows = torch.cat([first[..., None, :], rest], dim=-2)
+    return rows if rows.dim() == 2 else rows.reshape(-1, first.shape[-1])
+
+
+def _stacked_fill(scores, pe, pc, Qe, Qc, Pe, Pc, **kw):
+    """The edge row and the N cloud rows of every lane as one fill of
+    [lanes * (N+1), M] rows, `scores` stacked by `_stack_rows`. Returns
+    counts [..., N+1, M]."""
+    lanes, M = tuple(Qc.shape[:-2]), Qc.shape[-2]
+    counts = greedy_fill(
+        scores,
+        _stack_rows(pe, pc.transpose(-1, -2)),
+        _stack_rows(Qe, Qc.transpose(-1, -2)),
+        torch.cat([Pe[..., None], Pc], dim=-1).reshape(-1),
+        **kw,
+    )
+    return counts.reshape(lanes + (-1, M))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,41 +118,47 @@ class CarbonIntensityPolicy:
     fill_chunk: int = 64
 
     def _fill_all(self, b, c, pe, pc, Qe, Qc, Pe, Pc):
-        """Edge dispatch + N cloud fills as one stacked [N+1, M] fill.
-        Returns (d_counts [M], w [M, N])."""
+        """Edge dispatch + N cloud fills as one stacked [N+1, M] fill per
+        lane (all lanes' rows in one call). Returns (d_counts [..., M],
+        w [..., M, N])."""
+        M = Qc.shape[-2]
         if self.literal_edge_budget:
             # the literal pseudocode variant only exists for the edge
             # branch; clouds keep the corrected budget accounting
             d_counts = greedy_fill(
-                b, pe, Qe, Pe, literal_edge_budget=True, chunk=self.fill_chunk,
-            )
+                b.reshape(-1, M), pe.reshape(-1, M), Qe.reshape(-1, M), Pe.reshape(-1),
+                literal_edge_budget=True, chunk=self.fill_chunk,
+            ).reshape(b.shape)
             w = greedy_fill(
-                c.T, pc.T, Qc.T, Pc,
+                c.transpose(-1, -2).reshape(-1, M), pc.transpose(-1, -2).reshape(-1, M),
+                Qc.transpose(-1, -2).reshape(-1, M), Pc.reshape(-1),
                 stop_at_first_unfit=self.stop_at_first_unfit, chunk=self.fill_chunk,
-            ).T
+            ).reshape(c.transpose(-1, -2).shape).transpose(-1, -2)
             return d_counts, w
-        counts = greedy_fill(
-            torch.cat([b[None, :], c.T], dim=0),
-            torch.cat([pe[None, :], pc.T], dim=0),
-            torch.cat([Qe[None, :], Qc.T], dim=0),
-            torch.cat([Pe.reshape(1), Pc], dim=0),
-            stop_at_first_unfit=self.stop_at_first_unfit,
-            chunk=self.fill_chunk,
-        )
-        return counts[0], counts[1:].T
+        counts = _stacked_fill(_stack_rows(b, c.transpose(-1, -2)), pe, pc, Qe, Qc, Pe, Pc,
+                               stop_at_first_unfit=self.stop_at_first_unfit,
+                               chunk=self.fill_chunk)
+        return counts[..., 0, :], counts[..., 1:, :].transpose(-1, -2)
 
     def _scores(self, state, pe, pc, Ce, Cc, V):
-        """Score pass (c [M,N], n1 [M], b [M]) on pre-scaled intensities."""
+        """Score pass (c [..., M, N], n1 [..., M], b [..., M]) on
+        pre-scaled intensities; a V of one value per lane scales its
+        lane's intensities."""
+        VCc = V[..., None] * Cc if V.dim() else V * Cc
         with phase("policy_score"):
-            return ops.carbon_scores(state.Qc, pc, state.Qe, pe, V * Cc, V * Ce)
+            return ops.carbon_scores(state.Qc, pc, state.Qe, pe, VCc, V * Ce)
+
+    def _V(self, dev) -> torch.Tensor:
+        if torch.is_tensor(self.V):
+            return self.V.to(device=dev, dtype=torch.float32)
+        return _scalar(self.V, dev)
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
                  arrivals=None, key=None) -> Action:
         del arrivals, key
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
-        V = _scalar(self.V, dev)
-        c, n1, b = self._scores(state, pe, pc, Ce, Cc, V)
+        c, n1, b = self._scores(state, pe, pc, Ce, Cc, self._V(dev))
         d_counts, w = self._fill_all(b, c, pe, pc, state.Qe, state.Qc, Pe, Pc)
         return Action(d=_dispatch_matrix(state.Qc, n1, d_counts), w=w)
 
@@ -173,6 +205,10 @@ class LookaheadDPPPolicy(CarbonIntensityPolicy):
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
                  arrivals=None, key=None, forecast=None) -> Action:
+        if state.Qe.dim() > 1:
+            raise NotImplementedError(
+                "LookaheadDPPPolicy on a lane axis needs the forecast layer's fleet lanes "
+                "(ROADMAP Queue 1 item 2.3)")
         Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
         return super().__call__(state, spec, Ce_eff, Cc_eff, arrivals, key)
 
@@ -191,31 +227,23 @@ class QueueLengthPolicy:
                  arrivals=None, key=None) -> Action:
         del Ce, Cc, arrivals, key
         pe, pc, Pe, Pc = spec.as_arrays(state.Qc.device)
-        n1 = torch.argmin(state.Qc, dim=1)
-        scores = torch.cat(
-            [
-                torch.where(state.Qe > 0, -state.Qe, 1.0)[None, :],
-                torch.where(state.Qc > 0, -state.Qc, 1.0).T,
-            ],
-            dim=0,
-        )
-        counts = greedy_fill(
-            scores,
-            torch.cat([pe[None, :], pc.T], dim=0),
-            torch.cat([state.Qe[None, :], state.Qc.T], dim=0),
-            torch.cat([Pe.reshape(1), Pc], dim=0),
-            stop_at_first_unfit=False,
-            sort_key=scores,
-            chunk=self.fill_chunk,
-        )
-        return Action(d=_dispatch_matrix(state.Qc, n1, counts[0]), w=counts[1:].T)
+        n1 = torch.argmin(state.Qc, dim=-1)
+        scores = _stack_rows(torch.where(state.Qe > 0, -state.Qe, 1.0),
+                             torch.where(state.Qc > 0, -state.Qc, 1.0).transpose(-1, -2))
+        counts = _stacked_fill(scores, pe, pc, state.Qe, state.Qc, Pe, Pc,
+                               stop_at_first_unfit=False, sort_key=scores,
+                               chunk=self.fill_chunk)
+        return Action(d=_dispatch_matrix(state.Qc, n1, counts[..., 0, :]),
+                      w=counts[..., 1:, :].transpose(-1, -2))
 
 
 @dataclasses.dataclass(frozen=True)
 class RandomPolicy:
     """Feasible uniformly-random actions (tests / stress). Random
     fractions of per-type feasible maxima, with the shared budget divided
-    across types; draws from a generator seeded with `key`."""
+    across types: `kd, kw = split(key)`, `uniform(kd, (M, N))` and
+    `uniform(kw, (M, N))`, as the JAX policy draws them, in one draw
+    (the slot folded in when `key` is the simulator's SlotKey)."""
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
                  arrivals=None, key=0) -> Action:
@@ -223,12 +251,14 @@ class RandomPolicy:
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
         M, N = spec.M, spec.N
-        kd, kw = rng.split(key, 2)
-        fd = torch.rand((M, N), generator=rng.generator(kd, dev), device=dev)
-        cap_d = torch.minimum(state.Qe[:, None] / N, (Pe / (M * N)) / pe[:, None])
+        base, t = rng.draw_key(key, dev)
+        f = ops.threefry_draw(base, t, 2 * M * N, finish="uniform", seg=M * N)
+        fd = f[..., :M * N].reshape(state.Qc.shape)
+        fw = f[..., M * N:].reshape(state.Qc.shape)
+        cap_d = torch.minimum(state.Qe[..., None] / N,
+                              (Pe[..., None, None] / (M * N)) / pe[..., None])
         d = torch.floor(fd * torch.clamp_min(cap_d, 0.0))
-        fw = torch.rand((M, N), generator=rng.generator(kw, dev), device=dev)
-        cap_w = torch.minimum(state.Qc, (Pc[None, :] / M) / pc)
+        cap_w = torch.minimum(state.Qc, (Pc[..., None, :] / M) / pc)
         w = torch.floor(fw * torch.clamp_min(cap_w, 0.0))
         return Action(d=d, w=w)
 

@@ -1,33 +1,45 @@
-"""Seeds and generators: the port's stand-in for `jax.random` keys.
+"""Keys of the port's random sources: JAX's threefry keys.
 
-A key is a plain non-negative int. `fold_in(seed, t)` derives the seed
-of slot t on the host (numpy's SeedSequence hashing, no device work), so
-every random source is deterministic in (seed, t), as `fold_in` makes
-the JAX sources, and `simulate` and `serve_loop` draw the same numbers.
-The streams are not jax's threefry streams: tests that compare the two
-packages feed both the same numpy-made tables instead.
+Every entry point takes an int seed or a key (`repro_torch.random`'s
+`[..., 2]` int64 tensor). An int seed means `PRNGKey(seed)`, as the JAX
+package's benches call it, so a run draws JAX's streams. The keys are
+derived once a run, on the device (`split(key, 3)`: carbon, arrivals,
+policy), and a slot's draw folds in the slot index inside the draw
+kernel (`kernels/threefry.py`), so the loop does no host work per slot.
+
+The policy's key of slot t, `fold_in(k_policy, t)`, is handed over as a
+`SlotKey`, and only a policy that draws folds it in (`RandomPolicy`, in
+the same single launch as its draw); the others never compute it.
 """
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
+
 import torch
 
-_MASK63 = (1 << 63) - 1
+from repro_torch import random as R
 
 
-def fold_in(seed: int, *data: int) -> int:
-    """A new seed from `seed` and the ints `data` (e.g. a slot index)."""
-    state = np.random.SeedSequence([int(seed) & _MASK63, *(int(x) for x in data)])
-    return int(state.generate_state(1, np.uint64)[0]) & _MASK63
+def key_of(key, device) -> torch.Tensor:
+    """`PRNGKey(key)` for an int, else the key tensor on `device`."""
+    if torch.is_tensor(key):
+        if key.dtype != torch.int64 or key.shape[-1:] != (2,):
+            raise ValueError(f"a key is an int64 [..., 2] tensor, got {key.dtype} "
+                             f"{tuple(key.shape)}")
+        return key if key.device == device else key.to(device)
+    return R.PRNGKey(int(key), device=device)
 
 
-def split(seed: int, n: int) -> list:
-    """`n` independent seeds, as `jax.random.split(key, n)` gives keys."""
-    return [fold_in(seed, 0x5EED, i) for i in range(n)]
+class SlotKey(NamedTuple):
+    """The key `fold_in(base, t)`, not yet computed."""
+
+    base: torch.Tensor  # [..., 2]
+    t: int
 
 
-def generator(seed: int, device) -> torch.Generator:
-    """A fresh generator on `device` seeded with `seed`."""
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
+def draw_key(key, device) -> tuple:
+    """(base key, slot or None) of a policy's `key` argument: a SlotKey,
+    a key tensor or an int seed, for `ops.threefry_draw(base, t, ...)`."""
+    if isinstance(key, SlotKey):
+        return key.base, key.t
+    return key_of(key, device), None

@@ -9,43 +9,71 @@ the loop (no `.item()`, no copy to or from the host, no tensor used as a
 Python bool), so the device never waits for the host to read a result.
 
 `graph=` routes the run through the WAN transfer layer
-(`repro_torch.network`). The forecaster / faults / telemetry / deadlines
-arguments of the JAX `simulate` belong to later slices of the port.
+(`repro_torch.network`). `simulate_vsweep` and `simulate_fleet` run the
+same loop over a leading lane axis (V values, or stacked scenarios),
+which every tensor of the slot carries. The forecaster / faults /
+telemetry / deadlines arguments of the JAX `simulate` belong to later
+slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.core import rng
-from repro_torch.core.carbon import DeviceCache
+from repro_torch.core.carbon import DeviceCache, TableCarbonSource
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, emissions, init_state, step
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
 class UniformArrivals:
-    """a_m(t) ~ U{0..amax} i.i.d. (paper §V uses amax=400), drawn on the
-    device from a generator seeded with fold_in(seed, t)."""
+    """a_m(t) ~ U{0..amax} i.i.d. (paper §V uses amax=400):
+    `randint(fold_in(key, t), (M,), 0, amax + 1)`, one draw."""
 
     M: int
     amax: int = 400
 
-    def __call__(self, t: int, seed: int, device) -> torch.Tensor:
-        g = rng.generator(rng.fold_in(seed, t), device)
-        return torch.randint(0, self.amax + 1, (self.M,), generator=g, device=device).to(DTYPE)
+    def __call__(self, t: int, key, device) -> torch.Tensor:
+        return ops.threefry_draw(rng.key_of(key, device), t, self.M, finish="randint_f32", minval=0,
+                                 maxval=self.amax + 1)
 
     @property
     def a_max(self) -> float:
         return float(self.amax)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)  # identity hash: array field
+class FleetArrivals(DeviceCache):
+    """The fleet's arrivals: a_m(t) = floor(u_m * (amax_m + 1)), u ~
+    U[0, 1) from `uniform(fold_in(key, t), (M,))` (the JAX fleet's
+    closure, `repro/core/simulator.py:644-649`). `amax` is [M] or, for F
+    lanes, [F, M]; one draw either way."""
+
+    amax: object
+
+    def _tensors(self, device):
+        # amax + 1.0 in float32, once, as the JAX closure computes it
+        return self._cached(device, lambda dev: torch.as_tensor(
+            self.amax, dtype=DTYPE, device=dev) + 1.0)
+
+    def __call__(self, t: int, key, device) -> torch.Tensor:
+        scale = self._tensors(device)
+        return ops.threefry_draw(rng.key_of(key, device), t, scale.shape[-1], finish="floor",
+                                 scale=scale)
+
+
 @dataclasses.dataclass(frozen=True)
 class PoissonArrivals(DeviceCache):
     """a_m(t) ~ Poisson(rate_m), clipped at `clip` to keep a_m bounded
-    (Lemma 1 requires bounded arrivals)."""
+    (Lemma 1 requires bounded arrivals). `poisson(fold_in(key, t))`:
+    JAX's samplers and keys, not its bits (see `repro_torch.random`),
+    two draws a slot (the fold inside them)."""
 
     rates: tuple
     clip: int = 2000
@@ -53,9 +81,10 @@ class PoissonArrivals(DeviceCache):
     def _tensors(self, device):
         return self._cached(device, lambda dev: torch.tensor(self.rates, dtype=DTYPE, device=dev))
 
-    def __call__(self, t: int, seed: int, device) -> torch.Tensor:
-        g = rng.generator(rng.fold_in(seed, t), device)
-        return torch.clamp_max(torch.poisson(self._tensors(device), generator=g), float(self.clip))
+    def __call__(self, t: int, key, device) -> torch.Tensor:
+        lam = self._tensors(device)
+        return torch.clamp_max(R.poisson(rng.key_of(key, device), lam, t=t).to(DTYPE),
+                               float(self.clip))
 
     @property
     def a_max(self) -> float:
@@ -89,25 +118,27 @@ def _bind(source, device):
 
 class SlotLoop(NamedTuple):
     """What one slot of the paper's loop needs: the policy, the spec on
-    the device, the sources, and the three seeds `simulate` splits from
-    its seed (carbon, arrivals, policy), as the JAX loop splits its key."""
+    the device, the sources, and the three keys `simulate` splits from
+    its key (carbon, arrivals, policy: `split(key, 3)`, on the device,
+    [..., 2] each, one per lane for a fleet), as the JAX loop does."""
 
     policy: Callable
     spec: NetworkSpec
     carbon_source: Callable
     arrival_source: Callable
-    seeds: tuple
+    keys: tuple
     device: torch.device
 
 
-def make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device) -> SlotLoop:
+def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device) -> SlotLoop:
     device = resolve_device(device)
+    ks = R.split(rng.key_of(key, device), 3)
     return SlotLoop(
         policy=policy,
         spec=spec.to(device),
         carbon_source=_bind(carbon_source, device),
         arrival_source=_bind(arrival_source, device),
-        seeds=tuple(rng.split(seed, 3)),
+        keys=tuple(ks[..., i, :].contiguous() for i in range(3)),
         device=device,
     )
 
@@ -115,11 +146,13 @@ def make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device) ->
 def slot_step(loop: SlotLoop, state: NetworkState, t: int):
     """One slot: observe, act, account, step. The body both `simulate`
     and `serve.loop.make_serve_step` run, so their trajectories are
-    bitwise equal. Returns (next state, action, arrivals, C(t))."""
-    k_carbon, k_arrive, k_policy = loop.seeds
+    bitwise equal. The policy gets its key `fold_in(k_policy, t)` as a
+    `rng.SlotKey`, computed only by a policy that draws. Returns (next
+    state, action, arrivals, C(t))."""
+    k_carbon, k_arrive, k_policy = loop.keys
     Ce, Cc = loop.carbon_source(t, k_carbon, loop.device)
     a = loop.arrival_source(t, k_arrive, loop.device)
-    act = loop.policy(state, loop.spec, Ce, Cc, a, rng.fold_in(k_policy, t))
+    act = loop.policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t))
     C_t = emissions(loop.spec, act, Ce, Cc)
     return step(state, act, a), act, a, C_t
 
@@ -146,7 +179,7 @@ def simulate(
     carbon_source: Callable,
     arrival_source: Callable,
     T: int,
-    seed: int = 0,
+    key=0,
     state0: NetworkState | None = None,
     record: str | int = "full",
     device=DEFAULT_DEVICE,
@@ -154,14 +187,15 @@ def simulate(
 ) -> SimResult:
     """Runs the network for T slots under `policy` on `device`.
 
-    `record` controls how much trajectory the result carries: "full"
-    stacks the post-step queues every slot; "summary" keeps only the
-    final state (a length-1 leading axis); an int stride k keeps the
-    state at the end of every k-th slot ([T//k, ...]). The per-slot
-    scalar series are computed the same way in every mode, so they agree
-    bitwise across modes.
+    `key` is an int seed (`PRNGKey(seed)`) or a threefry key. `record`
+    controls how much trajectory the result carries: "full" stacks the
+    post-step queues every slot; "summary" keeps only the final state (a
+    length-1 leading axis); an int stride k keeps the state at the end
+    of every k-th slot ([T//k, ...]). The per-slot scalar series are
+    computed the same way in every mode, so they agree bitwise across
+    modes.
 
-    Sources are called as `source(t, seed, device)`; sources with a
+    Sources are called as `source(t, key, device)`; sources with a
     `to(device)` method are staged on the device first.
 
     When `graph` (a `repro_torch.network.LinkGraph`) is given, the run
@@ -172,35 +206,45 @@ def simulate(
     if graph is not None:
         from repro_torch.network.sim import simulate_network
 
-        return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, seed,
+        return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, key,
                                 state0=state0, record=record, device=device)
-    stride = record_stride(record, T)
-    R = T // stride
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
     dev = loop.device
-    M, N = spec.M, spec.N
-    pe, pc, _, _ = loop.spec.as_arrays(dev)
-    state = init_state(M, N, device=dev) if state0 is None else NetworkState(
+    state = init_state(spec.M, spec.N, device=dev) if state0 is None else NetworkState(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
     )
-    zeros = lambda *shape: torch.zeros(shape, dtype=DTYPE, device=dev)  # noqa: E731
+    return _drive(loop, state, T, record)
+
+
+def _drive(loop: SlotLoop, state: NetworkState, T: int, record) -> SimResult:
+    """T slots of `loop` from `state`, recorded as `record` says. Every
+    tensor may carry leading lanes (those of the state): the series are
+    then [*lanes, T], the queues [*lanes, R, M(, N)], as the JAX
+    package's vmap stacks them."""
+    stride = record_stride(record, T)
+    R_ = T // stride
+    dev = loop.device
+    lanes = tuple(state.Qe.shape[:-1])
+    M, N = state.M, state.N
+    pe, pc, _, _ = loop.spec.as_arrays(dev)
+    zeros = lambda *shape: torch.zeros(lanes + shape, dtype=DTYPE, device=dev)  # noqa: E731
     C, disp, proc, ee = zeros(T), zeros(T), zeros(T), zeros(T)
     ec = zeros(T, N)
-    Qe_rec, Qc_rec = zeros(R, M), zeros(R, M, N)
+    Qe_rec, Qc_rec = zeros(R_, M), zeros(R_, M, N)
     for t in range(T):
         state, act, _, C_t = slot_step(loop, state, t)
-        C[t] = C_t
-        disp[t] = torch.sum(act.d)
-        proc[t] = torch.sum(act.w)
-        ee[t] = torch.sum(act.d * pe[:, None])
-        ec[t] = torch.sum(act.w * pc, dim=0)
+        C[..., t] = C_t
+        disp[..., t] = torch.sum(act.d, dim=(-2, -1))
+        proc[..., t] = torch.sum(act.w, dim=(-2, -1))
+        ee[..., t] = torch.sum(act.d * pe[..., :, None], dim=(-2, -1))
+        ec[..., t, :] = torch.sum(act.w * pc, dim=-2)
         if (t + 1) % stride == 0:
             r = (t + 1) // stride - 1
-            Qe_rec[r] = state.Qe
-            Qc_rec[r] = state.Qc
+            Qe_rec[..., r, :] = state.Qe
+            Qc_rec[..., r, :, :] = state.Qc
     return SimResult(
         emissions=C,
-        cum_emissions=torch.cumsum(C, dim=0),
+        cum_emissions=torch.cumsum(C, dim=-1),
         Qe=Qe_rec,
         Qc=Qc_rec,
         dispatched=disp,
@@ -208,6 +252,154 @@ def simulate(
         energy_edge=ee,
         energy_cloud=ec,
     )
+
+
+def _lanes_of(x, F: int) -> torch.Tensor:
+    """x with a leading lane axis of F, as one contiguous tensor."""
+    return x.expand((F,) + tuple(x.shape)).contiguous()
+
+
+def simulate_vsweep(
+    make_policy: Callable,
+    Vs,
+    spec: NetworkSpec,
+    carbon_source: Callable,
+    arrival_source: Callable,
+    T: int,
+    key=0,
+    device=DEFAULT_DEVICE,
+) -> SimResult:
+    """The whole simulation over a vector of V values at once (the JAX
+    package's `vmap` over V, `repro/core/simulator.py:474-494`): lane i
+    runs `make_policy(Vs)` with V = Vs[i], all lanes on one spec and one
+    key, so every lane observes the same intensities and arrivals.
+    `make_policy` receives the [F] tensor of V values on the device; a
+    policy whose V enters only through arithmetic (CarbonIntensityPolicy)
+    takes it as it is. Every result field has a leading [F] axis."""
+    dev = resolve_device(device)
+    V = _f32_on(Vs, dev).reshape(-1)
+    F = V.shape[0]
+    spec_d = spec.to(dev)
+    lane_spec = NetworkSpec(*(_lanes_of(x, F) for x in spec_d.as_arrays(dev)))
+    loop = make_slot_loop(make_policy(V), lane_spec, carbon_source, arrival_source, key, dev)
+    return _drive(loop, init_state(spec.M, spec.N, device=dev, F=F), T, "full")
+
+
+class FleetSpec(NamedTuple):
+    """Stacked NetworkSpec fields; every field has the leading fleet axis F."""
+
+    pe: object  # [F, M]
+    pc: object  # [F, M, N]
+    Pe: object  # [F]
+    Pc: object  # [F, N]
+
+
+class FleetScenario(NamedTuple):
+    """A stack of F independent simulation instances (numpy float32
+    arrays, as `stack_scenarios` and `configs.fleet_scenarios.build_fleet`
+    make them): the spec, a carbon playback table per lane (col 0 = edge,
+    cols 1..N = clouds, rows repeat modulo Tc) and per-type uniform
+    arrival caps. The optional axes of the JAX FleetScenario (a stacked
+    WAN graph, forecast-error sweeps, faults, deadlines) are fields
+    here too; `simulate_fleet` refuses each until its layer is ported."""
+
+    spec: FleetSpec
+    carbon: object        # [F, Tc, N+1] intensity playback tables
+    arrival_amax: object  # [F, M] per-type uniform arrival caps
+    graph: object | None = None
+    err_bias: object | None = None
+    err_noise: object | None = None
+    faults: object | None = None
+    deadlines: object | None = None
+
+    @property
+    def F(self) -> int:
+        return self.arrival_amax.shape[0]
+
+    def to(self, device) -> "FleetScenario":
+        """The spec, tables and caps as float32 tensors on `device` (the
+        optional axes as they are), so a run copies nothing from the host."""
+        return self._replace(spec=FleetSpec(*(_f32_on(x, device) for x in self.spec)),
+                             carbon=_f32_on(self.carbon, device),
+                             arrival_amax=_f32_on(self.arrival_amax, device))
+
+
+def _f32_on(x, device) -> torch.Tensor:
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+    return x.to(device=device, dtype=DTYPE)
+
+
+def stack_scenarios(instances) -> FleetScenario:
+    """Stacks an iterable of (NetworkSpec, carbon_table [Tc, N+1], amax
+    [M]) triples into one FleetScenario of float32 numpy arrays. Tables
+    must share Tc and specs (M, N). (The JAX function's `graphs=` waits
+    for the WAN fleet, ROADMAP Queue 1 item 2.2b.)"""
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    pes, pcs, Pes, Pcs, tabs, amaxs = [], [], [], [], [], []
+    for spec, table, amax in instances:
+        pe = f32(spec.pe)
+        pes.append(pe)
+        pcs.append(f32(spec.pc))
+        Pes.append(f32(spec.Pe))
+        Pcs.append(f32(spec.Pc))
+        tabs.append(f32(table))
+        amaxs.append(np.broadcast_to(f32(amax), pe.shape))
+    return FleetScenario(
+        spec=FleetSpec(pe=np.stack(pes), pc=np.stack(pcs), Pe=np.stack(Pes), Pc=np.stack(Pcs)),
+        carbon=np.stack(tabs),
+        arrival_amax=np.stack(amaxs),
+    )
+
+
+# the layers a FleetScenario or simulate_fleet may name that the port
+# does not have yet, with the ROADMAP Queue 1 item that brings each
+_NOT_PORTED = {
+    "graph": "2.2b (the WAN fleet)",
+    "err_bias": "2.3 (forecasts)",
+    "err_noise": "2.3 (forecasts)",
+    "forecaster": "2.3 (forecasts)",
+    "faults": "2.4 (faults)",
+    "deadlines": "2.5 (deadlines)",
+    "telemetry": "2.6 (telemetry)",
+}
+
+
+def simulate_fleet(
+    policy: Callable,
+    fleet: FleetScenario,
+    T: int,
+    key=0,
+    record: str | int = "full",
+    device=DEFAULT_DEVICE,
+    forecaster=None,
+    telemetry=None,
+) -> SimResult:
+    """Runs F independent instances for T slots at once (the JAX
+    package's `vmap` of `simulate` over the stacked scenario,
+    `repro/core/simulator.py:598-676`): every tensor of the loop carries
+    the lane axis F, so one slot launches each kernel once for the whole
+    fleet. Lane f draws from `split(key, F)[f]` (then `split(k_f, 3)` as
+    `simulate` does), its carbon is its table's row t mod Tc, and its
+    arrivals floor(uniform(fold_in(k_arrive_f, t), (M,)) * (amax_f + 1)).
+
+    Every result field has a leading [F] axis; `record` works as in
+    `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N])."""
+    for name, value in (("graph", fleet.graph), ("err_bias", fleet.err_bias),
+                        ("err_noise", fleet.err_noise), ("faults", fleet.faults),
+                        ("deadlines", fleet.deadlines), ("forecaster", forecaster),
+                        ("telemetry", telemetry)):
+        if value is not None:
+            raise NotImplementedError(
+                f"simulate_fleet: {name}= needs a layer repro_torch does not have yet "
+                f"(ROADMAP Queue 1 item {_NOT_PORTED[name]})")
+    dev = resolve_device(device)
+    fleet = fleet.to(dev)
+    spec = NetworkSpec(*fleet.spec)
+    keys = R.split(rng.key_of(key, dev), fleet.F)
+    loop = make_slot_loop(policy, spec, TableCarbonSource(table=fleet.carbon),
+                          FleetArrivals(amax=fleet.arrival_amax), keys, dev)
+    return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record)
 
 
 def mean_rate_stability_metric(result: SimResult) -> torch.Tensor:

@@ -10,9 +10,14 @@
 // at exactly these two places, so the kernel uses __fmaf_rn there and the
 // library is built with -fmad=false so that nothing else is contracted.
 //
+// Lanes: under `vmap` (the fleet, the V sweep) Pallas's batching rule
+// gives the kernel a leading lane axis; here Qc, pc are [F, M, N], Qe, pe
+// [F, M], VCc [F, N] and V*Ce one value a lane. The grid covers F * M rows
+// and row r reads lane r / M's VCc and V*Ce; F = 1 is the [M, N] call.
+//
 // Bound: memory. One pass reads Qc and pc and writes c, 12 bytes per
 // element (plus 12 bytes per row for Qe, pe, n1, b): about 12.6 MB at
-// M=4096, N=256, i.e. about 3.8 us at 3.35 TB/s.
+// M=4096, N=256, i.e. about 3.8 us at 3.35 TB/s; F lanes F times that.
 //
 // Design: one warp per row, 8 rows per block. The TPU kernel tiles N and
 // carries a running (min, argmin) in VMEM across a sequential grid axis;
@@ -34,10 +39,12 @@ carbon_scores_kernel(const float* __restrict__ Qc, const float* __restrict__ pc,
                      const float* __restrict__ Qe, const float* __restrict__ pe,
                      const float* __restrict__ vcc, const float* __restrict__ vce,
                      float* __restrict__ c, int* __restrict__ n1, float* __restrict__ b,
-                     int M, int N) {
+                     int rows, int M, int N) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= M) return;  // uniform across the warp
+  if (row >= rows) return;  // uniform across the warp
+  const int f = row / M;  // the fleet lane
+  vcc += static_cast<size_t>(f) * N;
   const size_t base = static_cast<size_t>(row) * N;
   float best = INFINITY;
   int arg = N;  // any real index beats it on a tie, so an all-inf row gives 0
@@ -59,7 +66,7 @@ carbon_scores_kernel(const float* __restrict__ Qc, const float* __restrict__ pc,
   }
   if (lane == 0) {
     n1[row] = arg;
-    b[row] = __fsub_rn(__fmaf_rn(*vce, pe[row], best), Qe[row]);
+    b[row] = __fsub_rn(__fmaf_rn(vce[f], pe[row], best), Qe[row]);
   }
 }
 
@@ -67,14 +74,15 @@ carbon_scores_kernel(const float* __restrict__ Qc, const float* __restrict__ pc,
 
 extern "C" int carbon_scores_launch(const void* Qc, const void* pc, const void* Qe,
                                     const void* pe, const void* vcc, const void* vce,
-                                    void* c, void* n1, void* b, int M, int N,
+                                    void* c, void* n1, void* b, int F, int M, int N,
                                     void* stream) {
-  const int blocks = (M + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int rows = F * M;
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   carbon_scores_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(Qc), static_cast<const float*>(pc),
       static_cast<const float*>(Qe), static_cast<const float*>(pe),
       static_cast<const float*>(vcc), static_cast<const float*>(vce),
-      static_cast<float*>(c), static_cast<int*>(n1), static_cast<float*>(b), M, N);
+      static_cast<float*>(c), static_cast<int*>(n1), static_cast<float*>(b), rows, M, N);
   return static_cast<int>(cudaGetLastError());
 }
 

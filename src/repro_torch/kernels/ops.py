@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import greedy_fill as _gf
 from repro_torch.kernels import route_score as _rs
 from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import threefry as _tf
 
 def _pick(x, plain, cuda, what):
     if x.device.type == "cpu":
@@ -71,8 +72,20 @@ def ssd_chunk_intra(a, x, Bm, Cm):
     return fn(a, x, Bm, Cm)
 
 
+def threefry_draw(keys, t, n, *, finish="uniform", seg=None, fold_each=False, chain=None,
+                  minval=0, maxval=1, scale=None):
+    """One threefry draw of n values per key: keys [..., 2] (int64
+    holding uint32 pairs), folded with the slot t when it is given ->
+    [..., n] (see `kernels/threefry.py` for seg, fold_each, chain and the
+    finishes)."""
+    fn = _pick(keys, _tf.threefry_draw_plain, _tf.threefry_draw_cuda, "threefry_draw")
+    return fn(keys, t, n, finish=finish, seg=seg, fold_each=fold_each, chain=chain,
+              minval=minval, maxval=maxval, scale=scale)
+
+
 _MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,
-            "flash_attention": _fa, "flash_decode": _fd, "ssd_chunk_intra": _ssd}
+            "flash_attention": _fa, "flash_decode": _fd, "ssd_chunk_intra": _ssd,
+            "threefry_draw": _tf}
 
 
 def launch_counts() -> dict:

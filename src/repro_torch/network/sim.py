@@ -65,7 +65,7 @@ def simulate_network(
     carbon_source: Callable,
     arrival_source: Callable,
     T: int,
-    seed: int = 0,
+    key=0,
     state0: NetworkState | None = None,
     record: str | int = "full",
     device=DEFAULT_DEVICE,
@@ -91,7 +91,7 @@ def simulate_network(
             )
     stride = record_stride(record, T)
     R = T // stride
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
     dev = loop.device
     g = graph.to(dev)
     M, N, L = spec.M, spec.N, g.L
@@ -100,7 +100,7 @@ def simulate_network(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
     )
     links = init_links(M, L, device=dev)
-    k_carbon, k_arrive, k_policy = loop.seeds
+    k_carbon, k_arrive, k_policy = loop.keys
     zeros = lambda *shape: torch.zeros(shape, dtype=DTYPE, device=dev)  # noqa: E731
     C, disp, deliv, proc, ee, et = (zeros(T) for _ in range(6))
     ec = zeros(T, N)
@@ -108,7 +108,7 @@ def simulate_network(
     for t in range(T):
         Ce, Cc = loop.carbon_source(t, k_carbon, dev)
         a = loop.arrival_source(t, k_arrive, dev)
-        act = policy(state, loop.spec, Ce, Cc, a, rng.fold_in(k_policy, t), graph=g, Qt=links.Qt)
+        act = policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t), graph=g, Qt=links.Qt)
         C[t] = network_emissions(loop.spec, g, act, Ce, Cc)
         links, delivered = step_links(links, g, act.dt)
         land = land_in_clouds(delivered, g, N)

@@ -2,8 +2,8 @@
 of `repro.serve.loop`, without the deadline layer).
 
 `make_serve_step` returns the one serving step, which runs the same
-per-slot body as `core.simulator.simulate` (`slot_step`, same seed
-split), so driving it over t = 0..T-1 reproduces the batch trajectory
+per-slot body as `core.simulator.simulate` (`slot_step`, the same
+`split(key, 3)`), so driving it over t = 0..T-1 reproduces the batch trajectory
 bitwise. `serve_loop` drives it from the host and times every decision:
 the wall time of one step, with `torch.cuda.synchronize()` before the
 clock is read again, so a latency covers the device work and not only
@@ -77,12 +77,12 @@ def latency_percentiles(lat_us) -> tuple:
 
 
 def make_serve_step(policy, spec: NetworkSpec, carbon_source, arrival_source,
-                    seed: int = 0, device=DEFAULT_DEVICE):
+                    key=0, device=DEFAULT_DEVICE):
     """The serving step `(state, t) -> (state', metrics)`, metrics a [5]
     float32 tensor on the device: (emissions, arrived, dispatched,
     processed, backlog). One tensor, so the host reads a slot's metrics
     with one copy."""
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, seed, device)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
 
     def step(state: NetworkState, t: int):
         nxt, act, a, C_t = slot_step(loop, state, t)
@@ -226,13 +226,14 @@ class ServeExporter:
 
 
 def serve_loop(policy, spec: NetworkSpec, carbon_source, arrival_source, T: int,
-               seed: int = 0, *, warmup: int = 2, clock=None, outdir=None,
+               key=0, *, warmup: int = 2, clock=None, outdir=None,
                stem: str = "serve", flush_every: int = 16,
                device=DEFAULT_DEVICE) -> ServeReport:
     """Drives `make_serve_step` for T slots from the host, timing every
-    decision. `clock` defaults to `time.perf_counter` (called 2T + 2
-    times). `outdir` turns on live export via ServeExporter.
-    Percentiles cover slots[warmup:]; `warmup` is clamped to T-1."""
+    decision. `key` is an int seed (`PRNGKey(seed)`) or a threefry key.
+    `clock` defaults to `time.perf_counter` (called 2T + 2 times).
+    `outdir` turns on live export via ServeExporter. Percentiles cover
+    slots[warmup:]; `warmup` is clamped to T-1."""
     if clock is None:
         clock = time.perf_counter
     warmup = max(0, min(warmup, T - 1))
@@ -240,7 +241,7 @@ def serve_loop(policy, spec: NetworkSpec, carbon_source, arrival_source, T: int,
     if outdir is not None:
         exporter = ServeExporter(outdir, stem=stem, flush_every=flush_every, warmup=warmup)
     dev = resolve_device(device)
-    step = make_serve_step(policy, spec, carbon_source, arrival_source, seed, dev)
+    step = make_serve_step(policy, spec, carbon_source, arrival_source, key, dev)
     state = init_state(spec.M, spec.N, device=dev)
     ages = _AgeFifo()
     lat = np.zeros(T)

@@ -45,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.launch.serve, repro_torch.configs.registry, repro_torch.configs.glm4_9b, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.flash_decode, "
         "repro_torch.kernels.ssd_chunk, repro_torch.kernels.numerics, repro_torch.models.mamba2, "
-        "repro_torch.configs.mamba2_1_3b; "
+        "repro_torch.configs.mamba2_1_3b, repro_torch.random, repro_torch.kernels.threefry; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -67,7 +67,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         materialize,
         simulate,
     )
+    from repro_torch.configs.fleet_scenarios import build_fleet
     from repro_torch.convert import graph_from_numpy, spec_from_numpy
+    from repro_torch.core import simulate_fleet, simulate_vsweep
+    from repro_torch.core.queueing import drift_bound_B
+    from repro_torch.random import PRNGKey
     from repro_torch.network import NetworkAwareDPPPolicy, direct_graph, init_links
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.convert import params_from_reference
@@ -87,6 +91,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: main(["--slots", "2"]),
         lambda: init_state(5, 5),
         lambda: materialize(ConstantCarbonSource(N=5), 2),
+        lambda: drift_bound_B(paper_spec(), 400.0),
+        lambda: PRNGKey(0),
+        lambda: simulate_fleet(CarbonIntensityPolicy(), build_fleet(["diurnal"], per_kind=2), 3),
+        lambda: simulate_vsweep(lambda V: CarbonIntensityPolicy(V=V), (0.01, 0.1), *args[1:]),
+        lambda: build_fleet(["multi-region-uk"], per_kind=1),
         lambda: spec_from_numpy(np.ones(2), np.ones((2, 2)), 1.0, np.ones(2)),
         lambda: build_model(get_smoke_config("glm4_9b")).init(torch.Generator()),
         lambda: build_model(get_smoke_config("mamba2_1_3b")),
@@ -117,8 +126,11 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     y, S_c, total = ops.ssd_chunk_intra(torch.zeros((1, 1, 4, 2)), torch.zeros((1, 1, 4, 2, 8)),
                                         torch.zeros((1, 1, 4, 3)), torch.zeros((1, 1, 4, 3)))
     assert y.shape == (1, 1, 4, 2, 8) and S_c.shape == (1, 1, 2, 3, 8) and total.shape == (1, 1, 2)
+    keys = torch.tensor([[0, 1], [0, 2]])
+    assert ops.threefry_draw(keys, 3, 4, finish="randint", minval=0, maxval=9).shape == (2, 4)
     assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
-                                   "flash_attention": 0, "flash_decode": 0, "ssd_chunk_intra": 0}
+                                   "flash_attention": 0, "flash_decode": 0, "ssd_chunk_intra": 0,
+                                   "threefry_draw": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
     with pytest.raises(ValueError, match="no kernel"):
@@ -127,6 +139,8 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
         ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_decode(q[:, :, 0].to("meta"), k.to("meta"), k.to("meta"), 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.threefry_draw(keys.to("meta"), 3, 4)
 
 
 def test_cuda_wrappers_check_their_inputs_before_building():

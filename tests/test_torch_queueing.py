@@ -53,7 +53,7 @@ def test_step_and_energies(seed):
     _close(tq.emissions(tspec, tact, torch.tensor(Ce), torch.from_numpy(Cc)),
            jq.emissions(spec, act, Ce, jnp.asarray(Cc)))
     _close(tq.lyapunov(tnxt), jq.lyapunov(nxt))
-    _close(tq.drift_bound_B(tspec, 400.0), jq.drift_bound_B(spec, 400.0))
+    _close(tq.drift_bound_B(tspec, 400.0, device="cpu"), jq.drift_bound_B(spec, 400.0))
     assert bool(tq.is_feasible(tspec, tact)) == bool(jq.is_feasible(spec, act))
 
 
