@@ -13,13 +13,17 @@ draw kernel; the scenario fleet, `simulate_fleet`, at the JAX bench's
 the paper's Fig. 2 setup; the WAN route-aware slot loop, `simulate(graph=)` with
 `NetworkAwareDPPPolicy` and its transfer-blind baseline
 `StaticRoutePolicy(CarbonIntensityPolicy)`, at M=4096 x N=256 x L=512
-routes; LM serving, `greedy_generate` (prefill + KV-cache decode), for
+routes; the WAN fleet, `simulate_fleet` on fleets with a stacked graph,
+at the JAX bench's 64 lanes of M5xN5 per topology and at 16 lanes of
+M4096xN256xL512; the forecast layer, `simulate_fleet(forecaster=)`
+with `LookaheadDPPPolicy`, at the JAX bench's rows and at 16 lanes of
+M4096xN256; LM serving, `greedy_generate` (prefill + KV-cache decode), for
 GLM-4-9B at full width and depth in bf16, batch 8, 4096-token prompts,
 64 generated tokens; SSM serving, the same `greedy_generate` (prefill +
 state decode), for mamba2-1.3B at full width and depth in bf16 at the
 same batch and lengths. Phases, one or more lines each, run in the order
-1-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
-paths):
+1-4c, 4d, 4e, 5-6, 8, 9, 7 (phase 7 times every kernel with the launch
+counts of all paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
@@ -34,7 +38,9 @@ paths):
    (16385 refused), non-integer, negative and NaN caps, and budgets of
    inf and NaN; carbon_scores with a lane axis (F16 x M4096 x N256 and
    F512 x M5 x N5 with one V a lane, F3 ragged) and F = 1 equal to the
-   [M, N] call;
+   [M, N] call; route_scores with a lane axis in both modes (F16 x M4096
+   x L512, F64 x M5 x L10 with one V a lane, F3 ragged) and F = 1 equal
+   to the [M, L] call;
 3e. threefry_draw vs its plain version, bitwise: keys PRNGKey(0),
    PRNGKey(-1), PRNGKey(2**31-1) at n 1, 5, 4096 and split lanes [512, 5]
    and [16, 4096]; t none, 0, 1, 191, 1999, 2**31-1; raw bits, uniform
@@ -93,15 +99,44 @@ paths):
    emissions within rtol 1e-6; the kernels' times at both fleets'
    shapes; the registry fleet (6 kinds x 16, T=200) and its mean
    emission reduction beside JAX's;
+4d. the WAN fleet: W1, `build_network_fleet([kind], per_kind=64)` for
+   congested-uplink and multi-region-uk-wan (M5xN5, L 10, T=192, V=0.1,
+   the JAX bench's network rows), NetworkAwareDPP and
+   StaticRoute(CarbonIntensity), each once under sync debug mode "error"
+   with its launches per slot, in turns and profiled (congested-uplink),
+   then with record=T//8: the mean reduction held to jax 0.9.0's
+   (WAN_JAX, within 1e-3 points on congested-uplink and 0.5 on
+   multi-region-uk-wan, whose tables carry the twin's normal); W2,
+   congested-uplink x 16 at M4096xN256xL512, T=64: launches, in turns,
+   idle share and top kernels, lanes 0 and 15 equal to each instance run
+   alone through `simulate(graph=)`, the first two lanes on the card
+   equal to the CPU plain path (T=4; Qe, Qc, Qt and the counts bitwise,
+   emissions within rtol 1e-6); route_scores timed at both fleets'
+   shapes;
+4e. forecasts: LookaheadDPPPolicy's discount ** arange(H) equal on the
+   card and the CPU (discounts 0.98, 1.0; H 1-16); the rows of the JAX
+   bench's bench_forecast_lookahead (diurnal and diurnal-slack, F16,
+   T=192, V=0.2: la_H{1,4,8,16}_perfect, la_H8_noisy20,
+   la_H8_persistence, la_H8_seasonal) under sync debug mode with their
+   launches, each row's mean reduction against CarbonIntensity held to
+   jax 0.9.0's (FORECAST_JAX, 0.5 points for the noisy rows, 1e-3 for
+   the rest; the H=1 rows bitwise CarbonIntensity's run); then
+   LookaheadDPP(H=8) on fleet B fed ClairvoyantTableForecaster(H=8) and
+   RidgeARForecaster(H=8), in turns with CarbonIntensity (ms/slot),
+   profiled; the clairvoyant run's lanes 0 and 15 equal to each instance
+   alone and its first two lanes card vs CPU (T=4) bitwise; one RidgeAR
+   predict with a full window timed;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
    then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
    PRNGKey(0)): the reductions at V 0.01 and 0.05 held to JAX's
    (FIG2_JAX), and `simulate_vsweep` over six V values, card vs CPU
    bitwise and each lane equal to its single-V run;
-5b. WAN headline: congested-uplink at M5xN5, T=192, V=0.1, route-aware
-   vs transfer-blind emission reduction over 8 instances (must exceed
-   5%);
+5b. WAN headline: the first 8 lanes of W1's congested-uplink fleet,
+   each run alone through `simulate(graph=)` with its lane's key, table
+   and arrivals and held bitwise to its lane (queues and counts;
+   emissions within rtol 1e-6); route-aware vs transfer-blind emission
+   reduction over the 8 (must exceed 5%);
 6. `serve_loop` at M4096xN256 for 32 slots: p50/p95/p99 decision latency
    and tasks/sec; its trajectory bitwise equal to `simulate` on the card;
 8. LM serving, GLM-4-9B (`configs/glm4_9b.py`, 9.4 B parameters, the
@@ -140,7 +175,9 @@ paths):
    step's measured cost (one lane walking all of its items against the
    same lane certified), and its ptxas registers and spills.
 
-Phase 7 also times threefry_draw at the main path's arrivals (its
+Phase 7's route_scores row also carries its times at the WAN fleets'
+shapes (phase 4d: F64 x M5 x L10 and F16 x M4096 x L512) with their
+byte bounds. Phase 7 also times threefry_draw at the main path's arrivals (its
 bound: the draw's own integer operations at a quarter of the float32
 rate) and, from phase 4c, carbon_scores, greedy_fill and the draw at
 both fleets' shapes (the rows' "fleet" entries), and a PoissonArrivals
@@ -159,7 +196,10 @@ configuration is the WAN subsystem's acceptance scenario, `configs/fleet_scenari
 tiled to M x N, two routes per cloud, the clean alternates' bandwidth at
 the offered load, arrivals U{0..240}) seeded as `build_network_fleet`
 seeds lane 0, from a backlog Qe, Qc~U{0..999} and empty links.
-Everything is made from SEED.
+The WAN fleet's and the forecasts' configurations are the JAX
+benches' (`benchmarks/paper_benches.py` bench_network_routing,
+bench_forecast_lookahead), uncut at M5xN5, and at the main path's width
+cut to 16 lanes and T=64. Everything is made from SEED.
 """
 from __future__ import annotations
 
@@ -273,6 +313,41 @@ CHAIN_KNOWN = {
 # poisson's samplers (Knuth below 10, rejection from 10 up)
 POISSON_RATE_LO, POISSON_RATE_HI, POISSON_SLOTS = 0.5, 400.0, 16
 T_WAN_CPU, T_WAN_HEADLINE, WAN_INSTANCES, V_WAN = 8, 192, 8, 0.1
+# the WAN fleet (phase 4d). W1 is the JAX bench's bench_network_routing
+# rows: build_network_fleet([kind], per_kind=64, Tc=96, seed=0), M5xN5
+# (L 10), V=0.1, T=192, record=T//8, PRNGKey(0); phase 5b's instances
+# are its first WAN_INSTANCES congested-uplink lanes. W2: 16 lanes of
+# congested-uplink at the main path's width (L 512), T=64
+T_W1, W1_PER_KIND, W1_KINDS = T_WAN_HEADLINE, 64, ("congested-uplink", "multi-region-uk-wan")
+W2_PER_KIND, T_W2, T_W2_CPU = 16, 64, 4
+# jax 0.9.0's mean reduction NetworkAwareDPP vs StaticRoute(CarbonIntensity)
+# on W1, on the CPU, with the fleet an argument of the jitted run, as the
+# simulator carries it (pinned by tests/test_torch_wan_fleet.py); the
+# bench's own jit closes over the fleet, where XLA folds the graph's
+# constants (ROADMAP hazard 20) and gets 28.133020% on congested-uplink.
+# multi-region-uk-wan's tables are the twin's (hazard 5): 0.5 points
+WAN_JAX = {"congested-uplink": 28.23200798034668, "multi-region-uk-wan": 2.1636054515838623}
+WAN_TOL = {"congested-uplink": 1e-3, "multi-region-uk-wan": 0.5}
+# the forecasts (phase 4e): the rows of bench_forecast_lookahead,
+# build_fleet([kind], per_kind=16, Tc=96, seed=0), V=0.2, T=192,
+# PRNGKey(0); jax 0.9.0's mean reduction of each row against
+# CarbonIntensity(V=0.2), the fleet an argument of the jitted run (pinned
+# by tests/test_torch_forecast.py; closed over, XLA folds the tables and
+# six rows move by 0.02-0.12 points). The noisy rows carry the
+# twin's normal (hazard 5): 0.5 points; the others 1e-3
+T_FC_ANCHOR, V_FC, FC_PER_KIND, FC_KINDS = 192, 0.2, 16, ("diurnal", "diurnal-slack")
+FORECAST_JAX = {
+    "diurnal": {"la_H1_perfect": 0.0, "la_H4_perfect": 16.87108612060547,
+                "la_H8_perfect": 24.25740623474121, "la_H16_perfect": 30.99785804748535,
+                "la_H8_noisy20": 40.113067626953125, "la_H8_persistence": 0.0,
+                "la_H8_seasonal": 14.198285102844238},
+    "diurnal-slack": {"la_H1_perfect": 0.0, "la_H4_perfect": 16.840587615966797,
+                      "la_H8_perfect": 21.818805694580078, "la_H16_perfect": 25.784387588500977,
+                      "la_H8_noisy20": 35.63770294189453, "la_H8_persistence": 0.0,
+                      "la_H8_seasonal": 15.90768051147461},
+}
+FC_NOISY_TOL, FC_TOL = 0.5, 1e-3
+T_FC_WIDTH, FC_H = 64, 8  # LookaheadDPP(H=8) on fleet B
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
 SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and length
 LM_CACHE = LM_PROMPT + LM_GEN + 1
@@ -310,6 +385,21 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0**-7)}
 # of a float32 sum differ by up to about (terms) x 2**-24 x sum|terms|, far
 # more than 2e-5 where y is near 0
 SSD_TOL = 2e-5
+
+
+def forecast_rows(mods, V):
+    """The rows of the JAX bench's bench_forecast_lookahead, {row:
+    (policy, forecaster)}, from either package's modules ({"core": ...,
+    "forecast": ...}; the tests build JAX's with it)."""
+    core, fc = mods["core"], mods["forecast"]
+    rows = {f"la_H{H}_perfect": (core.LookaheadDPPPolicy(V=V, H=H, discount=1.0, defer_weight=3.0),
+                                 fc.ClairvoyantTableForecaster(H=H)) for H in (1, 4, 8, 16)}
+    la8 = core.LookaheadDPPPolicy(V=V, H=8, discount=0.98, defer_weight=2.0)
+    rows["la_H8_noisy20"] = (la8, fc.ClairvoyantTableForecaster(
+        H=8, error=fc.ForecastErrorModel(noise=0.2, seed=7)))
+    rows["la_H8_persistence"] = (la8, fc.PersistenceForecaster(H=8))
+    rows["la_H8_seasonal"] = (la8, fc.SeasonalNaiveForecaster(H=8, period=48))
+    return rows
 
 
 def draw_ops(lanes, n, lane_hashes, value_hashes, value_ops):
@@ -675,6 +765,32 @@ def fleet_turns(tag, runs):
     return times
 
 
+def profile_fleets(tag, runs, ms):
+    """Device busy and idle share per slot of each fleet run
+    (torch.profiler over 8 slots) against its unprofiled ms/slot, with
+    the aten calls a slot and the top kernels."""
+    for run, (fn, _, _, _) in runs.items():
+        prof, host = profile_slots(lambda fn=fn: fn(8, "summary"), slots=8)
+        n_aten = sum(v[1] for k, v in host.items() if k.startswith("aten::"))
+        if prof is None:
+            say(f"[{tag}] {run}: device time per slot not measured (the profiler "
+                f"recorded no device time); {n_aten:.1f} aten op calls/slot")
+            continue
+        busy = prof.pop("total")
+        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
+        say(f"[{tag}] {run}: device busy {busy:.4f} ms/slot of {ms[run]:.4f} "
+            f"(idle share {1.0 - busy / ms[run]:.3f}), {n_aten:.1f} aten op calls/slot; "
+            "top kernels per slot " + ", ".join(f"{k[:48]} {v:.4f} ms" for v, k in top[:5]))
+
+
+def lane_of(res, f):
+    """Lane f of a fleet result."""
+    return res._replace(**{n: getattr(res, n)[f] for n in res._fields})
+
+
+WAN_COUNTED = ("Qe", "Qc", "Qt", "dispatched", "delivered", "processed")
+
+
 def wan_instance(convert, fleet_scenarios, M, N, T_tab, dev, j=0):
     """The congested-uplink instance of lane j (see the module
     docstring), with its arrival table and a starting backlog."""
@@ -881,10 +997,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as core
     from repro_torch import convert
+    import repro_torch.forecast as fcst
     import repro_torch.network as net
     from repro_torch.configs import fleet_scenarios
     from repro_torch.configs.paper_workloads import V_PAPER, paper_spec
     from repro_torch.core import carbon
+    from repro_torch.core.policies import discount_powers
     from repro_torch.kernels import build, ops
     from repro_torch.configs import registry
     from repro_torch.kernels import carbon_score as cs
@@ -994,6 +1112,27 @@ def main() -> int:
     check_routes(ints((M_MAIN, L_MAIN), 3), zeros, ints((M_MAIN, L_MAIN), 2), zeros,
                  ints((M_MAIN,), 900), rand((M_MAIN,), 1, 8), rand((L_MAIN,), 0, 40),
                  rand((), 0, 40), f"{M_MAIN}x{L_MAIN} tie-heavy rc")
+    # the lane axis (the WAN fleet's form): W2's F16 x M4096 x L512, W1's
+    # F64 x M5 x L10 with one V a lane, a ragged one; F = 1 against the
+    # [M, L] call, in both modes
+    for nl, M, L in ((W2_PER_KIND, M_MAIN, L_MAIN), (W1_PER_KIND, 5, 10), (3, 257, 129)):
+        check_routes(ints((nl, M, L), 500), rand((nl, M, L), 0, 5), ints((nl, M, L), 900),
+                     rand((nl, M, L), 0, 50), ints((nl, M), 900), rand((nl, M), 1, 8),
+                     rand((nl, L), 0, 40), rand((nl,), 0, 40), f"lanes F{nl}xM{M}xL{L} (per-lane V)")
+    one_args = (ints((M_MAIN, L_MAIN), 500), rand((M_MAIN, L_MAIN), 0, 5),
+                ints((M_MAIN, L_MAIN), 900), rand((M_MAIN, L_MAIN), 0, 50), ints((M_MAIN,), 900),
+                rand((M_MAIN,), 1, 8), rand((L_MAIN,), 0, 40), rand((), 0, 40))
+    for mode, ex in (("with extra", one_args[3]), ("without extra", None)):
+        one = rs.route_scores_cuda(*one_args[:3], ex, *one_args[4:])
+        lane = rs.route_scores_cuda(*(x[None] for x in one_args[:3]),
+                                    None if ex is None else ex[None],
+                                    *(x[None] for x in one_args[4:]))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b[0]) for a, b in zip(one, lane)):
+            fail(f"route_scores {mode}: F = 1 differs from the [M, L] call")
+    say(f"[3 kernels] route_scores F=1 x M{M_MAIN} x L{L_MAIN}: rc, l1, b bitwise equal to the "
+        "[M, L] call, with and without extra")
+    del one_args, one, lane
 
     variants = {
         "stop": dict(stop_at_first_unfit=True),
@@ -1504,18 +1643,7 @@ def main() -> int:
     }
     fleet_ms, fleet_results, fleet_launches = drive_fleets("4c fleet", fleet_runs, ops, dev)
     fleet_turns("4c fleet", fleet_runs)
-    for run, (fn, T, _, _) in fleet_runs.items():
-        prof, host = profile_slots(lambda fn=fn: fn(8, "summary"), slots=8)
-        n_aten = sum(v[1] for k, v in host.items() if k.startswith("aten::"))
-        if prof is None:
-            say(f"[4c profile] {run}: device time per slot not measured (the profiler "
-                f"recorded no device time); {n_aten:.1f} aten op calls/slot")
-            continue
-        busy = prof.pop("total")
-        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
-        say(f"[4c profile] {run}: device busy {busy:.4f} ms/slot of {fleet_ms[run]:.4f} "
-            f"(idle share {1.0 - busy / fleet_ms[run]:.3f}), {n_aten:.1f} aten op calls/slot; "
-            "top kernels per slot " + ", ".join(f"{k[:48]} {v:.4f} ms" for v, k in top[:5]))
+    profile_fleets("4c profile", fleet_runs, fleet_ms)
     # fleet A: the summary scalars equal the full record's
     full_a = fleet_runs["A CarbonIntensity"][0](T_FLEET_A, "full")
     bad = same_result(full_a, fleet_results["A CarbonIntensity"],
@@ -1534,7 +1662,7 @@ def main() -> int:
             one = core.simulate(pol, spec_f, core.TableCarbonSource(table=fleet_b.carbon[f]),
                                 core.FleetArrivals(amax=fleet_b.arrival_amax[f]), T_FLEET_B,
                                 keys_b[f], record="summary", device=dev)
-            lane = res._replace(**{n: getattr(res, n)[f] for n in res._fields})
+            lane = lane_of(res, f)
             bad, rel = same_result(one, lane, COUNTED), emission_rtol(one, lane)
             if bad or rel > 1e-6:
                 fail(f"fleet B {pname}: lane {f} differs from its instance alone in {bad}, "
@@ -1618,6 +1746,207 @@ def main() -> int:
         fail(f"registry fleet reduction {reg_red:.4f}% is not within {REGISTRY_TOL} of JAX's")
     del reg
 
+    # ---- 4d. the WAN fleet ------------------------------------------
+    aware = wan_policies["NetworkAwareDPP"]
+    blind = wan_policies["StaticRoute(CarbonIntensity)"]
+    per_aware = {"carbon_scores": 1, "route_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    per_blind = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    t0 = time.perf_counter()
+    w1 = {kind: fleet_scenarios.build_network_fleet([kind], per_kind=W1_PER_KIND, Tc=96,
+                                                    seed=SEED, device=dev).to(dev)
+          for kind in W1_KINDS}
+    say(f"[4d wan fleet] built W1 ({', '.join(w1)}: F={W1_PER_KIND} each, M5xN5, "
+        f"L{w1[W1_KINDS[0]].graph.L}) in {time.perf_counter() - t0:.1f} s")
+    w1_runs = {}
+    for kind, fl in w1.items():
+        w1_runs[f"W1 {kind} aware"] = (fleet_run(aware, fl), T_W1, fl.F, per_aware)
+        w1_runs[f"W1 {kind} blind"] = (fleet_run(blind, fl), T_W1, fl.F, per_blind)
+    w1_ms, w1_results, w1_launches = drive_fleets("4d wan fleet", w1_runs, ops, dev)
+    fleet_turns("4d wan fleet", {k: v for k, v in w1_runs.items() if "congested" in k})
+    profile_fleets("4d profile", {k: v for k, v in w1_runs.items() if "congested" in k}, w1_ms)
+    # the anchor: the bench's record=T//8 runs, their reduction beside JAX's
+    for kind, fl in w1.items():
+        cum = {}
+        for pname, pol in (("aware", aware), ("blind", blind)):
+            r = core.simulate_fleet(pol, fl, T_W1, SEED, record=T_W1 // 8, device=dev)
+            summ = w1_results[f"W1 {kind} {pname}"]
+            if not (same_bits(r.cum_emissions, summ.cum_emissions)
+                    and all(torch.equal(getattr(r, q)[:, -1], getattr(summ, q)[:, 0])
+                            for q in ("Qe", "Qc", "Qt"))):
+                fail(f"W1 {kind} {pname}: record={T_W1 // 8} differs from record='summary'")
+            cum[pname] = r.cum_emissions[:, -1].double()
+        red = 100.0 * float((1.0 - cum["aware"] / cum["blind"]).mean())
+        say(f"[4d wan fleet] W1 {kind} F{fl.F} T={T_W1} record={T_W1 // 8}: mean emission "
+            f"reduction NetworkAwareDPP(V={V_WAN}) vs StaticRoute(CarbonIntensity) {red:.6f}% "
+            f"(JAX {WAN_JAX[kind]:.6f}%, limit {WAN_TOL[kind]:g} points); stride rows and "
+            "cum emissions bitwise equal to record='summary'")
+        if not abs(red - WAN_JAX[kind]) <= WAN_TOL[kind]:
+            fail(f"W1 {kind}: reduction {red:.6f}% is not within {WAN_TOL[kind]} of JAX's")
+
+    # W2: congested-uplink at the main path's width
+    t0 = time.perf_counter()
+    w2_h = fleet_scenarios.build_network_fleet(["congested-uplink"], per_kind=W2_PER_KIND,
+                                               M=M_MAIN, N=N_MAIN, Tc=96, seed=SEED, device=dev)
+    w2 = w2_h.to(dev)
+    say(f"[4d wan fleet] built W2 (F={w2.F}, M{M_MAIN}xN{N_MAIN}xL{w2.graph.L}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    w2_runs = {"W2 aware": (fleet_run(aware, w2), T_W2, w2.F, per_aware),
+               "W2 blind": (fleet_run(blind, w2), T_W2, w2.F, per_blind)}
+    w2_ms, w2_results, w2_launches = drive_fleets("4d wan fleet", w2_runs, ops, dev)
+    fleet_turns("4d wan fleet", w2_runs)
+    profile_fleets("4d profile", w2_runs, w2_ms)
+    keys_w2 = jr.split(jr.PRNGKey(SEED, device=dev), w2.F)
+    for pname, pol in (("aware", aware), ("blind", blind)):
+        res = w2_results[f"W2 {pname}"]
+        for f in (0, w2.F - 1):
+            one = core.simulate(pol, core.NetworkSpec(*(x[f] for x in w2.spec)),
+                                core.TableCarbonSource(table=w2.carbon[f]),
+                                core.FleetArrivals(amax=w2.arrival_amax[f]), T_W2, keys_w2[f],
+                                record="summary", device=dev,
+                                graph=net.LinkGraph(*(x[f] for x in w2.graph)))
+            lane = lane_of(res, f)
+            bad, rel = same_result(one, lane, WAN_COUNTED), emission_rtol(one, lane)
+            if bad or rel > 1e-6:
+                fail(f"W2 {pname}: lane {f} differs from its instance alone in {bad}, "
+                     f"emissions rtol {rel:.3e}")
+            say(f"[4d wan fleet] W2 {pname}: lane {f} bitwise equal to its instance run alone "
+                f"through simulate(graph=) on the card ({', '.join(WAN_COUNTED)}; T={T_W2}); "
+                f"emissions max rel diff {rel:.3e}, identical bits: "
+                f"{not same_result(one, lane, ('emissions',))}")
+    t0 = time.perf_counter()
+    two_w = w2_h._replace(spec=core.FleetSpec(*(x[:2] for x in w2_h.spec)),
+                          carbon=w2_h.carbon[:2], arrival_amax=w2_h.arrival_amax[:2],
+                          graph=net.LinkGraph(*(x[:2] for x in w2_h.graph)))
+    for pname, pol in (("aware", aware), ("blind", blind)):
+        gpu = core.simulate_fleet(pol, two_w.to(dev), T_W2_CPU, SEED, device=dev)
+        cpu = core.simulate_fleet(pol, two_w, T_W2_CPU, SEED, device="cpu")
+        bad = [n for n in WAN_COUNTED if not torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n))]
+        rel = emission_rtol(gpu, cpu)
+        if bad or rel > 1e-6:
+            fail(f"W2 F2 {pname}: card and CPU differ in {bad}, emissions rtol {rel:.3e}")
+        say(f"[4d wan fleet] W2 F2xM{M_MAIN}xN{N_MAIN}xL{w2.graph.L} {pname} T={T_W2_CPU} card vs "
+            f"CPU plain path: {', '.join(WAN_COUNTED)} bitwise equal, emissions max rel diff "
+            f"{rel:.3e} (limit 1e-6)")
+    say(f"[4d wan fleet] card vs CPU: {time.perf_counter() - t0:.1f} s")
+    del two_w
+    # route_scores at the fleets' shapes, on each fleet's last-slot inputs
+    # (reported in phase 7), in the mode without extra the policy runs
+    route_fleet_times = []
+    for fname, fl, res, T, n_launch in (
+            ("W1", w1["congested-uplink"], w1_results["W1 congested-uplink aware"], T_W1,
+             w1_launches["W1 congested-uplink aware"]["route_scores"]),
+            ("W2", w2, w2_results["W2 aware"], T_W2, w2_launches["W2 aware"]["route_scores"])):
+        g_f = fl.graph
+        nl, M, L = g_f.pt.shape
+        row_t = fl.carbon[:, (T - 1) % fl.carbon.shape[1]]
+        Qc_f = res.Qc[:, 0]
+        rargs = (res.Qt[:, 0], g_f.pt, Qc_f.gather(-1, g_f.dest[:, None, :].expand(nl, M, L)), None,
+                 res.Qe[:, 0], fl.spec.pe, V_WAN * row_t.gather(-1, g_f.region),
+                 V_WAN * row_t[:, 0])
+        got = rs.route_scores_cuda(*rargs)
+        want = rs.route_scores_plain(*rargs)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"route_scores {fname} fleet inputs: the kernel differs from the plain version")
+        nbytes = 4 * (4 * nl * M * L + 4 * nl * M + nl * L + nl)
+        times = graph_ms(lambda: rs.route_scores_cuda(*rargs), reps=10, inner=20)
+        route_fleet_times.append({
+            "shape": f"F{nl}xM{M}xL{L}", "launches": n_launch, "ms": times[1], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+        say(f"[4d time] route_scores {fname} F{nl}xM{M}xL{L}: {times[1]:.5f} ms cold "
+            f"({times[0]:.5f} warm) vs byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"({nbytes / 1e6:.2f} MB; CUDA graph replay, CUDA events, median); bitwise equal to "
+            "the plain version on these inputs")
+        del rargs, got, want
+
+    # ---- 4e. forecasts ----------------------------------------------
+    mods = {"core": core, "forecast": fcst}
+    for d in (0.98, 1.0):
+        for H in (1, 4, 8, 16):
+            if not torch.equal(discount_powers(d, H, dev).cpu(), discount_powers(d, H, "cpu")):
+                fail(f"discount ** arange(H) at discount {d}, H {H}: the card differs from the CPU")
+    say("[4e forecast] discount ** arange(H) (LookaheadDPPPolicy's) at discounts 0.98 and 1.0, "
+        "H 1, 4, 8, 16: the card's values bitwise equal to the CPU's")
+    per_fc = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    for kind in FC_KINDS:
+        fl = fleet_scenarios.build_fleet([kind], per_kind=FC_PER_KIND, Tc=96, seed=SEED,
+                                         device=dev).to(dev)
+        runs = {"CarbonIntensity": (fleet_run(core.CarbonIntensityPolicy(V=V_FC), fl),
+                                    T_FC_ANCHOR, fl.F, per_fc)}
+        for row, (pol, fc) in forecast_rows(mods, V_FC).items():
+            noisy = not getattr(getattr(fc, "error", None), "exact", True)
+            runs[row] = ((lambda T, record, pol=pol, fc=fc: core.simulate_fleet(
+                pol, fl, T, SEED, record=record, device=dev, forecaster=fc)),
+                T_FC_ANCHOR, fl.F, dict(per_fc, threefry_draw=2) if noisy else per_fc)
+        fc_ms, fc_results, _ = drive_fleets(f"4e forecast {kind}", runs, ops, dev)
+        base = fc_results["CarbonIntensity"].cum_emissions[:, -1]
+        for row, want in FORECAST_JAX[kind].items():
+            cum = fc_results[row].cum_emissions[:, -1]
+            red = 100.0 * float((1.0 - cum.double() / base.double()).mean())
+            tol = FC_NOISY_TOL if "noisy" in row else FC_TOL
+            h1 = row.startswith("la_H1_")
+            if h1 and same_result(fc_results[row], fc_results["CarbonIntensity"]):
+                fail(f"forecast {kind} {row}: H=1 differs from CarbonIntensity")
+            say(f"[4e forecast] {kind} F{fl.F} T={T_FC_ANCHOR} {row}: mean reduction vs "
+                f"CarbonIntensity(V={V_FC}) {red:.6f}% (JAX {want:.6f}%, limit {tol:g} points)"
+                + ("; every field bitwise equal to CarbonIntensity's run" if h1 else ""))
+            if not abs(red - want) <= tol:
+                fail(f"forecast {kind} {row}: {red:.6f}% is not within {tol} of JAX's {want:.6f}%")
+        del fl, fc_results
+    # width: LookaheadDPP(H=8) on fleet B, fed perfect forecasts and RidgeAR
+    la = core.LookaheadDPPPolicy(V=V_PAPER, H=FC_H)
+    clair, ridge = fcst.ClairvoyantTableForecaster(H=FC_H), fcst.RidgeARForecaster(H=FC_H)
+
+    def la_run(fc, fleet=fleet_b):
+        return lambda T, record, d=dev: core.simulate_fleet(la, fleet, T, SEED, record=record,
+                                                            device=d, forecaster=fc)
+
+    fcw_runs = {"B CarbonIntensity": fleet_runs["B CarbonIntensity"],
+                "B Lookahead(H=8) clairvoyant": (la_run(clair), T_FC_WIDTH, F_B,
+                                                 {"carbon_scores": 1, "greedy_fill": 1,
+                                                  "threefry_draw": 1}),
+                "B Lookahead(H=8) RidgeAR": (la_run(ridge), T_FC_WIDTH, F_B,
+                                             {"carbon_scores": 1, "greedy_fill": 1,
+                                              "threefry_draw": 1})}
+    fcw_ms, fcw_results, _ = drive_fleets("4e forecast width", fcw_runs, ops, dev)
+    fleet_turns("4e forecast width", fcw_runs)
+    profile_fleets("4e profile", {k: v for k, v in fcw_runs.items() if "Lookahead" in k}, fcw_ms)
+    res = fcw_results["B Lookahead(H=8) clairvoyant"]
+    for f in (0, F_B - 1):
+        one = core.simulate(la, core.NetworkSpec(*(x[f] for x in fleet_b.spec)),
+                            core.TableCarbonSource(table=fleet_b.carbon[f]),
+                            core.FleetArrivals(amax=fleet_b.arrival_amax[f]), T_FC_WIDTH,
+                            keys_b[f], record="summary", device=dev, forecaster=clair)
+        lane = lane_of(res, f)
+        bad, rel = same_result(one, lane, COUNTED), emission_rtol(one, lane)
+        if bad or rel > 1e-6:
+            fail(f"forecast width: lane {f} differs from its instance alone in {bad}, emissions "
+                 f"rtol {rel:.3e}")
+        say(f"[4e forecast] B Lookahead(H=8) clairvoyant: lane {f} bitwise equal to its instance "
+            f"run alone through simulate(forecaster=) on the card ({', '.join(COUNTED)}; "
+            f"T={T_FC_WIDTH}); emissions max rel diff {rel:.3e}")
+    two_h = fleet_b_h._replace(spec=core.FleetSpec(*(x[:2] for x in fleet_b_h.spec)),
+                               carbon=fleet_b_h.carbon[:2], arrival_amax=fleet_b_h.arrival_amax[:2])
+    gpu = core.simulate_fleet(la, two_h.to(dev), T_FLEET_CPU, SEED, device=dev, forecaster=clair)
+    cpu = core.simulate_fleet(la, two_h, T_FLEET_CPU, SEED, device="cpu", forecaster=clair)
+    bad = [n for n in COUNTED if not torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n))]
+    rel = emission_rtol(gpu, cpu)
+    if bad or rel > 1e-6:
+        fail(f"forecast width F2: card and CPU differ in {bad}, emissions rtol {rel:.3e}")
+    say(f"[4e forecast] B F2xM{M_MAIN}xN{N_MAIN} Lookahead(H=8) clairvoyant T={T_FLEET_CPU} card "
+        f"vs CPU plain path: {', '.join(COUNTED)} bitwise equal, emissions max rel diff {rel:.3e}")
+    del two_h, gpu, cpu
+    # RidgeAR's refit and rollout alone, with a full window (T=64 reaches
+    # it at the last slot only): one predict over F16 x 257 regions
+    rcarry = ridge.init(N_MAIN, device=dev)
+    for t in range(ridge.window):
+        rcarry = ridge.update(rcarry, fleet_b.carbon[:, t % fleet_b.carbon.shape[1]])
+    fit_ms = cuda_ms(lambda: ridge.predict(rcarry, ridge.window - 1), reps=10, inner=3)
+    if not bool(torch.isfinite(ridge.predict(rcarry, ridge.window - 1)).all()):
+        fail("RidgeAR: a non-finite forecast from a full window")
+    say(f"[4e forecast] RidgeAR(H=8, lags 8, window 64) one predict with a full window, F{F_B} x "
+        f"{N_MAIN + 1} regions (batched 9x9 solves, 7 rollout steps): {fit_ms:.4f} ms (CUDA "
+        "events, eager, median)")
+    del rcarry
+
     # ---- 5. paper headline -----------------------------------------
     pspec = paper_spec().to(dev)
     uk = core.UKRegionalTraceSource(N=5).to(dev)
@@ -1669,7 +1998,7 @@ def main() -> int:
     if same_result(sweep, sweep_h, ("Qe", "Qc", "dispatched", "processed")):
         fail("simulate_vsweep: card and CPU queues differ")
     for i, V in enumerate(VSWEEP):
-        lane = sweep._replace(**{n: getattr(sweep, n)[i] for n in sweep._fields})
+        lane = lane_of(sweep, i)
         bad = same_result(single[V], lane, ("dispatched", "processed"))
         rel = emission_rtol(single[V], lane)
         if bad or rel > 1e-6 or not torch.equal(lane.Qc[-1], single[V].Qc[0]):
@@ -1682,24 +2011,35 @@ def main() -> int:
     del sweep, sweep_h, single
 
     # ---- 5b. WAN headline -------------------------------------------
-    # the JAX bench's network/congested-uplink rows: M5xN5, V=0.1, T=192,
-    # from empty queues and links, arrivals U{0..amax}; here 8 lanes
+    # the JAX bench's network/congested-uplink rows (phase 4d's W1 fleet):
+    # its first WAN_INSTANCES lanes, each run alone through simulate(graph=)
+    # with the lane's key, table and arrivals, from empty queues and links;
+    # each equal to its fleet lane
     t0 = time.perf_counter()
+    w1c = w1["congested-uplink"]
+    keys_w1 = jr.split(jr.PRNGKey(SEED, device=dev), w1c.F)
     reductions = []
     for j in range(WAN_INSTANCES):
-        w = wan_instance(convert, fleet_scenarios, 5, 5, T_WAN_HEADLINE, dev, j=j)
-        src = core.TableCarbonSource(table=w["table"]).to(dev)
+        spec_j = core.NetworkSpec(*(x[j] for x in w1c.spec))
+        graph_j = net.LinkGraph(*(x[j] for x in w1c.graph))
         cum = {}
-        for pname, pol in wan_policies.items():
-            r = core.simulate(pol, w["spec"](dev), src, w["arrivals"], T_WAN_HEADLINE, SEED,
-                              record="summary", device=dev, graph=w["graph"].to(dev))
+        for pname, pol in (("aware", aware), ("blind", blind)):
+            r = core.simulate(pol, spec_j, core.TableCarbonSource(table=w1c.carbon[j]),
+                              core.FleetArrivals(amax=w1c.arrival_amax[j]), T_WAN_HEADLINE,
+                              keys_w1[j], record="summary", device=dev, graph=graph_j)
+            lane = lane_of(w1_results[f"W1 congested-uplink {pname}"], j)
+            bad, rel = same_result(r, lane, WAN_COUNTED), emission_rtol(r, lane)
+            if bad or rel > 1e-6:
+                fail(f"WAN headline instance {j} {pname}: differs from W1's lane {j} in {bad}, "
+                     f"emissions rtol {rel:.3e}")
             cum[pname] = float(r.cum_emissions[-1])
-        reductions.append(100.0 * (1.0 - cum["NetworkAwareDPP"] / cum["StaticRoute(CarbonIntensity)"]))
+        reductions.append(100.0 * (1.0 - cum["aware"] / cum["blind"]))
     wan_reduction = statistics.fmean(reductions)
     say(f"[5b wan] emission reduction NetworkAwareDPP(V={V_WAN}) vs StaticRoute(CarbonIntensity) "
         f"on congested-uplink M5xN5, T={T_WAN_HEADLINE}, mean of {WAN_INSTANCES} instances: "
         f"{wan_reduction:.2f}% (per instance " + ", ".join(f"{x:.2f}" for x in reductions)
-        + f"); {time.perf_counter() - t0:.1f} s")
+        + f"); each instance's {', '.join(WAN_COUNTED)} bitwise equal to W1's lane, emissions "
+        f"within rtol 1e-6; {time.perf_counter() - t0:.1f} s")
     if not wan_reduction > 5.0:
         fail(f"WAN headline reduction {wan_reduction:.2f}% is not above 5%")
 
@@ -1883,6 +2223,7 @@ def main() -> int:
     row("route_scores", "src/repro_torch/kernels/csrc/route_score.cu",
         "src/repro/kernels/route_score.py:82", wan_launches["route_scores"], ms, call_ms,
         plain_ms, nbytes=4 * (4 * M * Lw + 4 * M + Lw + 1), nops=3 * M * Lw + 2 * M)
+    rows[-1]["fleet"] = route_fleet_times
     warm_x, cold_x = graph_ms(lambda: rs.route_scores_cuda(*extra_args), reps=20, inner=50)
     say(f"[7 time] route_scores with extra (route_compute_weight != 0): {cold_x:.5f} ms from a "
         f"cold L2, {warm_x:.5f} ms warm vs bound "

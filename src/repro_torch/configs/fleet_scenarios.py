@@ -37,9 +37,12 @@ cost: size[m] = pc[m, 0] / 20.
                            relayed routes.
 
 multi-region-uk-wan renders its table with the port's
-`uk_regional_table` on `device`, as multi-region-uk does. The WAN fleet
-builder (`build_network_fleet`) comes with the WAN fleet (ROADMAP Queue
-1 item 2.2b).
+`uk_regional_table` on `device`, as multi-region-uk does (so parity
+tests feed JAX's multi-region-uk-wan fleet through
+`convert.fleet_from_reference`). `build_network_fleet` stacks `per_kind`
+instances of each named topology (generator `default_rng((seed, 1 + i,
+j))`, as the JAX function seeds them) into a FleetScenario whose
+stacked graph routes every lane through the transfer layer.
 """
 from __future__ import annotations
 
@@ -155,7 +158,7 @@ def _task_sizes(spec: NetworkSpec) -> np.ndarray:
     return (np.asarray(spec.pc, np.float32)[:, 0] / 20.0).astype(np.float32)
 
 
-def star(M: int, N: int, Tc: int, rng: np.random.Generator):
+def star(M: int, N: int, Tc: int, rng: np.random.Generator, device=DEFAULT_DEVICE):
     """Hub-and-spoke: bandwidth caps bite only under bursts."""
     spec = _base(M, N)
     size = _task_sizes(spec)
@@ -165,7 +168,8 @@ def star(M: int, N: int, Tc: int, rng: np.random.Generator):
     return spec, diurnal_table(Tc, N, rng), amax, graph
 
 
-def congested_uplink(M: int, N: int, Tc: int, rng: np.random.Generator):
+def congested_uplink(M: int, N: int, Tc: int, rng: np.random.Generator,
+                     device=DEFAULT_DEVICE):
     """The clean alternates saturate, so a route-aware policy trades
     clean-but-queued against dirty-but-instant while a transfer-blind
     one burns the dirty primaries. The backbone is priced in the last
@@ -207,3 +211,26 @@ NETWORK_SCENARIOS: Dict[str, Callable] = {
     "congested-uplink": congested_uplink,
     "multi-region-uk-wan": multi_region_uk_wan,
 }
+
+
+def build_network_fleet(kinds: Sequence[str] = ("congested-uplink", "multi-region-uk-wan"),
+                        per_kind: int = 16, M: int = 5, N: int = 5, Tc: int = 96, seed: int = 0,
+                        device=DEFAULT_DEVICE) -> FleetScenario:
+    """WAN twin of `build_fleet`: `per_kind` instances of every named
+    topology scenario, stacked with their graphs. Graphs must share (M,
+    N, L), so only kinds of one route count mix: the default stacks the
+    two 2N-route topologies; "star" (N routes) is built on its own.
+    `device` renders multi-region-uk-wan's tables."""
+    instances, graphs = [], []
+    for i, kind in enumerate(kinds):
+        try:
+            gen = NETWORK_SCENARIOS[kind]
+        except KeyError:
+            raise KeyError(f"unknown network scenario {kind!r}; registered: "
+                           f"{sorted(NETWORK_SCENARIOS)}") from None
+        for j in range(per_kind):
+            spec, table, amax, graph = gen(M, N, Tc, np.random.default_rng((seed, 1 + i, j)),
+                                           device=device)
+            instances.append((spec, table, amax))
+            graphs.append(graph)
+    return stack_scenarios(instances, graphs=graphs)

@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState
 from repro_torch.core.simulator import FleetScenario, FleetSpec
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.network.graph import LinkGraph, make_graph
+from repro_torch.network.graph import LinkGraph, make_graph, stack_graphs
 
 
 def _t(x, device) -> torch.Tensor:
@@ -72,13 +72,20 @@ def key_from_reference(key_u32, device=DEFAULT_DEVICE) -> torch.Tensor:
 
 
 def fleet_from_reference(fleet) -> FleetScenario:
-    """The port's FleetScenario (float32 numpy arrays) of a JAX
-    FleetScenario, read by field names. A JAX fleet with a graph,
-    forecast-error, fault or deadline axis keeps it, for
-    `simulate_fleet` to refuse by name."""
+    """The port's FleetScenario (numpy arrays) of a JAX FleetScenario,
+    read by field names. A stacked JAX graph comes across lane by lane
+    (each validated by `make_graph`, then `stack_graphs`), the
+    forecast-error lanes as float32; a fault or deadline axis is kept
+    as it is, for `simulate_fleet` to refuse by name."""
     f32 = lambda x: np.array(x, np.float32)  # noqa: E731
-    extra = {f: getattr(fleet, f, None) for f in ("graph", "err_bias", "err_noise", "faults",
-                                                   "deadlines")}
+    extra = {f: getattr(fleet, f, None) for f in ("faults", "deadlines")}
+    for f in ("err_bias", "err_noise"):
+        extra[f] = None if getattr(fleet, f, None) is None else f32(getattr(fleet, f))
+    g = getattr(fleet, "graph", None)
+    if g is not None:
+        fields = [np.asarray(getattr(g, f)) for f in LinkGraph._fields]
+        extra["graph"] = stack_graphs(make_graph(*(x[i] for x in fields))
+                                      for i in range(fields[0].shape[0]))
     return FleetScenario(
         spec=FleetSpec(*(f32(getattr(fleet.spec, f)) for f in FleetSpec._fields)),
         carbon=f32(fleet.carbon),

@@ -4,7 +4,8 @@
   greedy): one score pass, then the edge row and all N cloud rows in one
   stacked [N+1, M] greedy fill.
 * LookaheadDPPPolicy -- Algorithm 1 on deferral-penalized intensities
-  from an explicit [H, N+1] forecast (the parent of the WAN policy).
+  from an [H, N+1] forecast (`repro_torch.forecast`; the parent of the
+  WAN policy).
 * QueueLengthPolicy -- the paper's baseline: longest edge queue ->
   shortest cloud queue; clouds process their longest queues; carbon-blind.
 * RandomPolicy -- feasible random actions (stress/property tests).
@@ -163,11 +164,18 @@ class CarbonIntensityPolicy:
         return Action(d=_dispatch_matrix(state.Qc, n1, d_counts), w=w)
 
 
+def discount_powers(discount: float, H: int, device) -> torch.Tensor:
+    """discount**h for h = 0..H-1, float32 `pow` on `device` (on the CPU
+    the values of XLA:CPU's `discount ** arange(H)`; chip_smoke.py holds
+    the card's to them)."""
+    return _scalar(discount, device) ** torch.arange(H, dtype=torch.float32, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class LookaheadDPPPolicy(CarbonIntensityPolicy):
     """Receding-horizon drift-plus-penalty: plans against an [H, N+1]
-    intensity forecast and acts on the first slot with
-    deferral-penalized intensities
+    intensity forecast ([F, H, N+1] on a lane axis) and acts on the first
+    slot with deferral-penalized intensities
 
         C_eff = C_now + defer_weight * max(0, C_now - Cmin)
         Cmin  = min_h forecast[h] / discount**h         (h = 0..H-1)
@@ -175,7 +183,8 @@ class LookaheadDPPPolicy(CarbonIntensityPolicy):
     Row 0 of the forecast is overwritten with the observed (Ce, Cc), so
     H=1 gives Cmin = C_now and acts bitwise as CarbonIntensityPolicy;
     with no forecast (forecast=None) the policy is the myopic parent. The
-    forecasters that feed it come with the port's forecast slice.
+    forecasters of `repro_torch.forecast` feed it through
+    `simulate(..., forecaster=)` and `simulate_fleet(..., forecaster=)`.
     """
 
     H: int = 8
@@ -185,30 +194,25 @@ class LookaheadDPPPolicy(CarbonIntensityPolicy):
     def effective_intensities(self, Ce, Cc, forecast):
         if forecast is None or self.H <= 0:
             return Ce, Cc
-        if forecast.shape[0] < self.H:
+        if forecast.shape[-2] < self.H:
             raise ValueError(
-                f"forecast covers {forecast.shape[0]} slots but the policy plans over "
+                f"forecast covers {forecast.shape[-2]} slots but the policy plans over "
                 f"H={self.H}: configure the forecaster with H >= {self.H} (silently "
                 "planning short would mislabel every lookahead result)"
             )
         dev = Cc.device
-        f = forecast[: self.H].to(device=dev, dtype=torch.float32, copy=True)
-        f[0] = torch.cat([Ce.reshape(1), Cc])
-        g = _scalar(self.discount, dev) ** torch.arange(f.shape[0], dtype=torch.float32,
-                                                         device=dev)
-        cmin = torch.amin(f / g[:, None], dim=0)  # [N+1]
+        f = forecast[..., : self.H, :].to(device=dev, dtype=torch.float32, copy=True)
+        f[..., 0, :] = torch.cat([Ce[..., None], Cc], dim=-1)
+        g = discount_powers(self.discount, f.shape[-2], dev)
+        cmin = torch.amin(f / g[:, None], dim=-2)  # [..., N+1]
         w = _scalar(self.defer_weight, dev)
         # single-rounded, as XLA:CPU contracts `C + w * max(...)` under jit
-        Ce_eff = fma_f32(w, torch.clamp_min(Ce - cmin[0], 0.0), Ce)
-        Cc_eff = fma_f32(w, torch.clamp_min(Cc - cmin[1:], 0.0), Cc)
+        Ce_eff = fma_f32(w, torch.clamp_min(Ce - cmin[..., 0], 0.0), Ce)
+        Cc_eff = fma_f32(w, torch.clamp_min(Cc - cmin[..., 1:], 0.0), Cc)
         return Ce_eff, Cc_eff
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
                  arrivals=None, key=None, forecast=None) -> Action:
-        if state.Qe.dim() > 1:
-            raise NotImplementedError(
-                "LookaheadDPPPolicy on a lane axis needs the forecast layer's fleet lanes "
-                "(ROADMAP Queue 1 item 2.3)")
         Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
         return super().__call__(state, spec, Ce_eff, Cc_eff, arrivals, key)
 

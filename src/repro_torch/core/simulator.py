@@ -9,11 +9,13 @@ the loop (no `.item()`, no copy to or from the host, no tensor used as a
 Python bool), so the device never waits for the host to read a result.
 
 `graph=` routes the run through the WAN transfer layer
-(`repro_torch.network`). `simulate_vsweep` and `simulate_fleet` run the
-same loop over a leading lane axis (V values, or stacked scenarios),
-which every tensor of the slot carries. The forecaster / faults /
-telemetry / deadlines arguments of the JAX `simulate` belong to later
-slices of the port.
+(`repro_torch.network`); `forecaster=` threads a forecaster
+(`repro_torch.forecast`) through the loop and hands the policy its
+prediction. `simulate_vsweep` and `simulate_fleet` run the same loop
+over a leading lane axis (V values, or stacked scenarios, with a
+stacked WAN graph and forecast-error lanes), which every tensor of the
+slot carries. The faults / telemetry / deadlines arguments of the JAX
+`simulate` belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -143,16 +145,49 @@ def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device) -> 
     )
 
 
-def slot_step(loop: SlotLoop, state: NetworkState, t: int):
+def init_forecaster_carry(forecaster, N, key, carbon_source, error_params, device):
+    """The forecaster's carry, built the one way `simulate` and the WAN
+    `simulate_network` build it: the carbon key, the playback table when
+    the source carries one, and the per-run (bias, noise) override of
+    its ForecastErrorModel only when given (so a forecaster without an
+    `error` keyword keeps working)."""
+    kw = {} if error_params is None else {"error": error_params}
+    return forecaster.init(N, key=key, table=getattr(carbon_source, "table", None),
+                           device=device, **kw)
+
+
+class ForecastFeed:
+    """A forecaster and its carry in a slot loop: each slot the observed
+    row (Ce, Cc) updates the carry, then the forecast [..., H, N+1] of
+    slot t is the policy's `forecast=`, as the JAX scan body does it."""
+
+    def __init__(self, forecaster, carry):
+        self.forecaster, self.carry = forecaster, carry
+
+    @classmethod
+    def start(cls, forecaster, loop: "SlotLoop", error_params) -> "ForecastFeed":
+        N = loop.spec.N
+        return cls(forecaster, init_forecaster_carry(forecaster, N, loop.keys[0],
+                                                     loop.carbon_source, error_params,
+                                                     loop.device))
+
+    def __call__(self, Ce, Cc, t: int):
+        self.carry = self.forecaster.update(self.carry, torch.cat([Ce[..., None], Cc], dim=-1))
+        return self.forecaster.predict(self.carry, t)
+
+
+def slot_step(loop: SlotLoop, state: NetworkState, t: int, feed: ForecastFeed | None = None):
     """One slot: observe, act, account, step. The body both `simulate`
     and `serve.loop.make_serve_step` run, so their trajectories are
     bitwise equal. The policy gets its key `fold_in(k_policy, t)` as a
-    `rng.SlotKey`, computed only by a policy that draws. Returns (next
-    state, action, arrivals, C(t))."""
+    `rng.SlotKey`, computed only by a policy that draws, and, with a
+    forecast `feed`, the forecast of slot t. Returns (next state,
+    action, arrivals, C(t))."""
     k_carbon, k_arrive, k_policy = loop.keys
     Ce, Cc = loop.carbon_source(t, k_carbon, loop.device)
     a = loop.arrival_source(t, k_arrive, loop.device)
-    act = loop.policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t))
+    kw = {} if feed is None else {"forecast": feed(Ce, Cc, t)}
+    act = loop.policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t), **kw)
     C_t = emissions(loop.spec, act, Ce, Cc)
     return step(state, act, a), act, a, C_t
 
@@ -184,6 +219,8 @@ def simulate(
     record: str | int = "full",
     device=DEFAULT_DEVICE,
     graph=None,
+    forecaster=None,
+    error_params=None,
 ) -> SimResult:
     """Runs the network for T slots under `policy` on `device`.
 
@@ -198,6 +235,15 @@ def simulate(
     Sources are called as `source(t, key, device)`; sources with a
     `to(device)` method are staged on the device first.
 
+    When `forecaster` (see `repro_torch.forecast`) is given, its carry
+    runs beside the queues: each slot the observed intensity row updates
+    it and its [H, N+1] prediction goes to the policy as `forecast=`
+    (LookaheadDPPPolicy takes it); emissions are still accounted at the
+    true intensities. The forecaster's `init` gets the carbon key, the
+    playback table when the source has one (`carbon_source.table`), and
+    `error_params = (bias, noise)` when given, which overrides its
+    ForecastErrorModel for this run (the fleet's forecast-quality lanes).
+
     When `graph` (a `repro_torch.network.LinkGraph`) is given, the run
     goes through the WAN transfer layer (`network.simulate_network`):
     the policy is called with `graph=` / `Qt=` keywords, returns a
@@ -207,16 +253,18 @@ def simulate(
         from repro_torch.network.sim import simulate_network
 
         return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, key,
-                                state0=state0, record=record, device=device)
+                                state0=state0, record=record, device=device,
+                                forecaster=forecaster, error_params=error_params)
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
     dev = loop.device
     state = init_state(spec.M, spec.N, device=dev) if state0 is None else NetworkState(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
     )
-    return _drive(loop, state, T, record)
+    feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, error_params)
+    return _drive(loop, state, T, record, feed)
 
 
-def _drive(loop: SlotLoop, state: NetworkState, T: int, record) -> SimResult:
+def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> SimResult:
     """T slots of `loop` from `state`, recorded as `record` says. Every
     tensor may carry leading lanes (those of the state): the series are
     then [*lanes, T], the queues [*lanes, R, M(, N)], as the JAX
@@ -232,7 +280,7 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record) -> SimResult:
     ec = zeros(T, N)
     Qe_rec, Qc_rec = zeros(R_, M), zeros(R_, M, N)
     for t in range(T):
-        state, act, _, C_t = slot_step(loop, state, t)
+        state, act, _, C_t = slot_step(loop, state, t, feed)
         C[..., t] = C_t
         disp[..., t] = torch.sum(act.d, dim=(-2, -1))
         proc[..., t] = torch.sum(act.w, dim=(-2, -1))
@@ -299,9 +347,12 @@ class FleetScenario(NamedTuple):
     arrays, as `stack_scenarios` and `configs.fleet_scenarios.build_fleet`
     make them): the spec, a carbon playback table per lane (col 0 = edge,
     cols 1..N = clouds, rows repeat modulo Tc) and per-type uniform
-    arrival caps. The optional axes of the JAX FleetScenario (a stacked
-    WAN graph, forecast-error sweeps, faults, deadlines) are fields
-    here too; `simulate_fleet` refuses each until its layer is ported."""
+    arrival caps. Optional axes (None = off for the whole fleet):
+    `graph`, a stacked LinkGraph (`network.stack_graphs`), routes every
+    lane through the WAN transfer layer; `err_bias` / `err_noise` [F]
+    override each lane's ForecastErrorModel (`sweep_forecast_errors`).
+    The JAX FleetScenario's faults and deadlines axes are fields too;
+    `simulate_fleet` refuses them until their layers are ported."""
 
     spec: FleetSpec
     carbon: object        # [F, Tc, N+1] intensity playback tables
@@ -317,11 +368,15 @@ class FleetScenario(NamedTuple):
         return self.arrival_amax.shape[0]
 
     def to(self, device) -> "FleetScenario":
-        """The spec, tables and caps as float32 tensors on `device` (the
-        optional axes as they are), so a run copies nothing from the host."""
+        """The spec, tables, caps, graph and forecast-error lanes as
+        tensors on `device` (faults and deadlines as they are), so a run
+        copies nothing from the host."""
+        opt = lambda x: None if x is None else _f32_on(x, device)  # noqa: E731
         return self._replace(spec=FleetSpec(*(_f32_on(x, device) for x in self.spec)),
                              carbon=_f32_on(self.carbon, device),
-                             arrival_amax=_f32_on(self.arrival_amax, device))
+                             arrival_amax=_f32_on(self.arrival_amax, device),
+                             graph=None if self.graph is None else self.graph.to(device),
+                             err_bias=opt(self.err_bias), err_noise=opt(self.err_noise))
 
 
 def _f32_on(x, device) -> torch.Tensor:
@@ -330,11 +385,12 @@ def _f32_on(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=DTYPE)
 
 
-def stack_scenarios(instances) -> FleetScenario:
+def stack_scenarios(instances, graphs=None) -> FleetScenario:
     """Stacks an iterable of (NetworkSpec, carbon_table [Tc, N+1], amax
     [M]) triples into one FleetScenario of float32 numpy arrays. Tables
-    must share Tc and specs (M, N). (The JAX function's `graphs=` waits
-    for the WAN fleet, ROADMAP Queue 1 item 2.2b.)"""
+    must share Tc and specs (M, N). `graphs`, when given, is a parallel
+    iterable of LinkGraphs (sharing M, N, L) stacked onto the fleet's
+    graph axis."""
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
     pes, pcs, Pes, Pcs, tabs, amaxs = [], [], [], [], [], []
     for spec, table, amax in instances:
@@ -345,20 +401,32 @@ def stack_scenarios(instances) -> FleetScenario:
         Pcs.append(f32(spec.Pc))
         tabs.append(f32(table))
         amaxs.append(np.broadcast_to(f32(amax), pe.shape))
-    return FleetScenario(
+    fleet = FleetScenario(
         spec=FleetSpec(pe=np.stack(pes), pc=np.stack(pcs), Pe=np.stack(Pes), Pc=np.stack(Pcs)),
         carbon=np.stack(tabs),
         arrival_amax=np.stack(amaxs),
+    )
+    if graphs is not None:
+        from repro_torch.network.graph import stack_graphs
+
+        fleet = fleet._replace(graph=stack_graphs(graphs))
+    return fleet
+
+
+def sweep_forecast_errors(fleet: FleetScenario, bias, noise) -> FleetScenario:
+    """Attaches per-lane ForecastErrorModel parameters ([F] arrays or
+    scalars, broadcast), so one `simulate_fleet` call sweeps forecast
+    quality across lanes."""
+    F = fleet.F
+    return fleet._replace(
+        err_bias=np.broadcast_to(np.asarray(bias, np.float32), (F,)).copy(),
+        err_noise=np.broadcast_to(np.asarray(noise, np.float32), (F,)).copy(),
     )
 
 
 # the layers a FleetScenario or simulate_fleet may name that the port
 # does not have yet, with the ROADMAP Queue 1 item that brings each
 _NOT_PORTED = {
-    "graph": "2.2b (the WAN fleet)",
-    "err_bias": "2.3 (forecasts)",
-    "err_noise": "2.3 (forecasts)",
-    "forecaster": "2.3 (forecasts)",
     "faults": "2.4 (faults)",
     "deadlines": "2.5 (deadlines)",
     "telemetry": "2.6 (telemetry)",
@@ -383,11 +451,13 @@ def simulate_fleet(
     `simulate` does), its carbon is its table's row t mod Tc, and its
     arrivals floor(uniform(fold_in(k_arrive_f, t), (M,)) * (amax_f + 1)).
 
-    Every result field has a leading [F] axis; `record` works as in
-    `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N])."""
-    for name, value in (("graph", fleet.graph), ("err_bias", fleet.err_bias),
-                        ("err_noise", fleet.err_noise), ("faults", fleet.faults),
-                        ("deadlines", fleet.deadlines), ("forecaster", forecaster),
+    A fleet with a stacked graph runs every lane through the WAN transfer
+    layer (the result is a NetSimResult); `forecaster` threads one
+    forecaster through every lane (each lane's table and carbon key, and
+    with `err_bias`/`err_noise` its own error parameters), as `simulate`
+    does. Every result field has a leading [F] axis; `record` works as
+    in `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N])."""
+    for name, value in (("faults", fleet.faults), ("deadlines", fleet.deadlines),
                         ("telemetry", telemetry)):
         if value is not None:
             raise NotImplementedError(
@@ -397,9 +467,18 @@ def simulate_fleet(
     fleet = fleet.to(dev)
     spec = NetworkSpec(*fleet.spec)
     keys = R.split(rng.key_of(key, dev), fleet.F)
-    loop = make_slot_loop(policy, spec, TableCarbonSource(table=fleet.carbon),
-                          FleetArrivals(amax=fleet.arrival_amax), keys, dev)
-    return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record)
+    carbon = TableCarbonSource(table=fleet.carbon)
+    arrivals = FleetArrivals(amax=fleet.arrival_amax)
+    err = None if fleet.err_bias is None else (fleet.err_bias, fleet.err_noise)
+    if fleet.graph is not None:
+        from repro_torch.network.sim import simulate_network
+
+        return simulate_network(policy, spec, fleet.graph, carbon, arrivals, T, keys,
+                                record=record, device=dev, forecaster=forecaster,
+                                error_params=err)
+    loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev)
+    feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, err)
+    return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record, feed)
 
 
 def mean_rate_stability_metric(result: SimResult) -> torch.Tensor:

@@ -18,10 +18,16 @@
 // The library is built with -fmad=false, so only the explicit
 // __fmaf_rn calls are fused.
 //
+// Lanes: under `vmap` (the WAN fleet) Pallas's batching rule gives the
+// kernel a leading lane axis; here Qt, pt, Qcr, extra are [F, M, L], Qe,
+// pe [F, M], VCt [F, L] and V*Ce one value a lane. The grid covers F * M
+// rows and row r reads lane r / M's VCt row and V*Ce; F = 1 is the
+// [M, L] call.
+//
 // Bound: memory. Without extra one pass reads Qt, pt and Qcr and writes
 // rc, 16 bytes per element (plus 16 bytes per row for Qe, pe, l1, b):
 // about 33.6 MB at M=4096, L=512, i.e. about 10.0 us at 3.35 TB/s; with
-// extra about 41.9 MB, 12.5 us.
+// extra about 41.9 MB, 12.5 us; F lanes F times that.
 //
 // Design: that of carbon_score.cu. One warp per row, 8 rows per block;
 // the lanes stride over the row (neighbouring lanes read neighbouring
@@ -44,10 +50,12 @@ route_scores_kernel(const float* __restrict__ Qt, const float* __restrict__ pt,
                     const float* __restrict__ Qe, const float* __restrict__ pe,
                     const float* __restrict__ vct, const float* __restrict__ vce,
                     float* __restrict__ rc, int* __restrict__ l1, float* __restrict__ b,
-                    int M, int L) {
+                    int rows, int M, int L) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= M) return;  // uniform across the warp
+  if (row >= rows) return;  // uniform across the warp
+  const int f = row / M;  // the fleet lane
+  vct += static_cast<size_t>(f) * L;
   const size_t base = static_cast<size_t>(row) * L;
   float best = INFINITY;
   int arg = L;  // any real index beats it on a tie, so an all-inf row gives 0
@@ -75,7 +83,7 @@ route_scores_kernel(const float* __restrict__ Qt, const float* __restrict__ pt,
   }
   if (lane == 0) {
     l1[row] = arg;
-    b[row] = __fsub_rn(__fmaf_rn(*vce, pe[row], best), Qe[row]);
+    b[row] = __fsub_rn(__fmaf_rn(vce[f], pe[row], best), Qe[row]);
   }
 }
 
@@ -85,18 +93,19 @@ route_scores_kernel(const float* __restrict__ Qt, const float* __restrict__ pt,
 extern "C" int route_scores_launch(const void* Qt, const void* pt, const void* Qcr,
                                    const void* extra, const void* Qe, const void* pe,
                                    const void* vct, const void* vce, void* rc, void* l1,
-                                   void* b, int M, int L, void* stream) {
-  const int blocks = (M + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                                   void* b, int F, int M, int L, void* stream) {
+  const int rows = F * M;
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (extra != nullptr) {
     route_scores_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         f(Qt), f(pt), f(Qcr), f(extra), f(Qe), f(pe), f(vct), f(vce),
-        static_cast<float*>(rc), static_cast<int*>(l1), static_cast<float*>(b), M, L);
+        static_cast<float*>(rc), static_cast<int*>(l1), static_cast<float*>(b), rows, M, L);
   } else {
     route_scores_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         f(Qt), f(pt), f(Qcr), nullptr, f(Qe), f(pe), f(vct), f(vce),
-        static_cast<float*>(rc), static_cast<int*>(l1), static_cast<float*>(b), M, L);
+        static_cast<float*>(rc), static_cast<int*>(l1), static_cast<float*>(b), rows, M, L);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,7 @@ from repro_torch.network.graph import (
     direct_graph,
     make_graph,
     multi_region_wan_graph,
+    stack_graphs,
     star_graph,
 )
 from repro_torch.network.policy import NetworkAwareDPPPolicy, StaticRoutePolicy
@@ -44,6 +45,7 @@ __all__ = [
     "multi_region_wan_graph",
     "network_emissions",
     "simulate_network",
+    "stack_graphs",
     "star_graph",
     "step_links",
     "transfer_energy",

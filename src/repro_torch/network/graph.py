@@ -21,7 +21,9 @@ float32 values), as `paper_spec` returns a numpy spec; `LinkGraph.to`
 stages a graph on a device once, before a loop. The builders draw from
 an `np.random.Generator` exactly as the JAX builders do, so the same
 generator state gives bitwise the same graph in both packages.
-`stack_graphs` comes with the fleet slice.
+`stack_graphs` stacks graphs of one (M, N, L) onto a leading fleet axis
+F (dest/region/bw [F, L], pt [F, M, L], size [F, M], primary [F, N]),
+the graph of a WAN `FleetScenario`.
 """
 from __future__ import annotations
 
@@ -55,8 +57,9 @@ class LinkGraph(NamedTuple):
 
     def to(self, device) -> "LinkGraph":
         """The graph as tensors on `device`: float32 values and int64
-        indices (the index type of `scatter_` / `index_select`). A no-op
-        for a graph already staged there."""
+        indices (the index type of `scatter_` / `index_select`), a
+        leading fleet axis kept. A no-op for a graph already staged
+        there."""
         device = torch.device(device)
 
         def idx(x):
@@ -162,3 +165,14 @@ def multi_region_wan_graph(M: int, N: int, rng: np.random.Generator, size=None,
     region = np.where(np.arange(L) % 2 == 0, dest + 1, relay_region)
     return make_graph(dest=dest, bw=bw, pt=pt, region=region, size=size,
                       primary=2 * np.arange(N))
+
+
+def stack_graphs(graphs) -> LinkGraph:
+    """Stacks graphs sharing (M, N, L) into one graph with a leading
+    fleet axis (numpy), for `FleetScenario.graph` / `simulate_fleet`."""
+    graphs = list(graphs)
+    shapes = {(g.M, g.N, g.L) for g in graphs}
+    if len(shapes) != 1:
+        raise ValueError(f"stacked graphs must share (M, N, L); got {sorted(shapes)}")
+    return LinkGraph(*(np.stack([np.asarray(getattr(g, f)) for g in graphs])
+                       for f in LinkGraph._fields))

@@ -18,6 +18,10 @@
 
 Both are called as policy(state, spec, Ce, Cc, arrivals, key, *, graph,
 Qt) with `graph` staged on the state's device, and return a NetAction.
+The state, spec, intensities, graph and Qt may carry a leading lane axis
+(the WAN fleet: Qt [F, M, L], the graph from `stack_graphs`): each lane
+gathers through its own dest, region and primary routes, and
+`route_scores` takes all lanes in one launch.
 """
 from __future__ import annotations
 
@@ -30,8 +34,23 @@ from repro_torch.core.policies import LookaheadDPPPolicy, _scalar
 from repro_torch.core.queueing import NetworkSpec, NetworkState
 from repro_torch.kernels import ops
 from repro_torch.network.graph import LinkGraph
-from repro_torch.network.transfer import NetAction
+from repro_torch.network.transfer import NetAction, region_row
 from repro_torch.telemetry.profile import phase
+
+
+def _take(x, idx):
+    """x read at `idx` along its last axis, `idx` [J] shared by every row
+    or [..., J] with x's lanes (each lane its own indices) -> x.shape[:-1]
+    + (J,)."""
+    idx = idx.reshape(idx.shape[:-1] + (1,) * (x.dim() - idx.dim()) + idx.shape[-1:])
+    return x.gather(-1, idx.expand(x.shape[:-1] + idx.shape[-1:]))
+
+
+def _add_at(d, idx, L):
+    """out[..., m, idx[..., n]] += d[..., m, n] for out [..., M, L]: the
+    JAX package's `d @ one_hot(idx, L)`, exact for integral counts."""
+    out = torch.zeros(d.shape[:-1] + (L,), dtype=d.dtype, device=d.device)
+    return out.scatter_add_(-1, idx[..., None, :].expand(d.shape), d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,16 +71,18 @@ class NetworkAwareDPPPolicy(LookaheadDPPPolicy):
     route_compute_weight: float = 0.0
 
     def _route_scores(self, state, Qt, graph, pe, pc, Ce, Cc, V):
-        """Score pass over the route lattice: (rc [M,L], l1 [M], b [M])."""
+        """Score pass over the route lattice: (rc [..., M, L], l1 [..., M],
+        b [..., M]); a V of one value per lane scales its lane."""
         with phase("route_score"):
-            row = torch.cat([Ce.reshape(1), Cc])                  # [N+1]
-            VCt = V * row.index_select(0, graph.region)           # [L]
-            Qcr = state.Qc.index_select(1, graph.dest)            # [M, L]
+            Vl = V[..., None] if V.dim() else V
+            VCt = Vl * region_row(graph, Ce, Cc)                  # [..., L]
+            Qcr = _take(state.Qc, graph.dest)                     # [..., M, L]
             extra = None
             if self.route_compute_weight:
-                pcr = pc.index_select(1, graph.dest)
-                VCc_dest = (V * Cc).index_select(0, graph.dest)
-                extra = _scalar(self.route_compute_weight, Qt.device) * VCc_dest[None, :] * pcr
+                pcr = _take(pc, graph.dest)
+                VCc_dest = _take(Vl * Cc, graph.dest)
+                extra = (_scalar(self.route_compute_weight, Qt.device)
+                         * VCc_dest[..., None, :] * pcr)
             return ops.route_scores(Qt, graph.pt, Qcr, extra, state.Qe, pe, VCt, V * Ce)
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
@@ -70,13 +91,13 @@ class NetworkAwareDPPPolicy(LookaheadDPPPolicy):
         Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
-        V = _scalar(self.V, dev)
+        V = self._V(dev)
         # cloud half: Algorithm 1's c-matrix; edge half: each type onto
         # its best route; both fills in the parent's one stacked call
         c, _, _ = self._scores(state, pe, pc, Ce_eff, Cc_eff, V)
         _, l1, b = self._route_scores(state, Qt, graph, pe, pc, Ce_eff, Cc_eff, V)
         d_counts, w = self._fill_all(b, c, pe, pc, state.Qe, state.Qc, Pe, Pc)
-        dt = torch.zeros_like(Qt).scatter_(1, l1.long()[:, None], d_counts[:, None])
+        dt = torch.zeros_like(Qt).scatter_(-1, l1.long()[..., None], d_counts[..., None])
         return NetAction(dt=dt, w=w)
 
 
@@ -94,7 +115,4 @@ class StaticRoutePolicy:
         del Qt
         kwargs = {} if forecast is None else {"forecast": forecast}
         act = self.inner(state, spec, Ce, Cc, arrivals, key, **kwargs)
-        # the JAX adapter multiplies d by a one-hot [N, L] matrix; the
-        # index_add_ is the same sum, exact for integral counts
-        dt = torch.zeros((spec.M, graph.L), dtype=act.d.dtype, device=act.d.device)
-        return NetAction(dt=dt.index_add_(1, graph.primary, act.d), w=act.w)
+        return NetAction(dt=_add_at(act.d, graph.primary, graph.L), w=act.w)

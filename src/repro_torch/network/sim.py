@@ -16,6 +16,11 @@ As in `simulate`, a Python loop drives the slots with every tensor on
 the device and no host sync inside the loop. On `direct_graph`
 deliveries equal dispatches in the same slot and the transfer term is
 +0.0, so the trajectory is bitwise the link-free `simulate`'s.
+
+Every tensor may carry a leading lane axis (`core.simulate_fleet` on a
+fleet with a stacked graph: the spec, the graph, the state and the keys
+[F, ...]); the result's fields are then [F, ...], as JAX's vmap stacks
+them. A forecaster threads through the loop as in `simulate`.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from repro_torch.core import rng
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, init_state
-from repro_torch.core.simulator import make_slot_loop, record_stride
+from repro_torch.core.simulator import ForecastFeed, make_slot_loop, record_stride
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.network.graph import LinkGraph
 from repro_torch.network.transfer import (
@@ -51,7 +56,8 @@ class NetSimResult(NamedTuple):
     energy_cloud: torch.Tensor     # [T, N] cloud compute energy
 
     # R depends on `record` as in SimResult: T for "full", 1 for
-    # "summary", T//k for a stride k.
+    # "summary", T//k for a stride k. A fleet adds a leading [F] axis to
+    # every field.
 
     @property
     def final_backlog(self) -> torch.Tensor:
@@ -71,17 +77,20 @@ def simulate_network(
     device=DEFAULT_DEVICE,
     *,
     forecaster=None,
+    error_params=None,
     faults=None,
     telemetry=None,
     deadlines=None,
 ) -> NetSimResult:
     """Runs the network + WAN for T slots under a route-aware policy on
     `device`, starting from empty links. `record` works as in
-    `simulate`; scalar series always cover all T slots. The forecaster,
+    `simulate`; scalar series always cover all T slots. `forecaster` and
+    `error_params` work as in `simulate`: each slot the observed row
+    updates the forecaster and the policy gets its [H, N+1] prediction
+    as `forecast=`; emissions are accounted at the true intensities. The
     faults, telemetry and deadlines layers of the JAX simulator are not
     ported yet and raise NotImplementedError."""
-    for name, value, layer in (("forecaster", forecaster, "forecast"),
-                               ("faults", faults, "faults"),
+    for name, value, layer in (("faults", faults, "faults"),
                                ("telemetry", telemetry, "telemetry"),
                                ("deadlines", deadlines, "deadlines")):
         if value is not None:
@@ -94,42 +103,47 @@ def simulate_network(
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
     dev = loop.device
     g = graph.to(dev)
-    M, N, L = spec.M, spec.N, g.L
+    M, N, L = loop.spec.M, loop.spec.N, g.L
     pe, pc, _, _ = loop.spec.as_arrays(dev)
-    state = init_state(M, N, device=dev) if state0 is None else NetworkState(
+    lanes = tuple(g.dest.shape[:-1])
+    F = lanes[0] if lanes else None
+    state = init_state(M, N, device=dev, F=F) if state0 is None else NetworkState(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
     )
-    links = init_links(M, L, device=dev)
+    links = init_links(M, L, device=dev, F=F)
     k_carbon, k_arrive, k_policy = loop.keys
-    zeros = lambda *shape: torch.zeros(shape, dtype=DTYPE, device=dev)  # noqa: E731
+    feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, error_params)
+    zeros = lambda *shape: torch.zeros(lanes + shape, dtype=DTYPE, device=dev)  # noqa: E731
     C, disp, deliv, proc, ee, et = (zeros(T) for _ in range(6))
     ec = zeros(T, N)
     Qe_rec, Qc_rec, Qt_rec = zeros(R, M), zeros(R, M, N), zeros(R, M, L)
     for t in range(T):
         Ce, Cc = loop.carbon_source(t, k_carbon, dev)
         a = loop.arrival_source(t, k_arrive, dev)
-        act = policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t), graph=g, Qt=links.Qt)
-        C[t] = network_emissions(loop.spec, g, act, Ce, Cc)
+        kw = {} if feed is None else {"forecast": feed(Ce, Cc, t)}
+        act = policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t), graph=g, Qt=links.Qt,
+                     **kw)
+        C[..., t] = network_emissions(loop.spec, g, act, Ce, Cc)
         links, delivered = step_links(links, g, act.dt)
         land = land_in_clouds(delivered, g, N)
         state = NetworkState(
-            Qe=torch.clamp_min(state.Qe - torch.sum(act.dt, dim=1), 0.0) + a,
+            Qe=torch.clamp_min(state.Qe - torch.sum(act.dt, dim=-1), 0.0) + a,
             Qc=torch.clamp_min(state.Qc - act.w, 0.0) + land,
         )
-        disp[t] = torch.sum(act.dt)
-        deliv[t] = torch.sum(delivered)
-        proc[t] = torch.sum(act.w)
-        ee[t] = torch.sum(act.dt * pe[:, None])
-        et[t] = torch.sum(transfer_energy(g, act.dt))
-        ec[t] = torch.sum(act.w * pc, dim=0)
+        disp[..., t] = torch.sum(act.dt, dim=(-2, -1))
+        deliv[..., t] = torch.sum(delivered, dim=(-2, -1))
+        proc[..., t] = torch.sum(act.w, dim=(-2, -1))
+        ee[..., t] = torch.sum(act.dt * pe[..., :, None], dim=(-2, -1))
+        et[..., t] = torch.sum(transfer_energy(g, act.dt), dim=-1)
+        ec[..., t, :] = torch.sum(act.w * pc, dim=-2)
         if (t + 1) % stride == 0:
             r = (t + 1) // stride - 1
-            Qe_rec[r] = state.Qe
-            Qc_rec[r] = state.Qc
-            Qt_rec[r] = links.Qt
+            Qe_rec[..., r, :] = state.Qe
+            Qc_rec[..., r, :, :] = state.Qc
+            Qt_rec[..., r, :, :] = links.Qt
     return NetSimResult(
         emissions=C,
-        cum_emissions=torch.cumsum(C, dim=0),
+        cum_emissions=torch.cumsum(C, dim=-1),
         Qe=Qe_rec,
         Qc=Qc_rec,
         Qt=Qt_rec,

@@ -21,6 +21,12 @@ are `fma_f32` here, on the CPU and on the card. The per-route column
 sum of `demand` runs in XLA:CPU's order on every device (`column_sum`),
 which keeps the card's trajectory bitwise equal to the CPU's and both
 bitwise equal to the JAX package's.
+
+Every function takes a leading lane axis (the WAN fleet: Qt/prog/dt [F,
+M, L], the graph from `graph.stack_graphs`): sums reduce each lane's own
+axes, the column sum runs XLA:CPU's order per lane (which is what
+`jit(vmap)` gives, hazard 20), and deliveries land through each lane's
+own `dest`.
 """
 from __future__ import annotations
 
@@ -50,47 +56,51 @@ class NetAction(NamedTuple):
     w: torch.Tensor   # [M, N] tasks processed at cloud n
 
 
-def init_links(M: int, L: int, device=DEFAULT_DEVICE, dtype=DTYPE) -> LinkState:
+def init_links(M: int, L: int, device=DEFAULT_DEVICE, dtype=DTYPE, F: int | None = None
+               ) -> LinkState:
+    """Empty links, [M, L] or, for F lanes, [F, M, L]."""
     dev = resolve_device(device)
-    return LinkState(Qt=torch.zeros((M, L), dtype=dtype, device=dev),
-                     prog=torch.zeros((M, L), dtype=dtype, device=dev))
+    shape = (M, L) if F is None else (F, M, L)
+    return LinkState(Qt=torch.zeros(shape, dtype=dtype, device=dev),
+                     prog=torch.zeros(shape, dtype=dtype, device=dev))
 
 
 def column_sum(x: torch.Tensor) -> torch.Tensor:
-    """sum(x, axis=0) of an [M, L] tensor in XLA:CPU's order. While more
-    than SUM_BLOCK rows remain, the rows are padded with zeros to a
-    multiple of SUM_BLOCK, half the pad before and the rest after
-    (`reduce-window` with `pad=lo_hi`, lo = pad // 2), and each window
-    of SUM_BLOCK rows is summed in row order; the last <= SUM_BLOCK sums
-    are then added in order. Every step is an elementwise float32 add,
-    so the result is the same on every device: SUM_BLOCK - 1 launches
-    per window level plus one per final add (65 at M = 4096)."""
-    while x.shape[0] > SUM_BLOCK:
-        pad = -x.shape[0] % SUM_BLOCK
+    """sum(x, axis=-2) of an [..., M, L] tensor in XLA:CPU's order, per
+    lane. While more than SUM_BLOCK rows remain, the rows are padded
+    with zeros to a multiple of SUM_BLOCK, half the pad before and the
+    rest after (`reduce-window` with `pad=lo_hi`, lo = pad // 2), and
+    each window of SUM_BLOCK rows is summed in row order; the last <=
+    SUM_BLOCK sums are then added in order. Every step is an elementwise
+    float32 add, so the result is the same on every device: SUM_BLOCK - 1
+    launches per window level plus one per final add (65 at M = 4096)."""
+    while x.shape[-2] > SUM_BLOCK:
+        pad = -x.shape[-2] % SUM_BLOCK
         if pad:
             x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
-        blocks = x.reshape(-1, SUM_BLOCK, x.shape[1])
-        acc = blocks[:, 0]
+        blocks = x.reshape(x.shape[:-2] + (-1, SUM_BLOCK, x.shape[-1]))
+        acc = blocks[..., 0, :]
         for i in range(1, SUM_BLOCK):
-            acc = acc + blocks[:, i]
+            acc = acc + blocks[..., i, :]
         x = acc
-    acc = x[0]
-    for i in range(1, x.shape[0]):
-        acc = acc + x[i]
+    acc = x[..., 0, :]
+    for i in range(1, x.shape[-2]):
+        acc = acc + x[..., i, :]
     return acc
 
 
 def step_links(ls: LinkState, graph: LinkGraph, dt: torch.Tensor) -> Tuple[LinkState, torch.Tensor]:
-    """Injects dt [M,L] new transfers, drains one slot of bandwidth and
-    returns (next state, delivered [M,L] task counts). `graph` is staged
-    on the device of `dt` (`LinkGraph.to`)."""
+    """Injects dt [..., M, L] new transfers, drains one slot of bandwidth
+    and returns (next state, delivered [..., M, L] task counts). `graph`
+    is staged on the device of `dt` (`LinkGraph.to`), with the lanes of
+    `dt` when it has any."""
     with phase("transfer_step"):
-        size = graph.size[:, None]
+        size = graph.size[..., :, None]
         Qt = ls.Qt + dt
-        demand = fma_f32(Qt, size, -ls.prog)  # [M, L] work left
-        total = column_sum(demand)            # [L]
+        demand = fma_f32(Qt, size, -ls.prog)  # [..., M, L] work left
+        total = column_sum(demand)            # [..., L]
         ratio = torch.clamp_max(graph.bw / torch.clamp_min(total, _TINY), 1.0)
-        prog = fma_f32(demand, ratio, ls.prog)
+        prog = fma_f32(demand, ratio[..., None, :], ls.prog)
         # Clamp at 0 on both sides of the delivery: cancellation in
         # `prog - delivered*size` can leave prog at -eps, and
         # floor(-eps/size) = -1 would deliver a negative task. Where
@@ -102,29 +112,36 @@ def step_links(ls: LinkState, graph: LinkGraph, dt: torch.Tensor) -> Tuple[LinkS
 
 
 def land_in_clouds(delivered: torch.Tensor, graph: LinkGraph, N: int) -> torch.Tensor:
-    """Aggregates route deliveries [M,L] into cloud arrivals [M,N]. The
-    JAX module multiplies by a one-hot [L, N] matrix; an `index_add_`
-    over `dest` is the same sum, exact for integral counts, and involves
-    no matrix product that TF32 could round."""
-    out = torch.zeros((delivered.shape[0], N), dtype=delivered.dtype, device=delivered.device)
-    return out.index_add_(1, graph.dest, delivered)
+    """Aggregates route deliveries [..., M, L] into cloud arrivals [..., M,
+    N]. The JAX module multiplies by a one-hot [L, N] matrix; a
+    `scatter_add_` over each lane's `dest` is the same sum, exact for
+    integral counts, and involves no matrix product that TF32 could
+    round."""
+    out = torch.zeros(delivered.shape[:-1] + (N,), dtype=delivered.dtype,
+                      device=delivered.device)
+    return out.scatter_add_(-1, graph.dest[..., None, :].expand(delivered.shape), delivered)
 
 
 def transfer_energy(graph: LinkGraph, dt: torch.Tensor) -> torch.Tensor:
-    """Per-route transfer energy of a dispatch action. Returns [L]."""
-    return torch.sum(dt * graph.pt, dim=0)
+    """Per-route transfer energy of a dispatch action. Returns [..., L]."""
+    return torch.sum(dt * graph.pt, dim=-2)
+
+
+def region_row(graph: LinkGraph, Ce, Cc) -> torch.Tensor:
+    """Each route's carbon intensity, the [..., N+1] row (Ce, Cc) read at
+    `region`: [..., L]."""
+    return torch.cat([Ce[..., None], Cc], dim=-1).gather(-1, graph.region)
 
 
 def network_emissions(spec: NetworkSpec, graph: LinkGraph, action: NetAction, Ce, Cc) -> torch.Tensor:
-    """End-to-end carbon of one slot: edge dispatch energy at the edge
-    intensity, transfer energy priced in each route's carbon region
-    (charged when the transfer starts), compute energy at the
+    """End-to-end carbon of one slot (per lane): edge dispatch energy at
+    the edge intensity, transfer energy priced in each route's carbon
+    region (charged when the transfer starts), compute energy at the
     destination intensities."""
     pe, pc, _, _ = spec.as_arrays(action.dt.device)
-    row = torch.cat([Ce.reshape(1), Cc])       # [N+1]
-    Ct = row.index_select(0, graph.region)     # [L]
+    Ct = region_row(graph, Ce, Cc)  # [..., L]
     return (
         Ce * edge_energy(pe, action.dt)
-        + torch.sum(Ct * transfer_energy(graph, action.dt))
-        + torch.sum(Cc * torch.sum(action.w * pc, dim=0))
+        + torch.sum(Ct * transfer_energy(graph, action.dt), dim=-1)
+        + torch.sum(Cc * torch.sum(action.w * pc, dim=-2), dim=-1)
     )

@@ -211,15 +211,11 @@ def test_fleet_summary_scalars_equal_full():
 def test_fleet_refuses_layers_not_ported():
     fleet = tfs.build_fleet(["diurnal"], per_kind=2, Tc=8, device="cpu")
     pol = P.CarbonIntensityPolicy()
-    for field, item in (("graph", "2.2b"), ("err_bias", "2.3"), ("faults", "2.4"),
-                        ("deadlines", "2.5")):
+    for field, item in (("faults", "2.4"), ("deadlines", "2.5")):
         with pytest.raises(NotImplementedError, match=item):
             P.simulate_fleet(pol, fleet._replace(**{field: object()}), 2, device="cpu")
-    for kw, item in (("forecaster", "2.3"), ("telemetry", "2.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            P.simulate_fleet(pol, fleet, 2, device="cpu", **{kw: object()})
-    with pytest.raises(NotImplementedError, match="2.3"):
-        P.simulate_fleet(P.LookaheadDPPPolicy(), fleet, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="2.6"):
+        P.simulate_fleet(pol, fleet, 2, device="cpu", telemetry=object())
 
 
 def test_vsweep_matches_jax_and_single_v_runs():
