@@ -5,8 +5,10 @@ slices that have been ported so far: JAX's threefry random streams
 (`random`), the paper's slot loop (`simulate`, `serve_loop`), the V
 sweep and the scenario fleet (`simulate_vsweep`, `simulate_fleet`,
 `configs.fleet_scenarios.build_fleet`), the WAN route-aware loop
-(`network`, `simulate(graph=)`) and LM serving for the dense and SSM
-families (`models`, `launch.serve`), with seven hand-written Hopper
+(`network`, `simulate(graph=)`), the forecast layer (`forecast`), the
+fault layer (`faults`, `simulate(faults=)`, fault lanes in a fleet) and
+LM serving for the dense and SSM families (`models`, `launch.serve`),
+with seven hand-written Hopper
 kernels under `kernels/csrc/`: the DPP score pass, the WAN route-score
 pass, the greedy budget fill, the threefry draw, GQA flash attention
 (prefill), split-S flash decoding (decode) and the Mamba-2 SSD
@@ -18,8 +20,8 @@ is replaced by its plain PyTorch version (the CPU tests do this).
 """
 from repro_torch import random
 from repro_torch.core import FleetScenario, simulate_fleet, simulate_vsweep, stack_scenarios
-from repro_torch.configs.fleet_scenarios import build_fleet
+from repro_torch.configs.fleet_scenarios import build_fleet, with_faults
 from repro_torch.device import resolve_device
 
 __all__ = ["FleetScenario", "build_fleet", "random", "resolve_device", "simulate_fleet",
-           "simulate_vsweep", "stack_scenarios"]
+           "simulate_vsweep", "stack_scenarios", "with_faults"]

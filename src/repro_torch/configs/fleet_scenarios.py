@@ -21,10 +21,8 @@ arrival caps amax [M]):
   * multi-region-uk     -- UK regional traces with the region -> site
                            assignment rotated per instance. Its table
                            comes from the port's `uk_regional_table`,
-                           whose noise is the twin's `normal` (about 1%
-                           of draws an ulp or so off JAX's), so parity
-                           tests feed JAX's fleet through
-                           `convert.fleet_from_reference`.
+                           bitwise the JAX package's (float32 op by
+                           op, glibc's sinf, the twin's `normal`).
 
 The WAN scenarios add a LinkGraph. Task data volumes scale with compute
 cost: size[m] = pc[m, 0] / 20.
@@ -37,12 +35,11 @@ cost: size[m] = pc[m, 0] / 20.
                            relayed routes.
 
 multi-region-uk-wan renders its table with the port's
-`uk_regional_table` on `device`, as multi-region-uk does (so parity
-tests feed JAX's multi-region-uk-wan fleet through
-`convert.fleet_from_reference`). `build_network_fleet` stacks `per_kind`
-instances of each named topology (generator `default_rng((seed, 1 + i,
-j))`, as the JAX function seeds them) into a FleetScenario whose
-stacked graph routes every lane through the transfer layer.
+`uk_regional_table` on `device`, as multi-region-uk does.
+`build_network_fleet` stacks `per_kind` instances of each named
+topology (generator `default_rng((seed, 1 + i, j))`, as the JAX
+function seeds them) into a FleetScenario whose stacked graph routes
+every lane through the transfer layer.
 """
 from __future__ import annotations
 
@@ -234,3 +231,82 @@ def build_network_fleet(kinds: Sequence[str] = ("congested-uplink", "multi-regio
             instances.append((spec, table, amax))
             graphs.append(graph)
     return stack_scenarios(instances, graphs=graphs)
+
+
+# ---------------------------------------------------------------------------
+# Fault scenario registry (repro_torch.faults). Each generator returns one
+# lane's FaultParams from an instance-local numpy generator, drawing in the
+# JAX generator's order, so the parameters are the JAX scenario's bit for
+# bit; `with_faults` stacks per-lane draws onto a fleet's `faults` axis.
+#
+#   * regional-blackout  -- one random cloud per lane loses all capacity
+#     for a scheduled mid-run window (plus rare Markov flickers and task
+#     failures): the recovery-time scenario.
+#   * telemetry-brownout -- long carbon-feed dropouts plus partial capacity
+#     brownouts: the staleness-guard scenario.
+#   * flappy-uplink      -- WAN only: the clean alternate routes (odd link
+#     indices in congested-uplink) hard-flap on a Markov chain; the dirty
+#     primaries stay mostly up.
+
+
+def regional_blackout(M: int, N: int, L, rng: np.random.Generator):
+    from repro_torch.faults import make_faults
+
+    del M
+    sched_start = np.zeros((N,), np.float32)
+    sched_len = np.zeros((N,), np.float32)
+    n_b = int(rng.integers(N))
+    sched_start[n_b] = float(rng.uniform(40.0, 64.0))
+    sched_len[n_b] = float(rng.uniform(24.0, 48.0))
+    return make_faults(N, L, device="cpu", sched_start=sched_start, sched_len=sched_len,
+                       cloud_p_down=0.004, cloud_p_up=0.25, task_p_fail=0.03, backoff_max=6.0)
+
+
+def telemetry_brownout(M: int, N: int, L, rng: np.random.Generator):
+    from repro_torch.faults import make_faults
+
+    del M, rng
+    return make_faults(N, L, device="cpu", telem_p_down=0.10, telem_p_up=0.06,
+                       brown_p_start=0.04, brown_p_end=0.20, brown_floor=0.5)
+
+
+def flappy_uplink(M: int, N: int, L, rng: np.random.Generator):
+    from repro_torch.faults import make_faults
+
+    del M, rng
+    if L is None:
+        raise ValueError("flappy-uplink is a WAN fault scenario: build it on a network fleet "
+                         "(with_faults over build_network_fleet)")
+    alt = np.arange(L) % 2 == 1
+    return make_faults(N, L, device="cpu",
+                       link_p_down=np.where(alt, 0.12, 0.02).astype(np.float32),
+                       link_p_up=np.full((L,), 0.35, np.float32),
+                       link_floor=np.zeros((L,), np.float32), task_p_fail=0.01)
+
+
+FAULT_SCENARIOS: Dict[str, Callable] = {
+    "regional-blackout": regional_blackout,
+    "telemetry-brownout": telemetry_brownout,
+    "flappy-uplink": flappy_uplink,
+}
+
+
+def with_faults(fleet: FleetScenario, kind: str, seed: int = 0) -> FleetScenario:
+    """Attaches per-lane draws of a named fault scenario to a fleet
+    (stacked on the `faults` axis, float32 tensors on the CPU until
+    `simulate_fleet` stages them). Lane j draws from
+    default_rng((seed, 9, j)), disjoint from the instance streams of
+    `build_fleet`, so the same fleet is comparable with and without
+    faults."""
+    from repro_torch.faults import stack_faults
+
+    try:
+        gen = FAULT_SCENARIOS[kind]
+    except KeyError:
+        raise KeyError(f"unknown fault scenario {kind!r}; registered: "
+                       f"{sorted(FAULT_SCENARIOS)}") from None
+    M = fleet.arrival_amax.shape[1]
+    N = fleet.spec.Pc.shape[1]
+    L = None if fleet.graph is None else fleet.graph.bw.shape[-1]
+    return fleet._replace(faults=stack_faults(
+        gen(M, N, L, np.random.default_rng((seed, 9, j))) for j in range(fleet.F)))

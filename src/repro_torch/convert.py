@@ -6,8 +6,9 @@ and the port.
 (`np.asarray(obj.pe)`, ...), so the port never imports `repro`; the
 parity tests use them to feed both packages the same numbers, and
 `queues_numpy` to read both packages' recorded queues.
-`key_from_reference` takes a JAX key's uint32 pair (`jax.random.key_data`)
-and `fleet_from_reference` a JAX `FleetScenario`'s arrays, as numpy.
+`key_from_reference` takes a JAX key's uint32 pair (`jax.random.key_data`),
+`fleet_from_reference` a JAX `FleetScenario`'s arrays, as numpy, and
+`faults_from_reference` a JAX `FaultParams` (stacked or not).
 `params_from_reference` and `cache_from_reference` carry an LM's
 parameter and cache pytrees (nested dicts of arrays; a dense KV cache or
 an SSM state cache) over, leaf for leaf and bit for bit, bf16 included;
@@ -75,10 +76,13 @@ def fleet_from_reference(fleet) -> FleetScenario:
     """The port's FleetScenario (numpy arrays) of a JAX FleetScenario,
     read by field names. A stacked JAX graph comes across lane by lane
     (each validated by `make_graph`, then `stack_graphs`), the
-    forecast-error lanes as float32; a fault or deadline axis is kept
-    as it is, for `simulate_fleet` to refuse by name."""
+    forecast-error lanes as float32, a fault axis as the port's
+    FaultParams on the CPU; a deadline axis is kept as it is, for
+    `simulate_fleet` to refuse by name."""
     f32 = lambda x: np.array(x, np.float32)  # noqa: E731
-    extra = {f: getattr(fleet, f, None) for f in ("faults", "deadlines")}
+    extra = {"deadlines": getattr(fleet, "deadlines", None)}
+    faults = getattr(fleet, "faults", None)
+    extra["faults"] = None if faults is None else faults_from_reference(faults, device="cpu")
     for f in ("err_bias", "err_noise"):
         extra[f] = None if getattr(fleet, f, None) is None else f32(getattr(fleet, f))
     g = getattr(fleet, "graph", None)
@@ -92,6 +96,16 @@ def fleet_from_reference(fleet) -> FleetScenario:
         arrival_amax=f32(fleet.arrival_amax),
         **extra,
     )
+
+
+def faults_from_reference(faults, device=DEFAULT_DEVICE):
+    """The port's FaultParams of a JAX FaultParams (one lane or stacked:
+    numpy or jax leaves, link fields None or not), read by field names."""
+    from repro_torch.faults import FaultParams
+
+    return FaultParams(*(None if getattr(faults, f) is None
+                         else np.array(getattr(faults, f), np.float32)
+                         for f in FaultParams._fields)).to(device)
 
 
 def queues_numpy(result) -> dict:

@@ -15,9 +15,10 @@ Sources that hold data have `to(device)`, which stages it on the device
 once; the simulator calls it before its loop so that no slot copies host
 data. Random draws are JAX's threefry streams, each one launch of the
 draw kernel with the slot folded in (`ops.threefry_draw`): the same key
-gives the JAX source's values, bitwise for `RandomCarbonSource`; the UK
-source's Gaussian noise goes through `normal`'s erfinv, which agrees
-with XLA's on about 99% of draws (`repro_torch.random`).
+gives the JAX source's values bitwise, the UK source's Gaussian noise
+included (`normal` with XLA's erfinv and log1p, `repro_torch.random`).
+The UK source, whose float32 emulation of XLA's sin and log1p takes
+hundreds of launches, renders 256 slots a pass and serves rows of it.
 
 The table helpers `diurnal_table` and `bursty_table` are numpy, copied
 from the JAX module, so they give bitwise the same tables.
@@ -36,7 +37,7 @@ from repro_torch.core import rng
 from repro_torch.core.queueing import DTYPE
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.numerics import erfinv_xla
+from repro_torch.kernels.numerics import erfinv_xla, sincos_glibc
 
 
 class DeviceCache:
@@ -113,6 +114,7 @@ _UK_REGIONS = (
 )
 
 _SLOTS_PER_DAY = 48  # 30-minute slots, as in the ESO dataset
+_BLOCK = 256  # UK trace slots rendered per pass (one draw for all of them)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,10 +122,11 @@ class UKRegionalTraceSource(DeviceCache):
     """Synthetic stand-in for National Grid ESO regional traces (Fig. 3).
 
     Deterministic in (seed, t). The structure and the noise's keys are
-    the JAX source's (`fold_in(fold_in(PRNGKey(seed), t), region)`); the
-    deterministic part is computed in float64 and the noise's erfinv
-    agrees with XLA's on about 99% of draws, so the trace is close to
-    the JAX package's, not bitwise (ROADMAP hazard 5)."""
+    the JAX source's (`fold_in(fold_in(PRNGKey(seed), t), region)`), and
+    so are its float32 operations, one rounding each (JAX renders the
+    trace under an eager `vmap`, where nothing is contracted), with
+    glibc's `sinf` (`numerics.sincos_glibc`) and XLA's erfinv and log1p:
+    the trace is the JAX package's bitwise."""
 
     N: int = 5
     seed: int = 2022
@@ -138,25 +141,53 @@ class UKRegionalTraceSource(DeviceCache):
             return params, region, R.PRNGKey(self.seed, device=dev)
         return self._cached(device, make)
 
-    def __call__(self, t: int, key, device):
-        del key  # the trace is a function of (self.seed, t), as in JAX
+    def _rows(self, start: int, count: int, device) -> torch.Tensor:
+        """The trace of slots start..start+count-1, [count, N+1], float32
+        op by op as JAX computes it (sin is glibc's sinf), the noise one
+        draw for every row. Every divisor is a device tensor: CUDA turns a
+        division by a Python scalar into a multiply by its reciprocal."""
         params, region, base = self._tensors(device)
         mean, amp, wind = params[:, 0], params[:, 1], params[:, 2]
-        day_phase = 2.0 * math.pi * (t % _SLOTS_PER_DAY) / _SLOTS_PER_DAY
+
+        def f32(v):  # a float32 scalar filled on the device: no copy from the host
+            return torch.full((), v, dtype=DTYPE, device=params.device)
+
+        t = torch.arange(start, start + count, device=params.device)
+        tm, tt = (t % _SLOTS_PER_DAY).to(DTYPE)[:, None], t.to(DTYPE)[:, None]
+        day_phase = (f32(2.0 * math.pi) * tm) / f32(_SLOTS_PER_DAY)
         # demand peaks around 18:00 -> phase shift; solar dip mid-day
-        diurnal = amp * (
-            math.sin(day_phase - 2.0 * math.pi * 18.0 / 24.0) + 0.3 * math.sin(2.0 * day_phase)
-        )
+        diurnal = amp * (_sinf(day_phase - f32(2.0 * math.pi * 18.0 / 24.0))
+                         + f32(0.3) * _sinf(2.0 * day_phase))
         # wind fronts: slow sinusoids with region-coherent + national terms
-        national = math.sin(2 * math.pi * t / (_SLOTS_PER_DAY * 3.3) + 1.7)
-        regional = torch.sin(2 * math.pi * t / (_SLOTS_PER_DAY * 2.1) + region)
-        front = wind * (0.7 * national + 0.3 * regional)
+        national = _sinf((f32(2 * math.pi) * tt) / f32(_SLOTS_PER_DAY * 3.3) + f32(1.7))
+        regional = _sinf((f32(2 * math.pi) * tt) / f32(_SLOTS_PER_DAY * 2.1) + region)
+        front = wind * (f32(0.7) * national + f32(0.3) * regional)
         # normal(fold_in(fold_in(PRNGKey(seed), t), region)): one draw
-        u = ops.threefry_draw(base, t, self.N + 1, finish="uniform", fold_each=True,
-                              minval=R.NORMAL_LO, maxval=1.0)
+        u = ops.threefry_draw(R.fold_in(base, t), None, self.N + 1, finish="uniform",
+                              fold_each=True, minval=R.NORMAL_LO, maxval=1.0)
         noise = 25.0 * (R.SQRT2 * erfinv_xla(u))
-        vals = torch.clamp(mean + diurnal + front + noise, 5.0, 700.0)
-        return vals[0], vals[1:]
+        return torch.clamp(((mean + diurnal) + front) + noise, 5.0, 700.0)
+
+    def __call__(self, t: int, key, device):
+        """Slot t's row, from the block of _BLOCK slots rendered at once
+        that holds it (the last block is kept per device)."""
+        del key  # the trace is a function of (self.seed, t), as in JAX
+        blocks = self.__dict__.setdefault("_blocks", {})
+        dev, b = torch.device(device), t // _BLOCK
+        held = blocks.get(dev)
+        if held is None or held[0] != b:
+            held = blocks[dev] = (b, self._rows(b * _BLOCK, _BLOCK, dev))
+        row = held[1][t - b * _BLOCK]
+        return row[0], row[1:]
+
+    def table(self, T: int, device=DEFAULT_DEVICE) -> torch.Tensor:
+        """Slots 0..T-1 as a [T, N+1] tensor (each row the slot's
+        `__call__`, bitwise)."""
+        return self._rows(0, T, resolve_device(device))
+
+
+def _sinf(x):
+    return sincos_glibc(x)[0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # identity hash: array field
@@ -262,7 +293,7 @@ def uk_regional_table(T: int, N: int, seed: int = 2022, rotate: int = 0,
     regions to the edge and clouds)."""
     R = len(_UK_REGIONS)
     regions = tuple(_UK_REGIONS[(i + rotate) % R] for i in range(N + 1))
-    return materialize(UKRegionalTraceSource(N=N, seed=seed, regions=regions), T, device=device)
+    return UKRegionalTraceSource(N=N, seed=seed, regions=regions).table(T, device).cpu().numpy()
 
 
 def materialize(source, T: int, seed=0, device=DEFAULT_DEVICE) -> np.ndarray:

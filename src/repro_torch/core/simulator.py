@@ -11,11 +11,12 @@ Python bool), so the device never waits for the host to read a result.
 `graph=` routes the run through the WAN transfer layer
 (`repro_torch.network`); `forecaster=` threads a forecaster
 (`repro_torch.forecast`) through the loop and hands the policy its
-prediction. `simulate_vsweep` and `simulate_fleet` run the same loop
-over a leading lane axis (V values, or stacked scenarios, with a
-stacked WAN graph and forecast-error lanes), which every tensor of the
-slot carries. The faults / telemetry / deadlines arguments of the JAX
-`simulate` belong to later slices of the port.
+prediction; `faults=` runs the fault layer (`repro_torch.faults`).
+`simulate_vsweep` and `simulate_fleet` run the same loop over a leading
+lane axis (V values, or stacked scenarios, with a stacked WAN graph,
+forecast-error lanes and fault lanes), which every tensor of the slot
+carries. The telemetry / deadlines arguments of the JAX `simulate`
+belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -221,6 +222,7 @@ def simulate(
     graph=None,
     forecaster=None,
     error_params=None,
+    faults=None,
 ) -> SimResult:
     """Runs the network for T slots under `policy` on `device`.
 
@@ -248,11 +250,25 @@ def simulate(
     goes through the WAN transfer layer (`network.simulate_network`):
     the policy is called with `graph=` / `Qt=` keywords, returns a
     NetAction, and the result is a NetSimResult.
+
+    When `faults` (a `repro_torch.faults.FaultParams`) is given, the run
+    goes through the fault layer (`faults.simulate_faulted`): outage,
+    brownout, flap and telemetry chains join the loop, the policy sees
+    the observed (possibly stale) intensities, capacity-scaled budgets
+    and a `fault_view=` keyword, and the result is a FaultSimResult
+    (NetFaultSimResult with a graph). With `no_faults(...)` it is
+    bitwise this loop's.
     """
     if graph is not None:
         from repro_torch.network.sim import simulate_network
 
         return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, key,
+                                state0=state0, record=record, device=device,
+                                forecaster=forecaster, error_params=error_params, faults=faults)
+    if faults is not None:
+        from repro_torch.faults.sim import simulate_faulted
+
+        return simulate_faulted(policy, spec, faults, carbon_source, arrival_source, T, key,
                                 state0=state0, record=record, device=device,
                                 forecaster=forecaster, error_params=error_params)
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
@@ -350,9 +366,11 @@ class FleetScenario(NamedTuple):
     arrival caps. Optional axes (None = off for the whole fleet):
     `graph`, a stacked LinkGraph (`network.stack_graphs`), routes every
     lane through the WAN transfer layer; `err_bias` / `err_noise` [F]
-    override each lane's ForecastErrorModel (`sweep_forecast_errors`).
-    The JAX FleetScenario's faults and deadlines axes are fields too;
-    `simulate_fleet` refuses them until their layers are ported."""
+    override each lane's ForecastErrorModel (`sweep_forecast_errors`);
+    `faults`, a stacked `faults.FaultParams` (`configs.fleet_scenarios.
+    with_faults`), runs every lane through the fault layer. The JAX
+    FleetScenario's deadlines axis is a field too; `simulate_fleet`
+    refuses it until its layer is ported."""
 
     spec: FleetSpec
     carbon: object        # [F, Tc, N+1] intensity playback tables
@@ -368,15 +386,16 @@ class FleetScenario(NamedTuple):
         return self.arrival_amax.shape[0]
 
     def to(self, device) -> "FleetScenario":
-        """The spec, tables, caps, graph and forecast-error lanes as
-        tensors on `device` (faults and deadlines as they are), so a run
-        copies nothing from the host."""
+        """The spec, tables, caps, graph, forecast-error and fault lanes
+        as tensors on `device` (deadlines as they are), so a run copies
+        nothing from the host."""
         opt = lambda x: None if x is None else _f32_on(x, device)  # noqa: E731
         return self._replace(spec=FleetSpec(*(_f32_on(x, device) for x in self.spec)),
                              carbon=_f32_on(self.carbon, device),
                              arrival_amax=_f32_on(self.arrival_amax, device),
                              graph=None if self.graph is None else self.graph.to(device),
-                             err_bias=opt(self.err_bias), err_noise=opt(self.err_noise))
+                             err_bias=opt(self.err_bias), err_noise=opt(self.err_noise),
+                             faults=None if self.faults is None else self.faults.to(device))
 
 
 def _f32_on(x, device) -> torch.Tensor:
@@ -427,7 +446,6 @@ def sweep_forecast_errors(fleet: FleetScenario, bias, noise) -> FleetScenario:
 # the layers a FleetScenario or simulate_fleet may name that the port
 # does not have yet, with the ROADMAP Queue 1 item that brings each
 _NOT_PORTED = {
-    "faults": "2.4 (faults)",
     "deadlines": "2.5 (deadlines)",
     "telemetry": "2.6 (telemetry)",
 }
@@ -452,13 +470,16 @@ def simulate_fleet(
     arrivals floor(uniform(fold_in(k_arrive_f, t), (M,)) * (amax_f + 1)).
 
     A fleet with a stacked graph runs every lane through the WAN transfer
-    layer (the result is a NetSimResult); `forecaster` threads one
+    layer (the result is a NetSimResult); a fleet with a fault axis runs
+    every lane through the fault layer, its fault stream
+    fold_in(k_f, FAULT_STREAM_SALT) and all lanes' fault uniforms one
+    draw a slot (a FaultSimResult, or NetFaultSimResult with a graph);
+    `forecaster` threads one
     forecaster through every lane (each lane's table and carbon key, and
     with `err_bias`/`err_noise` its own error parameters), as `simulate`
     does. Every result field has a leading [F] axis; `record` works as
     in `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N])."""
-    for name, value in (("faults", fleet.faults), ("deadlines", fleet.deadlines),
-                        ("telemetry", telemetry)):
+    for name, value in (("deadlines", fleet.deadlines), ("telemetry", telemetry)):
         if value is not None:
             raise NotImplementedError(
                 f"simulate_fleet: {name}= needs a layer repro_torch does not have yet "
@@ -474,6 +495,12 @@ def simulate_fleet(
         from repro_torch.network.sim import simulate_network
 
         return simulate_network(policy, spec, fleet.graph, carbon, arrivals, T, keys,
+                                record=record, device=dev, forecaster=forecaster,
+                                error_params=err, faults=fleet.faults)
+    if fleet.faults is not None:
+        from repro_torch.faults.sim import simulate_faulted
+
+        return simulate_faulted(policy, spec, fleet.faults, carbon, arrivals, T, keys,
                                 record=record, device=dev, forecaster=forecaster,
                                 error_params=err)
     loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev)

@@ -26,9 +26,11 @@ the same number of slots), so the loop reads no device value.
     ahead; the update is fma(alpha, row, (1 - alpha) * level), single
     rounded, as XLA:CPU contracts it inside the simulator's scan.
   * RidgeARForecaster       -- per-region AR(p) with intercept, a ridge
-    least-squares refit every slot (`torch.linalg.solve_ex`, batched over
-    lanes and regions), rolled forward H-1 steps. The JAX solve is
-    LAPACK's, so this one agrees to rounding, not bitwise.
+    least-squares refit every slot, rolled forward H-1 steps. The Gram
+    products, the elimination and the roll are elementwise torch calls
+    in one fixed order (`solve_gauss`), so a lane of a fleet gives its
+    single run's forecast bitwise, on any device. The JAX solve is
+    LAPACK's, so this one agrees with it to rounding, not bitwise.
 
 The clairvoyant forecasters live in `forecast/source.py`, the accuracy
 metrics in `forecast/metrics.py`.
@@ -62,6 +64,51 @@ class Forecaster(Protocol):
 
 def _zeros(shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=resolve_device(device))
+
+
+def _sum_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum over `dim` as a chain of elementwise adds in index order: the
+    same bits whatever the other axes hold (a batched reduction or
+    matrix product may block its sums by the batch's shape)."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def _fma_rows(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum over `dim` of a*b (broadcast) as one single-rounded FMA a row
+    in index order, from +0."""
+    acc = torch.zeros_like(a.select(dim, 0) * b.select(dim, 0))
+    for i in range(a.shape[dim]):
+        acc = fma_f32(a.select(dim, i), b.select(dim, i), acc)
+    return acc
+
+
+def solve_gauss(aug: torch.Tensor) -> torch.Tensor:
+    """x of A x = b for the augmented [A | b], [..., n, n+1]: Gaussian elimination
+    with partial pivoting (the first row of largest |pivot|) and back
+    substitution, each multiply-subtract one FMA (`fma_f32`), as a
+    compiled LAPACK forms them; every step is an elementwise torch call
+    over the batch, so each system's bits do not depend on the batch it
+    is solved in."""
+    n = aug.shape[-2]
+    rows = torch.arange(n, device=aug.device)
+    for k in range(n):
+        piv = k + torch.argmax(aug[..., k:, k].abs(), dim=-1)        # [...]
+        perm = torch.where(rows == k, piv[..., None],
+                           torch.where(rows == piv[..., None], k, rows))
+        aug = aug.gather(-2, perm[..., None].expand(aug.shape))
+        top = aug[..., k:k + 1, :]                                   # [..., 1, n+1]
+        f = aug[..., k + 1:, k:k + 1] / top[..., k:k + 1]            # [..., n-k-1, 1]
+        aug = torch.cat([aug[..., :k + 1, :], fma_f32(-f, top, aug[..., k + 1:, :])], dim=-2)
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        acc = aug[..., i, n]
+        for j in range(i + 1, n):
+            acc = fma_f32(-aug[..., i, j], x[j], acc)
+        x[i] = acc / aug[..., i, i]
+    return torch.stack(x, dim=-1)
 
 
 def _tile_last(row: torch.Tensor, H: int) -> torch.Tensor:
@@ -158,9 +205,9 @@ class EWMAForecaster:
 class RidgeARForecaster:
     """Per-region AR(p) with intercept, refit every slot by ridge least
     squares on the last `window` observations, rolled forward H-1 steps:
-    theta = (X'X + ridge*I)^-1 X'y per region (one batched
-    `torch.linalg.solve_ex` over lanes and regions), each prediction fed
-    back into the lag window and clipped at 0. Persistence until the
+    theta = (X'X + ridge*I)^-1 X'y per region (`solve_gauss`, batched
+    over lanes and regions, the Gram sums in row order), each prediction
+    fed back into the lag window and clipped at 0. Persistence until the
     window holds `window` real observations."""
 
     H: int = 8
@@ -186,13 +233,13 @@ class RidgeARForecaster:
                + torch.arange(p, device=buf.device)[None, :])
         X = cols[..., idx]                                              # [..., N+1, W-p, p]
         X = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)         # [..., N+1, W-p, p+1]
-        y = cols[..., p:, None]                                         # [..., N+1, W-p, 1]
-        Xt = X.transpose(-1, -2)
-        eye = torch.eye(p + 1, dtype=buf.dtype, device=buf.device)
-        # solve_ex: no check of the factorization's info on the host (a
-        # sync); XtX + ridge*I is positive definite
-        theta = torch.linalg.solve_ex(Xt @ X + self.ridge * eye, Xt @ y)[0]  # [..., N+1, p+1, 1]
-        return theta[..., 0].transpose(-1, -2)
+        Xy = torch.cat([X, cols[..., p:, None]], dim=-1)                # [..., N+1, W-p, p+2]
+        # [X'X | X'y]: one FMA a row, in row order, as XLA:CPU's dot
+        # computes X'X and X'y (bitwise; elementwise, so batch-invariant)
+        G = _fma_rows(X[..., :, :, None], Xy[..., :, None, :], -3)      # [..., N+1, p+1, p+2]
+        eye = torch.eye(p + 1, p + 2, dtype=buf.dtype, device=buf.device)
+        theta = solve_gauss(G + self.ridge * eye)                       # [..., N+1, p+1]
+        return theta.transpose(-1, -2)
 
     def predict(self, carry, t):
         del t
@@ -203,7 +250,7 @@ class RidgeARForecaster:
         win = buf[..., -self.lags:, :]
         ahead = []
         for _ in range(self.H - 1):
-            nxt = torch.clamp_min(torch.sum(win * theta[..., : self.lags, :], dim=-2)
+            nxt = torch.clamp_min(_sum_rows(win * theta[..., : self.lags, :], -2)
                                   + theta[..., -1, :], 0.0)
             win = _push(win, nxt)
             ahead.append(nxt)

@@ -8,6 +8,8 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
+SUM_BLOCK = 32  # the window of XLA:CPU's reductions (read from the HLO)
+
 
 def rolling_forecasts(forecaster, table, *, key=None, device=DEFAULT_DEVICE) -> torch.Tensor:
     """Replays `table` [T, N+1] through `forecaster` on `device`; returns
@@ -23,6 +25,32 @@ def rolling_forecasts(forecaster, table, *, key=None, device=DEFAULT_DEVICE) -> 
     return torch.stack(out)
 
 
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x) over its last two axes [..., T, K] in XLA:CPU's order (read
+    from the compiled HLO of `jnp.sum` over a [T, ...] array, the K axes
+    flattened in row order): while more than SUM_BLOCK rows remain, a
+    `reduce-window` of SUM_BLOCK rows with the zero pad split lo = pad //
+    2 before and the rest after, each window summed element by element
+    in row order (rows, then K); then the remaining windows' sums in
+    order. Elementwise float32 adds, so the result is the same on every
+    device (`network.transfer.column_sum` is the K = 1, per-column
+    case)."""
+    while x.shape[-2] > SUM_BLOCK:
+        pad = -x.shape[-2] % SUM_BLOCK
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        blocks = x.reshape(x.shape[:-2] + (-1, SUM_BLOCK * x.shape[-1]))
+        acc = blocks[..., 0]
+        for i in range(1, blocks.shape[-1]):
+            acc = acc + blocks[..., i]
+        x = acc[..., None]
+    flat = x.reshape(x.shape[:-2] + (-1,))
+    acc = flat[..., 0]
+    for i in range(1, flat.shape[-1]):
+        acc = acc + flat[..., i]
+    return acc
+
+
 def forecast_errors(forecaster, table, *, key=None, burn_in: int = 0,
                     device=DEFAULT_DEVICE) -> dict:
     """MAE / RMSE of `forecaster` on `table`, scored on leads h >= 1 only
@@ -30,7 +58,7 @@ def forecast_errors(forecaster, table, *, key=None, burn_in: int = 0,
     off the table's end are excluded, and `burn_in` drops the first
     slots, where history-based forecasters still warm up. Returns 0-d
     float32 tensors and the per-lead MAE profile [H-1], summed in
-    float64."""
+    float32 in XLA:CPU's order (`xla_sum`)."""
     dev = resolve_device(device)
     table = torch.as_tensor(table, dtype=torch.float32).to(dev)
     T, H = table.shape[0], forecaster.H
@@ -40,13 +68,12 @@ def forecast_errors(forecaster, table, *, key=None, burn_in: int = 0,
     tgt = ts + h[None, :]                                            # [T, H-1]
     valid = (tgt < T) & (ts >= burn_in)
     truth = table[tgt.clamp(0, T - 1)]                               # [T, H-1, N+1]
-    err = (fc[:, 1:, :] - truth).double()
-    # float64 sums, rounded once: JAX's float32 sums (XLA:CPU's windowed
-    # order) sit about 1e-6 from these on a few thousand terms
-    w = valid[..., None].expand(err.shape).double()
-    denom = torch.clamp_min(torch.sum(w), 1.0)
-    mae = torch.sum(torch.abs(err) * w) / denom
-    rmse = torch.sqrt(torch.sum(err**2 * w) / denom)
-    per_lead = torch.clamp_min(torch.sum(w, dim=(0, 2)), 1.0)
-    mae_per_lead = torch.sum(torch.abs(err) * w, dim=(0, 2)) / per_lead
-    return {"mae": mae.float(), "rmse": rmse.float(), "mae_per_lead": mae_per_lead.float()}
+    err = fc[:, 1:, :] - truth
+    w = valid[..., None].expand(err.shape).float()
+    total = lambda x: xla_sum(x.reshape(T, -1))  # noqa: E731
+    per_lead = lambda x: xla_sum(x.permute(1, 0, 2))  # noqa: E731  [H-1]
+    denom = torch.clamp_min(total(w), 1.0)
+    mae = total(torch.abs(err) * w) / denom
+    rmse = torch.sqrt(total(err * err * w) / denom)
+    mae_per_lead = per_lead(torch.abs(err) * w) / torch.clamp_min(per_lead(w), 1.0)
+    return {"mae": mae, "rmse": rmse, "mae_per_lead": mae_per_lead}

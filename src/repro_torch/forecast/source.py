@@ -13,8 +13,7 @@
 The noise is `normal(fold_in(fold_in(key, seed), t), (H, N+1))`: the key
 folded with the seed once a run, then one draw a slot through the draw
 kernel (`ops.threefry_draw`, the slot folded in) and XLA's erfinv
-(`repro_torch.random.normal`'s twin; about 1% of its values an ulp off
-JAX's, ROADMAP hazard 5).
+(`repro_torch.random.normal`, bitwise JAX's).
 
 Rounding follows XLA:CPU inside the simulator's scan. With (bias, noise)
 overrides (the fleet's lanes, traced in JAX) the forecast is

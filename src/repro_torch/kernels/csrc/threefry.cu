@@ -9,6 +9,9 @@
 //   src/repro/core/carbon.py:37-44      RandomCarbonSource (fold_in, split, randint)
 //   src/repro/core/carbon.py:126-131    UKRegionalTraceSource (fold_in, fold_in, normal)
 //   src/repro/core/policies.py:449-458  RandomPolicy (split, uniform)
+//   src/repro/faults/model.py:196-233   the fault chains, the retry release and
+//   src/repro/faults/sim.py:184, 375    the task failures: six uniforms a slot,
+//                                       each from its own key (`paths` below)
 // with jax 0.9.0's `jax_threefry_partitionable=True` streams
 // (jax/_src/prng.py: threefry2x32, the fold-like split, fold_in, and
 // random_bits with 64-bit iota counters (hi, lo) and bits = y0 ^ y1).
@@ -35,6 +38,15 @@
 // span and mult come from the wrapper (random.randint_span) as 64-bit
 // values, so a span of 2^32 needs no special case.
 //
+// paths (threefry_paths_kernel, finish 1 only): the n values of a lane
+// are segments, segment s at [start[s], start[s+1]) drawn from the key
+// reached from k by the child indices idx[s][0..depth[s]) (child i of a
+// key is threefry(k, (0, i)), split(k, *)[i] whatever the split's width
+// under jax_threefry_partitionable), counters 0.. within the segment.
+// The fault stream's slot is one such launch: from fold_in(k_fault, t),
+// (0, 0) cloud chain [N], (0, 1) brownouts [N], (0, 2) telemetry [1],
+// (0, 3) links [L], (0, 4) retry release [M*N], (1,) failures [M*N].
+//
 // Bound: integer operations. Each threefry2x32 is 20 rounds of an add, a
 // rotate and a xor plus 5 key injections, about 100 integer operations;
 // an element takes 2 (arrivals of the fleet) to 6 (randint after a
@@ -44,14 +56,31 @@
 // costs about 3-10 ns of one SM and a [16, 4096] draw about 1-2 us of the
 // card; its 256 KB of output take 0.08 us at 3.35 TB/s.
 //
+// A paths draw needs one hash a value plus one a segment and lane for
+// each index of its path and the fold; at fleet B's fault slot (F 16, M
+// 4096, N 256) that is 2*F*M*N = 33.6 M hashes and 134 MB written.
+//
 // Design: one thread an element, 256 threads a block; the key chain is
 // recomputed per element (a handful of hashes against a 4- or 8-byte
 // store), so no thread waits on another and the kernel needs no shared
-// memory. Rotations are funnel shifts; every operation is on uint32,
-// which wraps as XLA's uint32 does.
+// memory. A paths draw gives each thread kPathRun consecutive values of
+// a lane and walks the key path once for them (again only where a
+// segment starts inside the run). Rotations are funnel shifts; every
+// operation is on uint32, which wraps as XLA's uint32 does.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+constexpr int kMaxSegments = 8;
+constexpr int kMaxDepth = 4;
+
+// A paths draw's segments, passed by value (outside the unnamed namespace:
+// the extern "C" entry takes it, and must keep external linkage).
+struct PathTable {
+  int start[kMaxSegments + 1];  // segment s is [start[s], start[s + 1]); n past the last
+  int depth[kMaxSegments];
+  unsigned idx[kMaxSegments][kMaxDepth];
+};
 
 namespace {
 
@@ -140,7 +169,47 @@ threefry_draw_kernel(const int64_t* __restrict__ keys, int F, int n, int has_t, 
   }
 }
 
+constexpr int kPathRun = 4;
+
+__global__ void __launch_bounds__(kThreads)
+threefry_paths_kernel(const int64_t* __restrict__ keys, int F, int n, int has_t, uint32_t t,
+                      const PathTable table, float lo, float hi, float* __restrict__ out) {
+  const int runs = (n + kPathRun - 1) / kPathRun;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= static_cast<int64_t>(F) * runs) return;
+  const int f = static_cast<int>(g / runs);
+  const int j0 = static_cast<int>(g - static_cast<int64_t>(f) * runs) * kPathRun;
+  Key base{static_cast<uint32_t>(keys[2 * f]), static_cast<uint32_t>(keys[2 * f + 1])};
+  if (has_t) base = threefry(base, 0u, t);
+  const float span = __fsub_rn(hi, lo);
+  int s = -1;
+  Key k = base;
+  for (int e = 0; e < kPathRun; ++e) {
+    const int j = j0 + e;
+    if (j >= n) break;
+    if (s < 0 || j >= table.start[s + 1]) {
+      s = s < 0 ? 0 : s;
+      while (j >= table.start[s + 1]) ++s;  // empty segments are skipped
+      k = base;
+      for (int d = 0; d < table.depth[s]; ++d) k = threefry(k, 0u, table.idx[s][d]);
+    }
+    const float u = unit(bits(k, static_cast<uint32_t>(j - table.start[s])));
+    out[static_cast<int64_t>(f) * n + j] = fmaxf(lo, __fmaf_rn(u, span, lo));
+  }
+}
+
 }  // namespace
+
+extern "C" int threefry_paths_launch(const void* keys, int F, int n, int has_t, unsigned t,
+                                     PathTable table, float lo, float hi, void* out,
+                                     void* stream) {
+  const long long runs = (static_cast<long long>(n) + kPathRun - 1) / kPathRun;
+  const unsigned blocks = static_cast<unsigned>((F * runs + kThreads - 1) / kThreads);
+  threefry_paths_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), F, n, has_t, t, table, lo, hi,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int threefry_draw_launch(const void* keys, int F, int n, int has_t, unsigned t,
                                     int seg, int fold_each, int rounds, int children,

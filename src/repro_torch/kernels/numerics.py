@@ -11,8 +11,9 @@ XLA:CPU also sums a `jnp.cumsum` in its own blocked order, which
 `cumsum_xla` follows (`torch.cumsum` runs one sequential sum); computes
 float32 `tanh` with its own rational approximation (`tanh_xla`); and
 calls the C library's `sinf`/`cosf` for float32 `sin`/`cos`, which
-`sincos_glibc` reproduces in float64 and int64 operations; and builds
-`erfinv` from its own polynomial (`erfinv_xla`).
+`sincos_glibc` reproduces in float64 and int64 operations; builds
+`erfinv` from its own polynomial (`erfinv_xla`); and inlines its own
+float32 `log1p` and `exp` (`log1p_xla`, `exp_xla`, `exp2_xla`).
 
 Every function here is a chain of separate elementwise torch calls, so
 it gives the same bits on the CPU and on the card: one torch call does
@@ -124,6 +125,99 @@ def tanh_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() >= 20.0, torch.copysign(torch.ones_like(x), x), y)
 
 
+def _hexf(*hs):
+    return tuple(float.fromhex(h) for h in hs)
+
+
+# XLA:CPU's float32 log1p and exp (its elemental IR emitter, inline code
+# with no libm call), read from the optimized LLVM IR and the object code
+# of jit(jnp.log1p) and jit(jnp.exp2) (jax 0.9.0), where the backend
+# contracts every multiply-add whose product has one use into an FMA.
+# log1p: below |x| 0.41421357 a rational approximation, x + (x^3 P(x) /
+# Q(x) - x^2/2), P and Q in Horner form with one FMA a step; above it
+# log(1 + x) by `log_f32`: 1 + x split into a mantissa m in [0.5, 1) and
+# an exponent, m < sqrt(1/2) folded to 2m, three interleaved quadratics
+# joined by FMAs in x'^3, ln 2 as 0.693359375 - 2.12194440e-4.
+_LOG1P_SPLIT = float.fromhex("0x1.a8279ap-2")
+_LOG1P_P = _hexf("0x1.7bc096p-15", "0x1.fe818ap-2", "0x1.a509f4p+2", "0x1.de9738p+4",
+                 "0x1.e798ecp+5", "0x1.c8e75ap+5", "0x1.40a202p+4")
+_LOG1P_Q = _hexf("0x1.e2035ap+3", "0x1.4c30b6p+6", "0x1.bb865ap+7", "0x1.351946p+8",
+                 "0x1.b0db14p+7", "0x1.e0f304p+5")
+_LOG_A = _hexf("0x1.204376p-4", "-0x1.d7a37p-4", "0x1.de4a34p-4")
+_LOG_B = _hexf("-0x1.fcba9ep-4", "0x1.23d37ep-3", "-0x1.555ca0p-3")
+_LOG_C = _hexf("0x1.999d58p-3", "-0x1.fffff8p-3", "0x1.555554p-2")
+_SQRT_HALF = float.fromhex("0x1.6a09e6p-1")
+_LN2_HI = float.fromhex("0x1.63p-1")  # 0.693359375
+_LN2_LO = float.fromhex("-0x1.bd0106p-13")  # -2.12194440e-4
+_MIN_NORMAL = float.fromhex("0x1p-126")
+
+
+def _horner(x, coefs, p):
+    for c in coefs:
+        p = fma_f32(p, x, c)
+    return p
+
+
+def _log_f32(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log of y (y = 1 + x in log1p): exact specials, y <= 0
+    or NaN gives NaN, 0 gives -inf, inf gives inf."""
+    yc = torch.where(y > _MIN_NORMAL, y, _MIN_NORMAL)
+    bits = yc.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    lt = m < _SQRT_HALF
+    xm = (m - 1.0) + torch.where(lt, m, 0.0)
+    e = e - torch.where(lt, 1.0, 0.0)
+    z = xm * xm
+    x3 = z * xm
+    p1, p2, p3 = (_horner(xm, c[1:], c[0] * torch.ones_like(xm)) for c in (_LOG_A, _LOG_B, _LOG_C))
+    q = fma_f32(fma_f32(p1, x3, p2), x3, p3)
+    r = fma_f32(q, x3, e * _LN2_LO)
+    r = fma_f32(z, -0.5, xm) + r
+    r = fma_f32(e, _LN2_HI, r)
+    r = torch.where((y <= 0) | torch.isnan(y), math.nan, r)
+    r = torch.where(y == 0, -math.inf, r)
+    return torch.where(y == math.inf, math.inf, r)
+
+
+def log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 log1p bitwise as XLA:CPU computes it under `jit`."""
+    x2 = x * x
+    q = _horner(x, _LOG1P_Q[1:], x + _LOG1P_Q[0])  # the first step is fma(1, x, c)
+    p = _horner(x, _LOG1P_P[1:], _LOG1P_P[0] * torch.ones_like(x))
+    small = x + fma_f32(x2, -0.5, (x * x2) * (p / q))
+    return torch.where(x.abs() < _LOG1P_SPLIT, small, _log_f32(x + 1.0))
+
+
+# exp: x clamped to [-87.8, 88.8], n = floor(fma(x, log2 e, 0.5)) clamped
+# to [-127, 127], r = x - n ln 2 in two FMAs, e^r = 1 + fma(P(r), r^2, r)
+# (P Horner from r^4's coefficient to 1/2), times 2^n made from its bits.
+# `jnp.exp2(x)` compiles to exp(x * 0.6931472): not exact at integers.
+_EXP_LO, _EXP_HI = float.fromhex("-0x1.5f3334p+6"), float.fromhex("0x1.633334p+6")
+_LOG2E = float.fromhex("0x1.715476p+0")
+_EXP_P = _hexf("0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7", "0x1.555382p-5",
+               "0x1.555554p-3", "0x1p-1")
+_LN2_F32 = float.fromhex("0x1.62e430p-1")
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp bitwise as XLA:CPU computes it under `jit` (finite x;
+    below -87.8 the result is flushed, as XLA's 2^-127 is 0)."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma_f32(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma_f32(-n, _LN2_HI, x)
+    r = fma_f32(-n, _LN2_LO, r)
+    p = _horner(r, _EXP_P[1:], _EXP_P[0] * torch.ones_like(r))
+    y = fma_f32(p, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return y * scale
+
+
+def exp2_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 `jnp.exp2` under `jit`: exp(x * 0.6931472)."""
+    return exp_xla(x * _LN2_F32)
+
+
 # XLA's float32 ErfInv (M. Giles' single-precision approximation, as
 # XLA's math library builds it): w = -log1p(-x*x); below 5 a degree-8
 # polynomial in w - 2.5, else one in sqrt(w) - 3; Horner steps
@@ -135,11 +229,11 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 
 
 def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
-    """float32 erfinv in XLA's polynomial and rounding points. Its
-    `log1p` is torch's, which differs from XLA:CPU's on about 8% of
-    inputs near 0, so the result is XLA's on about 99% of uniform draws,
-    not on all of them (`torch.erfinv`, another function, on about 33%)."""
-    w = -torch.log1p(-x * x)
+    """float32 erfinv bitwise as XLA:CPU computes it under `jit`: its
+    polynomial and rounding points over its own `log1p` (`log1p_xla`;
+    `torch.log1p` differs on about 8% of the inputs here, `torch.erfinv`,
+    another function, on about 33% of uniform draws)."""
+    w = -log1p_xla(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
@@ -197,9 +291,10 @@ def _reduce_large(xi: torch.Tensor):
     table = _inv_pio4(xi.device)
     i = (xi >> 26) & 15
     m = ((xi & 0x7FFFFF) | 0x800000) << ((xi >> 23) & 7)  # < 2**31
-    r0 = (m * table[i]) & _M32  # the low word of a 32-bit product
-    r1 = m * table[i + 4]  # < 2**63
-    r2 = m * table[i + 8]
+    # torch.take, not table[i]: a 0-d index tensor would be read on the host
+    r0 = (m * torch.take(table, i)) & _M32  # the low word of a 32-bit product
+    r1 = m * torch.take(table, i + 4)  # < 2**63
+    r2 = m * torch.take(table, i + 8)
     lo = (r2 >> 32) + (r1 & _M32)
     hi = (r0 + (r1 >> 32) + (lo >> 32)) & _M32  # res0 = hi:lo mod 2**64
     lo = lo & _M32

@@ -73,14 +73,14 @@ def ssd_chunk_intra(a, x, Bm, Cm):
 
 
 def threefry_draw(keys, t, n, *, finish="uniform", seg=None, fold_each=False, chain=None,
-                  minval=0, maxval=1, scale=None):
+                  minval=0, maxval=1, scale=None, paths=None):
     """One threefry draw of n values per key: keys [..., 2] (int64
     holding uint32 pairs), folded with the slot t when it is given ->
-    [..., n] (see `kernels/threefry.py` for seg, fold_each, chain and the
-    finishes)."""
+    [..., n] (see `kernels/threefry.py` for seg, fold_each, chain, paths
+    and the finishes)."""
     fn = _pick(keys, _tf.threefry_draw_plain, _tf.threefry_draw_cuda, "threefry_draw")
     return fn(keys, t, n, finish=finish, seg=seg, fold_each=fold_each, chain=chain,
-              minval=minval, maxval=maxval, scale=scale)
+              minval=minval, maxval=maxval, scale=scale, paths=paths)
 
 
 _MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,
@@ -93,6 +93,13 @@ def launch_counts() -> dict:
     return {name: mod.launches for name, mod in _MODULES.items()}
 
 
+def path_launches() -> int:
+    """Launches of `threefry_draw` with `paths=` so far (each is also one
+    of `launch_counts()["threefry_draw"]`)."""
+    return _tf.path_launches
+
+
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+    _tf.path_launches = 0

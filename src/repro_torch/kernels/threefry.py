@@ -11,6 +11,13 @@ A draw takes base keys [F, 2] (int64 holding uint32 pairs, see
              k_0 = k, k_{r+1} = child 0 of k_r (child i of a key is
              split(k, *)[i]): the key walk of `random.poisson`'s loops,
              every round in one draw ("bits" and "uniform" only)
+  paths:     ((path, length), ...): the n = sum(lengths) values are
+             segments, each from the key reached from k by `path`, a
+             tuple of split-child indices (child i of a key is
+             split(k, *)[i], whatever the split's width), counters 0..
+             in each segment ("uniform" only; up to 8 segments of paths
+             up to 4 deep): the fault stream's six uniforms a slot, each
+             from its own key, in one draw
   finish:    "bits" (int64), "uniform" (float32 on [minval, maxval)),
              "floor" (floor(uniform * scale), float32; the fleet's
              arrivals), "randint" (int32) or "randint_f32" (its float32)
@@ -29,13 +36,36 @@ import torch
 from repro_torch import random as R
 from repro_torch.kernels import build
 
-# Launches of the CUDA kernel in this process (read by chip_smoke.py).
+# Launches of the CUDA kernel in this process (read by chip_smoke.py);
+# `path_launches` counts those of them that drew `paths=`.
 launches = 0
+path_launches = 0
 
 FINISHES = ("bits", "uniform", "floor", "randint", "randint_f32")
 
 
-def _check(n, finish, seg, fold_each, chain):
+MAX_SEGMENTS, MAX_DEPTH = 8, 4
+
+
+def _check_paths(n, finish, seg, fold_each, chain, scale, paths):
+    if seg is not None or fold_each or chain is not None or scale is not None or \
+            finish != "uniform":
+        raise ValueError("threefry_draw: paths= takes the finish 'uniform' and no seg, "
+                         "fold_each, chain or scale")
+    if not 1 <= len(paths) <= MAX_SEGMENTS:
+        raise ValueError(f"threefry_draw: paths holds {len(paths)} segments, not 1 to "
+                         f"{MAX_SEGMENTS}")
+    for path, length in paths:
+        if len(path) > MAX_DEPTH or any(not 0 <= int(i) <= R.M32 for i in path) or length < 0:
+            raise ValueError(f"threefry_draw: segment {(path, length)} needs a path of at most "
+                             f"{MAX_DEPTH} uint32 indices and a length >= 0")
+    if sum(int(length) for _, length in paths) != n:
+        raise ValueError(f"threefry_draw: the paths' lengths do not add up to n={n}")
+
+
+def _check(n, finish, seg, fold_each, chain, scale=None, paths=None):
+    if paths is not None:
+        _check_paths(n, finish, seg, fold_each, chain, scale, paths)
     if finish not in FINISHES:
         raise ValueError(f"threefry_draw: finish {finish!r} is not one of {FINISHES}")
     if n < 1:
@@ -62,11 +92,19 @@ def _finish(key, n, finish, minval, maxval, scale):
 
 
 def threefry_draw_plain(keys, t, n, *, finish="uniform", seg=None, fold_each=False,
-                        chain=None, minval=0, maxval=1, scale=None):
+                        chain=None, minval=0, maxval=1, scale=None, paths=None):
     """-> [*keys.shape[:-1], n] ([..., R, C, n] with a chain), on the
     keys' device."""
-    _check(n, finish, seg, fold_each, chain)
+    _check(n, finish, seg, fold_each, chain, scale, paths)
     k = keys if t is None else R.fold_in(keys, t)
+    if paths is not None:
+        parts = []
+        for path, length in paths:
+            kk = k
+            for i in path:
+                kk = R.split(kk, int(i) + 1)[..., int(i), :]
+            parts.append(R.uniform(kk, (int(length),), minval, maxval))
+        return torch.cat(parts, dim=-1)
     if chain is not None:
         rounds, children = chain
         out = []
@@ -99,7 +137,33 @@ def _lib():
             c.c_int, c.c_int, c.c_float, c.c_float, c.c_int, c.c_ulonglong, c.c_ulonglong,
             c.c_void_p, c.c_int, c.c_void_p, c.c_void_p]
         lib.threefry_draw_launch.restype = ctypes.c_int
+        lib.threefry_paths_launch.argtypes = [
+            c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_uint, PathTable, c.c_float, c.c_float,
+            c.c_void_p, c.c_void_p]
+        lib.threefry_paths_launch.restype = ctypes.c_int
     return lib
+
+
+class PathTable(ctypes.Structure):
+    """csrc/threefry.cu's PathTable, passed to the kernel by value."""
+
+    _fields_ = [("start", ctypes.c_int * (MAX_SEGMENTS + 1)),
+                ("depth", ctypes.c_int * MAX_SEGMENTS),
+                ("idx", (ctypes.c_uint * MAX_DEPTH) * MAX_SEGMENTS)]
+
+
+def path_table(paths) -> PathTable:
+    table = PathTable()
+    start = 0
+    for s, (path, length) in enumerate(paths):
+        table.start[s] = start
+        table.depth[s] = len(path)
+        for d, i in enumerate(path):
+            table.idx[s][d] = int(i)
+        start += int(length)
+    for s in range(len(paths), MAX_SEGMENTS + 1):
+        table.start[s] = start
+    return table
 
 
 _OUT_DTYPE = {"bits": torch.int64, "uniform": torch.float32, "floor": torch.float32,
@@ -108,12 +172,12 @@ _FINISH_CODE = {"bits": 0, "uniform": 1, "floor": 2, "randint": 3, "randint_f32"
 
 
 def threefry_draw_cuda(keys, t, n, *, finish="uniform", seg=None, fold_each=False,
-                       chain=None, minval=0, maxval=1, scale=None):
+                       chain=None, minval=0, maxval=1, scale=None, paths=None):
     """Launches csrc/threefry.cu on PyTorch's current stream. `t` and
     the bounds are host ints and floats; the keys and `scale` live on
     the device."""
-    global launches
-    _check(n, finish, seg, fold_each, chain)
+    global launches, path_launches
+    _check(n, finish, seg, fold_each, chain, scale, paths)
     dev = keys.device
     if keys.dtype != torch.int64 or keys.shape[-1] != 2:
         raise ValueError(f"threefry_draw: keys must be int64 [..., 2], got {keys.dtype} "
@@ -125,6 +189,17 @@ def threefry_draw_cuda(keys, t, n, *, finish="uniform", seg=None, fold_each=Fals
     if F < 1:
         raise ValueError("threefry_draw: no keys")
     keys = keys.contiguous()
+    if paths is not None:
+        out = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+        lib = _lib()
+        status = lib.threefry_paths_launch(
+            keys.data_ptr(), F, n, int(t is not None), 0 if t is None else int(t) & R.M32,
+            path_table(paths), float(minval), float(maxval), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, status, "threefry_draw")
+        launches += 1
+        path_launches += 1
+        return out
     span = mult = 1
     mn = 0
     if finish in ("randint", "randint_f32"):

@@ -17,7 +17,9 @@
   its dispatches shipped down the graph's primary routes.
 
 Both are called as policy(state, spec, Ce, Cc, arrivals, key, *, graph,
-Qt) with `graph` staged on the state's device, and return a NetAction.
+Qt, fault_view=None) with `graph` staged on the state's device, and
+return a NetAction; both ignore the fault view (the JAX package's are
+fault-blind too).
 The state, spec, intensities, graph and Qt may carry a leading lane axis
 (the WAN fleet: Qt [F, M, L], the graph from `stack_graphs`): each lane
 gathers through its own dest, region and primary routes, and
@@ -86,8 +88,8 @@ class NetworkAwareDPPPolicy(LookaheadDPPPolicy):
             return ops.route_scores(Qt, graph.pt, Qcr, extra, state.Qe, pe, VCt, V * Ce)
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
-                 key=None, *, graph: LinkGraph, Qt, forecast=None) -> NetAction:
-        del arrivals, key
+                 key=None, *, graph: LinkGraph, Qt, forecast=None, fault_view=None) -> NetAction:
+        del arrivals, key, fault_view
         Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
@@ -111,8 +113,8 @@ class StaticRoutePolicy:
     inner: Callable
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
-                 key=None, *, graph: LinkGraph, Qt, forecast=None) -> NetAction:
-        del Qt
+                 key=None, *, graph: LinkGraph, Qt, forecast=None, fault_view=None) -> NetAction:
+        del Qt, fault_view  # the inner policy sees the fair-weather network
         kwargs = {} if forecast is None else {"forecast": forecast}
         act = self.inner(state, spec, Ce, Cc, arrivals, key, **kwargs)
         return NetAction(dt=_add_at(act.d, graph.primary, graph.L), w=act.w)

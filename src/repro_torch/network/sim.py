@@ -87,17 +87,25 @@ def simulate_network(
     `simulate`; scalar series always cover all T slots. `forecaster` and
     `error_params` work as in `simulate`: each slot the observed row
     updates the forecaster and the policy gets its [H, N+1] prediction
-    as `forecast=`; emissions are accounted at the true intensities. The
-    faults, telemetry and deadlines layers of the JAX simulator are not
-    ported yet and raise NotImplementedError."""
-    for name, value, layer in (("faults", faults, "faults"),
-                               ("telemetry", telemetry, "telemetry"),
+    as `forecast=`; emissions are accounted at the true intensities.
+    `faults` (a FaultParams with link fields) runs the fault layer
+    (`faults.simulate_network_faulted`, a NetFaultSimResult). The
+    telemetry and deadlines layers of the JAX simulator are not ported
+    yet and raise NotImplementedError."""
+    for name, value, layer in (("telemetry", telemetry, "telemetry"),
                                ("deadlines", deadlines, "deadlines")):
         if value is not None:
             raise NotImplementedError(
                 f"simulate_network({name}=...): repro_torch has no {layer} layer yet; it comes "
                 f"with the port's {layer} slice"
             )
+    if faults is not None:
+        from repro_torch.faults.sim import simulate_network_faulted
+
+        return simulate_network_faulted(policy, spec, graph, faults, carbon_source,
+                                        arrival_source, T, key, state0=state0, record=record,
+                                        device=device, forecaster=forecaster,
+                                        error_params=error_params)
     stride = record_stride(record, T)
     R = T // stride
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)

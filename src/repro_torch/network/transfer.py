@@ -89,17 +89,25 @@ def column_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def step_links(ls: LinkState, graph: LinkGraph, dt: torch.Tensor) -> Tuple[LinkState, torch.Tensor]:
+def step_links(ls: LinkState, graph: LinkGraph, dt: torch.Tensor,
+               bw_scale: torch.Tensor | None = None) -> Tuple[LinkState, torch.Tensor]:
     """Injects dt [..., M, L] new transfers, drains one slot of bandwidth
     and returns (next state, delivered [..., M, L] task counts). `graph`
     is staged on the device of `dt` (`LinkGraph.to`), with the lanes of
-    `dt` when it has any."""
+    `dt` when it has any.
+
+    `bw_scale` [..., L] (the fault layer's link flaps) scales each
+    route's bandwidth for this slot. The guarded `where` keeps a hard
+    flap (scale 0) on an infinite-bandwidth route at exactly 0 instead
+    of inf * 0 = NaN; a scale of 1.0 is a bitwise no-op."""
     with phase("transfer_step"):
+        bw = graph.bw if bw_scale is None else torch.where(bw_scale > 0.0, graph.bw * bw_scale,
+                                                           0.0)
         size = graph.size[..., :, None]
         Qt = ls.Qt + dt
         demand = fma_f32(Qt, size, -ls.prog)  # [..., M, L] work left
         total = column_sum(demand)            # [..., L]
-        ratio = torch.clamp_max(graph.bw / torch.clamp_min(total, _TINY), 1.0)
+        ratio = torch.clamp_max(bw / torch.clamp_min(total, _TINY), 1.0)
         prog = fma_f32(demand, ratio[..., None, :], ls.prog)
         # Clamp at 0 on both sides of the delivery: cancellation in
         # `prog - delivered*size` can leave prog at -eps, and

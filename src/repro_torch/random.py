@@ -23,9 +23,9 @@ masked after each add, rotations mask the shifted-out bits before the or,
 and `randint`'s products (below 2**64, whose low 32 bits int64 keeps) are
 masked straight after every multiply, as uint32 wraps them in JAX.
 
-`normal` uses XLA's float32 ErfInv polynomial with torch's `log1p`,
-which differs from XLA:CPU's, so about 1% of its values differ from
-JAX's in the last bits; `poisson` follows
+`normal` uses XLA's float32 ErfInv polynomial over XLA:CPU's own
+`log1p` (`numerics.erfinv_xla`, `numerics.log1p_xla`), bitwise;
+`poisson` follows
 JAX's two samplers (Knuth below rate 10, Hormann's transformed
 rejection above) with fixed iteration caps and torch's `log`/`lgamma`,
 so it matches JAX in distribution, not bitwise; the uniforms of its
@@ -187,7 +187,8 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
 def normal(key, shape=()) -> torch.Tensor:
     """float32 standard normal: sqrt(2) * erfinv(u), u uniform on
     [nextafter(-1, 0), 1) (the span rounds to 2.0, so the FMA is exact),
-    with XLA's erfinv polynomial (`numerics.erfinv_xla`)."""
+    with XLA's erfinv polynomial and log1p (`numerics.erfinv_xla`):
+    bitwise `jax.random.normal`."""
     u = uniform(key, shape, NORMAL_LO, 1.0)
     return SQRT2 * erfinv_xla(u)
 

@@ -9,6 +9,10 @@ package under `jit`, bitwise.
   `sinf`/`cosf`, which the port reproduces in float64 and int64 torch
   operations, on both of glibc's reduction paths (below and above 120).
 - `fma_f64`: an x86 double FMA, held against the C library's `fma`.
+- `log1p_xla` and `exp_xla` / `exp2_xla`: XLA:CPU's inline float32 log1p
+  and exp, read from the optimized IR and object code; `random.normal`'s
+  erfinv runs over the first, the fault layer's retry rate over the
+  second (`jnp.exp2(x)` is exp(x * 0.6931472), not exact at integers).
 
 The C library is called through ctypes here only, as an oracle; the
 port never calls it.
@@ -181,3 +185,62 @@ def test_apply_rope_bitwise_equal_jit(dtype, fraction):
                             torch.from_numpy(np.array(jsin)), fraction)
     assert got.dtype == tx.dtype
     np.testing.assert_array_equal(_tbits(got), _bits(want))
+
+
+def _log1p_inputs():
+    """At least 200,000 float32 inputs over both branches of XLA's log1p:
+    -u*u for u uniform on (-1, 1) (erfinv's use), uniform on [-0.99, 5],
+    log-uniform magnitudes 1e-30..1e10 of both signs, and every float
+    within 4 ulps of the branch point 0.41421357 and of its negation,
+    plus the specials."""
+    rng = np.random.default_rng(21)
+    u = rng.uniform(-1, 1, 100_000).astype(np.float32)
+    mag = (10.0 ** rng.uniform(-30, 10, 60_000)).astype(np.float32)
+    split = np.float32(0.41421357)
+    near = split.view(np.int32) + np.arange(-4, 5, dtype=np.int32)
+    near = near.view(np.float32)
+    specials = np.array([0.0, -0.0, -1.0, -2.0, np.inf, -np.inf, np.nan, 1e-30, -1e-30],
+                        np.float32)
+    return np.concatenate([-u * u, rng.uniform(-0.99, 5, 60_000).astype(np.float32),
+                           mag, -np.minimum(mag, np.float32(0.999)), near, -near, specials])
+
+
+def test_log1p_xla_bitwise_equal_jit():
+    x = _log1p_inputs()
+    assert x.size >= 200_000
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    got = numerics.log1p_xla(torch.from_numpy(x)).numpy()
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), x[~same][:8]
+    small = np.abs(x) < np.float32(0.41421357)
+    assert small.sum() > 50_000 and (~small).sum() > 50_000  # both branches
+
+
+def test_torch_log1p_would_miss():
+    """The function `random.normal` used before: torch's log1p, about 8%
+    of erfinv's inputs off XLA's."""
+    x = _log1p_inputs()[:100_000]
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    differ = torch.log1p(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32)
+    assert 0.05 < differ.mean() < 0.12
+
+
+@pytest.mark.parametrize("lo,hi", [(-87.0, 88.0), (-10.0, 10.0), (-1e-3, 1e-3)])
+def test_exp_xla_bitwise_equal_jit(lo, hi):
+    x = np.random.default_rng(int(hi)).uniform(lo, hi, 100_000).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    np.testing.assert_array_equal(numerics.exp_xla(torch.from_numpy(x)).numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_exp2_xla_is_jits_exp2_not_a_power_of_two():
+    """The retry release rate 2^-backoff (`src/repro/faults/model.py:232`)
+    at backoff 0..64: XLA's exp(x * 0.6931472) bitwise, which is not the
+    exact power of two at 13 and at every level from 15 on."""
+    b = np.arange(65, dtype=np.float32)
+    want = np.asarray(jax.jit(lambda v: jnp.exp2(-v))(b))
+    got = numerics.exp2_xla(-torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    inexact = np.nonzero(got != np.exp2(-b.astype(np.float64)).astype(np.float32))[0]
+    assert inexact[0] == 13 and 14 not in inexact and set(range(15, 65)) <= set(inexact)
+    assert not np.array_equal(torch.exp2(-torch.from_numpy(b)).numpy(), want)

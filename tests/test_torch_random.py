@@ -139,11 +139,12 @@ def test_lanes_of_keys_are_jax_vmap():
                                   np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 99))(jks)))
 
 
-# Hazard b: normal's values that differ from jax.random.normal at the UK
-# tables' sizes (keys fold_in(fold_in(PRNGKey(seed), t), region), T slots
-# of N+1 = 6 regions): XLA's erfinv polynomial with torch's log1p, which
-# differs from XLA:CPU's near 0. Pinned, so a change shows.
-NORMAL_DIFFS = {(2022, 96): 3, (2022, 2000): 120, (7, 200): 12}
+# Hazard b, repaired: normal's values at the UK tables' sizes (keys
+# fold_in(fold_in(PRNGKey(seed), t), region), T slots of N+1 = 6
+# regions). With torch's log1p under XLA's erfinv polynomial 3, 120 and
+# 12 of them differed from jax.random.normal; with `numerics.log1p_xla`
+# none does.
+NORMAL_DIFFS = {(2022, 96): 0, (2022, 2000): 0, (7, 200): 0}
 
 
 @pytest.mark.parametrize("seed,T", list(NORMAL_DIFFS))
@@ -157,7 +158,7 @@ def test_normal_differing_values_counted(seed, T):
     want = np.asarray(jax.vmap(jax.vmap(lambda k: jax.random.normal(k, ())))(jkeys))
     differ = got.numpy().view(np.int32) != want.view(np.int32)
     assert int(differ.sum()) == NORMAL_DIFFS[(seed, T)]
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
 def test_normal_and_poisson_distributions():

@@ -183,3 +183,16 @@ def test_table_helpers_equal_reference_and_sources_are_deterministic(tmp_path):
     uk = P.uk_regional_table(5, 3, seed=9, device="cpu")
     np.testing.assert_array_equal(uk, P.materialize(P.UKRegionalTraceSource(N=3, seed=9), 5, device="cpu"))
     assert not np.array_equal(P.uk_regional_table(5, 3, seed=9, rotate=1, device="cpu"), uk)
+
+
+@pytest.mark.parametrize("rotate", [0, 3])
+def test_uk_trace_bitwise_equal_jax(rotate):
+    """The UK source, float32 op by op with glibc's sinf and the twin's
+    normal over XLA's log1p, is JAX's trace bitwise (JAX renders it under
+    an eager vmap): its table over a week of slots and a run's slots."""
+    got = P.uk_regional_table(336, 5, rotate=rotate, device="cpu")
+    np.testing.assert_array_equal(got, np.asarray(jcarbon.uk_regional_table(336, 5, rotate=rotate)))
+    src = P.UKRegionalTraceSource(N=5, seed=7)
+    np.testing.assert_array_equal(
+        P.materialize(src, 50, device="cpu"),
+        np.asarray(jcarbon.materialize(jcarbon.UKRegionalTraceSource(N=5, seed=7), 50)))

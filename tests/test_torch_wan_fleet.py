@@ -109,11 +109,9 @@ def test_build_network_fleet_equals_jax(kinds):
     for name in PN.LinkGraph._fields:
         np.testing.assert_array_equal(getattr(tf.graph, name), np.asarray(getattr(jf.graph, name)),
                                       err_msg=name)
-    # the diurnal tables are numpy and bitwise; multi-region-uk-wan's
-    # carry the twin's normal (hazard 5)
-    np.testing.assert_array_equal(tf.carbon[:2], np.asarray(jf.carbon)[:2])
-    if len(kinds) == 2:
-        np.testing.assert_allclose(tf.carbon[2:], np.asarray(jf.carbon)[2:], rtol=1e-3, atol=1e-2)
+    # the diurnal tables are numpy, multi-region-uk-wan's the UK source's:
+    # all bitwise
+    np.testing.assert_array_equal(tf.carbon, np.asarray(jf.carbon))
     with pytest.raises(KeyError, match="unknown network scenario"):
         tfs.build_network_fleet(["no-such-kind"], per_kind=1, device="cpu")
     with pytest.raises(ValueError, match="share"):
