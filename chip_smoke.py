@@ -22,9 +22,12 @@ GLM-4-9B at full width and depth in bf16, batch 8, 4096-token prompts,
 64 generated tokens; SSM serving, the same `greedy_generate` (prefill +
 state decode), for mamba2-1.3B at full width and depth in bf16 at the
 same batch and lengths; the fault layer, `simulate_fleet` on fleets with
-a fault axis, at the JAX bench's rows and at fleet B's and W2's widths.
-Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 5-6,
-8, 9, 7 (phase 7 times every kernel with the launch counts of all
+a fault axis, at the JAX bench's rows and at fleet B's and W2's widths;
+the deadline layer, `simulate_fleet` on fleets with a deadline axis
+(SlackThreshold, WaitAwhile, EDD), at the JAX bench's rows and at fleet
+B's width, and a deadline-aware `serve_loop`.
+Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
+5-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
 paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
@@ -148,6 +151,25 @@ paths):
    card vs CPU (T=4) with queues, retry pool and counts bitwise; the
    paths draw timed at three fault slots beside the six per-segment
    draws it replaces, its plain version and its bound;
+4g. the deadline layer: the rows of the JAX bench's bench_deadline_pareto
+   (build_fleet(["diurnal-slack"]) and ["overload"], F16 x M5 x N5,
+   T=192, V=0.2, H=16 with ClairvoyantTableForecaster, record="summary",
+   PRNGKey(0): CarbonIntensity, LookaheadDPP, SlackThreshold, WaitAwhile
+   and EDD on generous-slack, SlackThreshold unshedded and shed on the
+   overload, the guard over SlackThreshold through a regional blackout)
+   under sync debug mode with their launches, each row's missed, shed
+   and admitted counts (and the blackout rows' mean final backlog) equal
+   to jax 0.9.0's and its reduction and waiting within 1e-3 points
+   (DEADLINE_JAX), the bench's acceptance (the shed lane held to JAX's
+   own misses), the rings re-summing to Qe and exact conservation on
+   every lane; SlackThreshold on a no_deadlines fleet bitwise
+   LookaheadDPP; fleet B's first two lanes card vs CPU (T=4;
+   SlackThreshold on tight-uniform and shed-overload, EDD): queues,
+   rings and counts bitwise, conservation exact; fleet B under
+   tight-uniform deadlines (T=64), CarbonIntensity (the deadline step
+   alone) and SlackThreshold, in turns against CarbonIntensity without
+   deadlines, with idle shares, top kernels and the aten calls and device
+   time each adds a slot;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
    then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
@@ -161,6 +183,9 @@ paths):
    reduction over the 8 (must exceed 5%);
 6. `serve_loop` at M4096xN256 for 32 slots: p50/p95/p99 decision latency
    and tasks/sec; its trajectory bitwise equal to `simulate` on the card;
+   then deadline-aware (SlackThreshold, deadline 4, shedding on): missed,
+   shed, queue-age percentiles, and its queues, rings and counts bitwise
+   equal to `simulate(deadlines=)`;
 8. LM serving, GLM-4-9B (`configs/glm4_9b.py`, 9.4 B parameters, the
    port's own seeded init), batch 8, prompts of 4096 tokens from SEED,
    64 greedy tokens, cache 4161: `greedy_generate` once under sync debug
@@ -203,7 +228,9 @@ byte bounds. Phase 7 also times threefry_draw at the main path's arrivals (its
 bound: the draw's own integer operations at a quarter of the float32
 rate) and, from phase 4c, carbon_scores, greedy_fill and the draw at
 both fleets' shapes (the rows' "fleet" entries), the fault stream's
-paths draw from phase 4f (threefry_draw's "paths" entries), and a
+paths draw from phase 4f (threefry_draw's "paths" entries), the
+launches of phase 4g's runs (the "deadlines" entries of carbon_scores,
+greedy_fill and threefry_draw), and a
 PoissonArrivals slot at M4096 (two chain draws), beside the same slot on
 the plain walk.
 
@@ -394,6 +421,35 @@ FAULT_JAX = {
                       "guard": (29.125, 45.677208726292584, 77.12126159667969)},
 }
 T_FAULT_WIDTH, T_FAULT_CPU = 64, 4  # fleet B's and W2's shapes under faults
+# the deadline layer (phase 4g): the rows of bench_deadline_pareto,
+# build_fleet(["diurnal-slack"]) and build_fleet(["overload"]), per_kind=16,
+# Tc=96, seed=0, with_deadlines / with_faults(..., seed=0), V=0.2, H=16
+# (ClairvoyantTableForecaster), T=192, record="summary", PRNGKey(0); jax
+# 0.9.0's numbers of each row, the fleet an argument of the jitted run
+# (pinned by tests/test_torch_deadline_fleet.py): the missed, shed and
+# admitted counts (and the blackout rows' mean final backlog) are held
+# exactly, the reductions and waiting within DL_TOL points. On jax 0.9.0
+# the shed lane misses 488 tasks (the bench's own `miss_s == 0` fails in
+# JAX itself, closed over or not; jax 0.4.37's streams gave 0), so the
+# phase holds the shed lane to JAX's count and to far fewer misses than
+# the unshedded lane's
+T_DL, V_DL, DL_PER_KIND, DL_H, DL_TOL = 192, 0.2, 16, 16, 1e-3
+DEADLINE_JAX = {
+    "lookahead_H16": {"reduction": 17.691747665405273},
+    "slack_thresh": {"reduction": 17.691747665405273, "waiting": 107.88565826416016,
+                     "missed": 0.0, "shed": 0.0, "admitted": 1841142.0},
+    "waitawhile": {"reduction": 49.834007263183594, "waiting": 136.53237915039062,
+                   "missed": 275.0, "shed": 0.0, "admitted": 1841142.0},
+    "edd": {"reduction": -381.8828125, "waiting": 5.115818023681641, "missed": 0.0, "shed": 0.0,
+            "admitted": 1841142.0},
+    "overload/unshedded": {"missed": 1861052.0, "shed": 0.0, "admitted": 5517671.0},
+    "overload/shed": {"missed": 488.0, "shed": 3295943.0, "admitted": 2221728.0},
+    "overload+blackout/unshedded": {"missed": 1861711.0, "shed": 0.0, "admitted": 5517671.0,
+                                    "backlog": 54882.9375},
+    "overload+blackout/shed": {"missed": 488.0, "shed": 3325701.0, "admitted": 2191970.0,
+                               "backlog": 4025.6875},
+}
+T_DL_WIDTH, T_DL_CPU = 64, 4  # fleet B's shape under tight-uniform deadlines
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
 SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and length
 LM_CACHE = LM_PROMPT + LM_GEN + 1
@@ -465,6 +521,59 @@ def fault_row_stats(r, r0):
     done = host(r.processed).sum() - host(r.failed).sum()
     completed = float(100.0 * done / max(host(r.arrived).sum(), 1.0))
     return recovery, em, completed
+
+
+def deadline_rows(m, base, over, run, V=V_DL, H=DL_H, seed=SEED):
+    """The numbers of the JAX bench's bench_deadline_pareto rows from
+    either package: `m` its modules ({"core", "deadlines", "faults",
+    "forecast", "fleet_scenarios"}), `base` and `over` the diurnal-slack
+    and overload fleets, `run(policy, fleet, forecaster)` one fleet run
+    (record="summary"). Returns ({row: {name: value}}, {row: result}):
+    the reduction against CarbonIntensity(V) and the waiting (final
+    backlog against CarbonIntensity's, %) of the generous-slack rows, and
+    every deadline row's missed, shed and admitted totals; the blackout
+    rows add their mean final backlog (the post-step Qe + Qc + retry)."""
+    core, dl, flt, fcs, fs = (m[k] for k in ("core", "deadlines", "faults", "forecast",
+                                             "fleet_scenarios"))
+
+    def host(x):
+        return np.asarray(x.cpu()) if hasattr(x, "cpu") else np.asarray(x)
+
+    def backlog(r):
+        return host(r.Qe)[:, -1].sum(-1) + host(r.Qc)[:, -1].sum((-2, -1))
+
+    def counts(r):
+        return {k: float(host(getattr(r.deadlines, k)).sum()) for k in ("missed", "shed",
+                                                                           "admitted")}
+    clair = fcs.ClairvoyantTableForecaster(H=H)
+    r_base = run(core.CarbonIntensityPolicy(V=V), base, None)
+    em_base = host(r_base.cum_emissions)[:, -1]
+    bl_base = backlog(r_base).mean()
+
+    def red(r):
+        return float(100.0 * (1.0 - host(r.cum_emissions)[:, -1] / em_base).mean())
+    results = {f"lookahead_H{H}": run(core.LookaheadDPPPolicy(V=V, H=H), base, clair)}
+    rows = {f"lookahead_H{H}": {"reduction": red(results[f"lookahead_H{H}"])}}
+    slack = fs.with_deadlines(base, "generous-slack", seed=seed)
+    for name, pol, fc in (("slack_thresh", dl.SlackThresholdPolicy(V=V, H=H), clair),
+                          ("waitawhile", dl.WaitAwhilePolicy(V=V, H=H, J=2), clair),
+                          ("edd", dl.EDDPolicy(), None)):
+        r = results[name] = run(pol, slack, fc)
+        rows[name] = dict(reduction=red(r),
+                          waiting=float(100.0 * backlog(r).mean() / max(bl_base, 1.0)), **counts(r))
+    pol = dl.SlackThresholdPolicy(V=V)
+    guard = flt.StalenessGuardPolicy(inner=dl.SlackThresholdPolicy(V=V))
+    blk = fs.with_faults(over, "regional-blackout", seed=seed)
+    for name, p, fleet, kind in (
+            ("overload/unshedded", pol, over, "tight-uniform"),
+            ("overload/shed", pol, over, "shed-overload"),
+            ("overload+blackout/unshedded", guard, blk, "tight-uniform"),
+            ("overload+blackout/shed", guard, blk, "shed-overload")):
+        r = results[name] = run(p, fs.with_deadlines(fleet, kind, seed=seed), None)
+        rows[name] = counts(r)
+        if "blackout" in name:
+            rows[name]["backlog"] = float(host(r.backlog)[:, -1].mean())
+    return rows, results
 
 
 def draw_ops(lanes, n, lane_hashes, value_hashes, value_ops):
@@ -835,10 +944,13 @@ def fleet_turns(tag, runs):
 def profile_fleets(tag, runs, ms):
     """Device busy and idle share per slot of each fleet run
     (torch.profiler over 8 slots) against its unprofiled ms/slot, with
-    the aten calls a slot and the top kernels."""
+    the aten calls a slot and the top kernels. Returns ({run: aten calls
+    a slot}, {run: device busy ms a slot or None})."""
+    calls, busy_ms = {}, {}
     for run, (fn, _, _, _) in runs.items():
         prof, host = profile_slots(lambda fn=fn: fn(8, "summary"), slots=8)
         n_aten = sum(v[1] for k, v in host.items() if k.startswith("aten::"))
+        calls[run], busy_ms[run] = n_aten, None if prof is None else prof["total"]
         if prof is None:
             say(f"[{tag}] {run}: device time per slot not measured (the profiler "
                 f"recorded no device time); {n_aten:.1f} aten op calls/slot")
@@ -848,6 +960,7 @@ def profile_fleets(tag, runs, ms):
         say(f"[{tag}] {run}: device busy {busy:.4f} ms/slot of {ms[run]:.4f} "
             f"(idle share {1.0 - busy / ms[run]:.3f}), {n_aten:.1f} aten op calls/slot; "
             "top kernels per slot " + ", ".join(f"{k[:48]} {v:.4f} ms" for v, k in top[:5]))
+    return calls, busy_ms
 
 
 def lane_of(res, f):
@@ -1068,6 +1181,7 @@ def main() -> int:
     import repro_torch.forecast as fcst
     import repro_torch.network as net
     import repro_torch.faults as flt
+    import repro_torch.deadlines as dlm
     from repro_torch.configs import fleet_scenarios
     from repro_torch.configs.paper_workloads import V_PAPER, paper_spec
     from repro_torch.core import carbon
@@ -2107,8 +2221,8 @@ def main() -> int:
         # score routes) and the guard under no faults is its inner policy
         plain_run = core.simulate_fleet(fault_pols[wan_f]["carbon"], fl_h.to(dev), T_FAULT, SEED,
                                         record="summary", device=dev)
-        shared = [n for n in type(plain_run)._fields
-                  if not same_bits(getattr(plain_run, n), getattr(zero_runs["carbon"], n))]
+        shared = [n for n in type(plain_run)._fields if getattr(plain_run, n) is not None
+                  and not same_bits(getattr(plain_run, n), getattr(zero_runs["carbon"], n))]
         guard_diff = [n for n in type(zero_runs["guard"])._fields
                       if getattr(zero_runs["guard"], n) is not None
                       and not same_bits(getattr(zero_runs["guard"], n),
@@ -2285,6 +2399,174 @@ def main() -> int:
         f"{k} {v:.4f}" for k, v in {**fault_row_ms, **fault_width_ms}.items()) + f" ({smi})")
     del fault_b, w2_flappy, w2_flappy_h
 
+    # ---- 4g. the deadline layer ---------------------------------------
+    # the rows of bench_deadline_pareto, held to jax 0.9.0's (DEADLINE_JAX):
+    # each run under sync debug mode "error", its launches counted (the
+    # score pass, the fill and the arrivals' draw a slot; EDD runs no score
+    # pass; the blackout rows add the fault stream's paths draw)
+    t0 = time.perf_counter()
+    dl_base = fleet_scenarios.build_fleet(["diurnal-slack"], per_kind=DL_PER_KIND, Tc=96,
+                                          seed=SEED, device=dev).to(dev)
+    dl_over = fleet_scenarios.build_fleet(["overload"], per_kind=DL_PER_KIND, Tc=96, seed=SEED,
+                                          device=dev).to(dev)
+    dl_names = iter(("CarbonIntensity", "lookahead_H16", "slack_thresh", "waitawhile", "edd",
+                     "overload/unshedded", "overload/shed", "overload+blackout/unshedded",
+                     "overload+blackout/shed"))
+    dl_counts = {}  # kernel -> launches over phase 4g's driven runs
+
+    def dl_run(pol, fleet, fc, T=T_DL, tag="4g deadlines"):
+        name = next(dl_names) if tag == "4g deadlines" else tag
+        fleet = fleet.to(dev)  # the scenario's CPU lanes, staged before the timed run
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            res = core.simulate_fleet(pol, fleet, T, SEED, record="summary", device=dev,
+                                      forecaster=fc)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches = dict(ops.launch_counts(), **{"threefry_draw paths": ops.path_launches()})
+        faulted = fleet.faults is not None
+        want = dict.fromkeys(launches, 0)
+        want.update({"greedy_fill": T, "threefry_draw": (2 if faulted else 1) * T,
+                     "threefry_draw paths": T if faulted else 0})
+        if not isinstance(pol, dlm.EDDPolicy):
+            want["carbon_scores"] = T
+        if launches != want:
+            fail(f"{tag} {name}: kernel launches {launches}, expected {want}")
+        for k, v in launches.items():
+            dl_counts[k] = dl_counts.get(k, 0) + v
+        if not (torch.isfinite(res.emissions).all() and torch.isfinite(res.Qc).all()):
+            fail(f"{tag} {name}: non-finite emissions or queues")
+        say(f"[{tag}] {name} F{fleet.F} T={T} record=summary under sync debug mode 'error': "
+            "launches per slot " + ", ".join(f"{k} {v / T:g}" for k, v in launches.items() if v)
+            + f"; {start.elapsed_time(end) / T:.4f} ms/slot (CUDA events)")
+        return res
+
+    dl_mods = dict(core=core, deadlines=dlm, faults=flt, forecast=fcst,
+                   fleet_scenarios=fleet_scenarios)
+    dl_rows, dl_res = deadline_rows(dl_mods, dl_base, dl_over, dl_run)
+    for row, want in DEADLINE_JAX.items():
+        got = dl_rows[row]
+        say(f"[4g deadlines] {row}: " + ", ".join(
+            f"{k} {got[k]:.6f} (JAX {v:.6f})" if k in ("reduction", "waiting")
+            else f"{k} {got[k]:g} (JAX {v:g})" for k, v in want.items()))
+        bad = [k for k, v in want.items()
+               if not (abs(got[k] - v) <= DL_TOL if k in ("reduction", "waiting") else got[k] == v)]
+        if bad or set(got) != set(want):
+            fail(f"deadline row {row}: {bad} are not jax 0.9.0's ({got} vs {want})")
+    # conservation on every lane: the rings re-sum to Qe; the faulted rows'
+    # backlog is cum(arrived - processed + failed - missed - shed)
+    for row, r in dl_res.items():
+        if r.deadlines is None:
+            continue
+        if not torch.equal(r.deadlines.Qd[:, -1].sum(-1), r.Qe[:, -1]):
+            fail(f"deadline row {row}: the rings do not re-sum to Qe")
+        if hasattr(r, "backlog"):
+            led = r.deadlines
+            flow = torch.cumsum((r.arrived - r.processed + r.failed - led.missed
+                                 - led.shed).double(), dim=-1)
+            if not torch.equal(r.backlog.double(), flow):
+                fail(f"deadline row {row}: backlog != cum(arrived - processed + failed - missed "
+                     "- shed) on some lane")
+    # the bench's acceptance (see DEADLINE_JAX for the shed lane's misses)
+    red_la = dl_rows[f"lookahead_H{DL_H}"]["reduction"]
+    best = max((v["reduction"] for k, v in dl_rows.items()
+                if k in ("slack_thresh", "waitawhile", "edd") and v["missed"] == 0.0),
+               default=-np.inf)
+    unshed, shed_r = dl_rows["overload/unshedded"], dl_rows["overload/shed"]
+    blk_u, blk_s = dl_rows["overload+blackout/unshedded"], dl_rows["overload+blackout/shed"]
+    say(f"[4g deadlines] acceptance: best zero-miss deadline policy {best:.6f}% vs lookahead "
+        f"{red_la:.6f}% ({best / red_la:.4f} of it, needs >= 0.9); overload misses unshedded "
+        f"{unshed['missed']:g}, shed {shed_r['missed']:g} of {shed_r['admitted']:g} admitted "
+        f"({100 * shed_r['missed'] / shed_r['admitted']:.4f}%; the bench's 0 fails in jax 0.9.0 "
+        f"too); blackout shed lane sheds {blk_s['shed']:g}, final backlog {blk_s['backlog']:g} vs "
+        f"unshedded {blk_u['backlog']:g}; {time.perf_counter() - t0:.1f} s")
+    if not (best >= 0.9 * red_la and unshed["missed"] > 0.0
+            and shed_r["missed"] <= 1e-3 * shed_r["admitted"] and blk_s["shed"] > 0.0
+            and blk_s["backlog"] < blk_u["backlog"]):
+        fail("bench_deadline_pareto's acceptance does not hold on the card")
+    # the infinite-deadline anchor through the kernels: SlackThreshold on a
+    # no_deadlines fleet is LookaheadDPP bitwise in every shared field
+    nd = dl_base._replace(deadlines=dlm.stack_deadlines(
+        [dlm.no_deadlines(dl_base.spec.pe.shape[1], device="cpu")] * dl_base.F))
+    anch = dl_run(dlm.SlackThresholdPolicy(V=V_DL, H=DL_H), nd,
+                  fcst.ClairvoyantTableForecaster(H=DL_H), tag="4g anchor")
+    la = dl_res[f"lookahead_H{DL_H}"]
+    diff = [n for n in type(la)._fields if getattr(la, n) is not None
+            and not same_bits(getattr(la, n), getattr(anch, n))]
+    if diff or float(anch.deadlines.missed.sum()) != 0.0:
+        fail(f"infinite-deadline anchor: SlackThreshold on no_deadlines differs from LookaheadDPP "
+             f"in {diff}")
+    say("[4g deadlines] infinite-deadline anchor: SlackThreshold on a no_deadlines fleet bitwise "
+        "equal to LookaheadDPP in every field (carbon_scores, greedy_fill, threefry_draw)")
+    del dl_res, anch, la, nd
+
+    # card vs CPU at fleet B's width, F2, T=4: queues, rings and counts
+    # bitwise, emissions within rtol 1e-6, conservation exact on every lane
+    t0 = time.perf_counter()
+    two_b = fleet_b_h._replace(spec=core.FleetSpec(*(x[:2] for x in fleet_b_h.spec)),
+                               carbon=fleet_b_h.carbon[:2], arrival_amax=fleet_b_h.arrival_amax[:2])
+    for kind, pol in (("tight-uniform", dlm.SlackThresholdPolicy(V=V_PAPER)),
+                      ("shed-overload", dlm.SlackThresholdPolicy(V=V_PAPER)),
+                      ("tight-uniform", dlm.EDDPolicy())):
+        two = fleet_scenarios.with_deadlines(two_b, kind, seed=SEED)
+        gpu = core.simulate_fleet(pol, two.to(dev), T_DL_CPU, SEED, device=dev)
+        cpu = core.simulate_fleet(pol, two, T_DL_CPU, SEED, device="cpu")
+        bad = [n for n in COUNTED if not torch.equal(getattr(gpu, n).cpu(), getattr(cpu, n))]
+        bad += [n for n in ("Qd", "missed", "shed", "admitted")
+                if not torch.equal(getattr(gpu.deadlines, n).cpu(), getattr(cpu.deadlines, n))]
+        rel = emission_rtol(gpu, cpu)
+        led = cpu.deadlines
+        # every slot of every lane: Qe + Qc = cum(admitted - processed - missed)
+        flow = torch.cumsum((led.admitted - cpu.processed - led.missed).double(), dim=-1)
+        held = cpu.Qe.double().sum(-1) + cpu.Qc.double().sum((-2, -1))
+        if bad or rel > 1e-6 or not torch.equal(flow, held):
+            fail(f"deadline {kind} {type(pol).__name__} F2: card and CPU differ in {bad}, "
+                 f"emissions rtol {rel:.3e}, or conservation fails")
+        say(f"[4g deadlines] B F2xM{M_MAIN}xN{N_MAIN} {kind} {type(pol).__name__} T={T_DL_CPU} "
+            f"card vs CPU plain path: {', '.join(COUNTED)}, Qd, missed, shed, admitted bitwise equal, "
+            f"emissions max rel diff {rel:.3e} (limit 1e-6); conservation exact on both lanes "
+            f"(missed {float(led.missed.sum()):g}, shed {float(led.shed.sum()):g})")
+        del gpu, cpu
+    say(f"[4g deadlines] card vs CPU: {time.perf_counter() - t0:.1f} s")
+    # timing at width: fleet B under tight-uniform deadlines, in turns
+    # against the same fleet without deadlines; CarbonIntensity ignores
+    # the view, so its deadline run adds the deadline step alone, and
+    # SlackThreshold's adds its score updates on top
+    fleet_b_dl = fleet_scenarios.with_deadlines(fleet_b_h, "tight-uniform", seed=SEED).to(dev)
+    slack_b = dlm.SlackThresholdPolicy(V=V_PAPER)
+    per_b = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    dw_runs = {"B no deadlines CarbonIntensity": fleet_runs["B CarbonIntensity"],
+               "B tight-uniform CarbonIntensity": (fleet_run(ci, fleet_b_dl), T_DL_WIDTH, F_B,
+                                                   per_b),
+               "B tight-uniform SlackThreshold": (fleet_run(slack_b, fleet_b_dl), T_DL_WIDTH, F_B,
+                                                  per_b)}
+    dw_ms, dw_res, dw_launches = drive_fleets("4g deadline width B", dw_runs, ops, dev)
+    for run in ("B tight-uniform CarbonIntensity", "B tight-uniform SlackThreshold"):
+        for k, v in dw_launches[run].items():
+            dl_counts[k] = dl_counts.get(k, 0) + v
+        led = dw_res[run].deadlines
+        say(f"[4g deadline width B] {run} F{F_B} T={T_DL_WIDTH}: missed "
+            f"{float(led.missed.sum()):g}, shed {float(led.shed.sum()):g}, admitted "
+            f"{float(led.admitted.sum()):g}")
+    fleet_turns("4g deadline width B", dw_runs)
+    dw_calls, dw_busy = profile_fleets("4g deadline profile B", dw_runs, dw_ms)
+    base_run, step_run, slack_run = dw_runs
+    if None not in dw_busy.values():
+        say(f"[4g deadline profile B] a slot of fleet B: the deadline step adds "
+            f"{dw_calls[step_run] - dw_calls[base_run]:.1f} aten calls and "
+            f"{dw_busy[step_run] - dw_busy[base_run]:.4f} ms of device time; SlackThreshold's "
+            f"score updates {dw_calls[slack_run] - dw_calls[step_run]:.1f} calls and "
+            f"{dw_busy[slack_run] - dw_busy[step_run]:.4f} ms more (profiler, 8 slots)")
+    say("[4g deadlines] launches over the phase's driven runs: " + ", ".join(
+        f"{k} {v}" for k, v in dl_counts.items() if v) + f" ({smi})")
+    del dw_res, fleet_b_dl, dl_base, dl_over, two_b
+
     # ---- 5. paper headline -----------------------------------------
     pspec = paper_spec().to(dev)
     uk = core.UKRegionalTraceSource(N=5).to(dev)
@@ -2395,6 +2677,28 @@ def main() -> int:
     say(f"[6 serve] M{M_MAIN}xN{N_MAIN} {T_SERVE} slots (warmup {rep.warmup}): decision latency "
         f"p50 {rep.p50_us:.1f} us, p95 {rep.p95_us:.1f} us, p99 {rep.p99_us:.1f} us; "
         f"{rep.tasks_per_sec:,.0f} tasks/sec; trajectory bitwise equal to simulate")
+    # deadline-aware serving: deadline 4, admission control on
+    serve_dl = dlm.make_deadlines(M_MAIN, device=dev, deadline=4.0, shed_on=1.0)
+    pol_dl = dlm.SlackThresholdPolicy(V=V_PAPER)
+    rep = serve_loop(pol_dl, spec_d, inst["carbon"], inst["arrivals"], T_SERVE, SEED, device=dev,
+                     deadlines=serve_dl)
+    ref = core.simulate(pol_dl, spec_d, inst["carbon"], inst["arrivals"], T_SERVE, SEED,
+                        record="full", device=dev, deadlines=serve_dl)
+    ref_backlog = torch.stack([torch.sum(ref.Qe[t]) + torch.sum(ref.Qc[t])
+                               for t in range(T_SERVE)]).cpu().numpy()
+    if not (np.array_equal(rep.emissions, ref.emissions.cpu().numpy())
+            and np.array_equal(rep.backlog, ref_backlog.astype(np.float64))
+            and torch.equal(rep.state.Qe, ref.Qe[-1]) and torch.equal(rep.state.Qc, ref.Qc[-1])
+            and torch.equal(rep.dstate.Qd, ref.deadlines.Qd[-1])
+            and rep.missed_total == float(ref.deadlines.missed.double().sum())
+            and rep.shed_total == float(ref.deadlines.shed.double().sum())):
+        fail("deadline-aware serve_loop trajectory differs from simulate on the card")
+    say(f"[6 serve] deadline-aware (deadline 4, shed on, SlackThreshold) M{M_MAIN}xN{N_MAIN} "
+        f"{T_SERVE} slots: decision latency p50 {rep.p50_us:.1f} us, p95 {rep.p95_us:.1f} us, "
+        f"p99 {rep.p99_us:.1f} us; {rep.tasks_per_sec:,.0f} tasks/sec; missed "
+        f"{rep.missed_total:g}, shed {rep.shed_total:g}; queue age p50/p95/p99 {rep.age_p50:g}/"
+        f"{rep.age_p95:g}/{rep.age_p99:g}, over the deadline {rep.age_over_deadline_frac:.3f}; "
+        "trajectory (queues, rings, counts) bitwise equal to simulate(deadlines=)")
 
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
     lm_cfg = registry.get_config(LM_ARCH)
@@ -2687,6 +2991,13 @@ def main() -> int:
                         8 * ft["draw_n"] / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations"} for ft in fleet_times.values()]
     rows[-1]["paths"] = fault_draw_times  # the fault stream's draw (phase 4f)
+    # the deadline layer's runs (phase 4g: the bench's rows and fleet B's
+    # width run) launch three of the kernels; the blackout rows' fault
+    # stream is threefry_draw's paths launches
+    for r in rows:
+        if r["name"] in ("carbon_scores", "greedy_fill", "threefry_draw"):
+            r["deadlines"] = {"launches": dl_counts.get(r["name"], 0)}
+    rows[-1]["deadlines"]["paths_launches"] = dl_counts.get("threefry_draw paths", 0)
 
     # PoissonArrivals at M4096 (no main path runs it): a slot's arrivals
     # are two chain draws (poisson's Knuth and rejection walks, the fold

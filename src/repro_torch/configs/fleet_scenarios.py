@@ -40,6 +40,10 @@ multi-region-uk-wan renders its table with the port's
 topology (generator `default_rng((seed, 1 + i, j))`, as the JAX
 function seeds them) into a FleetScenario whose stacked graph routes
 every lane through the transfer layer.
+
+The fault scenarios (`with_faults`) and the deadline scenarios
+(`with_deadlines`) add per-lane fault and deadline parameters to a
+fleet, each lane from its own numpy generator, bitwise JAX's.
 """
 from __future__ import annotations
 
@@ -310,3 +314,76 @@ def with_faults(fleet: FleetScenario, kind: str, seed: int = 0) -> FleetScenario
     L = None if fleet.graph is None else fleet.graph.bw.shape[-1]
     return fleet._replace(faults=stack_faults(
         gen(M, N, L, np.random.default_rng((seed, 9, j))) for j in range(fleet.F)))
+
+
+# Deadline scenarios (`repro_torch.deadlines`). Each generator returns one
+# lane's DeadlineParams (float32 tensors on the CPU) from an
+# instance-local numpy generator, drawing in the JAX generator's order,
+# so every lane's parameters are JAX's bit for bit; `with_deadlines`
+# stacks per-lane draws onto a fleet's `deadlines` axis.
+#
+#   * tight-uniform  -- every type a small finite deadline (2..6 extra
+#     slots) and a matching WaitAwhile window; shedding off.
+#   * mixed-slo      -- about half the types a tight deadline (1..4), the
+#     rest none; windows follow deadlines.
+#   * shed-overload  -- tight deadlines (2..4) with admission control on
+#     at 0.6 headroom: the graceful-degradation scenario (pair it with
+#     the "overload" arrivals).
+#   * generous-slack -- deadlines of 48..59 extra slots on 64 rings,
+#     wider than the waiting the benched policies induce.
+
+
+def tight_uniform(M: int, rng: np.random.Generator):
+    from repro_torch.deadlines import make_deadlines
+
+    d = rng.integers(2, 7, M).astype(np.float32)
+    return make_deadlines(M, device="cpu", deadline=d, window=d)
+
+
+def mixed_slo(M: int, rng: np.random.Generator):
+    from repro_torch.deadlines import make_deadlines
+
+    tight = rng.random(M) < 0.5
+    d = np.where(tight, rng.integers(1, 5, M).astype(np.float32), np.inf).astype(np.float32)
+    return make_deadlines(M, device="cpu", deadline=d, window=d)
+
+
+def shed_overload(M: int, rng: np.random.Generator):
+    from repro_torch.deadlines import make_deadlines
+
+    d = rng.integers(2, 5, M).astype(np.float32)
+    return make_deadlines(M, device="cpu", deadline=d, window=d, shed_on=1.0, headroom=0.6)
+
+
+def generous_slack(M: int, rng: np.random.Generator):
+    from repro_torch.deadlines import make_deadlines
+
+    d = rng.integers(48, 60, M).astype(np.float32)
+    return make_deadlines(M, D=64, device="cpu", deadline=d, window=d)
+
+
+DEADLINE_SCENARIOS: Dict[str, Callable] = {
+    "tight-uniform": tight_uniform,
+    "mixed-slo": mixed_slo,
+    "shed-overload": shed_overload,
+    "generous-slack": generous_slack,
+}
+
+
+def with_deadlines(fleet: FleetScenario, kind: str, seed: int = 0) -> FleetScenario:
+    """Attaches per-lane draws of a named deadline scenario to a fleet
+    (stacked on the `deadlines` axis, float32 tensors on the CPU until
+    `simulate_fleet` stages them). Lane j draws from
+    default_rng((seed, 11, j)), disjoint from the instance and fault
+    streams, so the same fleet is comparable with and without the
+    deadline layer."""
+    from repro_torch.deadlines import stack_deadlines
+
+    try:
+        gen = DEADLINE_SCENARIOS[kind]
+    except KeyError:
+        raise KeyError(f"unknown deadline scenario {kind!r}; registered: "
+                       f"{sorted(DEADLINE_SCENARIOS)}") from None
+    M = fleet.arrival_amax.shape[1]
+    return fleet._replace(deadlines=stack_deadlines(
+        gen(M, np.random.default_rng((seed, 11, j))) for j in range(fleet.F)))

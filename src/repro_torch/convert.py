@@ -7,8 +7,9 @@ and the port.
 parity tests use them to feed both packages the same numbers, and
 `queues_numpy` to read both packages' recorded queues.
 `key_from_reference` takes a JAX key's uint32 pair (`jax.random.key_data`),
-`fleet_from_reference` a JAX `FleetScenario`'s arrays, as numpy, and
-`faults_from_reference` a JAX `FaultParams` (stacked or not).
+`fleet_from_reference` a JAX `FleetScenario`'s arrays, as numpy,
+`faults_from_reference` a JAX `FaultParams` and `deadlines_from_reference`
+a JAX `DeadlineParams` (stacked or not).
 `params_from_reference` and `cache_from_reference` carry an LM's
 parameter and cache pytrees (nested dicts of arrays; a dense KV cache or
 an SSM state cache) over, leaf for leaf and bit for bit, bf16 included;
@@ -77,10 +78,11 @@ def fleet_from_reference(fleet) -> FleetScenario:
     read by field names. A stacked JAX graph comes across lane by lane
     (each validated by `make_graph`, then `stack_graphs`), the
     forecast-error lanes as float32, a fault axis as the port's
-    FaultParams on the CPU; a deadline axis is kept as it is, for
-    `simulate_fleet` to refuse by name."""
+    FaultParams and a deadline axis as its DeadlineParams, on the CPU."""
     f32 = lambda x: np.array(x, np.float32)  # noqa: E731
-    extra = {"deadlines": getattr(fleet, "deadlines", None)}
+    deadlines = getattr(fleet, "deadlines", None)
+    extra = {"deadlines": None if deadlines is None
+             else deadlines_from_reference(deadlines, device="cpu")}
     faults = getattr(fleet, "faults", None)
     extra["faults"] = None if faults is None else faults_from_reference(faults, device="cpu")
     for f in ("err_bias", "err_noise"):
@@ -106,6 +108,15 @@ def faults_from_reference(faults, device=DEFAULT_DEVICE):
     return FaultParams(*(None if getattr(faults, f) is None
                          else np.array(getattr(faults, f), np.float32)
                          for f in FaultParams._fields)).to(device)
+
+
+def deadlines_from_reference(deadlines, device=DEFAULT_DEVICE):
+    """The port's DeadlineParams of a JAX DeadlineParams (one lane or
+    stacked, numpy or jax leaves), read by field names."""
+    from repro_torch.deadlines import DeadlineParams
+
+    return DeadlineParams(*(np.array(getattr(deadlines, f), np.float32)
+                            for f in DeadlineParams._fields)).to(device)
 
 
 def queues_numpy(result) -> dict:

@@ -13,12 +13,16 @@
   oracle the vectorised policy must match.
 
 All policies share the signature
-    policy(state, spec, Ce, Cc, arrivals, key, *, fault_view=None) -> Action
+    policy(state, spec, Ce, Cc, arrivals, key, *, fault_view=None,
+           deadline_view=None) -> Action
 with `key` a threefry key, an int seed or the simulator's
 `rng.SlotKey` (see core.rng). The faulted simulator passes the slot's
 `fault_view` (a `repro_torch.faults.FaultView`); these policies are
 fault-blind and ignore it, as the JAX package's do
-(`faults.StalenessGuardPolicy` is the one that reads it). They run on the device of `state`; on the
+(`faults.StalenessGuardPolicy` is the one that reads it). The same goes
+for `deadline_view` (a `repro_torch.deadlines.DeadlineView`, passed by
+the deadline-threaded loops): urgency and deferral live in
+`repro_torch.deadlines.policy`. They run on the device of `state`; on the
 CPU the kernels are replaced by their plain versions. The state and
 spec may carry a leading lane axis (Qe [F, M], Qc [F, M, N], the spec's
 fields likewise, Ce [F], Cc [F, N]): the fleet's lanes, or V values
@@ -158,8 +162,8 @@ class CarbonIntensityPolicy:
         return _scalar(self.V, dev)
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
-                 arrivals=None, key=None, *, fault_view=None) -> Action:
-        del arrivals, key, fault_view
+                 arrivals=None, key=None, *, fault_view=None, deadline_view=None) -> Action:
+        del arrivals, key, fault_view, deadline_view
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
         c, n1, b = self._scores(state, pe, pc, Ce, Cc, self._V(dev))
@@ -215,8 +219,9 @@ class LookaheadDPPPolicy(CarbonIntensityPolicy):
         return Ce_eff, Cc_eff
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
-                 arrivals=None, key=None, forecast=None, *, fault_view=None) -> Action:
-        del fault_view
+                 arrivals=None, key=None, forecast=None, *, fault_view=None,
+                 deadline_view=None) -> Action:
+        del fault_view, deadline_view
         Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
         return super().__call__(state, spec, Ce_eff, Cc_eff, arrivals, key)
 
@@ -232,8 +237,8 @@ class QueueLengthPolicy:
     fill_chunk: int = 64
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
-                 arrivals=None, key=None, *, fault_view=None) -> Action:
-        del Ce, Cc, arrivals, key, fault_view
+                 arrivals=None, key=None, *, fault_view=None, deadline_view=None) -> Action:
+        del Ce, Cc, arrivals, key, fault_view, deadline_view
         pe, pc, Pe, Pc = spec.as_arrays(state.Qc.device)
         n1 = torch.argmin(state.Qc, dim=-1)
         scores = _stack_rows(torch.where(state.Qe > 0, -state.Qe, 1.0),
@@ -254,8 +259,8 @@ class RandomPolicy:
     (the slot folded in when `key` is the simulator's SlotKey)."""
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
-                 arrivals=None, key=0, *, fault_view=None) -> Action:
-        del Ce, Cc, arrivals, fault_view
+                 arrivals=None, key=0, *, fault_view=None, deadline_view=None) -> Action:
+        del Ce, Cc, arrivals, fault_view, deadline_view
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
         M, N = spec.M, spec.N

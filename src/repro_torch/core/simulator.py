@@ -11,12 +11,14 @@ Python bool), so the device never waits for the host to read a result.
 `graph=` routes the run through the WAN transfer layer
 (`repro_torch.network`); `forecaster=` threads a forecaster
 (`repro_torch.forecast`) through the loop and hands the policy its
-prediction; `faults=` runs the fault layer (`repro_torch.faults`).
+prediction; `faults=` runs the fault layer (`repro_torch.faults`);
+`deadlines=` threads the deadline layer (`repro_torch.deadlines`: age
+rings, expiry, admission shedding) through any of these loops.
 `simulate_vsweep` and `simulate_fleet` run the same loop over a leading
 lane axis (V values, or stacked scenarios, with a stacked WAN graph,
-forecast-error lanes and fault lanes), which every tensor of the slot
-carries. The telemetry / deadlines arguments of the JAX `simulate`
-belong to later slices of the port.
+forecast-error lanes, fault lanes and deadline lanes), which every
+tensor of the slot carries. The telemetry argument of the JAX
+`simulate` belongs to a later slice of the port and is refused.
 """
 from __future__ import annotations
 
@@ -103,6 +105,7 @@ class SimResult(NamedTuple):
     processed: torch.Tensor      # [T] total tasks processed
     energy_edge: torch.Tensor    # [T] edge energy spent
     energy_cloud: torch.Tensor   # [T, N] cloud energy spent
+    deadlines: object = None     # a deadlines.DeadlineLedger, or None
 
     # R depends on `record`: T for "full", 1 for "summary", T//k for a
     # stride k. Scalar series cover all T slots in every mode, and
@@ -121,9 +124,10 @@ def _bind(source, device):
 
 class SlotLoop(NamedTuple):
     """What one slot of the paper's loop needs: the policy, the spec on
-    the device, the sources, and the three keys `simulate` splits from
-    its key (carbon, arrivals, policy: `split(key, 3)`, on the device,
-    [..., 2] each, one per lane for a fleet), as the JAX loop does."""
+    the device, the sources, the three keys `simulate` splits from its
+    key (carbon, arrivals, policy: `split(key, 3)`, on the device, [..., 2]
+    each, one per lane for a fleet), as the JAX loop does, and the
+    deadline layer's parameters on the device (None when it is off)."""
 
     policy: Callable
     spec: NetworkSpec
@@ -131,9 +135,11 @@ class SlotLoop(NamedTuple):
     arrival_source: Callable
     keys: tuple
     device: torch.device
+    deadlines: object = None
 
 
-def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device) -> SlotLoop:
+def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device,
+                   deadlines=None) -> SlotLoop:
     device = resolve_device(device)
     ks = R.split(rng.key_of(key, device), 3)
     return SlotLoop(
@@ -143,7 +149,52 @@ def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device) -> 
         arrival_source=_bind(arrival_source, device),
         keys=tuple(ks[..., i, :].contiguous() for i in range(3)),
         device=device,
+        deadlines=None if deadlines is None else deadlines.to(device),
     )
+
+
+def refuse_telemetry(telemetry, where: str) -> None:
+    """The telemetry layer is not ported: a run that asks for it raises."""
+    if telemetry is not None:
+        raise NotImplementedError(
+            f"{where}(telemetry=...): repro_torch has no telemetry layer yet (ROADMAP Queue 1 "
+            f"item {_NOT_PORTED['telemetry']})")
+
+
+class DeadlineTape:
+    """The deadline layer's record over a run of T slots: the missed,
+    shed and admitted counts a slot ([*lanes, T]) and the age rings at
+    the end of every `stride`-th slot ([*lanes, T // stride, M, D]), as
+    the JAX loops record them; `ledger()` is the result's `deadlines`."""
+
+    def __init__(self, lanes: tuple, M: int, D: int, T: int, stride: int, device):
+        zeros = lambda *shape: torch.zeros(lanes + shape, dtype=DTYPE, device=device)  # noqa: E731
+        self.missed, self.shed, self.admitted = zeros(T), zeros(T), zeros(T)
+        self.Qd = zeros(T // stride, M, D)
+        self.stride = stride
+
+    def put(self, t: int, expired, shed, admitted, Qd) -> None:
+        """Slot t's counts [..., M] and its post-step rings."""
+        self.missed[..., t] = torch.sum(expired, dim=-1)
+        self.shed[..., t] = torch.sum(shed, dim=-1)
+        self.admitted[..., t] = torch.sum(admitted, dim=-1)
+        if (t + 1) % self.stride == 0:
+            self.Qd[..., (t + 1) // self.stride - 1, :, :] = Qd
+
+    def ledger(self):
+        from repro_torch.deadlines.model import DeadlineLedger
+
+        return DeadlineLedger(missed=self.missed, shed=self.shed, admitted=self.admitted,
+                              Qd=self.Qd)
+
+
+def start_deadlines(params, M: int, lanes: tuple, T: int, record, device):
+    """The deadline carry (empty rings, a cold estimator; one a lane) and
+    the tape of a run, for `params` already on `device`."""
+    from repro_torch.deadlines.model import init_deadlines
+
+    dstate = init_deadlines(M, params.D, device, F=lanes[0] if lanes else None)
+    return dstate, DeadlineTape(lanes, M, params.D, T, record_stride(record, T), device)
 
 
 def init_forecaster_carry(forecaster, N, key, carbon_source, error_params, device):
@@ -177,20 +228,58 @@ class ForecastFeed:
         return self.forecaster.predict(self.carry, t)
 
 
-def slot_step(loop: SlotLoop, state: NetworkState, t: int, feed: ForecastFeed | None = None):
+class Slot(NamedTuple):
+    """What one slot of `slot_step` leaves: the next state, the action,
+    the arrivals and C(t); with the deadline layer also its next carry
+    and the slot's expired, shed and admitted counts [..., M]."""
+
+    state: NetworkState
+    act: object
+    a: torch.Tensor
+    C: torch.Tensor
+    dstate: object = None
+    expired: torch.Tensor | None = None
+    shed: torch.Tensor | None = None
+    admitted: torch.Tensor | None = None
+
+
+def deadline_edge(params, dstate, Qe, d_sum, a):
+    """The deadline step and the edge queue's update it gives, as every
+    deadline-threaded loop of the JAX package writes it: (next Qe, next
+    carry, expired, shed, admitted), Qe' = max(Qe - d_sum, 0) + admitted -
+    expired in that order (bitwise `+ a` under `no_deadlines`)."""
+    from repro_torch.deadlines.model import step_deadlines
+
+    dstate, admitted, expired, shed = step_deadlines(params, dstate, d_sum, a)
+    return torch.clamp_min(Qe - d_sum, 0.0) + admitted - expired, dstate, expired, shed, admitted
+
+
+def slot_step(loop: SlotLoop, state: NetworkState, t: int, feed: ForecastFeed | None = None,
+              dstate=None) -> Slot:
     """One slot: observe, act, account, step. The body both `simulate`
     and `serve.loop.make_serve_step` run, so their trajectories are
     bitwise equal. The policy gets its key `fold_in(k_policy, t)` as a
     `rng.SlotKey`, computed only by a policy that draws, and, with a
-    forecast `feed`, the forecast of slot t. Returns (next state,
-    action, arrivals, C(t))."""
+    forecast `feed`, the forecast of slot t. With the loop's deadline
+    layer, `dstate` is its carry: the policy gets the slot's
+    `deadline_view=` and the edge queue takes admitted - expired in
+    place of the arrivals (`deadline_edge`)."""
     k_carbon, k_arrive, k_policy = loop.keys
     Ce, Cc = loop.carbon_source(t, k_carbon, loop.device)
     a = loop.arrival_source(t, k_arrive, loop.device)
     kw = {} if feed is None else {"forecast": feed(Ce, Cc, t)}
+    if loop.deadlines is not None:
+        from repro_torch.deadlines.model import deadline_view
+
+        kw["deadline_view"] = deadline_view(loop.deadlines, dstate)
     act = loop.policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t), **kw)
     C_t = emissions(loop.spec, act, Ce, Cc)
-    return step(state, act, a), act, a, C_t
+    if loop.deadlines is None:
+        return Slot(step(state, act, a), act, a, C_t)
+    Qe, dstate, expired, shed, admitted = deadline_edge(loop.deadlines, dstate, state.Qe,
+                                                        torch.sum(act.d, dim=-1), a)
+    nxt = NetworkState(Qe=Qe, Qc=torch.clamp_min(state.Qc - act.w, 0.0) + act.d)
+    return Slot(nxt, act, a, C_t, dstate, expired, shed, admitted)
 
 
 def record_stride(record, T: int) -> int:
@@ -223,6 +312,8 @@ def simulate(
     forecaster=None,
     error_params=None,
     faults=None,
+    telemetry=None,
+    deadlines=None,
 ) -> SimResult:
     """Runs the network for T slots under `policy` on `device`.
 
@@ -258,20 +349,32 @@ def simulate(
     and a `fault_view=` keyword, and the result is a FaultSimResult
     (NetFaultSimResult with a graph). With `no_faults(...)` it is
     bitwise this loop's.
+
+    When `deadlines` (a `repro_torch.deadlines.DeadlineParams`) is given,
+    the age rings and the rate estimate join the loop: the policy gets
+    each slot's `deadline_view=`, overdue tasks expire, admission control
+    may shed arrivals, and the result's `deadlines` is a DeadlineLedger
+    (missed, shed and admitted a slot, and the rings `Qd` recorded as
+    `record` says). With `no_deadlines(M)` every other field is bitwise
+    the run without it. It composes with `graph`, `faults` and
+    `forecaster`. `telemetry` is not ported and raises.
     """
+    refuse_telemetry(telemetry, "simulate")
     if graph is not None:
         from repro_torch.network.sim import simulate_network
 
         return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, key,
                                 state0=state0, record=record, device=device,
-                                forecaster=forecaster, error_params=error_params, faults=faults)
+                                forecaster=forecaster, error_params=error_params, faults=faults,
+                                deadlines=deadlines)
     if faults is not None:
         from repro_torch.faults.sim import simulate_faulted
 
         return simulate_faulted(policy, spec, faults, carbon_source, arrival_source, T, key,
                                 state0=state0, record=record, device=device,
-                                forecaster=forecaster, error_params=error_params)
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
+                                forecaster=forecaster, error_params=error_params,
+                                deadlines=deadlines)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
     dev = loop.device
     state = init_state(spec.M, spec.N, device=dev) if state0 is None else NetworkState(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
@@ -295,13 +398,20 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> Si
     C, disp, proc, ee = zeros(T), zeros(T), zeros(T), zeros(T)
     ec = zeros(T, N)
     Qe_rec, Qc_rec = zeros(R_, M), zeros(R_, M, N)
+    dstate = tape = None
+    if loop.deadlines is not None:
+        dstate, tape = start_deadlines(loop.deadlines, M, lanes, T, record, dev)
     for t in range(T):
-        state, act, _, C_t = slot_step(loop, state, t, feed)
-        C[..., t] = C_t
+        s = slot_step(loop, state, t, feed, dstate)
+        state, act = s.state, s.act
+        C[..., t] = s.C
         disp[..., t] = torch.sum(act.d, dim=(-2, -1))
         proc[..., t] = torch.sum(act.w, dim=(-2, -1))
         ee[..., t] = torch.sum(act.d * pe[..., :, None], dim=(-2, -1))
         ec[..., t, :] = torch.sum(act.w * pc, dim=-2)
+        if tape is not None:
+            dstate = s.dstate
+            tape.put(t, s.expired, s.shed, s.admitted, dstate.Qd)
         if (t + 1) % stride == 0:
             r = (t + 1) // stride - 1
             Qe_rec[..., r, :] = state.Qe
@@ -315,6 +425,7 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> Si
         processed=proc,
         energy_edge=ee,
         energy_cloud=ec,
+        deadlines=None if tape is None else tape.ledger(),
     )
 
 
@@ -368,9 +479,10 @@ class FleetScenario(NamedTuple):
     lane through the WAN transfer layer; `err_bias` / `err_noise` [F]
     override each lane's ForecastErrorModel (`sweep_forecast_errors`);
     `faults`, a stacked `faults.FaultParams` (`configs.fleet_scenarios.
-    with_faults`), runs every lane through the fault layer. The JAX
-    FleetScenario's deadlines axis is a field too; `simulate_fleet`
-    refuses it until its layer is ported."""
+    with_faults`), runs every lane through the fault layer; `deadlines`,
+    a stacked `deadlines.DeadlineParams` (`configs.fleet_scenarios.
+    with_deadlines`; every lane its own parameters, D shared), runs every
+    lane through the deadline layer."""
 
     spec: FleetSpec
     carbon: object        # [F, Tc, N+1] intensity playback tables
@@ -386,16 +498,18 @@ class FleetScenario(NamedTuple):
         return self.arrival_amax.shape[0]
 
     def to(self, device) -> "FleetScenario":
-        """The spec, tables, caps, graph, forecast-error and fault lanes
-        as tensors on `device` (deadlines as they are), so a run copies
-        nothing from the host."""
+        """The spec, tables, caps, graph, forecast-error, fault and
+        deadline lanes as tensors on `device`, so a run copies nothing
+        from the host."""
         opt = lambda x: None if x is None else _f32_on(x, device)  # noqa: E731
         return self._replace(spec=FleetSpec(*(_f32_on(x, device) for x in self.spec)),
                              carbon=_f32_on(self.carbon, device),
                              arrival_amax=_f32_on(self.arrival_amax, device),
                              graph=None if self.graph is None else self.graph.to(device),
                              err_bias=opt(self.err_bias), err_noise=opt(self.err_noise),
-                             faults=None if self.faults is None else self.faults.to(device))
+                             faults=None if self.faults is None else self.faults.to(device),
+                             deadlines=None if self.deadlines is None
+                             else self.deadlines.to(device))
 
 
 def _f32_on(x, device) -> torch.Tensor:
@@ -443,10 +557,9 @@ def sweep_forecast_errors(fleet: FleetScenario, bias, noise) -> FleetScenario:
     )
 
 
-# the layers a FleetScenario or simulate_fleet may name that the port
-# does not have yet, with the ROADMAP Queue 1 item that brings each
+# the layers the JAX simulators take that the port does not have yet,
+# with the ROADMAP Queue 1 item that brings each
 _NOT_PORTED = {
-    "deadlines": "2.5 (deadlines)",
     "telemetry": "2.6 (telemetry)",
 }
 
@@ -474,16 +587,14 @@ def simulate_fleet(
     every lane through the fault layer, its fault stream
     fold_in(k_f, FAULT_STREAM_SALT) and all lanes' fault uniforms one
     draw a slot (a FaultSimResult, or NetFaultSimResult with a graph);
-    `forecaster` threads one
+    a fleet with a deadline axis runs every lane through the deadline
+    layer, with that lane's parameters (its result's `deadlines` a
+    DeadlineLedger with a leading [F] axis); `forecaster` threads one
     forecaster through every lane (each lane's table and carbon key, and
     with `err_bias`/`err_noise` its own error parameters), as `simulate`
     does. Every result field has a leading [F] axis; `record` works as
     in `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N])."""
-    for name, value in (("deadlines", fleet.deadlines), ("telemetry", telemetry)):
-        if value is not None:
-            raise NotImplementedError(
-                f"simulate_fleet: {name}= needs a layer repro_torch does not have yet "
-                f"(ROADMAP Queue 1 item {_NOT_PORTED[name]})")
+    refuse_telemetry(telemetry, "simulate_fleet")
     dev = resolve_device(device)
     fleet = fleet.to(dev)
     spec = NetworkSpec(*fleet.spec)
@@ -496,14 +607,14 @@ def simulate_fleet(
 
         return simulate_network(policy, spec, fleet.graph, carbon, arrivals, T, keys,
                                 record=record, device=dev, forecaster=forecaster,
-                                error_params=err, faults=fleet.faults)
+                                error_params=err, faults=fleet.faults, deadlines=fleet.deadlines)
     if fleet.faults is not None:
         from repro_torch.faults.sim import simulate_faulted
 
         return simulate_faulted(policy, spec, fleet.faults, carbon, arrivals, T, keys,
                                 record=record, device=dev, forecaster=forecaster,
-                                error_params=err)
-    loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev)
+                                error_params=err, deadlines=fleet.deadlines)
+    loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev, fleet.deadlines)
     feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, err)
     return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record, feed)
 

@@ -16,9 +16,11 @@ NetworkAwareDPPPolicy):
     dispatch stops when every cloud is down. Dead WAN routes get the same
     through the Qt term when the view has links.
 
-With a fresh signal and no outage both adjustments are exact identities
-(V * 1.0, Qc + 0.0), so the guard is bitwise its inner policy under zero
-faults.
+A `deadline_view` goes on to the inner policy after the decay, so a
+deadline-aware inner policy (`deadlines.SlackThresholdPolicy`) escalates
+from V_eff. With a fresh signal and no outage both adjustments are exact
+identities (V * 1.0, Qc + 0.0), so the guard is bitwise its inner policy
+under zero faults.
 
 Rounding follows XLA:CPU inside the simulator's scan, where the division
 by the constant s0 becomes a multiply by its float32 reciprocal,
@@ -61,7 +63,7 @@ class StalenessGuardPolicy:
                 f"got {type(self.inner).__name__}")
 
     def __call__(self, state, spec, Ce, Cc, arrivals=None, key=None, *, fault_view=None,
-                 forecast=None, graph=None, Qt=None):
+                 forecast=None, graph=None, Qt=None, deadline_view=None):
         inner = self.inner
         if fault_view is not None:
             dev = state.Qc.device
@@ -76,6 +78,10 @@ class StalenessGuardPolicy:
             if Qt is not None and fault_view.link_on is not None:
                 Qt = Qt + big * (1.0 - fault_view.link_on)[..., None, :]
         kwargs = {} if forecast is None else {"forecast": forecast}
+        if deadline_view is not None:
+            # deadline urgency composes with the decay: a deadline-aware
+            # inner policy escalates from the decayed V
+            kwargs["deadline_view"] = deadline_view
         if graph is not None:
             return inner(state, spec, Ce, Cc, arrivals, key, graph=graph, Qt=Qt, **kwargs)
         return inner(state, spec, Ce, Cc, arrivals, key, **kwargs)

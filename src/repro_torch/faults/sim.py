@@ -26,6 +26,12 @@ Slot order (the fault hooks around the fault-free order):
 Conservation, per slot and exact in float32 integral counts:
   cum(arrived) = Qe + Qc [+ Qt] + retry + cum(processed) - cum(failed).
 
+With `deadlines=` the deadline layer runs in both loops as in the
+fault-free ones; its clock runs on edge waiting, so outages that starve
+dispatch show up as expiries (or, with shedding on, as sheds), and the
+retry pool, already dispatched, never expires. Conservation then adds
+cum(missed) + cum(shed) to the right-hand side.
+
 The fault stream is `fold_in(key, FAULT_STREAM_SALT)`, then each slot
 `fold_in(., t)` split two ways (`model.fault_draws`), so the carbon,
 arrival and policy streams are the fault-free run's bitwise. As in the
@@ -41,7 +47,15 @@ import torch
 from repro_torch import random as R
 from repro_torch.core import rng
 from repro_torch.core.queueing import DTYPE, Action, NetworkSpec, NetworkState, emissions, init_state
-from repro_torch.core.simulator import ForecastFeed, SlotLoop, make_slot_loop, record_stride
+from repro_torch.core.simulator import (
+    ForecastFeed,
+    SlotLoop,
+    deadline_edge,
+    make_slot_loop,
+    record_stride,
+    refuse_telemetry,
+    start_deadlines,
+)
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.faults.model import (
     FAULT_STREAM_SALT,
@@ -76,7 +90,7 @@ class FaultSimResult(NamedTuple):
     clouds_down: torch.Tensor    # [T] clouds with zero capacity this slot
     backlog: torch.Tensor        # [T] Qe + Qc + retry totals (post-step)
     telemetry: object = None     # the telemetry layer is not ported yet
-    deadlines: object = None     # the deadline layer is not ported yet
+    deadlines: object = None     # a deadlines.DeadlineLedger, or None
 
     @property
     def final_backlog(self) -> torch.Tensor:
@@ -106,8 +120,8 @@ class NetFaultSimResult(NamedTuple):
     clouds_down: torch.Tensor    # [T]
     links_down: torch.Tensor     # [T] routes with zero bandwidth this slot
     backlog: torch.Tensor        # [T] Qe + Qc + Qt + retry (post-step)
-    telemetry: object = None
-    deadlines: object = None
+    telemetry: object = None     # the telemetry layer is not ported yet
+    deadlines: object = None     # a deadlines.DeadlineLedger, or None
 
     @property
     def final_backlog(self) -> torch.Tensor:
@@ -126,8 +140,9 @@ def _total(x: torch.Tensor, dims: int) -> torch.Tensor:
 
 class _Faulted:
     """What both faulted loops share: the loop, its fault stream and
-    carry, the recorder of every series and queue, and the slot's fault
-    step up to the policy's call."""
+    carry, the deadline carry and tape when the loop has the layer, the
+    recorder of every series and queue, and the slot's fault step up to
+    the policy's call."""
 
     def __init__(self, loop: SlotLoop, faults: FaultParams, key, state0, T: int, record,
                  forecaster, error_params, L=None, extra_series=(), extra_queues=()):
@@ -155,6 +170,10 @@ class _Faulted:
                        "retry": zeros(R_, self.M, self.N)}
         for n, width in extra_queues:
             self.queues[n] = zeros(R_, self.M, width)
+        self.dstate = self.tape = None
+        if loop.deadlines is not None:
+            self.dstate, self.tape = start_deadlines(loop.deadlines, self.M, self.lanes, T,
+                                                     record, dev)
 
     def observe(self, t: int):
         """Carbon, arrivals and the fault step of slot t: (Ce, Cc, a,
@@ -171,7 +190,25 @@ class _Faulted:
         kw = {"fault_view": view}
         if self.feed is not None:
             kw["forecast"] = self.feed(obs_Ce, obs_Cc, t)
+        if self.tape is not None:
+            from repro_torch.deadlines.model import deadline_view
+
+            kw["deadline_view"] = deadline_view(loop.deadlines, self.dstate)
         return Ce, Cc, a, view, spec_t, obs_Ce, obs_Cc, kw
+
+    def edge(self, t: int, d_sum, a):
+        """The edge queue after slot t: its dispatches out and the
+        arrivals in, through the deadline layer when the loop has it."""
+        Qe = self.state.Qe
+        if self.tape is None:
+            return torch.clamp_min(Qe - d_sum, 0.0) + a
+        Qe, self.dstate, expired, shed, admitted = deadline_edge(self.loop.deadlines, self.dstate,
+                                                                 Qe, d_sum, a)
+        self.tape.put(t, expired, shed, admitted, self.dstate.Qd)
+        return Qe
+
+    def ledger(self):
+        return None if self.tape is None else self.tape.ledger()
 
     def fail(self, w_eff):
         self.fs, failed = requeue_failed(self.fs, self.faults, w_eff, self.u.fail)
@@ -192,13 +229,15 @@ class _Faulted:
 def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
                      carbon_source: Callable, arrival_source: Callable, T: int, key=0,
                      state0: NetworkState | None = None, record: str | int = "full",
-                     device=DEFAULT_DEVICE, forecaster=None, error_params=None
-                     ) -> FaultSimResult:
+                     device=DEFAULT_DEVICE, forecaster=None, error_params=None,
+                     telemetry=None, deadlines=None) -> FaultSimResult:
     """The link-free faulted run on `device`; see the module docstring for
-    the slot order. `record`, `forecaster` and `error_params` work as in
-    `core.simulate`; the forecaster sees what the telemetry feed delivers
-    (the frozen row during dropouts)."""
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
+    the slot order. `record`, `forecaster`, `error_params` and
+    `deadlines` work as in `core.simulate`; the forecaster sees what the
+    telemetry feed delivers (the frozen row during dropouts). The
+    telemetry layer is not ported and raises."""
+    refuse_telemetry(telemetry, "simulate_faulted")
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
     run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params)
     _, _, k_policy = loop.keys
     pe, pc = run.pe, run.pc
@@ -208,10 +247,9 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
         w_eff = act.w * view.cloud_on[..., None, :]
         C_t = emissions(loop.spec, Action(d=act.d, w=w_eff), Ce, Cc)
         failed = run.fail(w_eff)
-        state = run.state
         run.state = NetworkState(
-            Qe=torch.clamp_min(state.Qe - torch.sum(act.d, dim=-1), 0.0) + a,
-            Qc=torch.clamp_min(state.Qc - w_eff, 0.0) + act.d + view.released,
+            Qe=run.edge(t, torch.sum(act.d, dim=-1), a),
+            Qc=torch.clamp_min(run.state.Qc - w_eff, 0.0) + act.d + view.released,
         )
         run.put(t, emissions=C_t, arrived=torch.sum(a, dim=-1),
                 dispatched=_total(act.d, 2), processed=_total(w_eff, 2),
@@ -230,17 +268,19 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
         arrived=s["arrived"], dispatched=s["dispatched"], processed=s["processed"],
         energy_edge=s["energy_edge"], energy_cloud=s["energy_cloud"],
         failed=s["failed"], requeued=s["requeued"], wasted=s["wasted"], stale=s["stale"],
-        clouds_down=s["clouds_down"], backlog=s["backlog"],
+        clouds_down=s["clouds_down"], backlog=s["backlog"], deadlines=run.ledger(),
     )
 
 
 def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults: FaultParams,
                              carbon_source: Callable, arrival_source: Callable, T: int, key=0,
                              state0: NetworkState | None = None, record: str | int = "full",
-                             device=DEFAULT_DEVICE, forecaster=None, error_params=None
-                             ) -> NetFaultSimResult:
+                             device=DEFAULT_DEVICE, forecaster=None, error_params=None,
+                             telemetry=None, deadlines=None) -> NetFaultSimResult:
     """The WAN faulted run: link flaps scale each route's bandwidth in
-    `step_links`; everything else is `simulate_faulted`'s."""
+    `step_links`; everything else is `simulate_faulted`'s (the deadline
+    clock runs on edge waiting, before link injection)."""
+    refuse_telemetry(telemetry, "simulate_network_faulted")
     from repro_torch.network.transfer import (
         init_links,
         land_in_clouds,
@@ -253,7 +293,7 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
         raise ValueError(
             "network fault runs need link fields: build the FaultParams with "
             f"L={graph.L} (make_faults(N, L=...)) so the flap chain matches the graph")
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
     g = graph.to(loop.device)
     run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params, L=g.L,
                    extra_series=("delivered", "energy_transfer", "links_down"),
@@ -270,10 +310,9 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
         links, delivered = step_links(links, g, act.dt, bw_scale=view.bw_scale)
         land = land_in_clouds(delivered, g, run.N)
         failed = run.fail(w_eff)
-        state = run.state
         run.state = NetworkState(
-            Qe=torch.clamp_min(state.Qe - torch.sum(act.dt, dim=-1), 0.0) + a,
-            Qc=torch.clamp_min(state.Qc - w_eff, 0.0) + land + view.released,
+            Qe=run.edge(t, torch.sum(act.dt, dim=-1), a),
+            Qc=torch.clamp_min(run.state.Qc - w_eff, 0.0) + land + view.released,
         )
         run.put(t, emissions=C_t, arrived=torch.sum(a, dim=-1),
                 dispatched=_total(act.dt, 2), delivered=_total(delivered, 2),
@@ -296,4 +335,5 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
         energy_transfer=s["energy_transfer"], energy_cloud=s["energy_cloud"],
         failed=s["failed"], requeued=s["requeued"], wasted=s["wasted"], stale=s["stale"],
         clouds_down=s["clouds_down"], links_down=s["links_down"], backlog=s["backlog"],
+        deadlines=run.ledger(),
     )

@@ -17,9 +17,10 @@
   its dispatches shipped down the graph's primary routes.
 
 Both are called as policy(state, spec, Ce, Cc, arrivals, key, *, graph,
-Qt, fault_view=None) with `graph` staged on the state's device, and
-return a NetAction; both ignore the fault view (the JAX package's are
-fault-blind too).
+Qt, fault_view=None, deadline_view=None) with `graph` staged on the
+state's device, and return a NetAction; both ignore the fault view (the
+JAX package's are fault-blind too), and StaticRoute hands the deadline
+view to its inner policy.
 The state, spec, intensities, graph and Qt may carry a leading lane axis
 (the WAN fleet: Qt [F, M, L], the graph from `stack_graphs`): each lane
 gathers through its own dest, region and primary routes, and
@@ -88,8 +89,9 @@ class NetworkAwareDPPPolicy(LookaheadDPPPolicy):
             return ops.route_scores(Qt, graph.pt, Qcr, extra, state.Qe, pe, VCt, V * Ce)
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
-                 key=None, *, graph: LinkGraph, Qt, forecast=None, fault_view=None) -> NetAction:
-        del arrivals, key, fault_view
+                 key=None, *, graph: LinkGraph, Qt, forecast=None, fault_view=None,
+                 deadline_view=None) -> NetAction:
+        del arrivals, key, fault_view, deadline_view
         Ce_eff, Cc_eff = self.effective_intensities(Ce, Cc, forecast)
         dev = state.Qc.device
         pe, pc, Pe, Pc = spec.as_arrays(dev)
@@ -113,8 +115,11 @@ class StaticRoutePolicy:
     inner: Callable
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc, arrivals=None,
-                 key=None, *, graph: LinkGraph, Qt, forecast=None, fault_view=None) -> NetAction:
+                 key=None, *, graph: LinkGraph, Qt, forecast=None, fault_view=None,
+                 deadline_view=None) -> NetAction:
         del Qt, fault_view  # the inner policy sees the fair-weather network
         kwargs = {} if forecast is None else {"forecast": forecast}
+        if deadline_view is not None:
+            kwargs["deadline_view"] = deadline_view
         act = self.inner(state, spec, Ce, Cc, arrivals, key, **kwargs)
         return NetAction(dt=_add_at(act.d, graph.primary, graph.L), w=act.w)

@@ -20,7 +20,9 @@ deliveries equal dispatches in the same slot and the transfer term is
 Every tensor may carry a leading lane axis (`core.simulate_fleet` on a
 fleet with a stacked graph: the spec, the graph, the state and the keys
 [F, ...]); the result's fields are then [F, ...], as JAX's vmap stacks
-them. A forecaster threads through the loop as in `simulate`.
+them. A forecaster threads through the loop as in `simulate`, and so
+does the deadline layer (`deadlines=`), whose clock runs on edge
+waiting: a task stops aging once it is put onto a link.
 """
 from __future__ import annotations
 
@@ -30,7 +32,14 @@ import torch
 
 from repro_torch.core import rng
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, init_state
-from repro_torch.core.simulator import ForecastFeed, make_slot_loop, record_stride
+from repro_torch.core.simulator import (
+    ForecastFeed,
+    deadline_edge,
+    make_slot_loop,
+    record_stride,
+    refuse_telemetry,
+    start_deadlines,
+)
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.network.graph import LinkGraph
 from repro_torch.network.transfer import (
@@ -54,6 +63,7 @@ class NetSimResult(NamedTuple):
     energy_edge: torch.Tensor      # [T] edge dispatch energy
     energy_transfer: torch.Tensor  # [T] WAN transfer energy
     energy_cloud: torch.Tensor     # [T, N] cloud compute energy
+    deadlines: object = None       # a deadlines.DeadlineLedger, or None
 
     # R depends on `record` as in SimResult: T for "full", 1 for
     # "summary", T//k for a stride k. A fleet adds a leading [F] axis to
@@ -89,26 +99,23 @@ def simulate_network(
     updates the forecaster and the policy gets its [H, N+1] prediction
     as `forecast=`; emissions are accounted at the true intensities.
     `faults` (a FaultParams with link fields) runs the fault layer
-    (`faults.simulate_network_faulted`, a NetFaultSimResult). The
-    telemetry and deadlines layers of the JAX simulator are not ported
-    yet and raise NotImplementedError."""
-    for name, value, layer in (("telemetry", telemetry, "telemetry"),
-                               ("deadlines", deadlines, "deadlines")):
-        if value is not None:
-            raise NotImplementedError(
-                f"simulate_network({name}=...): repro_torch has no {layer} layer yet; it comes "
-                f"with the port's {layer} slice"
-            )
+    (`faults.simulate_network_faulted`, a NetFaultSimResult).
+    `deadlines` (a DeadlineParams) threads the deadline layer as in
+    `simulate`: the policy gets `deadline_view=`, the edge queue takes
+    admitted - expired for the arrivals, and the result's `deadlines` is
+    the ledger. The telemetry layer of the JAX simulator is not ported
+    and raises NotImplementedError."""
+    refuse_telemetry(telemetry, "simulate_network")
     if faults is not None:
         from repro_torch.faults.sim import simulate_network_faulted
 
         return simulate_network_faulted(policy, spec, graph, faults, carbon_source,
                                         arrival_source, T, key, state0=state0, record=record,
                                         device=device, forecaster=forecaster,
-                                        error_params=error_params)
+                                        error_params=error_params, deadlines=deadlines)
     stride = record_stride(record, T)
     R = T // stride
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
     dev = loop.device
     g = graph.to(dev)
     M, N, L = loop.spec.M, loop.spec.N, g.L
@@ -125,19 +132,29 @@ def simulate_network(
     C, disp, deliv, proc, ee, et = (zeros(T) for _ in range(6))
     ec = zeros(T, N)
     Qe_rec, Qc_rec, Qt_rec = zeros(R, M), zeros(R, M, N), zeros(R, M, L)
+    dl = loop.deadlines
+    if dl is not None:
+        from repro_torch.deadlines.model import deadline_view
+
+        dstate, tape = start_deadlines(dl, M, lanes, T, record, dev)
     for t in range(T):
         Ce, Cc = loop.carbon_source(t, k_carbon, dev)
         a = loop.arrival_source(t, k_arrive, dev)
         kw = {} if feed is None else {"forecast": feed(Ce, Cc, t)}
+        if dl is not None:
+            kw["deadline_view"] = deadline_view(dl, dstate)
         act = policy(state, loop.spec, Ce, Cc, a, rng.SlotKey(k_policy, t), graph=g, Qt=links.Qt,
                      **kw)
         C[..., t] = network_emissions(loop.spec, g, act, Ce, Cc)
         links, delivered = step_links(links, g, act.dt)
         land = land_in_clouds(delivered, g, N)
-        state = NetworkState(
-            Qe=torch.clamp_min(state.Qe - torch.sum(act.dt, dim=-1), 0.0) + a,
-            Qc=torch.clamp_min(state.Qc - act.w, 0.0) + land,
-        )
+        d_sum = torch.sum(act.dt, dim=-1)
+        if dl is None:
+            Qe = torch.clamp_min(state.Qe - d_sum, 0.0) + a
+        else:
+            Qe, dstate, expired, shed, admitted = deadline_edge(dl, dstate, state.Qe, d_sum, a)
+            tape.put(t, expired, shed, admitted, dstate.Qd)
+        state = NetworkState(Qe=Qe, Qc=torch.clamp_min(state.Qc - act.w, 0.0) + land)
         disp[..., t] = torch.sum(act.dt, dim=(-2, -1))
         deliv[..., t] = torch.sum(delivered, dim=(-2, -1))
         proc[..., t] = torch.sum(act.w, dim=(-2, -1))
@@ -161,4 +178,5 @@ def simulate_network(
         energy_edge=ee,
         energy_transfer=et,
         energy_cloud=ec,
+        deadlines=None if dl is None else tape.ledger(),
     )

@@ -1,10 +1,12 @@
 """Serving loop: slots decided one at a time as they land (counterpart
-of `repro.serve.loop`, without the deadline layer).
+of `repro.serve.loop`).
 
 `make_serve_step` returns the one serving step, which runs the same
 per-slot body as `core.simulator.simulate` (`slot_step`, the same
 `split(key, 3)`), so driving it over t = 0..T-1 reproduces the batch trajectory
-bitwise. `serve_loop` drives it from the host and times every decision:
+bitwise, with the deadline layer too (`deadlines=`: the carried state is
+then the pair (NetworkState, DeadlineState)). `serve_loop` drives it
+from the host and times every decision:
 the wall time of one step, with `torch.cuda.synchronize()` before the
 clock is read again, so a latency covers the device work and not only
 its enqueueing. Percentiles (p50/p95/p99, `np.percentile` linear
@@ -15,7 +17,10 @@ The clock is injectable (`clock=`) and is called once before the loop,
 twice per slot and once after, so tests get deterministic histograms.
 Every `flush_every` slots the JSONL event log grows one `slot` event per
 slot and the Prometheus snapshot is rewritten; `close` appends the
-terminal `summary` event, computed from the same per-slot values.
+terminal `summary` event, computed from the same per-slot values. A
+deadline-aware run adds each slot's missed and shed counts to the events,
+the totals and the report, and reads the queue-age percentiles against
+the tightest configured deadline.
 """
 from __future__ import annotations
 
@@ -63,9 +68,14 @@ class ServeReport(NamedTuple):
     queue_age: np.ndarray   # [slots] oldest unserved task's age
     emissions: np.ndarray   # [slots] C(t), float32 as the device computed it
     state: NetworkState     # the queues after the last slot, on the device
-    age_p50: float = 0.0    # queue-age percentiles over all slots
-    age_p95: float = 0.0
+    # deadline-aware serving (0.0 when `deadlines` is off):
+    missed_total: float = 0.0  # tasks expired past their deadline
+    shed_total: float = 0.0    # arrivals rejected by admission control
+    age_p50: float = 0.0       # queue-age percentiles over all slots, read
+    age_p95: float = 0.0       #   against the configured deadline
     age_p99: float = 0.0
+    age_over_deadline_frac: float = 0.0  # slots with age > the least deadline
+    dstate: object = None      # the deadline carry after the last slot, or None
 
 
 def latency_percentiles(lat_us) -> tuple:
@@ -77,23 +87,35 @@ def latency_percentiles(lat_us) -> tuple:
 
 
 def make_serve_step(policy, spec: NetworkSpec, carbon_source, arrival_source,
-                    key=0, device=DEFAULT_DEVICE):
+                    key=0, device=DEFAULT_DEVICE, deadlines=None):
     """The serving step `(state, t) -> (state', metrics)`, metrics a [5]
     float32 tensor on the device: (emissions, arrived, dispatched,
     processed, backlog). One tensor, so the host reads a slot's metrics
-    with one copy."""
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device)
+    with one copy.
 
-    def step(state: NetworkState, t: int):
-        nxt, act, a, C_t = slot_step(loop, state, t)
-        metrics = torch.stack([
-            C_t,
-            torch.sum(a),
+    With `deadlines` (a DeadlineParams) the carried state is the pair
+    (NetworkState, DeadlineState), the policy gets the slot's
+    `deadline_view=` and metrics grows (missed, shed): the batch
+    simulator's deadline slot, so the served trajectory is bitwise the
+    batch one."""
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
+
+    def step(state, t: int):
+        dstate = None
+        if deadlines is not None:
+            state, dstate = state
+        s = slot_step(loop, state, t, dstate=dstate)
+        nxt, act = s.state, s.act
+        metrics = [
+            s.C,
+            torch.sum(s.a),
             torch.sum(act.d),
             torch.sum(act.w),
             torch.sum(nxt.Qe) + torch.sum(nxt.Qc),
-        ])
-        return nxt, metrics
+        ]
+        if deadlines is None:
+            return nxt, torch.stack(metrics)
+        return (nxt, s.dstate), torch.stack(metrics + [torch.sum(s.expired), torch.sum(s.shed)])
 
     return step
 
@@ -137,17 +159,20 @@ class ServeExporter:
         self._pending: list = []
         self._slots = 0
         self._lat: list = []  # non-warmup latencies so far
-        self._totals = {"arrived": 0.0, "dispatched": 0.0, "processed": 0.0, "emissions": 0.0}
+        self._totals = {"arrived": 0.0, "dispatched": 0.0, "processed": 0.0, "emissions": 0.0,
+                        "missed": 0.0, "shed": 0.0}
         self._last = {"backlog": 0.0, "queue_age": 0}
 
     def record(self, t: int, latency_us: float, arrived: float, dispatched: float,
-               processed: float, backlog: float, queue_age: int, emissions_t: float) -> None:
+               processed: float, backlog: float, queue_age: int, emissions_t: float,
+               missed: float = 0.0, shed: float = 0.0) -> None:
         self._pending.append(json.dumps({
             "event": "slot", "kind": "serve", "t": t,
             "latency_us": latency_us, "arrived": arrived,
             "dispatched": dispatched, "processed": processed,
             "backlog": backlog, "queue_age": queue_age,
             "emissions": emissions_t, "warmup": t < self.warmup,
+            "missed": missed, "shed": shed,
         }))
         self._slots += 1
         if t >= self.warmup:
@@ -156,6 +181,8 @@ class ServeExporter:
         self._totals["dispatched"] += dispatched
         self._totals["processed"] += processed
         self._totals["emissions"] += emissions_t
+        self._totals["missed"] += missed
+        self._totals["shed"] += shed
         self._last = {"backlog": backlog, "queue_age": queue_age}
         if len(self._pending) >= self.flush_every:
             self.flush()
@@ -179,8 +206,11 @@ class ServeExporter:
         emit("repro_serve_slots", "counter", "slots decided so far", [("", self._slots)])
         for k, v in self._totals.items():
             unit = "gCO2" if k == "emissions" else "tasks"
-            emit(f"repro_serve_{k}_total", "counter", f"running {k} over served slots ({unit})",
-                 [("", v)])
+            help_ = {
+                "missed": "tasks expired past their deadline (tasks)",
+                "shed": "arrivals rejected by admission control (tasks)",
+            }.get(k, f"running {k} over served slots ({unit})")
+            emit(f"repro_serve_{k}_total", "counter", help_, [("", v)])
         emit("repro_serve_backlog", "gauge", "post-step backlog at the newest slot (tasks)",
              [("", self._last["backlog"])])
         emit("repro_serve_queue_age", "gauge",
@@ -216,8 +246,11 @@ class ServeExporter:
             "p50_us": report.p50_us, "p95_us": report.p95_us,
             "p99_us": report.p99_us, "mean_us": report.mean_us,
             "max_queue_age": report.max_queue_age,
+            "missed_total": report.missed_total,
+            "shed_total": report.shed_total,
             "age_p50": report.age_p50, "age_p95": report.age_p95,
             "age_p99": report.age_p99,
+            "age_over_deadline_frac": report.age_over_deadline_frac,
         }
         with self.paths["jsonl"].open("a") as fh:
             fh.write(json.dumps(summary) + "\n")
@@ -228,12 +261,18 @@ class ServeExporter:
 def serve_loop(policy, spec: NetworkSpec, carbon_source, arrival_source, T: int,
                key=0, *, warmup: int = 2, clock=None, outdir=None,
                stem: str = "serve", flush_every: int = 16,
-               device=DEFAULT_DEVICE) -> ServeReport:
+               device=DEFAULT_DEVICE, deadlines=None) -> ServeReport:
     """Drives `make_serve_step` for T slots from the host, timing every
     decision. `key` is an int seed (`PRNGKey(seed)`) or a threefry key.
     `clock` defaults to `time.perf_counter` (called 2T + 2 times).
     `outdir` turns on live export via ServeExporter. Percentiles cover
-    slots[warmup:]; `warmup` is clamped to T-1."""
+    slots[warmup:]; `warmup` is clamped to T-1.
+
+    `deadlines` (a DeadlineParams) serves deadline-aware: each slot's
+    expiries and sheds go into the report and the live export, shed
+    arrivals never enter the queue-age FIFO and expired tasks leave it,
+    and the queue-age percentiles are read against the tightest finite
+    deadline (`age_over_deadline_frac`)."""
     if clock is None:
         clock = time.perf_counter
     warmup = max(0, min(warmup, T - 1))
@@ -241,14 +280,19 @@ def serve_loop(policy, spec: NetworkSpec, carbon_source, arrival_source, T: int,
     if outdir is not None:
         exporter = ServeExporter(outdir, stem=stem, flush_every=flush_every, warmup=warmup)
     dev = resolve_device(device)
-    step = make_serve_step(policy, spec, carbon_source, arrival_source, key, dev)
+    step = make_serve_step(policy, spec, carbon_source, arrival_source, key, dev, deadlines)
     state = init_state(spec.M, spec.N, device=dev)
+    if deadlines is not None:
+        from repro_torch.deadlines.model import init_deadlines
+
+        state = (state, init_deadlines(spec.M, deadlines.D, dev))
     ages = _AgeFifo()
     lat = np.zeros(T)
     backlog = np.zeros(T)
     em = np.zeros(T, np.float32)
     queue_age = np.zeros(T, np.int64)
-    totals = {"arrived": 0.0, "dispatched": 0.0, "processed": 0.0, "emissions": 0.0}
+    totals = {"arrived": 0.0, "dispatched": 0.0, "processed": 0.0, "emissions": 0.0,
+              "missed": 0.0, "shed": 0.0}
 
     t_start = clock()
     for t in range(T):
@@ -258,21 +302,38 @@ def serve_loop(policy, spec: NetworkSpec, carbon_source, arrival_source, T: int,
             torch.cuda.synchronize(dev)
         c1 = clock()
         lat[t] = (c1 - c0) * 1e6
-        em_t, arrived, dispatched, processed, bl = metrics.tolist()
+        missed_t = shed_t = 0.0
+        if deadlines is None:
+            em_t, arrived, dispatched, processed, bl = metrics.tolist()
+        else:
+            em_t, arrived, dispatched, processed, bl, missed_t, shed_t = metrics.tolist()
         totals["arrived"] += arrived
         totals["dispatched"] += dispatched
         totals["processed"] += processed
         totals["emissions"] += em_t
+        totals["missed"] += missed_t
+        totals["shed"] += shed_t
         backlog[t] = bl
         em[t] = em_t
-        queue_age[t] = ages.update(t, arrived, processed)
+        # shed arrivals never enter the queue and missed tasks leave it by
+        # expiry: both go through the age FIFO (no-ops without deadlines)
+        queue_age[t] = ages.update(t, arrived - shed_t, processed + missed_t)
         if exporter is not None:
             exporter.record(t, lat[t], arrived, dispatched, processed, bl,
-                            int(queue_age[t]), em_t)
+                            int(queue_age[t]), em_t, missed=missed_t, shed=shed_t)
     wall_s = clock() - t_start
 
     p50, p95, p99, mean = latency_percentiles(lat[warmup:])
     age_p50, age_p95, age_p99 = (float(x) for x in np.percentile(queue_age, [50.0, 95.0, 99.0]))
+    over_frac = 0.0
+    dstate = None
+    if deadlines is not None:
+        state, dstate = state
+        d = deadlines.deadline
+        d = d.detach().cpu().numpy() if torch.is_tensor(d) else np.asarray(d)
+        finite = np.asarray(d, np.float64)[np.isfinite(d)]
+        if finite.size:
+            over_frac = float(np.mean(queue_age > finite.min()))
     report = ServeReport(
         slots=T,
         warmup=warmup,
@@ -289,7 +350,11 @@ def serve_loop(policy, spec: NetworkSpec, carbon_source, arrival_source, T: int,
         queue_age=queue_age,
         emissions=em,
         state=state,
+        missed_total=totals["missed"],
+        shed_total=totals["shed"],
         age_p50=age_p50, age_p95=age_p95, age_p99=age_p99,
+        age_over_deadline_frac=over_frac,
+        dstate=dstate,
     )
     if exporter is not None:
         exporter.close(report)
@@ -325,10 +390,27 @@ def main(argv=None) -> ServeReport:
     ap.add_argument("--outdir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="serve deadline-aware: max extra waiting slots per task before it "
+                         "expires (default: off)")
+    ap.add_argument("--shed", action="store_true",
+                    help="with --deadline: admission control sheds arrivals projected capacity "
+                         "cannot clear")
+    ap.add_argument("--headroom", type=float, default=0.9,
+                    help="admission capacity factor for --shed")
     args = ap.parse_args(argv)
 
+    deadlines = None
+    policy = CarbonIntensityPolicy(V=0.05)
+    if args.deadline is not None:
+        from repro_torch.deadlines import SlackThresholdPolicy, make_deadlines
+
+        deadlines = make_deadlines(args.types, device=args.device, deadline=args.deadline,
+                                   shed_on=1.0 if args.shed else 0.0, headroom=args.headroom)
+        policy = SlackThresholdPolicy(V=0.05)
+
     report = serve_loop(
-        CarbonIntensityPolicy(V=0.05),
+        policy,
         _demo_spec(args.types, args.clouds, args.seed),
         UKRegionalTraceSource(N=args.clouds),
         UniformArrivals(M=args.types, amax=args.amax),
@@ -338,6 +420,7 @@ def main(argv=None) -> ServeReport:
         outdir=args.outdir,
         flush_every=args.flush_every,
         device=args.device,
+        deadlines=deadlines,
     )
     print(f"served {report.slots} slots (M={args.types}, N={args.clouds}, amax={args.amax}) "
           f"on {args.device}")
@@ -347,6 +430,11 @@ def main(argv=None) -> ServeReport:
           f"p99 {report.p99_us:.0f} us (warmup={report.warmup} excluded)")
     print(f"max queue age {report.max_queue_age} slots, "
           f"emissions {report.total_emissions:.3g} gCO2-eq")
+    if deadlines is not None:
+        print(f"queue age p50/p95/p99 {report.age_p50:.0f}/{report.age_p95:.0f}/"
+              f"{report.age_p99:.0f} slots vs deadline {args.deadline:g} (over-deadline "
+              f"{report.age_over_deadline_frac:.1%}); missed {report.missed_total:.0f}, "
+              f"shed {report.shed_total:.0f}")
     if report.tasks_arrived < 1e4:
         raise SystemExit(f"serving smoke must cover >= 10^4 tasks, got {report.tasks_arrived:.0f}")
     return report

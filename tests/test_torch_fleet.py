@@ -207,9 +207,6 @@ def test_fleet_summary_scalars_equal_full():
 def test_fleet_refuses_layers_not_ported():
     fleet = tfs.build_fleet(["diurnal"], per_kind=2, Tc=8, device="cpu")
     pol = P.CarbonIntensityPolicy()
-    for field, item in (("deadlines", "2.5"),):
-        with pytest.raises(NotImplementedError, match=item):
-            P.simulate_fleet(pol, fleet._replace(**{field: object()}), 2, device="cpu")
     with pytest.raises(NotImplementedError, match="2.6"):
         P.simulate_fleet(pol, fleet, 2, device="cpu", telemetry=object())
 

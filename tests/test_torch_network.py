@@ -301,7 +301,7 @@ def test_conservation_in_the_full_run():
 def test_later_layers_raise():
     tspec, tgraph, _, table, _, amax, _ = _scenario("star", 5, 5)
     arrivals = _arrivals(amax, 2)
-    for name in ("telemetry", "deadlines"):
+    for name in ("telemetry",):
         with pytest.raises(NotImplementedError, match=name):
             PN.simulate_network(PN.NetworkAwareDPPPolicy(), tspec, tgraph,
                                 P.TableCarbonSource(table=table), lambda t, s, d: None, 2,

@@ -69,7 +69,8 @@ def _jax_run(jpol, jf, T, record="full", seed=0):
 
 
 def _lane(res, f):
-    return res._replace(**{n: getattr(res, n)[f] for n in res._fields})
+    return res._replace(**{n: getattr(res, n)[f] for n in res._fields
+                           if getattr(res, n) is not None})
 
 
 # ------------------------------------------------------------ graphs, fleet
