@@ -52,8 +52,13 @@ paths):
    (three ranges), randint (spans 1, 2, 401, 701, 2**31-1), the
    RandomCarbonSource and RandomPolicy splits, the UK source's fold per
    region, the fleet's floor(u * (amax + 1)) and poisson's key walks
-   (chain); and known answers of jax 0.9.0 pasted below (THREEFRY_KNOWN,
-   CHAIN_KNOWN);
+   (chain); over slot ranges (the loops' block draws), every walk (a
+   plain table, seg, paths, fold_each, chain) with every finish (bits,
+   uniform, floor, randint, randint_f32, normal) at slots none, 0 x 1,
+   191 x 64 (rows 0 and 63 also equal to the kernel's single-slot draws)
+   and 2**32-3 x 5 (wrapping), keys PRNGKey(-1) n 1030, PRNGKey(0) n 257,
+   16 lanes n 4096, 512 lanes n 5; and known answers of jax 0.9.0 pasted
+   below (THREEFRY_KNOWN, CHAIN_KNOWN, NORMAL_KNOWN);
 3c. the attention kernels vs their plain versions on the card, within
    |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
    1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
@@ -84,7 +89,8 @@ paths):
    in its order: phase 9's float32 gate needs the same bits);
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
-   counters checked (threefry_draw once a slot: the arrivals), ms per
+   counters checked (threefry_draw once a run: the arrivals' 64 slots
+   one block draw), ms per
    slot from CUDA events, then again in turns (A, B, B, A); then T=16 on
    the card and through the CPU plain versions: queues bitwise,
    emissions within rtol 1e-6;
@@ -138,7 +144,8 @@ paths):
    telemetry-brownout on build_fleet(["diurnal-slack"]), flappy-uplink on
    build_network_fleet(["congested-uplink"]), F16, T=192, V=0.05, qlen /
    carbon / guard, with_faults(seed=0)) under sync debug mode with their
-   launches (the fault stream one threefry_draw a slot), each row's
+   launches (the fault stream one threefry_draw a slot, the arrivals one
+   a run), each row's
    recovery and completed % equal to jax 0.9.0's and its emission
    reduction within 1e-3 points (FAULT_JAX), exact conservation on every
    lane and slot, the guard recovering faster than carbon and emitting
@@ -224,11 +231,14 @@ paths):
 
 Phase 7's route_scores row also carries its times at the WAN fleets'
 shapes (phase 4d: F64 x M5 x L10 and F16 x M4096 x L512) with their
-byte bounds. Phase 7 also times threefry_draw at the main path's arrivals (its
-bound: the draw's own integer operations at a quarter of the float32
-rate) and, from phase 4c, carbon_scores, greedy_fill and the draw at
-both fleets' shapes (the rows' "fleet" entries), the fault stream's
-paths draw from phase 4f (threefry_draw's "paths" entries), the
+byte bounds. Phase 7 also times threefry_draw's block draw of the main path's
+arrivals (64 slots x 4096 randints, one launch) in turns against the 64
+per-slot draws it replaces, and one slot alone (its bound: the draw's
+own integer operations at a quarter of the float32 rate) and, from
+phase 4c, carbon_scores, greedy_fill and the arrivals' block draw at
+both fleets' shapes in turns against their per-slot draws (the rows'
+"fleet" entries), the fault stream's paths draw from phase 4f in turns
+against the six per-segment draws (threefry_draw's "paths" entries), the
 launches of phase 4g's runs (the "deadlines" entries of carbon_scores,
 greedy_fill and threefry_draw), and a
 PoissonArrivals slot at M4096 (two chain draws), beside the same slot on
@@ -256,12 +266,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 from pathlib import Path
 
 import numpy as np
@@ -360,6 +372,14 @@ CHAIN_KNOWN = {
     (2147483647, 1999): (1056634264, 1032084000, 1065221360, 1056633116, 1047776536,
                          1063174034, 1056634264, 1032084000, 1058299756, 1058355086,
                          1065221360, 1056633116, 1063210856, 1051125312),
+}
+# known answers of jax 0.9.0 for the draw's normal finish: normal(k, (4,))
+# as uint32, k = fold_in(PRNGKey(seed), t)
+NORMAL_KNOWN = {
+    (0, 0): (1065386890, 3211265463, 3208611895, 3214274394),
+    (0, 1999): (3212734967, 3171955973, 3195791067, 1044741942),
+    (-1, 191): (1047368018, 3218141168, 3205982829, 1051005619),
+    (2147483647, 2**32 - 1): (3199031301, 1016559813, 3215777685, 3223082057),
 }
 # PoissonArrivals at the main path's width (phase 7): rates across both of
 # poisson's samplers (Knuth below 10, rejection from 10 up)
@@ -664,6 +684,25 @@ def graph_ms(fn, reps: int, inner: int) -> tuple:
     return warm_ms, cold_ms
 
 
+def draw_turns(block, per_slot, reps: int = 10, inner: int = 20, inner_slots: int = 2) -> dict:
+    """A block draw against the per-slot draws it replaces, in turns
+    (block, slots, slots, block), each from CUDA-graph replay (`graph_ms`:
+    warm, cold; `inner` block draws, or `inner_slots` rounds of the
+    per-slot draws, a graph, so that the replay's own cost does not
+    count): {"block": [turn 1, turn 4], "slots": [turn 2, turn 3]}."""
+    out = {"block": [], "slots": []}
+    for name in ("block", "slots", "slots", "block"):
+        fn, k = (block, inner) if name == "block" else (per_slot, inner_slots)
+        out[name].append(graph_ms(fn, reps=reps, inner=k))
+    return out
+
+
+def turns_text(turns) -> str:
+    """`draw_turns`' times as 'cold (warm)' in turn order."""
+    return "; ".join(f"{name} " + " / ".join(f"{c:.5f} ({w:.5f})" for w, c in turns[name])
+                     for name in ("block", "slots"))
+
+
 def profile_slots(run, slots: int):
     """Time per slot from torch.profiler over `run()` (covering `slots`
     slots): ({'total': ms, kernel name: ms} on the device, or None when
@@ -881,13 +920,27 @@ def emission_rtol(a, b) -> float:
 COUNTED = ("Qe", "Qc", "dispatched", "processed")
 
 
+class Each(NamedTuple):
+    """A kernel's expected launches in a run of T slots: `slot` a slot
+    and `run` a run (the sources' block draws: one a run while a run's
+    slots fit in one block)."""
+
+    slot: int = 0
+    run: int = 0
+
+
+# the sources' block draw and the fault stream's per-slot paths draw
+BLOCK_DRAW = Each(run=1)
+FAULT_DRAWS = {"threefry_draw": Each(slot=1, run=1), "threefry_draw paths": 1}
+
+
 def drive_fleets(tag, runs, ops, dev):
     """Each fleet run once under sync debug mode "error", the launch
     counters set to 0 just before and read just after it, the draw's
     `paths=` launches under their own key, "threefry_draw paths" (each
     also one of threefry_draw's). `runs`: {name: (fn(T, record), T, F,
-    expected launches per slot)}. Returns ({name: ms/slot from CUDA
-    events}, {name: result}, {name: launches})."""
+    expected launches per slot, an int or an `Each`)}. Returns ({name:
+    ms/slot from CUDA events}, {name: result}, {name: launches})."""
     ms, results, counts = {}, {}, {}
     for name, (fn, T, nl, per_slot) in runs.items():
         torch.cuda.synchronize()
@@ -904,7 +957,8 @@ def drive_fleets(tag, runs, ops, dev):
         torch.cuda.synchronize()
         launches = dict(ops.launch_counts(), **{"threefry_draw paths": ops.path_launches()})
         want = dict.fromkeys(launches, 0)
-        want.update({k: v * T for k, v in per_slot.items()})
+        want.update({k: v.slot * T + v.run if isinstance(v, Each) else v * T
+                     for k, v in per_slot.items()})
         if launches != want:
             fail(f"{tag} {name}: kernel launches {launches}, expected {want}")
         if not (torch.isfinite(res.emissions).all() and torch.isfinite(res.Qc).all()):
@@ -1534,6 +1588,57 @@ def main() -> int:
                     for x in w.reshape(-1).view(torch.int32).cpu().numpy().view(np.uint32))
         if got != want:
             fail(f"threefry_draw chain PRNGKey({seed}) t={t}: {got} is not jax 0.9.0's {want}")
+    # the redesign's surface: every walk x finish over slot ranges (the
+    # block draws of the slot loops), each kernel row also equal to the
+    # kernel's own single-slot draw; jax 0.9.0's normal answers
+    walk_kw = {"table": {}, "seg": dict(seg="half"), "paths": dict(paths="three"),
+               "fold_each": dict(fold_each=True), "chain": dict(chain=(3, 2))}
+    fin_kw = {"bits": {}, "uniform": dict(minval=-3.5, maxval=7.25), "floor": dict(scale="amax"),
+              "randint": dict(minval=0, maxval=701), "randint_f32": dict(minval=0, maxval=401),
+              "normal": {}}
+    range_cases = (("PRNGKey(-1)", 1030), ("PRNGKey(0)", 257), ("split(PRNGKey(7), 16)", M_MAIN),
+                   ("split(PRNGKey(0), 512)", 5))
+
+    def same_draw(a, b):
+        return same_bits(a, b) if a.dtype == torch.float32 else torch.equal(a, b)
+
+    n_range = 0
+    for kname, n in range_cases:
+        keys = draw_keys[kname]
+        amax = rand(tuple(keys.shape[:-1]) + (n,), 0, 4000).floor()
+        for (t, count), (wname, wkw), (finish, fkw) in itertools.product(
+                ((None, None), (0, 1), (191, T_MAIN), (2**32 - 3, 5)), walk_kw.items(),
+                fin_kw.items()):
+            kw = dict(wkw, **fkw)
+            if kw.get("seg") == "half":
+                kw["seg"] = n // 2
+            if kw.get("paths") == "three":
+                kw["paths"] = (((2, 0, 7), n // 3), ((1,), 1), ((), n - n // 3 - 1))
+            if kw.get("scale") == "amax":
+                kw["scale"] = amax + 1.0
+            got = tfk.threefry_draw_cuda(keys, t, n, finish=finish, count=count, **kw)
+            want = tfk.threefry_draw_plain(keys, t, n, finish=finish, count=count, **kw)
+            if not same_draw(got, want):
+                fail(f"threefry_draw {kname} n={n} t={t} count={count} {wname} {finish}: "
+                     "differs from the plain version")
+            if count == T_MAIN:
+                for i in (0, count - 1):
+                    one = tfk.threefry_draw_cuda(keys, t + i, n, finish=finish, **kw)
+                    if not same_draw(got[i], one):
+                        fail(f"threefry_draw {kname} n={n} slots {t}..: row {i} is not the "
+                             f"draw at slot {t + i} ({wname} {finish})")
+            n_range += 1
+            del got, want
+    for (seed, t), want in NORMAL_KNOWN.items():
+        got = tfk.threefry_draw_cuda(jr.PRNGKey(seed, device=dev), t, len(want), finish="normal")
+        if tuple(int(x) for x in got.view(torch.int32).cpu().numpy().view(np.uint32)) != want:
+            fail(f"threefry_draw normal PRNGKey({seed}) t={t}: not jax 0.9.0's {want}")
+    say(f"[3e kernels] threefry_draw over slot ranges: {n_range} draws bitwise equal to the "
+        f"plain version (every walk: table, seg, paths, fold_each, chain 3 x 2; every finish: "
+        f"bits, uniform, floor, randint, randint_f32, normal; slots none, 0 x 1, 191 x "
+        f"{T_MAIN} (rows 0 and {T_MAIN - 1} equal to single-slot draws), 2**32-3 x 5 (wraps); "
+        + "; ".join(f"{k} n {n}" for k, n in range_cases)
+        + f"); {len(NORMAL_KNOWN)} normal answers of jax 0.9.0 equal")
     say(f"[3e kernels] threefry_draw: {n_draws} draws bitwise equal to the plain version (keys "
         f"{', '.join(draw_keys)}; n 1, 5, {M_MAIN} a key; t none, 0, 1, 191, 1999, 2**31-1; "
         "bits, uniform [0,1) / [nextafter(-1,0),1) / [-3.5,7.25), randint spans 1, 2, 401, 701, "
@@ -1752,12 +1857,13 @@ def main() -> int:
         return core.simulate(pol, spec, inst["carbon"], inst["arrivals"], T, SEED,
                              state0=state0, record=record, device=d)
 
-    # the arrivals are the twin's UniformArrivals: one threefry_draw a slot
+    # the arrivals are the twin's UniformArrivals: one threefry_draw a run,
+    # its T_MAIN slots one block
     expected = {
         "CarbonIntensity": {"carbon_scores": T_MAIN, "route_scores": 0, "greedy_fill": T_MAIN,
-                            "threefry_draw": T_MAIN},
+                            "threefry_draw": 1},
         "QueueLength": {"carbon_scores": 0, "route_scores": 0, "greedy_fill": T_MAIN,
-                        "threefry_draw": T_MAIN},
+                        "threefry_draw": 1},
     }
     main_ms, results, main_launches = drive_path("4 main", f"M{M_MAIN}xN{N_MAIN}", policies, sim,
                                                  expected, ops, dev)
@@ -1818,11 +1924,11 @@ def main() -> int:
 
     fleet_runs = {
         "A CarbonIntensity": (fleet_run(ci, fleet_a), T_FLEET_A, fleet_a.F,
-                              {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}),
+                              {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}),
         "B CarbonIntensity": (fleet_run(ci, fleet_b), T_FLEET_B, F_B,
-                              {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}),
+                              {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}),
         "B QueueLength": (fleet_run(ql, fleet_b), T_FLEET_B, F_B,
-                          {"greedy_fill": 1, "threefry_draw": 1}),
+                          {"greedy_fill": 1, "threefry_draw": BLOCK_DRAW}),
     }
     fleet_ms, fleet_results, fleet_launches = drive_fleets("4c fleet", fleet_runs, ops, dev)
     fleet_turns("4c fleet", fleet_runs)
@@ -1897,9 +2003,12 @@ def main() -> int:
             fill=graph_ms(lambda: gf.greedy_fill_cuda(*fargs), reps=5, inner=5),
             fill_rows=fargs[0].shape[0], fill_neg=n_neg_f,
             fill_bytes=4 * (3 * fargs[0].numel() + n_neg_f + fargs[0].shape[0]),
-            draw=graph_ms(lambda: tfk.threefry_draw_cuda(keys_f, T - 1, M, finish="floor",
-                                                         scale=scale_f), reps=10, inner=20),
-            draw_n=nl * M, draw_ops=draw_ops(nl, M, 1, 1, 2),
+            draw=draw_turns(
+                lambda: tfk.threefry_draw_cuda(keys_f, 0, M, finish="floor", scale=scale_f,
+                                               count=T),
+                lambda: [tfk.threefry_draw_cuda(keys_f, t, M, finish="floor", scale=scale_f)
+                         for t in range(T)]),
+            draw_T=T, draw_n=T * nl * M, draw_ops=draw_ops(T * nl, M, 1, 1, 2),
             launches={k: v for k, v in fleet_launches[f"{fname} CarbonIntensity"].items() if v})
         ft = fleet_times[fname]
         say(f"[4c time] fleet {fname} {ft['shape']}: carbon_scores {ft['scores'][1]:.5f} ms cold "
@@ -1907,10 +2016,11 @@ def main() -> int:
             f"{ft['scores_bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms; greedy_fill over "
             f"{ft['fill_rows']} rows of {M} {ft['fill'][1]:.5f} ms cold "
             f"({ft['fill'][0]:.5f} warm), "
-            f"{n_neg_f} negative-score items; threefry_draw (the fleet's arrivals, {nl}x{M}) "
-            f"{ft['draw'][1]:.5f} ms cold ({ft['draw'][0]:.5f} warm) vs operation bound "
-            f"{ft['draw_ops'] / INT32_OPS_PER_S * 1e3:.6f} ms "
-            "(CUDA graph replay, CUDA events, median)")
+            f"{n_neg_f} negative-score items (CUDA graph replay, CUDA events, median); "
+            f"threefry_draw, the fleet's arrivals of a run ({T} slots x {nl} x {M}) in one block "
+            f"draw against {T} per-slot draws, in turns, ms cold (warm): "
+            f"{turns_text(ft['draw'])}; operation bound "
+            f"{ft['draw_ops'] / INT32_OPS_PER_S * 1e3:.6f} ms ({smi})")
         del sargs, fargs, c_f, b_f
 
     # the registry fleet (the JAX bench's fleet/F96xT200): mean reduction
@@ -1932,8 +2042,9 @@ def main() -> int:
     # ---- 4d. the WAN fleet ------------------------------------------
     aware = wan_policies["NetworkAwareDPP"]
     blind = wan_policies["StaticRoute(CarbonIntensity)"]
-    per_aware = {"carbon_scores": 1, "route_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
-    per_blind = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    per_aware = {"carbon_scores": 1, "route_scores": 1, "greedy_fill": 1,
+                 "threefry_draw": BLOCK_DRAW}
+    per_blind = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}
     t0 = time.perf_counter()
     w1 = {kind: fleet_scenarios.build_network_fleet([kind], per_kind=W1_PER_KIND, Tc=96,
                                                     seed=SEED, device=dev).to(dev)
@@ -2048,7 +2159,7 @@ def main() -> int:
                 fail(f"discount ** arange(H) at discount {d}, H {H}: the card differs from the CPU")
     say("[4e forecast] discount ** arange(H) (LookaheadDPPPolicy's) at discounts 0.98 and 1.0, "
         "H 1, 4, 8, 16: the card's values bitwise equal to the CPU's")
-    per_fc = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    per_fc = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}
     for kind in FC_KINDS:
         fl = fleet_scenarios.build_fleet([kind], per_kind=FC_PER_KIND, Tc=96, seed=SEED,
                                          device=dev).to(dev)
@@ -2058,7 +2169,8 @@ def main() -> int:
             noisy = not getattr(getattr(fc, "error", None), "exact", True)
             runs[row] = ((lambda T, record, pol=pol, fc=fc: core.simulate_fleet(
                 pol, fl, T, SEED, record=record, device=dev, forecaster=fc)),
-                T_FC_ANCHOR, fl.F, dict(per_fc, threefry_draw=2) if noisy else per_fc)
+                T_FC_ANCHOR, fl.F,
+                dict(per_fc, threefry_draw=Each(slot=1, run=1)) if noisy else per_fc)
         fc_ms, fc_results, _ = drive_fleets(f"4e forecast {kind}", runs, ops, dev)
         base = fc_results["CarbonIntensity"].cum_emissions[:, -1]
         for row, want in FORECAST_JAX[kind].items():
@@ -2085,10 +2197,10 @@ def main() -> int:
     fcw_runs = {"B CarbonIntensity": fleet_runs["B CarbonIntensity"],
                 "B Lookahead(H=8) clairvoyant": (la_run(clair), T_FC_WIDTH, F_B,
                                                  {"carbon_scores": 1, "greedy_fill": 1,
-                                                  "threefry_draw": 1}),
+                                                  "threefry_draw": BLOCK_DRAW}),
                 "B Lookahead(H=8) RidgeAR": (la_run(ridge), T_FC_WIDTH, F_B,
                                              {"carbon_scores": 1, "greedy_fill": 1,
-                                              "threefry_draw": 1})}
+                                              "threefry_draw": BLOCK_DRAW})}
     fcw_ms, fcw_results, _ = drive_fleets("4e forecast width", fcw_runs, ops, dev)
     fleet_turns("4e forecast width", fcw_runs)
     profile_fleets("4e profile", {k: v for k, v in fcw_runs.items() if "Lookahead" in k}, fcw_ms)
@@ -2201,9 +2313,9 @@ def main() -> int:
                 "guard": flt.StalenessGuardPolicy(inner=ci_f)},
         True: {"qlen": net.StaticRoutePolicy(core.QueueLengthPolicy()), "carbon": aware_f,
                "guard": flt.StalenessGuardPolicy(inner=aware_f)}}
-    # launches a slot: the fault stream is one threefry_draw (paths=), the
-    # arrivals another
-    fault_draw = {"threefry_draw": 2, "threefry_draw paths": 1}
+    # launches: the fault stream is one threefry_draw (paths=) a slot, the
+    # arrivals one a run
+    fault_draw = FAULT_DRAWS
     per_fault = {
         False: {"qlen": {"greedy_fill": 1, **fault_draw},
                 "carbon": {"carbon_scores": 1, "greedy_fill": 1, **fault_draw}},
@@ -2375,10 +2487,11 @@ def main() -> int:
             for i in path:
                 kk = jr.fold_in(kk, i)
             seg_keys.append((kk.contiguous(), length))
-        times = graph_ms(lambda: tfk.threefry_draw_cuda(kf, t_last, n, paths=paths), reps=10,
-                         inner=5)
-        per_call = graph_ms(lambda: [tfk.threefry_draw_cuda(kk, None, length)
-                                     for kk, length in seg_keys], reps=10, inner=5)
+        # in turns: the paths draw, the six draws, the six draws, the paths draw
+        turns = draw_turns(lambda: tfk.threefry_draw_cuda(kf, t_last, n, paths=paths),
+                           lambda: [tfk.threefry_draw_cuda(kk, None, length)
+                                    for kk, length in seg_keys], inner=5, inner_slots=5)
+        times, per_call = turns["block"][0], turns["slots"][0]
         plain = cuda_ms(lambda: tfk.threefry_draw_plain(kf, t_last, n, paths=paths), reps=3,
                         inner=1)
         nops = draw_ops(nl, n, 2 + len(paths), 1, 4)
@@ -2386,15 +2499,15 @@ def main() -> int:
         bound_o, bound_b = nops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         fault_draw_times.append({
             "shape": f"{dname}, {nl * n} values", "launches": sum(n_launch),
-            "launches_per_run": n_launch, "ms": times[1],
+            "launches_per_run": n_launch, "ms": times[1], "warm_ms": times[0],
+            "ms_turn4": turns["block"][1][1], "warm_ms_turn4": turns["block"][1][0],
             "per_call_ms": per_call[1], "plain_ms": plain, "bound_ms": max(bound_o, bound_b),
             "bound_by": "operations" if bound_o >= bound_b else "bytes"})
-        say(f"[4f time] threefry_draw(paths=...) {dname}: {times[1]:.5f} ms cold ({times[0]:.5f} "
-            f"warm) for {nl * n} values ({nbytes / 1e6:.2f} MB) vs bound {max(bound_o, bound_b):.5f} "
-            f"ms ({nops / 1e9:.3f} G int ops: {bound_o:.5f} ms; bytes {bound_b:.5f} ms); the "
-            f"six per-segment draws it replaces {per_call[1]:.5f} ms cold ({per_call[0]:.5f} "
-            f"warm); plain version {plain:.3f} ms (CUDA graph replay, CUDA events, median; "
-            f"{smi})")
+        say(f"[4f time] threefry_draw(paths=...) {dname}: {nl * n} values ({nbytes / 1e6:.2f} "
+            f"MB) vs bound {max(bound_o, bound_b):.5f} ms ({nops / 1e9:.3f} G int ops: "
+            f"{bound_o:.5f} ms; bytes {bound_b:.5f} ms); in turns, the paths draw (block) "
+            f"against the six per-segment draws (slots), ms cold (warm): {turns_text(turns)}; "
+            f"plain version {plain:.3f} ms (CUDA graph replay, CUDA events, median; {smi})")
     say("[4f time] faulted fleets ms/slot under sync debug mode (CUDA events): " + "; ".join(
         f"{k} {v:.4f}" for k, v in {**fault_row_ms, **fault_width_ms}.items()) + f" ({smi})")
     del fault_b, w2_flappy, w2_flappy_h
@@ -2432,7 +2545,7 @@ def main() -> int:
         launches = dict(ops.launch_counts(), **{"threefry_draw paths": ops.path_launches()})
         faulted = fleet.faults is not None
         want = dict.fromkeys(launches, 0)
-        want.update({"greedy_fill": T, "threefry_draw": (2 if faulted else 1) * T,
+        want.update({"greedy_fill": T, "threefry_draw": 1 + (T if faulted else 0),
                      "threefry_draw paths": T if faulted else 0})
         if not isinstance(pol, dlm.EDDPolicy):
             want["carbon_scores"] = T
@@ -2540,7 +2653,7 @@ def main() -> int:
     # SlackThreshold's adds its score updates on top
     fleet_b_dl = fleet_scenarios.with_deadlines(fleet_b_h, "tight-uniform", seed=SEED).to(dev)
     slack_b = dlm.SlackThresholdPolicy(V=V_PAPER)
-    per_b = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": 1}
+    per_b = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}
     dw_runs = {"B no deadlines CarbonIntensity": fleet_runs["B CarbonIntensity"],
                "B tight-uniform CarbonIntensity": (fleet_run(ci, fleet_b_dl), T_DL_WIDTH, F_B,
                                                    per_b),
@@ -2966,27 +3079,43 @@ def main() -> int:
         "ms of the prefill")
     del ssd_main, a, x, Bm, Cm
 
-    # threefry_draw: the main path's arrivals (UniformArrivals at M4096);
-    # the bound counts the function's own integer operations, not the
-    # kernel's (which recomputes each element's key chain): one fold_in
-    # and randint's split (three hashes) for the draw, two hashes and the
-    # span's remainders an element; and the bytes of its keys and output;
-    # no PyTorch call draws JAX's stream
+    # threefry_draw: the main path's arrivals (UniformArrivals at M4096),
+    # the run's T_MAIN slots in one block draw, as phase 4 launches it,
+    # in turns against the T_MAIN per-slot draws it replaces; the bound
+    # counts the function's own integer operations: a slot's fold_in and
+    # randint's split (three hashes), two hashes and the span's
+    # remainders a value; and the bytes of its keys and output; no
+    # PyTorch call draws JAX's stream
     k_arr = jr.split(jr.PRNGKey(SEED, device=dev), 3)[1]
     draw_kw = dict(finish="randint_f32", minval=0, maxval=A_MAX + 1)
-    ms = graph_ms(lambda: tfk.threefry_draw_cuda(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
-                  reps=20, inner=50)
-    call_ms = cuda_ms(lambda: tfk.threefry_draw_cuda(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
-                      reps=20, inner=50)
-    plain_ms = cuda_ms(lambda: tfk.threefry_draw_plain(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
-                       reps=5, inner=3)
+
+    def main_block():
+        return tfk.threefry_draw_cuda(k_arr, 0, M_MAIN, count=T_MAIN, **draw_kw)
+
+    main_turns = draw_turns(main_block, lambda: [tfk.threefry_draw_cuda(k_arr, t, M_MAIN,
+                                                                        **draw_kw)
+                                                 for t in range(T_MAIN)])
+    call_ms = cuda_ms(main_block, reps=20, inner=20)
+    plain_ms = cuda_ms(lambda: tfk.threefry_draw_plain(k_arr, 0, M_MAIN, count=T_MAIN,
+                                                       **draw_kw), reps=5, inner=3)
     row("threefry_draw", "src/repro_torch/kernels/csrc/threefry.cu",
-        "src/repro/core/simulator.py:45", main_launches["threefry_draw"], ms, call_ms, plain_ms,
-        nbytes=4 * M_MAIN + 16, nops=draw_ops(1, M_MAIN, 3, 2, 12),
-        ops_per_s=INT32_OPS_PER_S)
+        "src/repro/core/simulator.py:45", main_launches["threefry_draw"], main_turns["block"][0],
+        call_ms, plain_ms, nbytes=4 * T_MAIN * M_MAIN + 16,
+        nops=draw_ops(T_MAIN, M_MAIN, 3, 2, 12), ops_per_s=INT32_OPS_PER_S)
+    one_ms = graph_ms(lambda: tfk.threefry_draw_cuda(k_arr, T_MAIN - 1, M_MAIN, **draw_kw),
+                      reps=20, inner=50)
+    rows[-1]["block"] = {
+        "shape": f"{T_MAIN} slots x {M_MAIN} randints", "turns": main_turns,
+        "one_slot_ms": one_ms[1], "one_slot_warm_ms": one_ms[0],
+        "one_slot_bound_ms": draw_ops(1, M_MAIN, 3, 2, 12) / INT32_OPS_PER_S * 1e3}
+    say(f"[7 time] threefry_draw, the main path's {T_MAIN} slots x {M_MAIN} arrivals: in turns, "
+        f"one block draw against {T_MAIN} per-slot draws, ms cold (warm): "
+        f"{turns_text(main_turns)}; one slot alone {one_ms[1]:.5f} ({one_ms[0]:.5f}) against "
+        f"its bound {rows[-1]['block']['one_slot_bound_ms']:.7f} ({smi})")
     rows[-1]["fleet"] = [{
-        "shape": f"{ft['shape']} arrivals ({ft['draw_n']} values)",
-        "launches": ft["launches"].get("threefry_draw", 0), "ms": ft["draw"][1],
+        "shape": f"{ft['shape']} arrivals, {ft['draw_T']} slots ({ft['draw_n']} values)",
+        "launches": ft["launches"].get("threefry_draw", 0), "ms": ft["draw"]["block"][0][1],
+        "warm_ms": ft["draw"]["block"][0][0], "turns": ft["draw"],
         "bound_ms": max(ft["draw_ops"] / INT32_OPS_PER_S,
                         8 * ft["draw_n"] / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations"} for ft in fleet_times.values()]

@@ -16,9 +16,11 @@ once; the simulator calls it before its loop so that no slot copies host
 data. Random draws are JAX's threefry streams, each one launch of the
 draw kernel with the slot folded in (`ops.threefry_draw`): the same key
 gives the JAX source's values bitwise, the UK source's Gaussian noise
-included (`normal` with XLA's erfinv and log1p, `repro_torch.random`).
-The UK source, whose float32 emulation of XLA's sin and log1p takes
-hundreds of launches, renders 256 slots a pass and serves rows of it.
+included (the draw's `normal` finish, XLA's erfinv and log1p).
+RandomCarbonSource also draws a block of slots in one launch (`block`,
+which the simulators' loops use). The UK source, whose float32
+emulation of XLA's sin takes hundreds of launches, renders 256 slots a
+pass (their noise one draw) and serves rows of it.
 
 The table helpers `diurnal_table` and `bursty_table` are numpy, copied
 from the JAX module, so they give bitwise the same tables.
@@ -37,7 +39,7 @@ from repro_torch.core import rng
 from repro_torch.core.queueing import DTYPE
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.numerics import erfinv_xla, sincos_glibc
+from repro_torch.kernels.numerics import sincos_glibc
 
 
 class DeviceCache:
@@ -65,11 +67,20 @@ class RandomCarbonSource:
     cmax: int = 700
 
     def __call__(self, t: int, key, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        # ke, kc = split(fold_in(key, t)); Ce = randint(ke, ()), Cc =
-        # randint(kc, (N,)): one draw, the edge from the first half
-        vals = ops.threefry_draw(rng.key_of(key, device), t, self.N + 1, finish="randint_f32",
-                                 seg=1, minval=0, maxval=self.cmax + 1)
+        return self.block(t, None, key, device)
+
+    def block(self, t0: int, count, key, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Slots t0..t0+count-1 -> (Ce [count, ...], Cc [count, ..., N])
+        (count None: slot t0). ke, kc = split(fold_in(key, t)); Ce =
+        randint(ke, ()), Cc = randint(kc, (N,)): one draw, the edge from
+        the first half."""
+        vals = ops.threefry_draw(rng.key_of(key, device), t0, self.N + 1, finish="randint_f32",
+                                 seg=1, minval=0, maxval=self.cmax + 1, count=count)
         return vals[..., 0], vals[..., 1:]
+
+    @property
+    def slot_width(self) -> int:
+        return self.N + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,11 +173,11 @@ class UKRegionalTraceSource(DeviceCache):
         national = _sinf((f32(2 * math.pi) * tt) / f32(_SLOTS_PER_DAY * 3.3) + f32(1.7))
         regional = _sinf((f32(2 * math.pi) * tt) / f32(_SLOTS_PER_DAY * 2.1) + region)
         front = wind * (f32(0.7) * national + f32(0.3) * regional)
-        # normal(fold_in(fold_in(PRNGKey(seed), t), region)): one draw
-        u = ops.threefry_draw(R.fold_in(base, t), None, self.N + 1, finish="uniform",
-                              fold_each=True, minval=R.NORMAL_LO, maxval=1.0)
-        noise = 25.0 * (R.SQRT2 * erfinv_xla(u))
-        return torch.clamp(((mean + diurnal) + front) + noise, 5.0, 700.0)
+        # normal(fold_in(fold_in(PRNGKey(seed), t), region)): one draw for
+        # every slot of the block
+        noise = ops.threefry_draw(base, start, self.N + 1, finish="normal", fold_each=True,
+                                  count=count)
+        return torch.clamp(((mean + diurnal) + front) + 25.0 * noise, 5.0, 700.0)
 
     def __call__(self, t: int, key, device):
         """Slot t's row, from the block of _BLOCK slots rendered at once

@@ -5,7 +5,8 @@ Every entry point takes an int seed or a key (`repro_torch.random`'s
 package's benches call it, so a run draws JAX's streams. The keys are
 derived once a run, on the device (`split(key, 3)`: carbon, arrivals,
 policy), and a slot's draw folds in the slot index inside the draw
-kernel (`kernels/threefry.py`), so the loop does no host work per slot.
+kernel (`kernels/threefry.py`; a run's loop draws its sources a block of
+slots a launch), so the loop does no host work per slot.
 
 The policy's key of slot t, `fold_in(k_policy, t)`, is handed over as a
 `SlotKey`, and only a policy that draws folds it in (`RandomPolicy`, in

@@ -23,6 +23,7 @@ tensor of the slot carries. The telemetry argument of the JAX
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -39,14 +40,23 @@ from repro_torch.kernels import ops
 @dataclasses.dataclass(frozen=True)
 class UniformArrivals:
     """a_m(t) ~ U{0..amax} i.i.d. (paper §V uses amax=400):
-    `randint(fold_in(key, t), (M,), 0, amax + 1)`, one draw."""
+    `randint(fold_in(key, t), (M,), 0, amax + 1)`, one draw; `block`
+    draws a range of slots in one (see `SlotBlocks`)."""
 
     M: int
     amax: int = 400
 
     def __call__(self, t: int, key, device) -> torch.Tensor:
-        return ops.threefry_draw(rng.key_of(key, device), t, self.M, finish="randint_f32", minval=0,
-                                 maxval=self.amax + 1)
+        return self.block(t, None, key, device)
+
+    def block(self, t0: int, count, key, device) -> torch.Tensor:
+        """Slots t0..t0+count-1 -> [count, ..., M] (count None: slot t0)."""
+        return ops.threefry_draw(rng.key_of(key, device), t0, self.M, finish="randint_f32",
+                                 minval=0, maxval=self.amax + 1, count=count)
+
+    @property
+    def slot_width(self) -> int:
+        return self.M
 
     @property
     def a_max(self) -> float:
@@ -58,7 +68,7 @@ class FleetArrivals(DeviceCache):
     """The fleet's arrivals: a_m(t) = floor(u_m * (amax_m + 1)), u ~
     U[0, 1) from `uniform(fold_in(key, t), (M,))` (the JAX fleet's
     closure, `repro/core/simulator.py:644-649`). `amax` is [M] or, for F
-    lanes, [F, M]; one draw either way."""
+    lanes, [F, M]; one draw either way, and one for a block of slots."""
 
     amax: object
 
@@ -68,9 +78,17 @@ class FleetArrivals(DeviceCache):
             self.amax, dtype=DTYPE, device=dev) + 1.0)
 
     def __call__(self, t: int, key, device) -> torch.Tensor:
+        return self.block(t, None, key, device)
+
+    def block(self, t0: int, count, key, device) -> torch.Tensor:
+        """Slots t0..t0+count-1 -> [count, ..., M] (count None: slot t0)."""
         scale = self._tensors(device)
-        return ops.threefry_draw(rng.key_of(key, device), t, scale.shape[-1], finish="floor",
-                                 scale=scale)
+        return ops.threefry_draw(rng.key_of(key, device), t0, scale.shape[-1], finish="floor",
+                                 scale=scale, count=count)
+
+    @property
+    def slot_width(self) -> int:
+        return int(np.shape(self.amax)[-1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +140,37 @@ def _bind(source, device):
     return to(device) if callable(to) else source
 
 
+BLOCK_BYTES = 64 << 20  # the most one block draw of a source writes
+
+
+class SlotBlocks:
+    """A source with a `block(t0, count, key, device)` method, drawn a
+    block of slots at a time: slot t is row t - t0 of the block that
+    holds it, each row bitwise the source's own draw at slot t. A block
+    spans the slots whose draws fit in BLOCK_BYTES (4 bytes a value,
+    `slot_width` values a key), cut at the run's `horizon`."""
+
+    def __init__(self, source, horizon: int):
+        self.source, self.horizon = source, horizon
+        self._held = None  # (key, t0, count, block)
+
+    def __call__(self, t: int, key, device):
+        held = self._held
+        if held is None or held[0] is not key or not held[1] <= t < held[1] + held[2]:
+            lanes = math.prod(key.shape[:-1]) if torch.is_tensor(key) else 1
+            per_slot = 4 * lanes * self.source.slot_width
+            count = max(1, min(self.horizon - t, BLOCK_BYTES // per_slot))
+            held = self._held = (key, t, count, self.source.block(t, count, key, device))
+        block = held[3]
+        i = t - held[1]
+        return tuple(x[i] for x in block) if isinstance(block, tuple) else block[i]
+
+
+def _blocked(source, horizon):
+    return source if horizon is None or not hasattr(source, "block") else \
+        SlotBlocks(source, horizon)
+
+
 class SlotLoop(NamedTuple):
     """What one slot of the paper's loop needs: the policy, the spec on
     the device, the sources, the three keys `simulate` splits from its
@@ -139,14 +188,17 @@ class SlotLoop(NamedTuple):
 
 
 def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device,
-                   deadlines=None) -> SlotLoop:
+                   deadlines=None, horizon=None) -> SlotLoop:
+    """The loop of a run of `horizon` slots (None: slots are served one
+    at a time, as `serve_loop` does): sources with a `block` method are
+    drawn a block of slots a launch (`SlotBlocks`)."""
     device = resolve_device(device)
     ks = R.split(rng.key_of(key, device), 3)
     return SlotLoop(
         policy=policy,
         spec=spec.to(device),
-        carbon_source=_bind(carbon_source, device),
-        arrival_source=_bind(arrival_source, device),
+        carbon_source=_blocked(_bind(carbon_source, device), horizon),
+        arrival_source=_blocked(_bind(arrival_source, device), horizon),
         keys=tuple(ks[..., i, :].contiguous() for i in range(3)),
         device=device,
         deadlines=None if deadlines is None else deadlines.to(device),
@@ -374,7 +426,8 @@ def simulate(
                                 state0=state0, record=record, device=device,
                                 forecaster=forecaster, error_params=error_params,
                                 deadlines=deadlines)
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
+                          horizon=T)
     dev = loop.device
     state = init_state(spec.M, spec.N, device=dev) if state0 is None else NetworkState(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
@@ -456,7 +509,8 @@ def simulate_vsweep(
     F = V.shape[0]
     spec_d = spec.to(dev)
     lane_spec = NetworkSpec(*(_lanes_of(x, F) for x in spec_d.as_arrays(dev)))
-    loop = make_slot_loop(make_policy(V), lane_spec, carbon_source, arrival_source, key, dev)
+    loop = make_slot_loop(make_policy(V), lane_spec, carbon_source, arrival_source, key, dev,
+                          horizon=T)
     return _drive(loop, init_state(spec.M, spec.N, device=dev, F=F), T, "full")
 
 
@@ -614,7 +668,7 @@ def simulate_fleet(
         return simulate_faulted(policy, spec, fleet.faults, carbon, arrivals, T, keys,
                                 record=record, device=dev, forecaster=forecaster,
                                 error_params=err, deadlines=fleet.deadlines)
-    loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev, fleet.deadlines)
+    loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev, fleet.deadlines, horizon=T)
     feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, err)
     return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record, feed)
 

@@ -237,7 +237,8 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
     telemetry feed delivers (the frozen row during dropouts). The
     telemetry layer is not ported and raises."""
     refuse_telemetry(telemetry, "simulate_faulted")
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
+                          horizon=T)
     run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params)
     _, _, k_policy = loop.keys
     pe, pc = run.pe, run.pc
@@ -293,7 +294,8 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
         raise ValueError(
             "network fault runs need link fields: build the FaultParams with "
             f"L={graph.L} (make_faults(N, L=...)) so the flap chain matches the graph")
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
+                          horizon=T)
     g = graph.to(loop.device)
     run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params, L=g.L,
                    extra_series=("delivered", "energy_transfer", "links_down"),

@@ -12,8 +12,8 @@
 
 The noise is `normal(fold_in(fold_in(key, seed), t), (H, N+1))`: the key
 folded with the seed once a run, then one draw a slot through the draw
-kernel (`ops.threefry_draw`, the slot folded in) and XLA's erfinv
-(`repro_torch.random.normal`, bitwise JAX's).
+kernel (`ops.threefry_draw`, the slot folded in, its `normal` finish:
+XLA's erfinv over its log1p, bitwise JAX's).
 
 Rounding follows XLA:CPU inside the simulator's scan. With (bias, noise)
 overrides (the fleet's lanes, traced in JAX) the forecast is
@@ -35,7 +35,7 @@ from repro_torch import random as R
 from repro_torch.core import rng
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.numerics import erfinv_xla, fma_f32
+from repro_torch.kernels.numerics import fma_f32
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -86,9 +86,7 @@ class ForecastErrorModel:
             return truth
         dev = truth.device
         H, n_cols = truth.shape[-2], truth.shape[-1]
-        u = ops.threefry_draw(stream, t, H * n_cols, finish="uniform", minval=R.NORMAL_LO,
-                              maxval=1.0)
-        eps = (R.SQRT2 * erfinv_xla(u)).reshape(truth.shape)
+        eps = ops.threefry_draw(stream, t, H * n_cols, finish="normal").reshape(truth.shape)
         h = torch.sqrt(torch.arange(H, dtype=torch.float32, device=dev))[:, None]
         if override:
             b = _f32(self.bias if bias is None else bias, dev)

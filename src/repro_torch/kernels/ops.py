@@ -73,14 +73,15 @@ def ssd_chunk_intra(a, x, Bm, Cm):
 
 
 def threefry_draw(keys, t, n, *, finish="uniform", seg=None, fold_each=False, chain=None,
-                  minval=0, maxval=1, scale=None, paths=None):
+                  minval=0, maxval=1, scale=None, paths=None, count=None):
     """One threefry draw of n values per key: keys [..., 2] (int64
     holding uint32 pairs), folded with the slot t when it is given ->
-    [..., n] (see `kernels/threefry.py` for seg, fold_each, chain, paths
-    and the finishes)."""
+    [..., n]; with `count`, the slots t..t+count-1 in one draw ->
+    [count, ..., n] (see `kernels/threefry.py` for the walks seg,
+    fold_each, chain and paths and the finishes)."""
     fn = _pick(keys, _tf.threefry_draw_plain, _tf.threefry_draw_cuda, "threefry_draw")
     return fn(keys, t, n, finish=finish, seg=seg, fold_each=fold_each, chain=chain,
-              minval=minval, maxval=maxval, scale=scale, paths=paths)
+              minval=minval, maxval=maxval, scale=scale, paths=paths, count=count)
 
 
 _MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,

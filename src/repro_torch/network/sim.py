@@ -115,7 +115,8 @@ def simulate_network(
                                         error_params=error_params, deadlines=deadlines)
     stride = record_stride(record, T)
     R = T // stride
-    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines)
+    loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
+                          horizon=T)
     dev = loop.device
     g = graph.to(dev)
     M, N, L = loop.spec.M, loop.spec.N, g.L

@@ -144,10 +144,13 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     eagerly, and XLA:CPU contracts its `u * (maxval - minval) + minval`
     into one FMA, which differs from the two roundings on about 40% of
     draws at general bounds (none on [0, 1), where it is exact)."""
-    shape = _shape(shape)
-    floats = _unit(random_bits(key, shape))
-    lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
-    return torch.maximum(lo, fma_f32(floats, hi - lo, lo))
+    return uniform_of_bits(random_bits(key, _shape(shape)), minval, maxval)
+
+
+def uniform_of_bits(bits, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """`uniform`'s finish of 32-bit draws."""
+    lo, hi = _f32(minval, bits.device), _f32(maxval, bits.device)
+    return torch.maximum(lo, fma_f32(_unit(bits), hi - lo, lo))
 
 
 def _wrap_i32(v):
@@ -176,8 +179,12 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     halves of `split(key)`) combined mod the span, as JAX does."""
     shape = _shape(shape)
     k = split(key, 2)
-    higher = random_bits(k[..., 0, :], shape)
-    lower = random_bits(k[..., 1, :], shape)
+    return randint_of_bits(random_bits(k[..., 0, :], shape), random_bits(k[..., 1, :], shape),
+                           minval, maxval)
+
+
+def randint_of_bits(higher, lower, minval: int, maxval: int) -> torch.Tensor:
+    """`randint`'s finish of the 32-bit draws of its two keys."""
     mn, span, mult = randint_span(minval, maxval)
     off = (((higher % span) * mult) & M32) + (lower % span)
     off = (off & M32) % span
@@ -189,8 +196,12 @@ def normal(key, shape=()) -> torch.Tensor:
     [nextafter(-1, 0), 1) (the span rounds to 2.0, so the FMA is exact),
     with XLA's erfinv polynomial and log1p (`numerics.erfinv_xla`):
     bitwise `jax.random.normal`."""
-    u = uniform(key, shape, NORMAL_LO, 1.0)
-    return SQRT2 * erfinv_xla(u)
+    return normal_of_bits(random_bits(key, _shape(shape)))
+
+
+def normal_of_bits(bits) -> torch.Tensor:
+    """`normal`'s finish of 32-bit draws."""
+    return SQRT2 * erfinv_xla(uniform_of_bits(bits, NORMAL_LO, 1.0))
 
 
 # Iteration caps of the fixed-length samplers: P(Poisson(10) >= 64) and

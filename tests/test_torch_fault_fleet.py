@@ -148,7 +148,8 @@ def test_lanes_equal_single_runs(scen):
 
 def test_one_fault_draw_a_slot():
     """The fleet's fault uniforms are one threefry_draw call a slot
-    (plus the arrivals' one), whatever F."""
+    (plus the arrivals' one draw for the run's block of slots), whatever
+    F."""
     _, tfl = _fleets(False, per_kind=3)
     tff = tfs.with_faults(tfl, "regional-blackout")
     calls = []
@@ -163,7 +164,7 @@ def test_one_fault_draw_a_slot():
         P.simulate_fleet(P.QueueLengthPolicy(), tff, 5, 0, device="cpu")
     finally:
         ops.threefry_draw = real
-    assert sum(calls) == 5 and len(calls) == 10
+    assert sum(calls) == 5 and len(calls) == 6
 
 
 def test_simulate_fleet_and_network_take_faults():

@@ -319,6 +319,12 @@ def test_fault_draws_are_jax_key_walk(L):
         assert (u.link is None) == (L is None)
 
 
+def _path_key(k, path):
+    for i in path:
+        k = R.fold_in(k, i)  # child i of any split is threefry(k, (0, i))
+    return k
+
+
 def test_paths_plain_is_the_random_composition():
     """threefry_draw(paths=...)'s plain version against split / fold_in /
     uniform written out: a path deeper than two, a segment of length 1,
@@ -327,20 +333,18 @@ def test_paths_plain_is_the_random_composition():
     paths = (((2, 0, 7), 9), ((1,), 1), ((0, 4), 0), ((), 6), ((5, 5, 5, 5), 3))
     got = ops.threefry_draw(keys, 9, 19, paths=paths)
     k = R.fold_in(keys, 9)
-    parts = []
-    for path, n in paths:
-        kk = k
-        for i in path:
-            kk = R.fold_in(kk, i)  # child i of any split is threefry(k, (0, i))
-        parts.append(R.uniform(kk, (n,)))
-    assert torch.equal(got, torch.cat(parts, dim=-1))
+    assert torch.equal(got, torch.cat([R.uniform(_path_key(k, p), (n,)) for p, n in paths],
+                                      dim=-1))
     for bad in (dict(paths=(((0,), 3),)),                    # lengths do not add up to n
                 dict(paths=(((0, 1, 2, 3, 4), 19),)),         # deeper than 4
                 dict(paths=(((0,), 2),) * 8 + (((1,), 3),)),  # 9 segments
-                dict(paths=(((0,), 19),), finish="bits"),
                 dict(paths=(((0,), 19),), seg=3)):
         with pytest.raises(ValueError):
             ops.threefry_draw(keys, 9, 19, **bad)
+    # every finish takes a path table: bits from the same keys
+    bits = ops.threefry_draw(keys, 9, 19, paths=paths, finish="bits")
+    assert torch.equal(bits, torch.cat([R.random_bits(_path_key(k, p), (n,)) for p, n in paths],
+                                       dim=-1))
 
 
 def test_paths_launch_counter():

@@ -229,8 +229,9 @@ def test_draw_chain_is_the_samplers_key_walk(children, t):
             _same(got[r, c], jax.random.uniform(sub, (n,), dtype=jnp.float32))
     _same(_plain(tk, t, n, chain=(rounds, children), finish="bits")[rounds - 1, children - 1],
           jax.random.bits(subs[-1], (n,)))
-    with pytest.raises(ValueError):
-        _plain(tk, t, n, chain=(rounds, children), finish="randint", maxval=9)
+    # every finish takes the walk: randint from the last round's child
+    _same(_plain(tk, t, n, chain=(rounds, children), finish="randint", maxval=9)[
+        rounds - 1, children - 1], jax.random.randint(subs[-1], (n,), 0, 9))
 
 
 @pytest.mark.parametrize("t", [0, 1, 191, 1999, 2**31 - 1])
