@@ -25,14 +25,17 @@ same batch and lengths; the fault layer, `simulate_fleet` on fleets with
 a fault axis, at the JAX bench's rows and at fleet B's and W2's widths;
 the deadline layer, `simulate_fleet` on fleets with a deadline axis
 (SlackThreshold, WaitAwhile, EDD), at the JAX bench's rows and at fleet
-B's width, and a deadline-aware `serve_loop`.
+B's width, and a deadline-aware `serve_loop`; the telemetry layer
+(`telemetry=` on `simulate` and `simulate_fleet`, batch and streamed) at
+the JAX benches' rows, on the fault rows and W1, and at the main path's
+and fleet B's width.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-5-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
+4h, 5-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
 paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the seven kernels compiled from csrc/ with nvcc, in parallel;
+2. build: the eight kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes); for greedy_fill also the classified walk's
@@ -177,6 +180,27 @@ paths):
    alone) and SlackThreshold, in turns against CarbonIntensity without
    deadlines, with idle shares, top kernels and the aten calls and device
    time each adds a slot;
+4h. the telemetry layer: (a) bench_telemetry_overhead's fleet
+   (build_fleet(["diurnal-slack"], per_kind=32), M5xN5, CarbonIntensity
+   V=0.05, T=192, summary) taps off and on under sync debug mode with
+   their launches (tap_scan once a run), every other field bitwise the
+   taps-off run, the manifest held to jax 0.9.0's (TELEMETRY_JAX: alert
+   records and peak exactly, totals within rtol 1e-6), us per lane-slot
+   off and on in turns beside the bench's 5% budget (printed); (b)
+   bench_stream_overhead's instance (M2048 x N64, UK source, T=192)
+   taps-only against StreamConfig(flush_every=16): every result and frame
+   field bitwise, tap_scan 1 and 12 launches, the channel's reassembly
+   bitwise the batch series, FollowedRun's JSONL and Prometheus
+   validated, the overhead in turns beside the bench's 10% budget
+   (printed), the card's manifest beside JAX's (STREAM_JAX; its backlog
+   passes 2**24, ROADMAP hazard 34); (c) the nine fault rows and W1's
+   congested-uplink fleet with taps, manifests held to FAULT_MANIFEST_JAX;
+   (d) the main path (T=64) and fleet B (F16, T=64) with taps: taps-off
+   fields bitwise, launches, overhead in turns, the aten calls taps add a
+   slot; tap_scan bitwise its plain version on the card on every run's
+   probe series above (whole and in chunks from the carried state) and on
+   a synthetic series past 2**24 with lanes one float below, at and above
+   each threshold; its time at each shape against its byte bound;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
    then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
@@ -240,9 +264,11 @@ both fleets' shapes in turns against their per-slot draws (the rows'
 "fleet" entries), the fault stream's paths draw from phase 4f in turns
 against the six per-segment draws (threefry_draw's "paths" entries), the
 launches of phase 4g's runs (the "deadlines" entries of carbon_scores,
-greedy_fill and threefry_draw), and a
-PoissonArrivals slot at M4096 (two chain draws), beside the same slot on
-the plain walk.
+greedy_fill and threefry_draw), tap_scan's row from phase 4h (its time
+at bench_telemetry_overhead's fleet, the other shapes beside it; its
+launches those of the main path's run with taps on, the phase's total
+and a streamed run's beside them), and a PoissonArrivals slot at M4096
+(two chain draws), beside the same slot on the plain walk.
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
@@ -268,10 +294,12 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 from pathlib import Path
@@ -470,6 +498,69 @@ DEADLINE_JAX = {
                                "backlog": 4025.6875},
 }
 T_DL_WIDTH, T_DL_CPU = 64, 4  # fleet B's shape under tight-uniform deadlines
+# the telemetry layer (phase 4h): manifest(frame) as the JAX benches stamp
+# it, (peak backlog, total emissions, total wasted, total failed, (tripped
+# lanes, firing slots, first firing slot) a monitor in MONITORS' order),
+# from jax 0.9.0 on the CPU with the fleet an argument of the jitted run
+# (pinned by tests/test_torch_telemetry.py). TELEMETRY_JAX is
+# bench_telemetry_overhead's taps-on run: build_fleet(["diurnal-slack"],
+# per_kind=32, Tc=96, seed=0), CarbonIntensity(V=0.05), T=192, summary,
+# PRNGKey(0); FAULT_MANIFEST_JAX the taps-on reruns of the nine
+# bench_fault_robustness rows (phase 4f's fleets) and W1's congested-uplink
+# fleet under NetworkAwareDPP (record=T//8); the alert records and the peak
+# are held exactly, the totals within TEL_RTOL (the card's float32 sums
+# of emissions and waste run in its own order). STREAM_JAX is
+# bench_stream_overhead's instance (M2048 x N64, pe~U(1,8), pc~U(2,100),
+# Pe 1e4, Pc~U(1e3,1e5) from default_rng(0), UK-regional source,
+# UniformArrivals(amax=300), T=192, summary): its backlog passes 2**24
+# near slot 56, where the float32 sums' order decides the residual and
+# JAX's own conservation_drift fires (ROADMAP hazard 34), so the card's
+# manifest is printed beside it, not held to it
+TEL_PER_KIND, T_TEL, TEL_RTOL = 32, 192, 1e-6
+M_STREAM, N_STREAM, T_STREAM, A_STREAM, STREAM_FLUSH = 2048, 64, 192, 300, 16
+TEL_BUDGET_PCT, STREAM_BUDGET_PCT = 5.0, 10.0  # the JAX benches' overhead budgets
+TELEMETRY_JAX = (27459.0, 27085393920.0, 0.0, 0.0,
+                 ((32, 614, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1)))
+FAULT_MANIFEST_JAX = {
+    "regional-blackout/qlen": (16803.0, 21464461312.0, 599003328.0, 52145.0,
+        ((11, 26, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "regional-blackout/carbon": (29814.0, 14283618304.0, 385509888.0, 43845.0,
+        ((16, 350, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "regional-blackout/guard": (29587.0, 14177833984.0, 381357888.0, 43722.0,
+        ((16, 339, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "telemetry-brownout/qlen": (16517.0, 20865163264.0, 0.0, 0.0,
+        ((8, 30, 7), (16, 1551, 5), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "telemetry-brownout/carbon": (32176.0, 14048347136.0, 0.0, 0.0,
+        ((16, 387, 7), (16, 1551, 5), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "telemetry-brownout/guard": (25896.0, 16197228544.0, 0.0, 0.0,
+        ((16, 192, 7), (16, 1551, 5), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "flappy-uplink/qlen": (10059.0, 19949658112.0, 164096032.0, 17721.0,
+        ((8, 18, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "flappy-uplink/carbon": (31002.0, 10610366464.0, 88322176.0, 14228.0,
+        ((16, 343, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "flappy-uplink/guard": (29845.0, 10837211136.0, 91296488.0, 14355.0,
+        ((16, 289, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+    "W1 congested-uplink aware": (46117.0, 26463662080.0, 0.0, 0.0,
+        ((64, 2112, 7), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1), (0, 0, -1))),
+}
+STREAM_JAX = (57652656.0, 8460317184.0, 0.0, 0.0,
+              ((1, 185, 7), (0, 0, -1), (0, 0, -1), (1, 98, 56), (0, 0, -1), (0, 0, -1)))
+
+
+def manifest_row(m) -> tuple:
+    """A `telemetry.manifest` dict as the anchors above hold it."""
+    return (m["peak_backlog"], m["total_emissions"], m["total_wasted"], m["total_failed"],
+            tuple(tuple(a.values()) for a in m["alerts"].values()))
+
+
+def stream_instance_arrays():
+    """bench_stream_overhead's spec (pe, pc, Pe, Pc), float32 numpy."""
+    rng = np.random.default_rng(SEED)
+    M, N = M_STREAM, N_STREAM
+    return (rng.uniform(1, 8, M).astype(np.float32), rng.uniform(2, 100, (M, N)).astype(np.float32),
+            np.float32(1e4), rng.uniform(1e3, 1e5, N).astype(np.float32))
+
+
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
 SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and length
 LM_CACHE = LM_PROMPT + LM_GEN + 1
@@ -1236,6 +1327,7 @@ def main() -> int:
     import repro_torch.network as net
     import repro_torch.faults as flt
     import repro_torch.deadlines as dlm
+    import repro_torch.telemetry as tlm
     from repro_torch.configs import fleet_scenarios
     from repro_torch.configs.paper_workloads import V_PAPER, paper_spec
     from repro_torch.core import carbon
@@ -1248,6 +1340,7 @@ def main() -> int:
     from repro_torch.kernels import greedy_fill as gf
     from repro_torch.kernels import route_score as rs
     from repro_torch.kernels import ssd_chunk as sdc
+    from repro_torch.kernels import taps as tpk
     from repro_torch.kernels import threefry as tfk
     from repro_torch import random as jr
     from repro_torch.launch.serve import greedy_generate
@@ -1282,7 +1375,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions on the card -------------------
     max_err = {"carbon_scores": 0.0, "route_scores": 0.0, "greedy_fill": 0.0,
-               "threefry_draw": 0.0}
+               "threefry_draw": 0.0, "tap_scan": 0.0}
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
 
@@ -2680,6 +2773,395 @@ def main() -> int:
         f"{k} {v}" for k, v in dl_counts.items() if v) + f" ({smi})")
     del dw_res, fleet_b_dl, dl_base, dl_over, two_b
 
+    # ---- 4h. the telemetry layer --------------------------------------
+    # the taps ride every loop: each slot writes the probe's raw fields,
+    # and one tap_scan launch a run (one a flush chunk when streaming)
+    # builds the frame; every run below is held to its taps-off twin
+    t0 = time.perf_counter()
+    tcfg = tlm.TelemetryConfig()
+    tap_counts = {}  # kernel -> launches over phase 4h's driven runs
+    TAP_RUN = {"tap_scan": Each(run=1)}
+
+    def taps_of(runs):
+        for name, launches in runs.items():
+            for k, v in launches.items():
+                tap_counts[k] = tap_counts.get(k, 0) + v
+
+    def taps_off_equal(tag, off, on):
+        bad = [n for n in type(off)._fields if n != "telemetry" and getattr(off, n) is not None
+               and (not torch.is_tensor(getattr(off, n))
+                    or not same_bits(getattr(off, n), getattr(on, n)))]
+        if bad or off.telemetry is not None or on.telemetry is None:
+            fail(f"{tag}: taps on changed {bad}")
+
+    def held_manifest(tag, got, want):
+        """alert records and the peak exactly, the totals within TEL_RTOL"""
+        ok = got[4] == want[4] and got[0] == want[0] and all(
+            abs(g - w) <= TEL_RTOL * abs(w) for g, w in zip(got[1:4], want[1:4]))
+        say(f"[4h telemetry] {tag}: manifest {got}; JAX {want}")
+        if not ok:
+            fail(f"{tag}: manifest {got} is not jax 0.9.0's {want} (alerts and peak exact, "
+                 f"totals within rtol {TEL_RTOL:g})")
+
+    def tap_turns(tag, fns, T, lanes, pairs=3):
+        """ms a run of each fn in `fns` (taps off / on, or taps / stream),
+        paired and interleaved (A, B, B, A, ...), CUDA events; the overhead
+        is the median of the pairs' ratios, as bench_stream_overhead takes
+        it (the host's drift hits both runs of a pair)"""
+        names = list(fns)
+        got = {n: [] for n in names}
+        for i in range(pairs):
+            for n in (names if i % 2 == 0 else names[::-1]):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fns[n]()
+                end.record()
+                end.synchronize()
+                got[n].append(start.elapsed_time(end))
+        ratio = statistics.median(b / a for a, b in zip(got[names[0]], got[names[1]]))
+        per = {n: statistics.median(v) * 1e3 / (T * lanes) for n, v in got.items()}
+        say(f"[4h telemetry] {tag} in turns {' / '.join(names + names[::-1])} x {pairs}: "
+            + "; ".join(f"{n} " + " / ".join(f"{x:.3f}" for x in v) + " ms a run"
+                        for n, v in got.items())
+            + "; median us per lane-slot " + ", ".join(f"{n} {v:.4f}" for n, v in per.items())
+            + f"; overhead {100.0 * (ratio - 1.0):.2f}% (median of the pairs' ratios)")
+        return 100.0 * (ratio - 1.0), per
+
+    # (a) bench_telemetry_overhead's fleet: F32 x M5 x N5, T=192, summary
+    tel_fleet = fleet_scenarios.build_fleet(["diurnal-slack"], per_kind=TEL_PER_KIND, Tc=96,
+                                            seed=SEED, device=dev).to(dev)
+    ci_t = core.CarbonIntensityPolicy(V=V_FAULT)
+    per_a = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}
+    a_runs = {"A off": (lambda T, record: core.simulate_fleet(ci_t, tel_fleet, T, SEED,
+                                                              record=record, device=dev),
+                        T_TEL, tel_fleet.F, per_a),
+              "A on": (lambda T, record: core.simulate_fleet(ci_t, tel_fleet, T, SEED,
+                                                             record=record, device=dev,
+                                                             telemetry=tcfg),
+                       T_TEL, tel_fleet.F, dict(per_a, **TAP_RUN))}
+    _, a_res, a_launches = drive_fleets("4h telemetry", a_runs, ops, dev)
+    taps_of({"A on": a_launches["A on"]})
+    taps_off_equal("bench_telemetry_overhead fleet", a_res["A off"], a_res["A on"])
+    held_manifest(f"bench_telemetry_overhead F{tel_fleet.F} T={T_TEL}",
+                  manifest_row(tlm.manifest(a_res["A on"].telemetry)), TELEMETRY_JAX)
+    a_over, a_per = tap_turns(f"bench_telemetry_overhead F{tel_fleet.F} T={T_TEL}",
+                              {"off": lambda: a_runs["A off"][0](T_TEL, "summary"),
+                               "on": lambda: a_runs["A on"][0](T_TEL, "summary")},
+                              T_TEL, tel_fleet.F, pairs=7)
+    say(f"[4h telemetry] bench_telemetry_overhead: taps on cost {a_over:.2f}% per lane-slot "
+        f"({a_per['off']:.4f} -> {a_per['on']:.4f} us), the JAX bench's budget "
+        f"{TEL_BUDGET_PCT:g}% (printed, not enforced; {smi})")
+    tap_cases = {f"F{tel_fleet.F} x T{T_TEL} (bench_telemetry_overhead)": a_res["A on"].telemetry}
+
+    # (b) bench_stream_overhead's instance: M2048 x N64, UK source, T=192,
+    # taps only against StreamConfig(flush_every=16)
+    pe_s, pc_s, Pe_s, Pc_s = stream_instance_arrays()
+    spec_s = convert.spec_from_numpy(pe_s, pc_s, Pe_s, Pc_s, dev)
+    uk_s = core.UKRegionalTraceSource(N=N_STREAM)
+    arr_s = core.UniformArrivals(M=M_STREAM, amax=A_STREAM)
+    scfg = tlm.StreamConfig(taps=tcfg, flush_every=STREAM_FLUSH, channel="chip")
+
+    def stream_run(telemetry):
+        return core.simulate(ci_t, spec_s, uk_s, arr_s, T_STREAM, SEED, record="summary",
+                             device=dev, telemetry=telemetry)
+
+    ops.reset_launch_counts()
+    s_off = stream_run(None)
+    s_taps = stream_run(tcfg)
+    n_taps = ops.launch_counts()["tap_scan"]
+    tlm.reset_channel("chip")
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as live_dir:
+        with tlm.follow_run(channel="chip", outdir=live_dir) as live:
+            s_stream = stream_run(scfg)
+        n_stream = ops.launch_counts()["tap_scan"]
+        n_events = tlm.validate_jsonl(Path(live.paths["jsonl"]).read_text())
+        n_prom = tlm.validate_prometheus(Path(live.paths["prometheus"]).read_text())
+    taps_of({"stream taps": {"tap_scan": n_taps}, "stream": {"tap_scan": n_stream}})
+    taps_off_equal("bench_stream_overhead instance", s_off, s_taps)
+    if n_taps != 1 or n_stream != T_STREAM // STREAM_FLUSH:
+        fail(f"tap_scan launches: {n_taps} a batch run, {n_stream} a streamed run "
+             f"(1 and {T_STREAM // STREAM_FLUSH} expected)")
+    bad = [n for n, a, b in zip(tlm.Telemetry._fields, s_taps.telemetry, s_stream.telemetry)
+           if a.dtype != b.dtype or not same_bits(a, b)]
+    bad += [n for n in type(s_taps)._fields if n != "telemetry"
+            and getattr(s_taps, n) is not None and not same_bits(getattr(s_taps, n),
+                                                                 getattr(s_stream, n))]
+    chan = tlm.channel("chip").series(0)
+    bad += [f"channel {n}" for n in tlm.TapSeries._fields
+            if not np.array_equal(getattr(chan, n), getattr(s_taps.telemetry, n).cpu().numpy())]
+    if bad or live.slots != T_STREAM or n_events != T_STREAM + 1:
+        fail(f"streamed run differs from the taps-only run in {bad}, or the live JSONL has "
+             f"{n_events} events for {live.slots} slots")
+    say(f"[4h telemetry] bench_stream_overhead M{M_STREAM}xN{N_STREAM} T={T_STREAM}: taps-off "
+        "fields bitwise equal with taps on; StreamConfig(flush_every="
+        f"{STREAM_FLUSH}) bitwise equal to the taps-only run in every result and frame field; "
+        f"tap_scan launches {n_taps} a batch run, {n_stream} a streamed run; the channel's "
+        f"reassembly bitwise the batch series; FollowedRun's JSONL {n_events} events "
+        f"(validate_jsonl), Prometheus {n_prom} samples")
+    tlm.reset_channel("chip")
+    s_over, s_per = tap_turns(f"bench_stream_overhead M{M_STREAM}xN{N_STREAM} T={T_STREAM}",
+                              {"taps": lambda: stream_run(tcfg),
+                               "stream": lambda: stream_run(scfg)},
+                              T_STREAM, 1, pairs=9)
+    o_over, o_per = tap_turns(f"bench_stream_overhead M{M_STREAM}xN{N_STREAM} T={T_STREAM}",
+                              {"off": lambda: stream_run(None), "taps": lambda: stream_run(tcfg)},
+                              T_STREAM, 1, pairs=5)
+    tlm.reset_channel("chip")
+    # where the taps' host time goes on this host-paced instance: the
+    # profiler's host ops over 16 slots, taps on against taps off
+    hosts = {}
+    for name, tel_x in (("off", None), ("taps", tcfg)):
+        _, hosts[name] = profile_slots(lambda tel_x=tel_x: core.simulate(
+            ci_t, spec_s, uk_s, arr_s, 16, SEED, record="summary", device=dev,
+            telemetry=tel_x), slots=16)
+    grown = sorted(((hosts["taps"][k][0] - hosts["off"].get(k, (0.0, 0.0))[0],
+                     hosts["taps"][k][1] - hosts["off"].get(k, (0.0, 0.0))[1], k)
+                    for k in hosts["taps"]), reverse=True)
+    say("[4h telemetry] bench_stream_overhead, 16 slots under the profiler: the host ops taps "
+        "grow most, self ms a slot (calls a slot) added: " + ", ".join(
+            f"{k[:40]} {d:.4f} ({c:+.2f})" for d, c, k in grown[:8]))
+    say(f"[4h telemetry] bench_stream_overhead: streaming costs {s_over:.2f}% against taps only, "
+        f"the JAX bench's budget {STREAM_BUDGET_PCT:g}% (printed, not enforced); taps on cost "
+        f"{o_over:.2f}% against taps off ({smi})")
+    tel_s = s_taps.telemetry
+    k_drift = tlm.MONITORS.index("conservation_drift")
+    say(f"[4h telemetry] bench_stream_overhead on the card (hazard 34): manifest "
+        f"{manifest_row(tlm.manifest(tel_s))}; JAX {STREAM_JAX}; |residual| max "
+        f"{float(tel_s.conservation_residual.abs().max()):g}, first nonzero at slot "
+        f"{int((tel_s.conservation_residual != 0).int().argmax())}, conservation_drift first "
+        f"fires at {int(tel_s.alert_first_slot[k_drift])} (JAX 56), peak backlog "
+        f"{float(tel_s.peak_backlog):.9g} (JAX {STREAM_JAX[0]:.9g}, rel "
+        f"{abs(float(tel_s.peak_backlog) / STREAM_JAX[0] - 1.0):.3e})")
+    tap_cases[f"F1 x T{T_STREAM} (bench_stream_overhead, M{M_STREAM}xN{N_STREAM})"] = tel_s
+    del s_off, s_stream
+
+    # (c) the nine fault rows rerun with taps (bench_fault_robustness's
+    # manifests) and W1's congested-uplink fleet (summary records here: the
+    # frame is the same in every record mode, and the anchor's is T//8)
+    c_runs = {}
+    for scen in (k for k in FAULT_JAX):
+        wan_f = scen == "flappy-uplink"
+        faulted = fleet_scenarios.with_faults(fault_bases[wan_f], scen, seed=SEED).to(dev)
+        for p, pol in fault_pols[wan_f].items():
+            c_runs[f"{scen}/{p}"] = (
+                lambda T, record, pol=pol, fl=faulted: core.simulate_fleet(
+                    pol, fl, T, SEED, record=record, device=dev, telemetry=tcfg),
+                T_FAULT, faulted.F,
+                dict(per_fault[wan_f]["carbon" if p == "guard" else p], **TAP_RUN))
+    w1c_t = w1["congested-uplink"]
+    c_runs["W1 congested-uplink aware"] = (
+        lambda T, record: core.simulate_fleet(aware, w1c_t, T, SEED, record=record, device=dev,
+                                              telemetry=tcfg),
+        T_W1, w1c_t.F, dict(per_aware, **TAP_RUN))
+    for name in c_runs:  # one at a time: a fault fleet's state is let go before the next
+        _, c_res, c_launches = drive_fleets("4h telemetry", {name: c_runs[name]}, ops, dev)
+        taps_of(c_launches)
+        held_manifest(name, manifest_row(tlm.manifest(c_res[name].telemetry)),
+                      FAULT_MANIFEST_JAX[name])
+        del c_res
+    del c_runs
+
+    # (d) the main path and fleet B at full width, T=64, taps on: taps-off
+    # fields bitwise, launches, aten calls a slot with and without taps
+    def main_taps(T, record, telemetry=tcfg, pol=policies["CarbonIntensity"]):
+        return core.simulate(pol, spec_d, inst["carbon"], inst["arrivals"], T, SEED,
+                             state0=state0_d, record=record, device=dev, telemetry=telemetry)
+
+    per_main = {"carbon_scores": 1, "greedy_fill": 1, "threefry_draw": BLOCK_DRAW}
+    d_runs = {"main off": (lambda T, record: main_taps(T, record, None), T_MAIN, 1, per_main),
+              "main on": (main_taps, T_MAIN, 1, dict(per_main, **TAP_RUN)),
+              "B off": (lambda T, record: core.simulate_fleet(ci, fleet_b, T, SEED, record=record,
+                                                              device=dev),
+                        T_FLEET_B, F_B, per_main),
+              "B on": (lambda T, record: core.simulate_fleet(ci, fleet_b, T, SEED, record=record,
+                                                             device=dev, telemetry=tcfg),
+                       T_FLEET_B, F_B, dict(per_main, **TAP_RUN))}
+    # drive_fleets wants a lane axis: the main run is driven here alone
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        main_on = main_taps(T_MAIN, "summary")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    main_tap_launches = ops.launch_counts()  # the main path with taps, alone
+    want = dict.fromkeys(main_tap_launches, 0)
+    want.update(carbon_scores=T_MAIN, greedy_fill=T_MAIN, threefry_draw=1, tap_scan=1)
+    if main_tap_launches != want:
+        fail(f"4h main with taps: launches {main_tap_launches}, expected {want}")
+    taps_of({"main on": main_tap_launches})
+    taps_off_equal(f"main M{M_MAIN}xN{N_MAIN}", results["CarbonIntensity"], main_on)
+    _, b_res, b_launches = drive_fleets(
+        "4h telemetry", {k: d_runs[k] for k in ("B off", "B on")}, ops, dev)
+    taps_of({"B on": b_launches["B on"]})
+    taps_off_equal(f"fleet B F{F_B}", b_res["B off"], b_res["B on"])
+    # the main path starts from a backlog Qe0, Qc0, which no tap has seen
+    # arrive (the ledger starts empty, as JAX's does), so its residual is
+    # about minus that backlog; fleet B starts empty, and its residual
+    # leaves 0 only where the float32 sums pass 2**24 (hazard 34)
+    for tag, tel_d in ((f"main M{M_MAIN}xN{N_MAIN} T={T_MAIN} (from a backlog of "
+                        f"{float(state0_d.Qe.sum() + state0_d.Qc.sum()):.9g})", main_on.telemetry),
+                       (f"fleet B F{F_B} T={T_FLEET_B} (from empty queues)",
+                        b_res["B on"].telemetry)):
+        say(f"[4h telemetry] {tag}: taps-off fields bitwise equal with taps on, sync-free; "
+            f"peak backlog {tel_d.peak_backlog.max().item():.9g}, |residual| max "
+            f"{float(tel_d.conservation_residual.abs().max()):g}, alerts firing slots "
+            + ", ".join(f"{m} {int(c)}" for m, c in zip(tlm.MONITORS,
+                                                       tel_d.alert_count.reshape(-1, 6).sum(0))))
+    tap_cases[f"F1 x T{T_MAIN} (main M{M_MAIN}xN{N_MAIN})"] = main_on.telemetry
+    tap_cases[f"F{F_B} x T{T_FLEET_B} (fleet B)"] = b_res["B on"].telemetry
+    d_over, _ = tap_turns(f"main M{M_MAIN}xN{N_MAIN} T={T_MAIN}",
+                          {"off": lambda: main_taps(T_MAIN, "summary", None),
+                           "on": lambda: main_taps(T_MAIN, "summary")}, T_MAIN, 1)
+    b_over, _ = tap_turns(f"fleet B F{F_B} T={T_FLEET_B}",
+                          {"off": lambda: d_runs["B off"][0](T_FLEET_B, "summary"),
+                           "on": lambda: d_runs["B on"][0](T_FLEET_B, "summary")}, T_FLEET_B, F_B)
+
+    def aten_calls(fn, T):
+        _, host = profile_slots(lambda: fn(T), slots=1)
+        return sum(v[1] for k, v in host.items() if k.startswith("aten::"))
+
+    calls = {(n, T): aten_calls(lambda T, n=n: d_runs[n][0](T, "summary"), T)
+             for n in ("main off", "main on") for T in (8, 16)}
+    added = ((calls["main on", 16] - calls["main off", 16])
+             - (calls["main on", 8] - calls["main off", 8])) / 8
+    say(f"[4h telemetry] aten calls (profiler, nested calls counted): main off "
+        f"{calls['main off', 16] / 16:.1f} a slot, on {calls['main on', 16] / 16:.1f} a slot over "
+        f"16 slots; taps add {added:.1f} a slot (16 against 8 slots, so a run's once-only calls "
+        f"cancel); overheads main {d_over:.2f}%, fleet B {b_over:.2f}% ({smi})")
+    del main_on, b_res
+
+    # tap_scan against its plain version on the card: on every run's probe
+    # series above, whole and in chunks from the carried state, and on a
+    # synthetic series past 2**24 that puts each monitor one float below,
+    # at and above its threshold
+    def probe_of(tel_x):
+        return tlm.TelemetryProbe(
+            emissions=tel_x.emission_rate, arrived=tel_x.arrived,
+            dispatched=tel_x.dispatched_cloud, processed=tel_x.processed, failed=tel_x.failed,
+            wasted=tel_x.wasted, backlog=tel_x.backlog, stale=tel_x.staleness,
+            clouds_down=tel_x.clouds_down, retry_depth=tel_x.retry_depth,
+            transfer_occupancy=tel_x.transfer_occupancy, missed=tel_x.missed, shed=tel_x.shed)
+
+    def tap_check(label, cfg_x, probe, chunks=()):
+        lanes_x, T_x = tuple(probe.backlog.shape[:-1]), probe.backlog.shape[-1]
+        outs = []
+        for fn in (tpk.tap_scan_cuda, tpk.tap_scan_plain):
+            out_x = tpk.TapOut.empty(lanes_x, T_x, dev)
+            st_x = torch.zeros(lanes_x + (7,), device=dev)
+            bounds = [0, *chunks, T_x]
+            for a0, a1 in zip(bounds, bounds[1:]):
+                fn(cfg_x, probe, out_x, st_x, a0, a1)
+            outs.append((out_x, st_x))
+        torch.cuda.synchronize()
+        for a, b in zip((*outs[0][0], outs[0][1]), (*outs[1][0], outs[1][1])):
+            if a.dtype == torch.float32:
+                err = float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+                max_err["tap_scan"] = max(max_err["tap_scan"], err)
+        bad = [n for n, a, b in zip(tpk.TapOut._fields + ("state",), (*outs[0][0], outs[0][1]),
+                                    (*outs[1][0], outs[1][1])) if not same_bits(a, b)]
+        if bad:
+            fail(f"tap_scan {label}: {bad} differ from the plain version")
+        return outs[0]
+
+    n_checked = 0
+    for label, tel_x in tap_cases.items():
+        probe = probe_of(tel_x)
+        out_x, _ = tap_check(label, tcfg, probe)
+        frame_bad = [n for n in ("backlog_growth", "conservation_residual", "alert_active")
+                     if not same_bits(getattr(out_x, n), getattr(tel_x, n))]
+        if frame_bad:
+            fail(f"tap_scan {label}: the run's frame differs in {frame_bad}")
+        T_x = probe.backlog.shape[-1]
+        tap_check(label + " in chunks", tcfg, probe, chunks=(1, T_x // 3, T_x // 2 + 1))
+        n_checked += 2
+    rng_t = np.random.default_rng(SEED)
+    lanes_t, T_t = 96, 300
+    near = lambda v: [float(np.nextafter(np.float32(v), np.float32(d)))  # noqa: E731
+                      for d in (-np.inf, np.float32(v), np.inf)]
+    shape = (lanes_t, T_t)
+    arrived = rng_t.integers(0, 2**26, shape).astype(np.float32)
+    processed = np.minimum(rng_t.integers(0, 2**26, shape).astype(np.float32), arrived)
+    backlog = np.cumsum(arrived - processed, axis=-1, dtype=np.float64).astype(np.float32)
+    syn = dict(emissions=(rng_t.uniform(0, 1, shape) * 10.0 ** rng_t.integers(-3, 9, shape)),
+               arrived=arrived, processed=processed,
+               failed=np.minimum(rng_t.integers(0, 2**23, shape).astype(np.float32), processed),
+               wasted=rng_t.uniform(0, 3e4, shape), backlog=backlog,
+               stale=rng_t.integers(0, 9, shape), clouds_down=rng_t.integers(0, 6, shape),
+               retry_depth=np.zeros(shape), transfer_occupancy=np.zeros(shape),
+               missed=np.zeros(shape), shed=np.zeros(shape))
+    cfg_t = tlm.TelemetryConfig(growth_thresh=0.1, growth_sustain=1, stale_budget=3,
+                                drift_tol=0.3, miss_tol=0.7, shed_frac=0.1)
+    # lanes 0-2: one float below, at and above growth_thresh, miss_tol and
+    # shed_frac x 10 arrivals (processed as they come), stale 2-4 against
+    # a budget of 3, 4-6 of 5 clouds down; lanes 3-5 a residual below, at
+    # and above drift_tol; each monitor's firing slots are then exact
+    for i in range(6):
+        for k in syn:
+            syn[k][i] = 0
+    for i in range(3):
+        syn["backlog"][i, 1::2] = near(0.1)[i]
+        syn["arrived"][i] = syn["processed"][i] = 10.0
+        syn["missed"][i] = near(0.7)[i]
+        syn["shed"][i] = near(1.0)[i]
+        syn["stale"][i] = 2 + i
+        syn["clouds_down"][i] = 4 + i
+        syn["arrived"][3 + i, 0] = near(0.3)[i]
+    fired_want = np.zeros((6, 6), np.int64)
+    fired_want[1, 2] = fired_want[2, 1:3] = fired_want[2, 4:6] = fired_want[5, 3] = T_t
+    fired_want[2, 0] = T_t // 2
+    fired_want[:3, 3] = T_t  # lanes 0-2's misses and sheds leave the residual at -1.7 a slot
+    probe_t = tlm.TelemetryProbe(
+        dispatched=torch.zeros(shape + (5,), device=dev),
+        **{k: torch.as_tensor(np.ascontiguousarray(v), device=dev,
+                              dtype=torch.int32 if k == "stale" else torch.float32)
+           for k, v in syn.items()})
+    out_t, _ = tap_check("synthetic", cfg_t, probe_t)
+    tap_check("synthetic in chunks", cfg_t, probe_t, chunks=(1, 2, 31, 32, 33, 200))
+    fired = out_t.alert_active[:6].sum(dim=1).cpu().numpy()
+    if not np.array_equal(fired, fired_want):
+        fail(f"tap_scan synthetic: the lanes near the thresholds fire {fired.tolist()}, "
+             f"not {fired_want.tolist()}")
+    say(f"[4h telemetry] tap_scan bitwise equal to its plain version on the card: {n_checked} "
+        f"runs' probe series ({', '.join(tap_cases)}; each whole and in chunks from the carried "
+        f"state) and a synthetic F{lanes_t} x T{T_t} past 2**24 (cum arrived up to "
+        f"{float(out_t.gauges[:, 2].max()):.3e}) with lanes one float below, at and above each "
+        f"threshold (firing slots, lane by monitor, as expected: {fired.tolist()}), whole and "
+        "in 7 chunks")
+
+    # tap_scan's time at each case's shape, cold and warm, with its byte
+    # bound; the row of phase 7 is bench_telemetry_overhead's fleet
+    tap_times = []
+    for label, tel_x in tap_cases.items():
+        probe = probe_of(tel_x)
+        lanes_x, T_x = tuple(probe.backlog.shape[:-1]), probe.backlog.shape[-1]
+        out_x = tpk.TapOut.empty(lanes_x, T_x, dev)
+        st_x = torch.zeros(lanes_x + (7,), device=dev)
+        nl = math.prod(lanes_x)
+        call = lambda probe=probe, out_x=out_x, st_x=st_x, T_x=T_x: tpk.tap_scan_cuda(  # noqa: E731
+            tcfg, probe, out_x, st_x, 0, T_x)
+        times = graph_ms(call, reps=20, inner=20)
+        nbytes = nl * (T_x * (10 * 4 + 8 * 4) + 2 * 7 * 4 + 8 * 4 + 18 * 4)
+        nops = nl * T_x * 16
+        tap_times.append({
+            "shape": label, "times": times, "call_ms": cuda_ms(call, reps=10, inner=10),
+            "plain_ms": cuda_ms(lambda probe=probe, out_x=out_x, st_x=st_x, T_x=T_x:
+                                tpk.tap_scan_plain(tcfg, probe, out_x, st_x, 0, T_x),
+                                reps=3, inner=1),
+            "nbytes": nbytes, "nops": nops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3})
+        say(f"[4h time] tap_scan {label}: {times[1]:.5f} ms cold, {times[0]:.5f} ms warm (CUDA "
+            f"graph replay, CUDA events, median) vs byte bound {tap_times[-1]['bound_ms']:.6f} ms "
+            f"({nbytes / 1e6:.3f} MB); {tap_times[-1]['call_ms']:.5f} ms per eager call; plain "
+            f"version {tap_times[-1]['plain_ms']:.3f} ms ({smi})")
+    say("[4h telemetry] launches over the phase's driven runs: " + ", ".join(
+        f"{k} {v}" for k, v in tap_counts.items() if v) + f"; {time.perf_counter() - t0:.1f} s")
+    del tap_cases, a_res, tel_fleet
+
     # ---- 5. paper headline -----------------------------------------
     pspec = paper_spec().to(dev)
     uk = core.UKRegionalTraceSource(N=5).to(dev)
@@ -3162,6 +3644,23 @@ def main() -> int:
         f"plain walk {pois_plain_ms:.5f} ms, {n_aten_plain:.0f} aten op calls; mean of "
         f"{draws.numel()} draws {float(draws.mean()):.4f} vs rates' {rates.mean():.4f} "
         f"(6 se {6 * se:.4f})")
+
+    # tap_scan (phase 4h): its time at bench_telemetry_overhead's fleet
+    # (F32 x T192) for the row, every other case's beside it; launches from
+    # the main path's run with taps on (set to 0 just before it), and apart
+    # from them the phase's total and a streamed run's (one a flush chunk);
+    # no PyTorch call computes the recurrence (a prefix sum adds in another
+    # order), so no library time
+    tt = tap_times[0]
+    row("tap_scan", "src/repro_torch/kernels/csrc/tap_scan.cu", "src/repro/telemetry/taps.py:162",
+        main_tap_launches["tap_scan"], tt["times"], tt["call_ms"], tt["plain_ms"],
+        nbytes=tt["nbytes"], nops=tt["nops"])
+    rows[-1].update(phase_launches=tap_counts.get("tap_scan", 0),
+                    stream_launches_per_run=n_stream, shape=tt["shape"])
+    rows[-1]["other_shapes"] = [
+        {"shape": x["shape"], "ms": x["times"][1], "warm_ms": x["times"][0],
+         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": "bytes"}
+        for x in tap_times[1:]]
 
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it

@@ -17,8 +17,11 @@ rings, expiry, admission shedding) through any of these loops.
 `simulate_vsweep` and `simulate_fleet` run the same loop over a leading
 lane axis (V values, or stacked scenarios, with a stacked WAN graph,
 forecast-error lanes, fault lanes and deadline lanes), which every
-tensor of the slot carries. The telemetry argument of the JAX
-`simulate` belongs to a later slice of the port and is refused.
+tensor of the slot carries. `telemetry=` turns on the telemetry layer
+(`repro_torch.telemetry`) in any of these loops: each slot records the
+probe's raw fields, and the tap kernel turns them into the result's
+`telemetry` frame after the run (or after every flush chunk when
+streaming).
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from repro_torch.core.carbon import DeviceCache, TableCarbonSource
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, emissions, init_state, step
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.taps import TapOut
+from repro_torch.telemetry.stream import check_stream, split_telemetry, stream_flush
+from repro_torch.telemetry.taps import TelemetryProbe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +129,7 @@ class SimResult(NamedTuple):
     processed: torch.Tensor      # [T] total tasks processed
     energy_edge: torch.Tensor    # [T] edge energy spent
     energy_cloud: torch.Tensor   # [T, N] cloud energy spent
+    telemetry: object = None     # a telemetry.Telemetry frame, or None
     deadlines: object = None     # a deadlines.DeadlineLedger, or None
 
     # R depends on `record`: T for "full", 1 for "summary", T//k for a
@@ -205,12 +212,78 @@ def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device,
     )
 
 
-def refuse_telemetry(telemetry, where: str) -> None:
-    """The telemetry layer is not ported: a run that asks for it raises."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            f"{where}(telemetry=...): repro_torch has no telemetry layer yet (ROADMAP Queue 1 "
-            f"item {_NOT_PORTED['telemetry']})")
+class TapTape:
+    """The telemetry probe's fields over a run of T slots ([*lanes, T],
+    `dispatched` [*lanes, T, N], `stale` int32) and the tap kernel's
+    outputs. A loop hands over the [*lanes, T] series it records anyway
+    (`shared`: emissions and processed; the faulted loops' arrived,
+    failed, wasted, clouds_down, backlog and stale; the deadline tape's
+    missed and shed); the tape allocates the others, zeros where a field
+    does not apply to the loop. Each slot the loop writes the fields it
+    does not share (`slot`), which also flushes a streamed chunk;
+    `frame()` runs the taps and returns the Telemetry frame: one
+    `tap_scan` a run, or one a chunk when streaming."""
+
+    def __init__(self, telemetry, lanes: tuple, T: int, N: int, record, device, **shared):
+        self.cfg, self.stream = split_telemetry(telemetry)
+        if self.stream is not None:
+            check_stream(self.stream, T, record)
+        fields = {}
+        for name in TelemetryProbe._fields:
+            if name in shared:
+                fields[name] = shared[name]
+            elif name == "dispatched":
+                fields[name] = torch.zeros(lanes + (T, N), dtype=DTYPE, device=device)
+            else:
+                fields[name] = torch.zeros(lanes + (T,), device=device,
+                                           dtype=torch.int32 if name == "stale" else DTYPE)
+        self.probe = TelemetryProbe(**fields)
+        self.out = TapOut.empty(lanes, T, device)
+        self.state = torch.zeros(lanes + (7,), dtype=DTYPE, device=device)  # init_taps, packed
+        self.lanes, self.T, self.t0 = lanes, T, 0
+
+    def _total(self, x, out=None):
+        """x summed over every axis after the lanes."""
+        return torch.sum(x, dim=tuple(range(len(self.lanes), x.dim())), out=out)
+
+    def slot(self, t: int, landed, arrived=None, backlog=(), **sums) -> None:
+        """Writes slot t's fields that the loop does not record, then
+        flushes a streamed chunk that slot t ends: `dispatched` = the
+        tasks landing in each cloud (`landed` [*lanes, M, N] summed over
+        M); `arrived` and each of `sums` ({field: tensor}) totalled;
+        `backlog` = the parts' totals added left to right, a part already
+        in `sums` read back from its field."""
+        torch.sum(landed, dim=-2, out=self.probe.dispatched[..., t, :])
+        if arrived is not None:
+            self._total(arrived, self.probe.arrived[..., t])
+        written = {}
+        for name, x in sums.items():
+            written[id(x)] = self._total(x, getattr(self.probe, name)[..., t])
+        if backlog:
+            totals = [written[id(x)] if id(x) in written else self._total(x) for x in backlog]
+            acc = totals[0]
+            for x in totals[1:-1]:
+                acc = acc + x
+            torch.add(acc, totals[-1], out=self.probe.backlog[..., t])
+        if self.stream is not None and (t + 1) % self.stream.flush_every == 0:
+            t0 = self.t0
+            self._scan(t + 1)
+            stream_flush(self.stream, self.out.series(self.probe), t0, t + 1)
+
+    def _scan(self, t1: int) -> None:
+        ops.tap_scan(self.cfg, self.probe, self.out, self.state, self.t0, t1)
+        self.t0 = t1
+
+    def frame(self):
+        if self.t0 < self.T:
+            self._scan(self.T)
+        return self.out.frame(self.probe)
+
+
+def start_taps(telemetry, lanes: tuple, T: int, N: int, record, device, **shared):
+    """The tape of a run with telemetry on, None with it off (no tape,
+    nothing launched)."""
+    return None if telemetry is None else TapTape(telemetry, lanes, T, N, record, device, **shared)
 
 
 class DeadlineTape:
@@ -409,23 +482,33 @@ def simulate(
     (missed, shed and admitted a slot, and the rings `Qd` recorded as
     `record` says). With `no_deadlines(M)` every other field is bitwise
     the run without it. It composes with `graph`, `faults` and
-    `forecaster`. `telemetry` is not ported and raises.
+    `forecaster`.
+
+    `telemetry` (a `repro_torch.telemetry.TelemetryConfig`) turns on the
+    metrics taps and SLO monitors: each slot records the probe's fields
+    (most of them sums the loop keeps anyway) and after the run one
+    `tap_scan` launch fills the result's `telemetry`, a Telemetry frame of
+    per-slot series, run gauges and alert records, the same in every
+    record mode. A `StreamConfig` also flushes each `flush_every` slots'
+    TapSeries to a host channel during the run (one `tap_scan` a chunk;
+    the frame is bitwise the batch frame). With `telemetry=None` nothing
+    is recorded or launched and every field is bitwise the run without
+    it. It composes with every other layer.
     """
-    refuse_telemetry(telemetry, "simulate")
     if graph is not None:
         from repro_torch.network.sim import simulate_network
 
         return simulate_network(policy, spec, graph, carbon_source, arrival_source, T, key,
                                 state0=state0, record=record, device=device,
                                 forecaster=forecaster, error_params=error_params, faults=faults,
-                                deadlines=deadlines)
+                                telemetry=telemetry, deadlines=deadlines)
     if faults is not None:
         from repro_torch.faults.sim import simulate_faulted
 
         return simulate_faulted(policy, spec, faults, carbon_source, arrival_source, T, key,
                                 state0=state0, record=record, device=device,
                                 forecaster=forecaster, error_params=error_params,
-                                deadlines=deadlines)
+                                telemetry=telemetry, deadlines=deadlines)
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
                           horizon=T)
     dev = loop.device
@@ -433,14 +516,16 @@ def simulate(
         Qe=state0.Qe.to(dev, DTYPE), Qc=state0.Qc.to(dev, DTYPE)
     )
     feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, error_params)
-    return _drive(loop, state, T, record, feed)
+    return _drive(loop, state, T, record, feed, telemetry)
 
 
-def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> SimResult:
+def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None,
+           telemetry=None) -> SimResult:
     """T slots of `loop` from `state`, recorded as `record` says. Every
     tensor may carry leading lanes (those of the state): the series are
     then [*lanes, T], the queues [*lanes, R, M(, N)], as the JAX
-    package's vmap stacks them."""
+    package's vmap stacks them. With `telemetry`, each slot adds the
+    probe's arrivals, landings a cloud and backlog to the tape."""
     stride = record_stride(record, T)
     R_ = T // stride
     dev = loop.device
@@ -454,6 +539,8 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> Si
     dstate = tape = None
     if loop.deadlines is not None:
         dstate, tape = start_deadlines(loop.deadlines, M, lanes, T, record, dev)
+    taps = start_taps(telemetry, lanes, T, N, record, dev, emissions=C, processed=proc,
+                      **({} if tape is None else {"missed": tape.missed, "shed": tape.shed}))
     for t in range(T):
         s = slot_step(loop, state, t, feed, dstate)
         state, act = s.state, s.act
@@ -465,6 +552,8 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> Si
         if tape is not None:
             dstate = s.dstate
             tape.put(t, s.expired, s.shed, s.admitted, dstate.Qd)
+        if taps is not None:
+            taps.slot(t, act.d, arrived=s.a, backlog=(state.Qe, state.Qc))
         if (t + 1) % stride == 0:
             r = (t + 1) // stride - 1
             Qe_rec[..., r, :] = state.Qe
@@ -478,6 +567,7 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None) -> Si
         processed=proc,
         energy_edge=ee,
         energy_cloud=ec,
+        telemetry=None if taps is None else taps.frame(),
         deadlines=None if tape is None else tape.ledger(),
     )
 
@@ -611,13 +701,6 @@ def sweep_forecast_errors(fleet: FleetScenario, bias, noise) -> FleetScenario:
     )
 
 
-# the layers the JAX simulators take that the port does not have yet,
-# with the ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {
-    "telemetry": "2.6 (telemetry)",
-}
-
-
 def simulate_fleet(
     policy: Callable,
     fleet: FleetScenario,
@@ -647,8 +730,13 @@ def simulate_fleet(
     forecaster through every lane (each lane's table and carbon key, and
     with `err_bias`/`err_noise` its own error parameters), as `simulate`
     does. Every result field has a leading [F] axis; `record` works as
-    in `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N])."""
-    refuse_telemetry(telemetry, "simulate_fleet")
+    in `simulate` ("summary" keeps [F, 1, M] / [F, 1, M, N]).
+
+    `telemetry` threads to every lane, whatever layers the fleet runs:
+    the result's `telemetry` frame has a leading [F] axis on every field
+    (select one with `telemetry.lane`, reduce the fleet with
+    `telemetry.manifest`); one `tap_scan` launch covers every lane, and a
+    StreamConfig pushes each chunk once a lane, tagged with its index."""
     dev = resolve_device(device)
     fleet = fleet.to(dev)
     spec = NetworkSpec(*fleet.spec)
@@ -661,16 +749,18 @@ def simulate_fleet(
 
         return simulate_network(policy, spec, fleet.graph, carbon, arrivals, T, keys,
                                 record=record, device=dev, forecaster=forecaster,
-                                error_params=err, faults=fleet.faults, deadlines=fleet.deadlines)
+                                error_params=err, faults=fleet.faults, telemetry=telemetry,
+                                deadlines=fleet.deadlines)
     if fleet.faults is not None:
         from repro_torch.faults.sim import simulate_faulted
 
         return simulate_faulted(policy, spec, fleet.faults, carbon, arrivals, T, keys,
                                 record=record, device=dev, forecaster=forecaster,
-                                error_params=err, deadlines=fleet.deadlines)
+                                error_params=err, telemetry=telemetry, deadlines=fleet.deadlines)
     loop = make_slot_loop(policy, spec, carbon, arrivals, keys, dev, fleet.deadlines, horizon=T)
     feed = None if forecaster is None else ForecastFeed.start(forecaster, loop, err)
-    return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record, feed)
+    return _drive(loop, init_state(spec.M, spec.N, device=dev, F=fleet.F), T, record, feed,
+                  telemetry)
 
 
 def mean_rate_stability_metric(result: SimResult) -> torch.Tensor:

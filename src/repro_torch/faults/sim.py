@@ -53,8 +53,8 @@ from repro_torch.core.simulator import (
     deadline_edge,
     make_slot_loop,
     record_stride,
-    refuse_telemetry,
     start_deadlines,
+    start_taps,
 )
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.faults.model import (
@@ -89,7 +89,7 @@ class FaultSimResult(NamedTuple):
     stale: torch.Tensor          # [T] carbon-signal age seen by the policy
     clouds_down: torch.Tensor    # [T] clouds with zero capacity this slot
     backlog: torch.Tensor        # [T] Qe + Qc + retry totals (post-step)
-    telemetry: object = None     # the telemetry layer is not ported yet
+    telemetry: object = None     # a telemetry.Telemetry frame, or None
     deadlines: object = None     # a deadlines.DeadlineLedger, or None
 
     @property
@@ -120,7 +120,7 @@ class NetFaultSimResult(NamedTuple):
     clouds_down: torch.Tensor    # [T]
     links_down: torch.Tensor     # [T] routes with zero bandwidth this slot
     backlog: torch.Tensor        # [T] Qe + Qc + Qt + retry (post-step)
-    telemetry: object = None     # the telemetry layer is not ported yet
+    telemetry: object = None     # a telemetry.Telemetry frame, or None
     deadlines: object = None     # a deadlines.DeadlineLedger, or None
 
     @property
@@ -145,7 +145,8 @@ class _Faulted:
     the policy's call."""
 
     def __init__(self, loop: SlotLoop, faults: FaultParams, key, state0, T: int, record,
-                 forecaster, error_params, L=None, extra_series=(), extra_queues=()):
+                 forecaster, error_params, telemetry=None, L=None, extra_series=(),
+                 extra_queues=()):
         self.loop = loop
         dev = loop.device
         spec = loop.spec
@@ -164,6 +165,8 @@ class _Faulted:
         self.stride = record_stride(record, T)
         zeros = lambda *shape: torch.zeros(self.lanes + shape, dtype=DTYPE, device=dev)  # noqa: E731
         self.series = {n: zeros(T) for n in _SERIES + tuple(extra_series)}
+        # stale is int32, as the view has it (the result's field is its float32)
+        self.series["stale"] = torch.zeros(self.lanes + (T,), dtype=torch.int32, device=dev)
         self.series["energy_cloud"] = zeros(T, self.N)
         R_ = T // self.stride
         self.queues = {"Qe": zeros(R_, self.M), "Qc": zeros(R_, self.M, self.N),
@@ -174,6 +177,12 @@ class _Faulted:
         if loop.deadlines is not None:
             self.dstate, self.tape = start_deadlines(loop.deadlines, self.M, self.lanes, T,
                                                      record, dev)
+        shared = {n: self.series[n] for n in ("arrived", "failed", "wasted", "backlog", "stale",
+                                               "clouds_down", "processed")}
+        if self.tape is not None:
+            shared.update(missed=self.tape.missed, shed=self.tape.shed)
+        self.taps = start_taps(telemetry, self.lanes, T, self.N, record, dev,
+                               emissions=self.series["emissions"], **shared)
 
     def observe(self, t: int):
         """Carbon, arrivals and the fault step of slot t: (Ce, Cc, a,
@@ -210,6 +219,15 @@ class _Faulted:
     def ledger(self):
         return None if self.tape is None else self.tape.ledger()
 
+    def probe(self, t: int, landed, **sums):
+        """The tape's fields that the series do not hold (`TapTape.slot`:
+        the tasks landing in each cloud and the totals of `sums`)."""
+        if self.taps is not None:
+            self.taps.slot(t, landed, **sums)
+
+    def frame(self):
+        return None if self.taps is None else self.taps.frame()
+
     def fail(self, w_eff):
         self.fs, failed = requeue_failed(self.fs, self.faults, w_eff, self.u.fail)
         return failed
@@ -234,12 +252,12 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
     """The link-free faulted run on `device`; see the module docstring for
     the slot order. `record`, `forecaster`, `error_params` and
     `deadlines` work as in `core.simulate`; the forecaster sees what the
-    telemetry feed delivers (the frozen row during dropouts). The
-    telemetry layer is not ported and raises."""
-    refuse_telemetry(telemetry, "simulate_faulted")
+    telemetry feed delivers (the frozen row during dropouts).
+    `telemetry` works as in `core.simulate`; the probe reads the fault
+    ledger (failures, waste, staleness, clouds down, the retry pool)."""
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
                           horizon=T)
-    run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params)
+    run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params, telemetry)
     _, _, k_policy = loop.keys
     pe, pc = run.pe, run.pc
     for t in range(T):
@@ -257,10 +275,11 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
                 energy_edge=_total(act.d * pe[..., :, None], 2),
                 failed=_total(failed, 2), requeued=_total(view.released, 2),
                 wasted=torch.sum(Cc * torch.sum(failed * pc, dim=-2), dim=-1),
-                stale=view.stale.to(DTYPE), clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1),
+                stale=view.stale, clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1),
                 backlog=torch.sum(run.state.Qe, dim=-1) + _total(run.state.Qc, 2)
                 + _total(run.fs.retry, 2))
         run.series["energy_cloud"][..., t, :] = torch.sum(w_eff * pc, dim=-2)
+        run.probe(t, act.d, retry_depth=run.fs.retry)
         run.keep(t, Qe=run.state.Qe, Qc=run.state.Qc, retry=run.fs.retry)
     s, q = run.series, run.queues
     return FaultSimResult(
@@ -268,8 +287,9 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
         Qe=q["Qe"], Qc=q["Qc"], retry=q["retry"],
         arrived=s["arrived"], dispatched=s["dispatched"], processed=s["processed"],
         energy_edge=s["energy_edge"], energy_cloud=s["energy_cloud"],
-        failed=s["failed"], requeued=s["requeued"], wasted=s["wasted"], stale=s["stale"],
-        clouds_down=s["clouds_down"], backlog=s["backlog"], deadlines=run.ledger(),
+        failed=s["failed"], requeued=s["requeued"], wasted=s["wasted"],
+        stale=s["stale"].to(DTYPE), clouds_down=s["clouds_down"], backlog=s["backlog"],
+        telemetry=run.frame(), deadlines=run.ledger(),
     )
 
 
@@ -281,7 +301,6 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
     """The WAN faulted run: link flaps scale each route's bandwidth in
     `step_links`; everything else is `simulate_faulted`'s (the deadline
     clock runs on edge waiting, before link injection)."""
-    refuse_telemetry(telemetry, "simulate_network_faulted")
     from repro_torch.network.transfer import (
         init_links,
         land_in_clouds,
@@ -297,7 +316,7 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
                           horizon=T)
     g = graph.to(loop.device)
-    run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params, L=g.L,
+    run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params, telemetry, L=g.L,
                    extra_series=("delivered", "energy_transfer", "links_down"),
                    extra_queues=(("Qt", g.L),))
     links = init_links(run.M, g.L, device=loop.device, F=run.lanes[0] if run.lanes else None)
@@ -322,11 +341,12 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
                 energy_transfer=torch.sum(transfer_energy(g, act.dt), dim=-1),
                 failed=_total(failed, 2), requeued=_total(view.released, 2),
                 wasted=torch.sum(Cc * torch.sum(failed * pc, dim=-2), dim=-1),
-                stale=view.stale.to(DTYPE), clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1),
+                stale=view.stale, clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1),
                 links_down=torch.sum(1.0 - view.link_on, dim=-1),
                 backlog=torch.sum(run.state.Qe, dim=-1) + _total(run.state.Qc, 2)
                 + _total(links.Qt, 2) + _total(run.fs.retry, 2))
         run.series["energy_cloud"][..., t, :] = torch.sum(w_eff * pc, dim=-2)
+        run.probe(t, land, retry_depth=run.fs.retry, transfer_occupancy=links.Qt)
         run.keep(t, Qe=run.state.Qe, Qc=run.state.Qc, Qt=links.Qt, retry=run.fs.retry)
     s, q = run.series, run.queues
     return NetFaultSimResult(
@@ -335,7 +355,7 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
         arrived=s["arrived"], dispatched=s["dispatched"], delivered=s["delivered"],
         processed=s["processed"], energy_edge=s["energy_edge"],
         energy_transfer=s["energy_transfer"], energy_cloud=s["energy_cloud"],
-        failed=s["failed"], requeued=s["requeued"], wasted=s["wasted"], stale=s["stale"],
-        clouds_down=s["clouds_down"], links_down=s["links_down"], backlog=s["backlog"],
-        deadlines=run.ledger(),
+        failed=s["failed"], requeued=s["requeued"], wasted=s["wasted"],
+        stale=s["stale"].to(DTYPE), clouds_down=s["clouds_down"], links_down=s["links_down"],
+        backlog=s["backlog"], telemetry=run.frame(), deadlines=run.ledger(),
     )

@@ -7,8 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-
-SUM_BLOCK = 32  # the window of XLA:CPU's reductions (read from the HLO)
+from repro_torch.kernels.numerics import xla_sum
 
 
 def rolling_forecasts(forecaster, table, *, key=None, device=DEFAULT_DEVICE) -> torch.Tensor:
@@ -23,32 +22,6 @@ def rolling_forecasts(forecaster, table, *, key=None, device=DEFAULT_DEVICE) -> 
         carry = forecaster.update(carry, table[t])
         out.append(forecaster.predict(carry, t))
     return torch.stack(out)
-
-
-def xla_sum(x: torch.Tensor) -> torch.Tensor:
-    """sum(x) over its last two axes [..., T, K] in XLA:CPU's order (read
-    from the compiled HLO of `jnp.sum` over a [T, ...] array, the K axes
-    flattened in row order): while more than SUM_BLOCK rows remain, a
-    `reduce-window` of SUM_BLOCK rows with the zero pad split lo = pad //
-    2 before and the rest after, each window summed element by element
-    in row order (rows, then K); then the remaining windows' sums in
-    order. Elementwise float32 adds, so the result is the same on every
-    device (`network.transfer.column_sum` is the K = 1, per-column
-    case)."""
-    while x.shape[-2] > SUM_BLOCK:
-        pad = -x.shape[-2] % SUM_BLOCK
-        if pad:
-            x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
-        blocks = x.reshape(x.shape[:-2] + (-1, SUM_BLOCK * x.shape[-1]))
-        acc = blocks[..., 0]
-        for i in range(1, blocks.shape[-1]):
-            acc = acc + blocks[..., i]
-        x = acc[..., None]
-    flat = x.reshape(x.shape[:-2] + (-1,))
-    acc = flat[..., 0]
-    for i in range(1, flat.shape[-1]):
-        acc = acc + flat[..., i]
-    return acc
 
 
 def forecast_errors(forecaster, table, *, key=None, burn_in: int = 0,

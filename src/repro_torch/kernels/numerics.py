@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 SCAN_BLOCK = 16  # the block length of XLA:CPU's compiled cumsum (read from its HLO)
+SUM_BLOCK = 32  # the window of XLA:CPU's reductions (read from the HLO)
 
 
 _F32_MID_MASK = (1 << 29) - 1  # the float64 fraction bits below float32's 23
@@ -373,3 +374,29 @@ def _scan(x: torch.Tensor) -> torch.Tensor:
     blocks = _scan(F.pad(x, (0, nb * SCAN_BLOCK - n)).reshape(*x.shape[:-1], nb, SCAN_BLOCK))
     before = F.pad(_scan(blocks[..., -1])[..., :-1], (1, 0))  # exclusive prefix of the totals
     return (blocks + before[..., None]).reshape(*x.shape[:-1], nb * SCAN_BLOCK)[..., :n]
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x) over its last two axes [..., T, K] in XLA:CPU's order (read
+    from the compiled HLO of `jnp.sum` over a [T, ...] array, the K axes
+    flattened in row order): while more than SUM_BLOCK rows remain, a
+    `reduce-window` of SUM_BLOCK rows with the zero pad split lo = pad //
+    2 before and the rest after, each window summed element by element
+    in row order (rows, then K); then the remaining windows' sums in
+    order. Elementwise float32 adds, so the result is the same on every
+    device (`network.transfer.column_sum` is the K = 1, per-column
+    case; the telemetry totals are the T-only case)."""
+    while x.shape[-2] > SUM_BLOCK:
+        pad = -x.shape[-2] % SUM_BLOCK
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        blocks = x.reshape(x.shape[:-2] + (-1, SUM_BLOCK * x.shape[-1]))
+        acc = blocks[..., 0]
+        for i in range(1, blocks.shape[-1]):
+            acc = acc + blocks[..., i]
+        x = acc[..., None]
+    flat = x.reshape(x.shape[:-2] + (-1,))
+    acc = flat[..., 0]
+    for i in range(1, flat.shape[-1]):
+        acc = acc + flat[..., i]
+    return acc

@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import greedy_fill as _gf
 from repro_torch.kernels import route_score as _rs
 from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import taps as _taps
 from repro_torch.kernels import threefry as _tf
 
 def _pick(x, plain, cuda, what):
@@ -84,9 +85,18 @@ def threefry_draw(keys, t, n, *, finish="uniform", seg=None, fold_each=False, ch
               minval=minval, maxval=maxval, scale=scale, paths=paths, count=count)
 
 
+def tap_scan(cfg, probe, out, state, t0, t1):
+    """The telemetry taps over slots t0..t1-1 of a run: `probe` a
+    TelemetryProbe of [*lanes, T] series, `out` a `taps.TapOut`, `state`
+    the packed [*lanes, 7] TapState (both written in place); at t1 = T
+    also the run's gauges and alert records (see `kernels/taps.py`)."""
+    fn = _pick(probe.backlog, _taps.tap_scan_plain, _taps.tap_scan_cuda, "tap_scan")
+    fn(cfg, probe, out, state, t0, t1)
+
+
 _MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,
             "flash_attention": _fa, "flash_decode": _fd, "ssd_chunk_intra": _ssd,
-            "threefry_draw": _tf}
+            "threefry_draw": _tf, "tap_scan": _taps}
 
 
 def launch_counts() -> dict:

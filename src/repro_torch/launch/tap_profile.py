@@ -1,0 +1,196 @@
+"""What the telemetry taps cost on the card: the tap kernel's time, the
+taps' cost a slot in the runs, and which call of the probe's per-slot
+sums launches what.
+
+    python3 src/repro_torch/launch/tap_profile.py [--src DIR] [--label NAME]
+        [--turns 3] [--sums]
+
+`--src DIR` puts DIR first on the module path before `repro_torch` is
+imported, so the script times the package of another checkout (its
+`src`) as well as this one; run it once per version, in turns, to
+compare two versions on one card. It uses only calls that both versions
+accept.
+
+It measures, summary records, seed 0:
+  - kernel: `tap_scan_cuda` over a whole run's probe series, from a run
+    with taps on, at bench_telemetry_overhead's fleet
+    (`build_fleet(["diurnal-slack"], per_kind=32)`, F32 x M5 x N5,
+    CarbonIntensity V=0.05, T=192) and at chip_smoke.py's main path (M4096
+    x N256, T=64: the instance of `slot_profile.py`); ms a call, the
+    median over 15 rounds of 20 back-to-back calls between CUDA events;
+  - ms_per_slot: those two runs with taps off and on, `--turns` rounds of
+    off, on, on, off, ms per slot from CUDA events;
+  - with `--sums`, probe_sums: each of the probe's per-slot sums alone
+    (arrived, dispatched, the backlog's Qe and Qc sums and their add) at
+    the main path's shape, fleet B's (F16 x M4096 x N256) and the bench
+    fleet's, written three ways: into slot t of the [*lanes, T] tape the
+    loops keep (a strided column when there are lanes), into row t of a
+    contiguous [T, *lanes] tape, and into a new tensor. torch.profiler
+    over 8 calls of each gives the kernels, memsets and host
+    cudaLaunchKernel / cudaMemsetAsync calls a call.
+It prints one JSON line (with tap_scan's ptxas registers and spills)
+and the nvidia-smi name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+SEED, V, T_MAIN, T_BENCH = 0, 0.05, 64, 192
+
+
+def _events_ms(torch, fn, reps: int, inner: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def _launches(torch, fn, calls: int = 8) -> dict:
+    """Device kernels and memsets, and host launch and memset calls, a
+    call of `fn`, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "memsets": 0, "cudaLaunchKernel": 0, "cudaMemsetAsync": 0}
+    names = set()
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            kind = "memsets" if "memset" in evt.key.lower() else "kernels"
+            out[kind] += evt.count
+            if kind == "kernels":
+                names.add(evt.key[:60])
+        elif evt.key in ("cudaLaunchKernel", "cudaMemsetAsync"):
+            out[evt.key] += evt.count
+    out = {k: v / calls for k, v in out.items()}
+    out["kernel_names"] = sorted(names)
+    return out
+
+
+def _probe_sums(torch, dev) -> dict:
+    T = 64
+    res = {}
+    for label, lanes, M, N in (("main F1 x M4096 x N256", (), 4096, 256),
+                               ("fleet B F16 x M4096 x N256", (16,), 4096, 256),
+                               ("bench fleet F32 x M5 x N5", (32,), 5, 5)):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        Qe = torch.randint(0, 1000, lanes + (M,), generator=g, device=dev).float()
+        Qc = torch.randint(0, 1000, lanes + (M, N), generator=g, device=dev).float()
+        a = torch.randint(0, 400, lanes + (M,), generator=g, device=dev).float()
+        d = torch.randint(0, 9, lanes + (M, N), generator=g, device=dev).float()
+        col = torch.zeros(lanes + (T,), device=dev)      # [*lanes, T], slot t a column
+        row = torch.zeros((T,) + lanes, device=dev)      # [T, *lanes], slot t a row
+        col_n = torch.zeros(lanes + (T, N), device=dev)
+        row_n = torch.zeros((T,) + lanes + (N,), device=dev)
+        e1 = tuple(range(len(lanes), len(lanes) + 1))
+        e2 = tuple(range(len(lanes), len(lanes) + 2))
+        se, sc = torch.sum(Qe, dim=e1), torch.sum(Qc, dim=e2)
+        t = 5
+        ops = {
+            "arrived": (lambda o: torch.sum(a, dim=e1, out=o), col[..., t], row[t]),
+            "dispatched": (lambda o: torch.sum(d, dim=-2, out=o), col_n[..., t, :], row_n[t]),
+            "backlog Qe": (lambda o: torch.sum(Qe, dim=e1, out=o), col[..., t], row[t]),
+            "backlog Qc": (lambda o: torch.sum(Qc, dim=e2, out=o), col[..., t], row[t]),
+            "backlog add": (lambda o: torch.add(se, sc, out=o), col[..., t], row[t]),
+        }
+        res[label] = {name: {"tape slot": _launches(torch, lambda f=f, o=o: f(o)),
+                             "tape row": _launches(torch, lambda f=f, o=r: f(o)),
+                             "new tensor": _launches(torch, lambda f=f: f(None))}
+                      for name, (f, o, r) in ops.items()}
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=None, help="a checkout's src directory to time")
+    ap.add_argument("--label", default="this")
+    ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--sums", action="store_true", help="also the probe sums' launches")
+    args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, args.src)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tap_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch import convert, core
+    from repro_torch import telemetry as tlm
+    from repro_torch.configs import fleet_scenarios
+    from repro_torch.core import carbon
+    from repro_torch.kernels import build
+    from repro_torch.kernels import taps as tpk
+    from repro_torch.launch import slot_profile
+
+    built = build.build_all(("carbon_score", "greedy_fill", "threefry", "tap_scan"))
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in built["tap_scan"][1].splitlines()
+             if "spill" in ln or "registers" in ln]
+    dev = torch.device("cuda")
+    cfg = tlm.TelemetryConfig()
+    ci = core.CarbonIntensityPolicy(V=V)
+    spec, state0, table, _ = slot_profile._instance(torch, convert, carbon, dev)
+    arrivals = core.UniformArrivals(M=slot_profile.M, amax=slot_profile.A_MAX)
+    bench = fleet_scenarios.build_fleet(["diurnal-slack"], per_kind=32, Tc=96, seed=SEED,
+                                        device=dev).to(dev)
+    runs = {
+        "main": (lambda tel: core.simulate(ci, spec, table, arrivals, T_MAIN, SEED, state0=state0,
+                                           record="summary", device=dev, telemetry=tel), T_MAIN),
+        "bench fleet": (lambda tel: core.simulate_fleet(ci, bench, T_BENCH, SEED,
+                                                        record="summary", device=dev,
+                                                        telemetry=tel), T_BENCH),
+    }
+
+    kernel = {}
+    for name, (run, _) in runs.items():
+        tel = run(cfg).telemetry
+        probe = tlm.TelemetryProbe(
+            emissions=tel.emission_rate, arrived=tel.arrived, dispatched=tel.dispatched_cloud,
+            processed=tel.processed, failed=tel.failed, wasted=tel.wasted, backlog=tel.backlog,
+            stale=tel.staleness, clouds_down=tel.clouds_down, retry_depth=tel.retry_depth,
+            transfer_occupancy=tel.transfer_occupancy, missed=tel.missed, shed=tel.shed)
+        lanes, T = tuple(probe.backlog.shape[:-1]), probe.backlog.shape[-1]
+        out = tpk.TapOut.empty(lanes, T, dev)
+        state = torch.zeros(lanes + (7,), device=dev)
+        kernel[name] = _events_ms(torch, lambda p=probe, o=out, s=state, T=T: tpk.tap_scan_cuda(
+            cfg, p, o, s, 0, T), reps=15, inner=20)
+
+    def slot_ms(run, slots, tel):
+        return _events_ms(torch, lambda: run(tel), reps=1, inner=1) / slots
+
+    times = {n: {"off": [], "on": []} for n in runs}
+    for _ in range(args.turns):
+        for name, (run, slots) in runs.items():
+            for mode in ("off", "on", "on", "off"):
+                times[name][mode].append(slot_ms(run, slots, None if mode == "off" else cfg))
+    line = {"label": args.label, "package": repro_torch.__file__, "torch": torch.__version__,
+            "tap_scan_ptxas": ptxas, "kernel_ms": kernel, "ms_per_slot": times}
+    if args.sums:
+        line["probe_sums"] = _probe_sums(torch, dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps(line), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,8 +21,10 @@ Every tensor may carry a leading lane axis (`core.simulate_fleet` on a
 fleet with a stacked graph: the spec, the graph, the state and the keys
 [F, ...]); the result's fields are then [F, ...], as JAX's vmap stacks
 them. A forecaster threads through the loop as in `simulate`, and so
-does the deadline layer (`deadlines=`), whose clock runs on edge
-waiting: a task stops aging once it is put onto a link.
+do the deadline layer (`deadlines=`), whose clock runs on edge
+waiting: a task stops aging once it is put onto a link, and the
+telemetry layer (`telemetry=`), whose probe counts the tasks landing in
+each cloud (not the link injections) and the in-flight transfers.
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ from repro_torch.core.simulator import (
     deadline_edge,
     make_slot_loop,
     record_stride,
-    refuse_telemetry,
     start_deadlines,
+    start_taps,
 )
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.network.graph import LinkGraph
@@ -63,6 +65,7 @@ class NetSimResult(NamedTuple):
     energy_edge: torch.Tensor      # [T] edge dispatch energy
     energy_transfer: torch.Tensor  # [T] WAN transfer energy
     energy_cloud: torch.Tensor     # [T, N] cloud compute energy
+    telemetry: object = None       # a telemetry.Telemetry frame, or None
     deadlines: object = None       # a deadlines.DeadlineLedger, or None
 
     # R depends on `record` as in SimResult: T for "full", 1 for
@@ -103,16 +106,17 @@ def simulate_network(
     `deadlines` (a DeadlineParams) threads the deadline layer as in
     `simulate`: the policy gets `deadline_view=`, the edge queue takes
     admitted - expired for the arrivals, and the result's `deadlines` is
-    the ledger. The telemetry layer of the JAX simulator is not ported
-    and raises NotImplementedError."""
-    refuse_telemetry(telemetry, "simulate_network")
+    the ledger. `telemetry` works as in `simulate`; here the probe's
+    `dispatched` is the landings a cloud and `transfer_occupancy` the
+    tasks in flight."""
     if faults is not None:
         from repro_torch.faults.sim import simulate_network_faulted
 
         return simulate_network_faulted(policy, spec, graph, faults, carbon_source,
                                         arrival_source, T, key, state0=state0, record=record,
                                         device=device, forecaster=forecaster,
-                                        error_params=error_params, deadlines=deadlines)
+                                        error_params=error_params, telemetry=telemetry,
+                                        deadlines=deadlines)
     stride = record_stride(record, T)
     R = T // stride
     loop = make_slot_loop(policy, spec, carbon_source, arrival_source, key, device, deadlines,
@@ -138,6 +142,8 @@ def simulate_network(
         from repro_torch.deadlines.model import deadline_view
 
         dstate, tape = start_deadlines(dl, M, lanes, T, record, dev)
+    taps = start_taps(telemetry, lanes, T, N, record, dev, emissions=C, processed=proc,
+                      **({} if dl is None else {"missed": tape.missed, "shed": tape.shed}))
     for t in range(T):
         Ce, Cc = loop.carbon_source(t, k_carbon, dev)
         a = loop.arrival_source(t, k_arrive, dev)
@@ -162,6 +168,9 @@ def simulate_network(
         ee[..., t] = torch.sum(act.dt * pe[..., :, None], dim=(-2, -1))
         et[..., t] = torch.sum(transfer_energy(g, act.dt), dim=-1)
         ec[..., t, :] = torch.sum(act.w * pc, dim=-2)
+        if taps is not None:
+            taps.slot(t, land, arrived=a, backlog=(state.Qe, state.Qc, links.Qt),
+                      transfer_occupancy=links.Qt)
         if (t + 1) % stride == 0:
             r = (t + 1) // stride - 1
             Qe_rec[..., r, :] = state.Qe
@@ -179,5 +188,6 @@ def simulate_network(
         energy_edge=ee,
         energy_transfer=et,
         energy_cloud=ec,
+        telemetry=None if taps is None else taps.frame(),
         deadlines=None if dl is None else tape.ledger(),
     )

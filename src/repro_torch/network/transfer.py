@@ -36,12 +36,11 @@ import torch
 
 from repro_torch.core.queueing import DTYPE, NetworkSpec, edge_energy
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.kernels.numerics import fma_f32
+from repro_torch.kernels.numerics import SUM_BLOCK, fma_f32
 from repro_torch.network.graph import LinkGraph
 from repro_torch.telemetry.profile import phase
 
 _TINY = 1e-30  # drain-ratio denominator guard (no NaN even at bw=inf)
-SUM_BLOCK = 32
 
 
 class LinkState(NamedTuple):

@@ -8,10 +8,12 @@ are metadata only and never change the computation.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 # The slot anatomy, in execution order; the names the JAX package uses.
-# Only the first and third are placed in the ported slice.
+# Each is placed in the port's slot loops.
 PHASES = (
     "policy_score",   # DPP score tables
     "route_score",    # WAN (type, route, cloud) score tables
@@ -25,3 +27,21 @@ PHASES = (
 def phase(name: str):
     """Context manager labelling the ops run inside it as `repro.<name>`."""
     return torch.profiler.record_function(f"repro.{name}")
+
+
+@contextlib.contextmanager
+def trace_to(logdir):
+    """Records a `torch.profiler` trace of the enclosed block (host ops,
+    and the card's kernels when one is in use) and writes it into
+    `logdir` as a Chrome trace (`trace.json`, viewable in Perfetto or
+    chrome://tracing beside `export.to_chrome_trace`'s series)."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))

@@ -640,10 +640,17 @@ def test_deadlines_from_reference_and_stacking():
 
 
 def test_telemetry_still_refused():
-    for fn, kw in ((P.simulate, {}), (P.simulate, dict(faults=PF.no_faults(N, device="cpu")))):
-        with pytest.raises(NotImplementedError, match="2.6"):
-            fn(P.CarbonIntensityPolicy(), tfs._base(M, N), P.TableCarbonSource(table=TABLE),
-               P.UniformArrivals(M=M), 2, device="cpu", telemetry=object(), **kw)
+    """The telemetry layer, once refused, is taken by the deadline loops,
+    plain and faulted: the probe's missed and shed are the ledger's."""
+    from repro_torch.telemetry import TelemetryConfig
+
+    for kw in ({}, dict(faults=PF.no_faults(N, device="cpu"))):
+        res = P.simulate(P.CarbonIntensityPolicy(), tfs._base(M, N),
+                         P.TableCarbonSource(table=TABLE), P.UniformArrivals(M=M), 4,
+                         device="cpu", telemetry=TelemetryConfig(), deadlines=_dl("port"), **kw)
+        assert torch.equal(res.telemetry.missed, res.deadlines.missed)
+        assert torch.equal(res.telemetry.shed, res.deadlines.shed)
+        assert float(res.telemetry.conservation_residual.abs().max()) == 0.0
 
 
 def test_deadline_entry_points_default_to_cuda():

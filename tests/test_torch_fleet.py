@@ -205,10 +205,17 @@ def test_fleet_summary_scalars_equal_full():
 
 
 def test_fleet_refuses_layers_not_ported():
+    """Every layer of the JAX fleet is ported: the fleet takes telemetry
+    (it once refused it), a frame with a lane axis, and its other fields
+    are the run without it."""
+    from repro_torch.telemetry import TelemetryConfig
+
     fleet = tfs.build_fleet(["diurnal"], per_kind=2, Tc=8, device="cpu")
     pol = P.CarbonIntensityPolicy()
-    with pytest.raises(NotImplementedError, match="2.6"):
-        P.simulate_fleet(pol, fleet, 2, device="cpu", telemetry=object())
+    off = P.simulate_fleet(pol, fleet, 4, device="cpu")
+    on = P.simulate_fleet(pol, fleet, 4, device="cpu", telemetry=TelemetryConfig())
+    assert on.telemetry.backlog.shape == (2, 4) and on.telemetry.alert_count.shape == (2, 6)
+    assert torch.equal(off.Qc, on.Qc) and torch.equal(off.emissions, on.emissions)
 
 
 def test_vsweep_matches_jax_and_single_v_runs():

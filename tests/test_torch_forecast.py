@@ -30,6 +30,7 @@ from repro.core.carbon import diurnal_table  # noqa: E402
 from repro.core.simulator import sweep_forecast_errors as jsweep  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import paper_workloads as tpw  # noqa: E402
+from repro_torch.kernels import numerics  # noqa: E402
 
 f32 = np.float32
 TABLE = diurnal_table(150, 5, np.random.default_rng(1))
@@ -121,7 +122,7 @@ def test_error_overrides_match_jax(bias, noise):
 
 
 def test_forecast_errors_match_jax():
-    """The sums run in float32 in XLA:CPU's order (`metrics.xla_sum`, read
+    """The sums run in float32 in XLA:CPU's order (`numerics.xla_sum`, read
     from the HLO: 32-row windows, split pad), so the metrics are JAX's
     bitwise wherever the forecasts are, eager and under jit; RidgeAR's
     forecasts (LAPACK's solve, limit L3) keep them within rtol 1e-6."""
@@ -146,10 +147,10 @@ def test_xla_sum_is_jax_order(T):
     x = np.random.default_rng(T).standard_normal((T, 7, 6)).astype(f32) * 100
     tx = torch.from_numpy(x)
     for ref in (jnp.sum(x), jax.jit(jnp.sum)(x)):
-        np.testing.assert_array_equal(PF.metrics.xla_sum(tx.reshape(T, -1)).numpy(),
+        np.testing.assert_array_equal(numerics.xla_sum(tx.reshape(T, -1)).numpy(),
                                       np.asarray(ref))
     for ref in (jnp.sum(x, axis=(0, 2)), jax.jit(lambda a: jnp.sum(a, axis=(0, 2)))(x)):
-        np.testing.assert_array_equal(PF.metrics.xla_sum(tx.permute(1, 0, 2)).numpy(),
+        np.testing.assert_array_equal(numerics.xla_sum(tx.permute(1, 0, 2)).numpy(),
                                       np.asarray(ref))
 
 

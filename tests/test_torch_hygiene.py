@@ -79,6 +79,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.models import Model, build_model
     from repro_torch.serve import serve_loop
     from repro_torch.serve.loop import main
+    from repro_torch.telemetry import StreamConfig, TelemetryConfig
 
     args = (CarbonIntensityPolicy(), paper_spec(), ConstantCarbonSource(N=5), UniformArrivals(M=5), 3)
     net_args = (NetworkAwareDPPPolicy(),) + args[1:]
@@ -94,6 +95,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: drift_bound_B(paper_spec(), 400.0),
         lambda: PRNGKey(0),
         lambda: simulate_fleet(CarbonIntensityPolicy(), build_fleet(["diurnal"], per_kind=2), 3),
+        lambda: simulate(*args, telemetry=TelemetryConfig()),
+        lambda: simulate(*args, telemetry=StreamConfig(flush_every=3)),
+        lambda: simulate_fleet(CarbonIntensityPolicy(), build_fleet(["diurnal"], per_kind=2,
+                                                                    device="cpu"), 3,
+                               telemetry=TelemetryConfig()),
         lambda: simulate_vsweep(lambda V: CarbonIntensityPolicy(V=V), (0.01, 0.1), *args[1:]),
         lambda: build_fleet(["multi-region-uk"], per_kind=1),
         lambda: spec_from_numpy(np.ones(2), np.ones((2, 2)), 1.0, np.ones(2)),
@@ -128,9 +134,19 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     assert y.shape == (1, 1, 4, 2, 8) and S_c.shape == (1, 1, 2, 3, 8) and total.shape == (1, 1, 2)
     keys = torch.tensor([[0, 1], [0, 2]])
     assert ops.threefry_draw(keys, 3, 4, finish="randint", minval=0, maxval=9).shape == (2, 4)
+    from repro_torch.kernels.taps import TapOut
+    from repro_torch.telemetry import TelemetryConfig, TelemetryProbe
+
+    z = torch.zeros((2, 5))
+    probe = TelemetryProbe(*(torch.zeros((2, 5, 3)) if n == "dispatched" else
+                             torch.zeros((2, 5), dtype=torch.int32) if n == "stale" else z
+                             for n in TelemetryProbe._fields))
+    out, state = TapOut.empty((2,), 5, "cpu"), torch.zeros((2, 7))
+    ops.tap_scan(TelemetryConfig(), probe, out, state, 0, 5)
+    assert out.alert_active.dtype == torch.int32 and out.records.shape == (2, 3, 6)
     assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
                                    "flash_attention": 0, "flash_decode": 0, "ssd_chunk_intra": 0,
-                                   "threefry_draw": 0}
+                                   "threefry_draw": 0, "tap_scan": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
     with pytest.raises(ValueError, match="no kernel"):
@@ -141,6 +157,8 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
         ops.flash_decode(q[:, :, 0].to("meta"), k.to("meta"), k.to("meta"), 1)
     with pytest.raises(ValueError, match="no kernel"):
         ops.threefry_draw(keys.to("meta"), 3, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.tap_scan(TelemetryConfig(), probe._replace(backlog=z.to("meta")), out, state, 0, 5)
 
 
 def test_cuda_wrappers_check_their_inputs_before_building():

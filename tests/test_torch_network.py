@@ -299,13 +299,24 @@ def test_conservation_in_the_full_run():
 
 
 def test_later_layers_raise():
+    """The WAN loop takes the telemetry layer, which it once refused: the
+    frame's transfer_occupancy is the links' load, its backlog counts it,
+    and no other field moves."""
+    from repro_torch.telemetry import TelemetryConfig
+
     tspec, tgraph, _, table, _, amax, _ = _scenario("star", 5, 5)
-    arrivals = _arrivals(amax, 2)
-    for name in ("telemetry",):
-        with pytest.raises(NotImplementedError, match=name):
-            PN.simulate_network(PN.NetworkAwareDPPPolicy(), tspec, tgraph,
-                                P.TableCarbonSource(table=table), lambda t, s, d: None, 2,
-                                device="cpu", **{name: object()})
+    arrivals = torch.from_numpy(_arrivals(amax, 6))
+    run = lambda **kw: PN.simulate_network(  # noqa: E731
+        PN.NetworkAwareDPPPolicy(), tspec, tgraph, P.TableCarbonSource(table=table),
+        lambda t, s, d: arrivals[t], 6, device="cpu", **kw)
+    off, on = run(), run(telemetry=TelemetryConfig())
+    assert off.telemetry is None
+    for name in PN.NetSimResult._fields[:-2]:
+        assert torch.equal(getattr(off, name), getattr(on, name)), name
+    tel = on.telemetry
+    assert torch.equal(tel.transfer_occupancy, on.Qt.sum(dim=(-2, -1)))
+    assert torch.equal(tel.backlog, on.Qe.sum(-1) + on.Qc.sum((-2, -1)) + on.Qt.sum((-2, -1)))
+    assert float(tel.conservation_residual.abs().max()) == 0.0
 
 
 # ------------------------------------------------------ the direct_graph anchor
