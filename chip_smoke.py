@@ -35,7 +35,7 @@ paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the eight kernels compiled from csrc/ with nvcc, in parallel;
+2. build: the nine kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes); for greedy_fill also the classified walk's
@@ -183,24 +183,35 @@ paths):
 4h. the telemetry layer: (a) bench_telemetry_overhead's fleet
    (build_fleet(["diurnal-slack"], per_kind=32), M5xN5, CarbonIntensity
    V=0.05, T=192, summary) taps off and on under sync debug mode with
-   their launches (tap_scan once a run), every other field bitwise the
-   taps-off run, the manifest held to jax 0.9.0's (TELEMETRY_JAX: alert
-   records and peak exactly, totals within rtol 1e-6), us per lane-slot
-   off and on in turns beside the bench's 5% budget (printed); (b)
-   bench_stream_overhead's instance (M2048 x N64, UK source, T=192)
-   taps-only against StreamConfig(flush_every=16): every result and frame
-   field bitwise, tap_scan 1 and 12 launches, the channel's reassembly
-   bitwise the batch series, FollowedRun's JSONL and Prometheus
-   validated, the overhead in turns beside the bench's 10% budget
-   (printed), the card's manifest beside JAX's (STREAM_JAX; its backlog
-   passes 2**24, ROADMAP hazard 34); (c) the nine fault rows and W1's
-   congested-uplink fleet with taps, manifests held to FAULT_MANIFEST_JAX;
-   (d) the main path (T=64) and fleet B (F16, T=64) with taps: taps-off
-   fields bitwise, launches, overhead in turns, the aten calls taps add a
-   slot; tap_scan bitwise its plain version on the card on every run's
-   probe series above (whole and in chunks from the carried state) and on
-   a synthetic series past 2**24 with lanes one float below, at and above
-   each threshold; its time at each shape against its byte bound;
+   their launches (tap_probe once a slot, tap_scan once a run), every
+   other field bitwise the taps-off run, the manifest held to jax 0.9.0's
+   (TELEMETRY_JAX: alert records and peak exactly, totals within rtol
+   1e-6), us per lane-slot off and on in turns beside the bench's 5%
+   budget (printed); (b) bench_stream_overhead's instance (M2048 x N64, UK
+   source, T=192) taps-only against StreamConfig(flush_every=16): every
+   result and frame field bitwise, tap_scan 1 and 12 launches and
+   tap_probe 192, the channel's reassembly bitwise the batch series,
+   FollowedRun's JSONL and Prometheus validated, the overhead in turns
+   beside the bench's 10% budget (printed), the card's manifest held to
+   JAX's (STREAM_JAX: its backlog passes 2**24, where the probe's sums in
+   XLA:CPU's order give JAX's bits, ROADMAP hazard 34); (c) the nine fault
+   rows and W1's congested-uplink fleet with taps, manifests held to
+   FAULT_MANIFEST_JAX; (d) the main path (T=64) and fleet B (F16, T=64)
+   with taps: taps-off fields bitwise, launches (main: tap_probe 64,
+   tap_scan 1), overhead in turns, the aten calls taps add a slot and the
+   card's kernels and memsets they add a slot (profiler; no memset);
+   tap_scan bitwise its plain version on the card on every run's probe
+   series above (whole and in chunks from the carried state), on a
+   synthetic series past 2**24 with lanes one float below, at and above
+   each threshold, and past its 256-slot tiles (F1, F32 and F512 at T 64,
+   192, 2000 and 4100, whole and in chunks ending mid-tile and on tile
+   edges, a lane whose peak is the +0 among -0s); its time at each shape
+   against its byte bound; tap_probe bitwise its plain version on inputs
+   whose sums depend on their order at the main, fleet B, W2, bench fleet,
+   fleet A, W1 and stream shapes and off the 32-grid, every sum at once
+   (the landings by cloud, the arrivals, Qe, Qc, the WAN loop's Qt and the
+   faulted loops' retry pool), and each loop's probe timed against the
+   one torch.sum call a sum that it replaced;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
    then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
@@ -265,9 +276,13 @@ both fleets' shapes in turns against their per-slot draws (the rows'
 against the six per-segment draws (threefry_draw's "paths" entries), the
 launches of phase 4g's runs (the "deadlines" entries of carbon_scores,
 greedy_fill and threefry_draw), tap_scan's row from phase 4h (its time
-at bench_telemetry_overhead's fleet, the other shapes beside it; its
-launches those of the main path's run with taps on, the phase's total
-and a streamed run's beside them), and a PoissonArrivals slot at M4096
+at bench_telemetry_overhead's fleet, the other shapes beside it, each
+with its serial floor, T adds of 4 cycles at clocks.max.sm, beside the
+byte bound; its launches those of the main path's run with taps on, the
+phase's total and a streamed run's beside them), tap_probe's row from
+phase 4h (the main path's probe, the other loops' beside it, each with
+the one-torch.sum-a-sum path as the library time; its launches the main
+path's with taps on), and a PoissonArrivals slot at M4096
 (two chain draws), beside the same slot on the plain walk.
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
@@ -514,8 +529,8 @@ T_DL_WIDTH, T_DL_CPU = 64, 4  # fleet B's shape under tight-uniform deadlines
 # Pe 1e4, Pc~U(1e3,1e5) from default_rng(0), UK-regional source,
 # UniformArrivals(amax=300), T=192, summary): its backlog passes 2**24
 # near slot 56, where the float32 sums' order decides the residual and
-# JAX's own conservation_drift fires (ROADMAP hazard 34), so the card's
-# manifest is printed beside it, not held to it
+# JAX's own conservation_drift fires; the probe sums in XLA:CPU's order
+# (ROADMAP hazard 34), so the card's manifest is held to it as the others
 TEL_PER_KIND, T_TEL, TEL_RTOL = 32, 192, 1e-6
 M_STREAM, N_STREAM, T_STREAM, A_STREAM, STREAM_FLUSH = 2048, 64, 192, 300, 16
 TEL_BUDGET_PCT, STREAM_BUDGET_PCT = 5.0, 10.0  # the JAX benches' overhead budgets
@@ -1020,9 +1035,10 @@ class Each(NamedTuple):
     run: int = 0
 
 
-# the sources' block draw and the fault stream's per-slot paths draw
+# the sources' block draw; a faulted run's fault stream (one paths draw a
+# slot) and its backlog series (one tap_probe a slot, taps on or off)
 BLOCK_DRAW = Each(run=1)
-FAULT_DRAWS = {"threefry_draw": Each(slot=1, run=1), "threefry_draw paths": 1}
+FAULT_RUN = {"threefry_draw": Each(slot=1, run=1), "threefry_draw paths": 1, "tap_probe": 1}
 
 
 def drive_fleets(tag, runs, ops, dev):
@@ -1375,7 +1391,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions on the card -------------------
     max_err = {"carbon_scores": 0.0, "route_scores": 0.0, "greedy_fill": 0.0,
-               "threefry_draw": 0.0, "tap_scan": 0.0}
+               "threefry_draw": 0.0, "tap_scan": 0.0, "tap_probe": 0.0}
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
 
@@ -2407,8 +2423,8 @@ def main() -> int:
         True: {"qlen": net.StaticRoutePolicy(core.QueueLengthPolicy()), "carbon": aware_f,
                "guard": flt.StalenessGuardPolicy(inner=aware_f)}}
     # launches: the fault stream is one threefry_draw (paths=) a slot, the
-    # arrivals one a run
-    fault_draw = FAULT_DRAWS
+    # arrivals one a run, the backlog one tap_probe a slot
+    fault_draw = FAULT_RUN
     per_fault = {
         False: {"qlen": {"greedy_fill": 1, **fault_draw},
                 "carbon": {"carbon_scores": 1, "greedy_fill": 1, **fault_draw}},
@@ -2639,7 +2655,7 @@ def main() -> int:
         faulted = fleet.faults is not None
         want = dict.fromkeys(launches, 0)
         want.update({"greedy_fill": T, "threefry_draw": 1 + (T if faulted else 0),
-                     "threefry_draw paths": T if faulted else 0})
+                     "threefry_draw paths": T if faulted else 0, "tap_probe": T if faulted else 0})
         if not isinstance(pol, dlm.EDDPolicy):
             want["carbon_scores"] = T
         if launches != want:
@@ -2780,7 +2796,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tcfg = tlm.TelemetryConfig()
     tap_counts = {}  # kernel -> launches over phase 4h's driven runs
-    TAP_RUN = {"tap_scan": Each(run=1)}
+    TAP_RUN = {"tap_scan": Each(run=1), "tap_probe": 1}
 
     def taps_of(runs):
         for name, launches in runs.items():
@@ -2870,7 +2886,7 @@ def main() -> int:
     ops.reset_launch_counts()
     s_off = stream_run(None)
     s_taps = stream_run(tcfg)
-    n_taps = ops.launch_counts()["tap_scan"]
+    n_taps, n_probe = ops.launch_counts()["tap_scan"], ops.launch_counts()["tap_probe"]
     tlm.reset_channel("chip")
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory() as live_dir:
@@ -2881,9 +2897,9 @@ def main() -> int:
         n_prom = tlm.validate_prometheus(Path(live.paths["prometheus"]).read_text())
     taps_of({"stream taps": {"tap_scan": n_taps}, "stream": {"tap_scan": n_stream}})
     taps_off_equal("bench_stream_overhead instance", s_off, s_taps)
-    if n_taps != 1 or n_stream != T_STREAM // STREAM_FLUSH:
+    if n_taps != 1 or n_stream != T_STREAM // STREAM_FLUSH or n_probe != T_STREAM:
         fail(f"tap_scan launches: {n_taps} a batch run, {n_stream} a streamed run "
-             f"(1 and {T_STREAM // STREAM_FLUSH} expected)")
+             f"(1 and {T_STREAM // STREAM_FLUSH} expected); tap_probe {n_probe} ({T_STREAM})")
     bad = [n for n, a, b in zip(tlm.Telemetry._fields, s_taps.telemetry, s_stream.telemetry)
            if a.dtype != b.dtype or not same_bits(a, b)]
     bad += [n for n in type(s_taps)._fields if n != "telemetry"
@@ -2928,13 +2944,16 @@ def main() -> int:
         f"{o_over:.2f}% against taps off ({smi})")
     tel_s = s_taps.telemetry
     k_drift = tlm.MONITORS.index("conservation_drift")
-    say(f"[4h telemetry] bench_stream_overhead on the card (hazard 34): manifest "
-        f"{manifest_row(tlm.manifest(tel_s))}; JAX {STREAM_JAX}; |residual| max "
+    # past 2**24 the probe's sums in XLA:CPU's order give JAX's backlog,
+    # residual and alerts (hazard 34): the manifest is held
+    held_manifest(f"bench_stream_overhead M{M_STREAM}xN{N_STREAM} T={T_STREAM}",
+                  manifest_row(tlm.manifest(tel_s)), STREAM_JAX)
+    say(f"[4h telemetry] bench_stream_overhead on the card: |residual| max "
         f"{float(tel_s.conservation_residual.abs().max()):g}, first nonzero at slot "
         f"{int((tel_s.conservation_residual != 0).int().argmax())}, conservation_drift first "
         f"fires at {int(tel_s.alert_first_slot[k_drift])} (JAX 56), peak backlog "
-        f"{float(tel_s.peak_backlog):.9g} (JAX {STREAM_JAX[0]:.9g}, rel "
-        f"{abs(float(tel_s.peak_backlog) / STREAM_JAX[0] - 1.0):.3e})")
+        f"{float(tel_s.peak_backlog):.9g} (JAX {STREAM_JAX[0]:.9g}); tap_probe {n_probe} "
+        "launches a run")
     tap_cases[f"F1 x T{T_STREAM} (bench_stream_overhead, M{M_STREAM}xN{N_STREAM})"] = tel_s
     del s_off, s_stream
 
@@ -2990,7 +3009,8 @@ def main() -> int:
     torch.cuda.synchronize()
     main_tap_launches = ops.launch_counts()  # the main path with taps, alone
     want = dict.fromkeys(main_tap_launches, 0)
-    want.update(carbon_scores=T_MAIN, greedy_fill=T_MAIN, threefry_draw=1, tap_scan=1)
+    want.update(carbon_scores=T_MAIN, greedy_fill=T_MAIN, threefry_draw=1, tap_scan=1,
+                tap_probe=T_MAIN)
     if main_tap_launches != want:
         fail(f"4h main with taps: launches {main_tap_launches}, expected {want}")
     taps_of({"main on": main_tap_launches})
@@ -3033,6 +3053,29 @@ def main() -> int:
         f"{calls['main off', 16] / 16:.1f} a slot, on {calls['main on', 16] / 16:.1f} a slot over "
         f"16 slots; taps add {added:.1f} a slot (16 against 8 slots, so a run's once-only calls "
         f"cancel); overheads main {d_over:.2f}%, fleet B {b_over:.2f}% ({smi})")
+
+    def device_events(fn):
+        """(kernels, memsets) the card ran during fn(), from torch.profiler"""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = [0, 0]
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and not evt.key.startswith("repro."):
+                n["memset" in evt.key.lower()] += evt.count
+        return n
+
+    ev = {(n, T): device_events(lambda T=T, n=n: d_runs[n][0](T, "summary"))
+          for n in ("main off", "main on") for T in (8, 16)}
+    ev_added = [((ev["main on", 16][i] - ev["main off", 16][i])
+                 - (ev["main on", 8][i] - ev["main off", 8][i])) / 8 for i in (0, 1)]
+    say(f"[4h telemetry] the card's events (profiler) taps add a slot on main: kernels "
+        f"{ev_added[0]:g}, memsets {ev_added[1]:g} (16 against 8 slots)")
+    if ev_added[1] != 0:
+        fail(f"4h main with taps: {ev_added[1]:g} memsets a slot (the probe must add none)")
     del main_on, b_res
 
     # tap_scan against its plain version on the card: on every run's probe
@@ -3132,6 +3175,39 @@ def main() -> int:
         f"{float(out_t.gauges[:, 2].max()):.3e}) with lanes one float below, at and above each "
         f"threshold (firing slots, lane by monitor, as expected: {fired.tolist()}), whole and "
         "in 7 chunks")
+    # the kernel's 256-slot tiles: F1, F32 and F512 at T 64, 192, 2000 and
+    # 4100, past 2**24, whole and in chunks that end mid-tile and on tile
+    # edges (a streamed run's launches), the backlog with +0/-0 ties
+    tile_cases = ((1, 64), (1, 192), (32, 192), (512, 192), (1, 2000), (1, 4100))
+    for F_x, T_x in tile_cases:
+        rng_x = np.random.default_rng(F_x * 7919 + T_x)
+        shape_x = (F_x, T_x)
+        arr_x = rng_x.integers(0, 2**26, shape_x).astype(np.float32)
+        proc_x = np.minimum(rng_x.integers(0, 2**26, shape_x).astype(np.float32), arr_x)
+        back_x = np.cumsum(arr_x - proc_x, axis=-1, dtype=np.float64).astype(np.float32)
+        back_x += rng_x.integers(0, 3, shape_x)
+        back_x[0] = -back_x[0]  # lane 0 at most 0: its peak is the +0 among -0s
+        back_x[0, :3] = (-0.0, 0.0, -0.0)
+        syn_x = dict(emissions=rng_x.uniform(0, 1, shape_x) * 10.0 ** rng_x.integers(-3, 9, shape_x),
+                     arrived=arr_x, processed=proc_x,
+                     failed=np.minimum(rng_x.integers(0, 2**23, shape_x), proc_x),
+                     wasted=rng_x.uniform(0, 3e4, shape_x), backlog=back_x,
+                     stale=rng_x.integers(0, 9, shape_x), clouds_down=rng_x.integers(0, 6, shape_x),
+                     retry_depth=np.zeros(shape_x), transfer_occupancy=np.zeros(shape_x),
+                     missed=rng_x.integers(0, 3, shape_x) * (rng_x.uniform(size=shape_x) < 0.3),
+                     shed=rng_x.integers(0, 2**20, shape_x) * (rng_x.uniform(size=shape_x) < 0.3))
+        probe_x = tlm.TelemetryProbe(
+            dispatched=torch.zeros(shape_x + (5,), device=dev),
+            **{k: torch.as_tensor(np.ascontiguousarray(v), device=dev,
+                                  dtype=torch.int32 if k == "stale" else torch.float32)
+               for k, v in syn_x.items()})
+        edges = tuple(sorted({c for c in (1, 255, 256, 257, T_x // 2 + 1, T_x - 1) if 0 < c < T_x}))
+        tap_check(f"F{F_x} x T{T_x}", cfg_t, probe_x)
+        tap_check(f"F{F_x} x T{T_x} in chunks", cfg_t, probe_x, chunks=edges)
+    say("[4h telemetry] tap_scan bitwise equal to its plain version across its tiles, past 2**24 "
+        "(lane 0's peak the +0 among -0s): " + ", ".join(
+            f"F{f} x T{t}" for f, t in tile_cases) + ", each whole and in chunks at slots 1, "
+        "255, 256, 257, T/2 + 1 and T - 1 (those inside the run)")
 
     # tap_scan's time at each case's shape, cold and warm, with its byte
     # bound; the row of phase 7 is bench_telemetry_overhead's fleet
@@ -3158,6 +3234,126 @@ def main() -> int:
             f"graph replay, CUDA events, median) vs byte bound {tap_times[-1]['bound_ms']:.6f} ms "
             f"({nbytes / 1e6:.3f} MB); {tap_times[-1]['call_ms']:.5f} ms per eager call; plain "
             f"version {tap_times[-1]['plain_ms']:.3f} ms ({smi})")
+
+    # tap_probe against its plain version on the card, on inputs whose sums
+    # depend on their order (non-integral, mixed signs, 1e-3..1e9): every
+    # sum a loop hands it (the landings by cloud, arrivals, the backlog's
+    # Qe and Qc, the WAN loop's Qt and the faulted loops' retry pool, both
+    # named sums and backlog parts) at the loops' shapes and off the
+    # 32-grid; then the probe of each loop alone, timed against the
+    # torch.sum calls it replaced (one a sum, with their kernels and memsets)
+    g_p = torch.Generator(device=dev)
+    g_p.manual_seed(SEED + 25)
+
+    def order_data(shape):
+        x = torch.rand(shape, generator=g_p, device=dev) * 10.0 ** torch.randint(
+            -3, 9, shape, generator=g_p, device=dev).float()
+        return torch.where(torch.rand(shape, generator=g_p, device=dev) < 0.3, -x, x)
+
+    def probe_inputs(lanes_x, M_x, N_x, L_x=None, faulted=False, full=False):
+        """a loop's probe inputs and backlog parts; `full`: every sum the
+        kernel takes at once (six jobs, four backlog parts)"""
+        inputs = {"dispatched": order_data(lanes_x + (M_x, N_x))}
+        if full or not faulted:
+            inputs["arrived"] = order_data(lanes_x + (M_x,))
+        inputs["part0"], inputs["part1"] = order_data(lanes_x + (M_x,)), \
+            order_data(lanes_x + (M_x, N_x))
+        parts = ["part0", "part1"]
+        if L_x:
+            inputs["transfer_occupancy"] = order_data(lanes_x + (M_x, L_x))
+            parts.append("transfer_occupancy")
+        if faulted or full:
+            inputs["retry_depth"] = order_data(lanes_x + (M_x, N_x))
+            parts.append("retry_depth")
+        return inputs, parts
+
+    def probe_plan(lanes_x, inputs, parts, T_x=4):
+        series = {n: torch.zeros(lanes_x + (T_x,), device=dev)
+                  for n in ("arrived", "transfer_occupancy", "retry_depth", "backlog")}
+        series["dispatched"] = torch.zeros(lanes_x + (T_x, inputs["dispatched"].shape[-1]),
+                                           device=dev)
+        plan = tpk.ProbePlan(lanes_x, T_x, inputs, {n: series[n] for n in inputs if n in series},
+                             parts, series["backlog"], by_column=("dispatched",))
+        return series, plan
+
+    probe_shapes = {  # label: (lanes, M, N, L)
+        f"main F1 x M{M_MAIN} x N{N_MAIN}": ((), M_MAIN, N_MAIN, None),
+        f"fleet B F{F_B} x M{M_MAIN} x N{N_MAIN}": ((F_B,), M_MAIN, N_MAIN, None),
+        f"W2 F{F_B} x M{M_MAIN} x N{N_MAIN} x L{2 * N_MAIN}": ((F_B,), M_MAIN, N_MAIN, 2 * N_MAIN),
+        f"bench fleet F{tel_fleet.F} x M5 x N5": ((tel_fleet.F,), 5, 5, None),
+        "fleet A F512 x M5 x N5": ((512,), 5, 5, None),
+        "W1 F64 x M5 x N5 x L10": ((64,), 5, 5, 10),
+        f"stream M{M_STREAM} x N{N_STREAM}": ((), M_STREAM, N_STREAM, None),
+        "F3 x M33 x N5": ((3,), 33, 5, None), "F2 x M127 x N63": ((2,), 127, 63, None),
+        "M63 x N5 x L40": ((), 63, 5, 40),
+    }
+    for label, (lanes_x, M_x, N_x, L_x) in probe_shapes.items():
+        inputs, parts = probe_inputs(lanes_x, M_x, N_x, L_x, full=True)
+        outs = []
+        for fn in (tpk.tap_probe_cuda, tpk.tap_probe_plain):
+            series, plan = probe_plan(lanes_x, inputs, parts)
+            for t in (0, 3):
+                fn(plan, t, inputs)
+            outs.append(series)
+        torch.cuda.synchronize()
+        bad = [n for n in outs[0] if not same_bits(outs[0][n], outs[1][n])]
+        if bad:
+            fail(f"tap_probe {label}: {bad} differ from the plain version")
+        for n in outs[0]:
+            err = float((outs[0][n] - outs[1][n]).abs().max())
+            max_err["tap_probe"] = max(max_err["tap_probe"], err)
+        del inputs, outs
+    say(f"[4h telemetry] tap_probe bitwise equal to its plain version on the card at "
+        f"{', '.join(probe_shapes)}: landings by cloud, arrivals, Qe, Qc, Qt (where L) and the "
+        "retry pool, named sums and four backlog parts in one launch, slots 0 and 3")
+
+    probe_loops = {  # the loops' own probes: (lanes, M, N, L, faulted)
+        f"main F1 x M{M_MAIN} x N{N_MAIN}": ((), M_MAIN, N_MAIN, None, False),
+        f"fleet B F{F_B} x M{M_MAIN} x N{N_MAIN}": ((F_B,), M_MAIN, N_MAIN, None, False),
+        f"W2 F{F_B} x M{M_MAIN} x N{N_MAIN} x L{2 * N_MAIN}": ((F_B,), M_MAIN, N_MAIN, 2 * N_MAIN,
+                                                               False),
+        f"bench fleet F{tel_fleet.F} x M5 x N5": ((tel_fleet.F,), 5, 5, None, False),
+        f"stream M{M_STREAM} x N{N_STREAM}": ((), M_STREAM, N_STREAM, None, False),
+        f"fleet B faulted F{F_B} x M{M_MAIN} x N{N_MAIN}": ((F_B,), M_MAIN, N_MAIN, None, True),
+    }
+    probe_times = []
+    for label, (lanes_x, M_x, N_x, L_x, faulted) in probe_loops.items():
+        inputs, parts = probe_inputs(lanes_x, M_x, N_x, L_x, faulted=faulted)
+        series, plan = probe_plan(lanes_x, inputs, parts)
+        call = lambda plan=plan, inputs=inputs: tpk.tap_probe_cuda(plan, 1, inputs)  # noqa: E731
+        nl = lanes_x[0] if lanes_x else 1
+        e1 = tuple(range(len(lanes_x), len(lanes_x) + 1))
+        e2 = tuple(range(len(lanes_x), len(lanes_x) + 2))
+
+        def torch_sums(inputs=inputs, series=series, e1=e1, e2=e2):
+            """the probe as one torch call a sum and the add"""
+            torch.sum(inputs["dispatched"], dim=-2, out=series["dispatched"][..., 1, :])
+            if "arrived" in inputs:
+                torch.sum(inputs["arrived"], dim=e1, out=series["arrived"][..., 1])
+            totals = [torch.sum(inputs["part0"], dim=e1), torch.sum(inputs["part1"], dim=e2)]
+            for n in ("transfer_occupancy", "retry_depth"):
+                if n in inputs:
+                    totals.append(torch.sum(inputs[n], dim=e2, out=series[n][..., 1]))
+            acc = totals[0]
+            for x in totals[1:-1]:
+                acc = acc + x
+            torch.add(acc, totals[-1], out=series["backlog"][..., 1])
+
+        times = graph_ms(call, reps=20, inner=20)
+        lib = graph_ms(torch_sums, reps=20, inner=20)
+        nbytes = 4 * (sum(x.numel() for x in inputs.values()) + nl * (N_x + len(inputs)))
+        probe_times.append({
+            "shape": label, "times": times, "call_ms": cuda_ms(call, reps=10, inner=10),
+            "plain_ms": cuda_ms(lambda plan=plan, inputs=inputs: tpk.tap_probe_plain(
+                plan, 1, inputs), reps=3, inner=1),
+            "library_ms": lib[1], "library_warm_ms": lib[0], "nbytes": nbytes,
+            "nops": sum(x.numel() for x in inputs.values()),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        say(f"[4h time] tap_probe {label}: {times[1]:.5f} ms cold, {times[0]:.5f} ms warm (CUDA "
+            f"graph replay, CUDA events, median) vs byte bound {probe_times[-1]['bound_ms']:.6f} ms "
+            f"({nbytes / 1e6:.3f} MB); the torch.sum calls it replaced {lib[1]:.5f} ms cold, {lib[0]:.5f} "
+            f"warm; {probe_times[-1]['call_ms']:.5f} ms per eager call; plain version "
+            f"{probe_times[-1]['plain_ms']:.3f} ms ({smi})")
     say("[4h telemetry] launches over the phase's driven runs: " + ", ".join(
         f"{k} {v}" for k, v in tap_counts.items() if v) + f"; {time.perf_counter() - t0:.1f} s")
     del tap_cases, a_res, tel_fleet
@@ -3655,12 +3851,37 @@ def main() -> int:
     row("tap_scan", "src/repro_torch/kernels/csrc/tap_scan.cu", "src/repro/telemetry/taps.py:162",
         main_tap_launches["tap_scan"], tt["times"], tt["call_ms"], tt["plain_ms"],
         nbytes=tt["nbytes"], nops=tt["nops"])
+    # beside the byte bound, the serial floor: T dependent float32 adds of
+    # each running sum at 4 cycles an add, at clocks.max.sm
+    T_tt = int(tt["shape"].split(" x T")[1].split()[0])
     rows[-1].update(phase_launches=tap_counts.get("tap_scan", 0),
-                    stream_launches_per_run=n_stream, shape=tt["shape"])
+                    stream_launches_per_run=n_stream, shape=tt["shape"],
+                    serial_floor_ms=T_tt * 4 / clk_mhz / 1e3)
     rows[-1]["other_shapes"] = [
         {"shape": x["shape"], "ms": x["times"][1], "warm_ms": x["times"][0],
-         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": "bytes"}
+         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": "bytes",
+         "serial_floor_ms": int(x["shape"].split(" x T")[1].split()[0]) * 4 / clk_mhz / 1e3}
         for x in tap_times[1:]]
+    say(f"[7 time] tap_scan's serial floor at {clk_mhz:.0f} MHz (T adds of 4 cycles): "
+        + ", ".join(f"{x['shape']} {x.get('serial_floor_ms', rows[-1]['serial_floor_ms']):.5f} ms"
+                    for x in [rows[-1]] + rows[-1]["other_shapes"]))
+
+    # tap_probe (phase 4h): the main path's probe (the landings by cloud,
+    # the arrivals, Qe and Qc) for the row, the other loops' beside it; its
+    # launches those of the main path's run with taps on, one a slot; the
+    # library time is one slot of the torch.sum calls it replaced, which no call of
+    # the port makes now
+    pt = probe_times[0]
+    row("tap_probe", "src/repro_torch/kernels/csrc/tap_probe.cu",
+        "src/repro/core/simulator.py:412", main_tap_launches["tap_probe"], pt["times"],
+        pt["call_ms"], pt["plain_ms"], nbytes=pt["nbytes"], nops=pt["nops"],
+        library_ms=pt["library_ms"])
+    rows[-1].update(shape=pt["shape"], library_warm_ms=pt["library_warm_ms"])
+    rows[-1]["other_shapes"] = [
+        {"shape": x["shape"], "ms": x["times"][1], "warm_ms": x["times"][0],
+         "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": "bytes",
+         "library_ms": x["library_ms"], "library_warm_ms": x["library_warm_ms"]}
+        for x in probe_times[1:]]
 
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it

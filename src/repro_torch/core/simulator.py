@@ -38,7 +38,7 @@ from repro_torch.core.carbon import DeviceCache, TableCarbonSource
 from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, emissions, init_state, step
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.taps import TapOut
+from repro_torch.kernels.taps import ProbePlan, TapOut
 from repro_torch.telemetry.stream import check_stream, split_telemetry, stream_flush
 from repro_torch.telemetry.taps import TelemetryProbe
 
@@ -212,6 +212,34 @@ def make_slot_loop(policy, spec, carbon_source, arrival_source, key, device,
     )
 
 
+class SlotProbe:
+    """The sums a loop writes into [*lanes, T] series each slot, one
+    `tap_probe` launch a slot: each input summed, in XLA:CPU's order,
+    into the series of its name (`dispatched`: the landings [*lanes, M,
+    N] over M, per cloud) and `backlog` = its parts' totals added left
+    to right, a part that is also a named input summed once. The sums'
+    plan is fixed at the first slot."""
+
+    def __init__(self, series: dict, lanes: tuple, T: int):
+        self.series, self.lanes, self.T, self.plan = series, lanes, T, None
+
+    def __call__(self, t: int, backlog=(), **inputs) -> None:
+        inputs = {n: x for n, x in inputs.items() if x is not None}
+        parts = []
+        for i, x in enumerate(backlog):
+            name = next((n for n, y in inputs.items() if y is x), None)
+            if name is None:
+                name = f"part{i}"
+                inputs[name] = x
+            parts.append(name)
+        if self.plan is None:
+            self.plan = ProbePlan(
+                self.lanes, self.T, inputs,
+                {n: self.series[n] for n in inputs if n in self.series}, parts,
+                self.series.get("backlog") if parts else None, by_column=("dispatched",))
+        ops.tap_probe(self.plan, t, inputs)
+
+
 class TapTape:
     """The telemetry probe's fields over a run of T slots ([*lanes, T],
     `dispatched` [*lanes, T, N], `stale` int32) and the tap kernel's
@@ -219,10 +247,11 @@ class TapTape:
     (`shared`: emissions and processed; the faulted loops' arrived,
     failed, wasted, clouds_down, backlog and stale; the deadline tape's
     missed and shed); the tape allocates the others, zeros where a field
-    does not apply to the loop. Each slot the loop writes the fields it
-    does not share (`slot`), which also flushes a streamed chunk;
-    `frame()` runs the taps and returns the Telemetry frame: one
-    `tap_scan` a run, or one a chunk when streaming."""
+    does not apply to the loop. Each slot the loop hands over the tensors
+    of the fields it does not share (`slot`: one `tap_probe` launch),
+    which also flushes a streamed chunk; `frame()` runs the taps and
+    returns the Telemetry frame: one `tap_scan` a run, or one a chunk
+    when streaming."""
 
     def __init__(self, telemetry, lanes: tuple, T: int, N: int, record, device, **shared):
         self.cfg, self.stream = split_telemetry(telemetry)
@@ -238,33 +267,18 @@ class TapTape:
                 fields[name] = torch.zeros(lanes + (T,), device=device,
                                            dtype=torch.int32 if name == "stale" else DTYPE)
         self.probe = TelemetryProbe(**fields)
+        self.sums = SlotProbe(self.probe._asdict(), lanes, T)
         self.out = TapOut.empty(lanes, T, device)
         self.state = torch.zeros(lanes + (7,), dtype=DTYPE, device=device)  # init_taps, packed
         self.lanes, self.T, self.t0 = lanes, T, 0
-
-    def _total(self, x, out=None):
-        """x summed over every axis after the lanes."""
-        return torch.sum(x, dim=tuple(range(len(self.lanes), x.dim())), out=out)
 
     def slot(self, t: int, landed, arrived=None, backlog=(), **sums) -> None:
         """Writes slot t's fields that the loop does not record, then
         flushes a streamed chunk that slot t ends: `dispatched` = the
         tasks landing in each cloud (`landed` [*lanes, M, N] summed over
         M); `arrived` and each of `sums` ({field: tensor}) totalled;
-        `backlog` = the parts' totals added left to right, a part already
-        in `sums` read back from its field."""
-        torch.sum(landed, dim=-2, out=self.probe.dispatched[..., t, :])
-        if arrived is not None:
-            self._total(arrived, self.probe.arrived[..., t])
-        written = {}
-        for name, x in sums.items():
-            written[id(x)] = self._total(x, getattr(self.probe, name)[..., t])
-        if backlog:
-            totals = [written[id(x)] if id(x) in written else self._total(x) for x in backlog]
-            acc = totals[0]
-            for x in totals[1:-1]:
-                acc = acc + x
-            torch.add(acc, totals[-1], out=self.probe.backlog[..., t])
+        `backlog` = the parts' totals added left to right (`SlotProbe`)."""
+        self.sums(t, backlog, dispatched=landed, arrived=arrived, **sums)
         if self.stream is not None and (t + 1) % self.stream.flush_every == 0:
             t0 = self.t0
             self._scan(t + 1)

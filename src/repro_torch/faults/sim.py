@@ -50,6 +50,7 @@ from repro_torch.core.queueing import DTYPE, Action, NetworkSpec, NetworkState, 
 from repro_torch.core.simulator import (
     ForecastFeed,
     SlotLoop,
+    SlotProbe,
     deadline_edge,
     make_slot_loop,
     record_stride,
@@ -183,6 +184,9 @@ class _Faulted:
             shared.update(missed=self.tape.missed, shed=self.tape.shed)
         self.taps = start_taps(telemetry, self.lanes, T, self.N, record, dev,
                                emissions=self.series["emissions"], **shared)
+        # the backlog series: the tape's probe writes it, or this one
+        self.sums = SlotProbe({"backlog": self.series["backlog"]}, self.lanes, T) \
+            if self.taps is None else None
 
     def observe(self, t: int):
         """Carbon, arrivals and the fault step of slot t: (Ce, Cc, a,
@@ -219,11 +223,16 @@ class _Faulted:
     def ledger(self):
         return None if self.tape is None else self.tape.ledger()
 
-    def probe(self, t: int, landed, **sums):
-        """The tape's fields that the series do not hold (`TapTape.slot`:
-        the tasks landing in each cloud and the totals of `sums`)."""
+    def probe(self, t: int, landed, backlog, **sums):
+        """Slot t's backlog (the totals of the parts `backlog` added left
+        to right, as the JAX loop sums them) and, with taps on, the tape's
+        fields that the series do not hold (`TapTape.slot`: the tasks
+        landing in each cloud and the totals of `sums`): one `tap_probe`
+        launch either way."""
         if self.taps is not None:
-            self.taps.slot(t, landed, **sums)
+            self.taps.slot(t, landed, backlog=backlog, **sums)
+        else:
+            self.sums(t, backlog)
 
     def frame(self):
         return None if self.taps is None else self.taps.frame()
@@ -275,11 +284,9 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
                 energy_edge=_total(act.d * pe[..., :, None], 2),
                 failed=_total(failed, 2), requeued=_total(view.released, 2),
                 wasted=torch.sum(Cc * torch.sum(failed * pc, dim=-2), dim=-1),
-                stale=view.stale, clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1),
-                backlog=torch.sum(run.state.Qe, dim=-1) + _total(run.state.Qc, 2)
-                + _total(run.fs.retry, 2))
+                stale=view.stale, clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1))
         run.series["energy_cloud"][..., t, :] = torch.sum(w_eff * pc, dim=-2)
-        run.probe(t, act.d, retry_depth=run.fs.retry)
+        run.probe(t, act.d, (run.state.Qe, run.state.Qc, run.fs.retry), retry_depth=run.fs.retry)
         run.keep(t, Qe=run.state.Qe, Qc=run.state.Qc, retry=run.fs.retry)
     s, q = run.series, run.queues
     return FaultSimResult(
@@ -342,11 +349,10 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
                 failed=_total(failed, 2), requeued=_total(view.released, 2),
                 wasted=torch.sum(Cc * torch.sum(failed * pc, dim=-2), dim=-1),
                 stale=view.stale, clouds_down=torch.sum(1.0 - view.cloud_on, dim=-1),
-                links_down=torch.sum(1.0 - view.link_on, dim=-1),
-                backlog=torch.sum(run.state.Qe, dim=-1) + _total(run.state.Qc, 2)
-                + _total(links.Qt, 2) + _total(run.fs.retry, 2))
+                links_down=torch.sum(1.0 - view.link_on, dim=-1))
         run.series["energy_cloud"][..., t, :] = torch.sum(w_eff * pc, dim=-2)
-        run.probe(t, land, retry_depth=run.fs.retry, transfer_occupancy=links.Qt)
+        run.probe(t, land, (run.state.Qe, run.state.Qc, links.Qt, run.fs.retry),
+                  retry_depth=run.fs.retry, transfer_occupancy=links.Qt)
         run.keep(t, Qe=run.state.Qe, Qc=run.state.Qc, Qt=links.Qt, retry=run.fs.retry)
     s, q = run.series, run.queues
     return NetFaultSimResult(

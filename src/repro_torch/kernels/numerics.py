@@ -12,8 +12,10 @@ XLA:CPU also sums a `jnp.cumsum` in its own blocked order, which
 float32 `tanh` with its own rational approximation (`tanh_xla`); and
 calls the C library's `sinf`/`cosf` for float32 `sin`/`cos`, which
 `sincos_glibc` reproduces in float64 and int64 operations; builds
-`erfinv` from its own polynomial (`erfinv_xla`); and inlines its own
-float32 `log1p` and `exp` (`log1p_xla`, `exp_xla`, `exp2_xla`).
+`erfinv` from its own polynomial (`erfinv_xla`); inlines its own
+float32 `log1p` and `exp` (`log1p_xla`, `exp_xla`, `exp2_xla`); and
+sums a `jnp.sum` over one or two trailing axes in the order its compiled
+loops take, which `sum_plan` and `plan_sum` follow.
 
 Every function here is a chain of separate elementwise torch calls, so
 it gives the same bits on the CPU and on the card: one torch call does
@@ -22,6 +24,7 @@ one IEEE operation, which no compiler can contract with another.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -400,3 +403,142 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, flat.shape[-1]):
         acc = acc + flat[..., i]
     return acc
+
+
+# ---------------------------------------------------------------------------
+# XLA:CPU's order for jnp.sum over the last one or two axes of [..., R, C]
+# (all of them, or R alone: a column sum), as jax 0.9.0 compiles it on
+# x86-64, read from the HLO and the optimized LLVM IR of the simulators'
+# scan bodies (ROADMAP hazard 34):
+# * while an axis being summed is longer than SUM_BLOCK, a reduce-window of
+#   SUM_BLOCK along each such axis (an axis of n <= SUM_BLOCK is taken
+#   whole) with the zero pad split lo = pad // 2, then the same again on
+#   its output; a last reduce over what is left;
+# * XLA marks the adds of a reduction `reassoc`, so LLVM's loop vectorizer
+#   may split a loop over rows into lanes: a slab of whole rows (width <=
+#   SUM_BLOCK, no pad before it) of `rows` rows of `width` 2..8 values
+#   keeps `_row_lanes(rows, width)` running sums, row r in lane r % lanes,
+#   each row's values added in order, the lanes then added pairwise
+#   (lane i + lane i + lanes/2, halving) and the rows the lanes left over
+#   added one by one; a window padded by one row after its rows (lo 0,
+#   hi 1) vectorizes its first rows - 1 rows so;
+# * a window padded by one column after (lo 0, hi 1) adds the first
+#   width - 1 values of each row, then the last value of each row;
+# * everything else (and every column sum) adds row by row in order.
+# Each accumulator starts at +0.0 (the reduce's init; the split lanes but
+# the first at -0.0), so a padded zero never changes a sum's bits.
+
+
+def _row_lanes(rows: int, width: int) -> int:
+    """The running sums LLVM splits a loop over `rows` whole rows of
+    `width` values into (1: not split), read off the compiled code of
+    every rows, width <= SUM_BLOCK."""
+    if not 2 <= width <= 8:
+        return 1
+    if rows in (2, 4, 8):
+        return rows
+    if 16 <= rows <= 19 or 24 <= rows <= 27 or rows == 32:
+        return 8 if width <= 6 else 4
+    if 20 <= rows <= 23:
+        return 4
+    if 28 <= rows <= 31:
+        return 8 if width == 2 else 4
+    return 1
+
+
+class SumLevel(NamedTuple):
+    """One pass of a `sum_plan`: the [rows, cols] slab of a lane in
+    windows of w0 x w1 (lo0, lo1 zeros before), o0 x o1 outputs; the
+    first `nvec` rows of a window in `lanes` running sums; `last_col`:
+    each row's last value added after all the others."""
+
+    rows: int
+    cols: int
+    w0: int
+    w1: int
+    lo0: int
+    lo1: int
+    o0: int
+    o1: int
+    lanes: int
+    nvec: int
+    last_col: bool
+
+
+class SumPlan(NamedTuple):
+    """The passes of one sum; the last is one window over what is left
+    (o0 = 1; o1 = 1, or cols when `by_column`)."""
+
+    levels: tuple
+    by_column: bool
+
+
+def sum_plan(rows: int, cols: int, by_column: bool = False) -> SumPlan:
+    """XLA:CPU's sum over a lane's [rows, cols] (1-D: cols = 1), or over
+    its rows alone per column (`by_column`)."""
+    levels = []
+    n0, n1 = rows, cols
+    while True:
+        last = n0 <= SUM_BLOCK and (by_column or n1 <= SUM_BLOCK)
+        w0 = min(n0, SUM_BLOCK)
+        w1 = 1 if by_column else min(n1, SUM_BLOCK)
+        p0, p1 = -n0 % w0, -n1 % w1
+        lo0, lo1 = p0 // 2, p1 // 2
+        whole = not by_column and w1 == n1  # windows of whole rows
+        lanes, nvec = 1, 0
+        if whole and p0 == 0:
+            lanes, nvec = _row_lanes(w0, w1), w0
+        elif whole and (lo0, p0) == (0, 1):
+            lanes, nvec = _row_lanes(w0 - 1, w1), w0 - 1
+        if lanes == 1:
+            nvec = 0
+        o0, o1 = (n0 + p0) // w0, (n1 + p1) // w1
+        levels.append(SumLevel(n0, n1, w0, w1, lo0, lo1, o0, o1, lanes, nvec,
+                               not by_column and (lo1, p1) == (0, 1)))
+        if last:
+            return SumPlan(tuple(levels), by_column)
+        n0, n1 = o0, o1
+
+
+def _plan_level(x: torch.Tensor, v: SumLevel) -> torch.Tensor:
+    """One pass over x [..., rows, cols] -> [..., o0, o1]."""
+    p0, p1 = v.o0 * v.w0 - v.rows, v.o1 * v.w1 - v.cols
+    if p0 or p1:
+        x = F.pad(x, (v.lo1, p1 - v.lo1, v.lo0, p0 - v.lo0))
+    b = x.reshape(x.shape[:-2] + (v.o0, v.w0, v.o1, v.w1))
+
+    def at(r, c):
+        return b[..., :, r, :, c]
+
+    acc = torch.zeros(b.shape[:-4] + (v.o0, v.o1), dtype=x.dtype, device=x.device)
+    first = 0
+    if v.last_col:
+        for r in range(v.w0):
+            for c in range(v.w1 - 1):
+                acc = acc + at(r, c)
+        for r in range(v.w0):
+            acc = acc + at(r, v.w1 - 1)
+        return acc
+    if v.lanes > 1:
+        lanes = [acc] + [torch.full_like(acc, -0.0) for _ in range(v.lanes - 1)]
+        first = v.nvec // v.lanes * v.lanes
+        for r in range(first):
+            for c in range(v.w1):
+                lanes[r % v.lanes] = lanes[r % v.lanes] + at(r, c)
+        while len(lanes) > 1:
+            h = len(lanes) // 2
+            lanes = [lanes[i] + lanes[i + h] for i in range(h)]
+        acc = lanes[0]
+    for r in range(first, v.w0):
+        for c in range(v.w1):
+            acc = acc + at(r, c)
+    return acc
+
+
+def plan_sum(x: torch.Tensor, plan: SumPlan) -> torch.Tensor:
+    """x [..., rows, cols] summed by `plan` -> [...] or, by column,
+    [..., cols]: elementwise float32 adds, the same bits on every
+    device."""
+    for v in plan.levels:
+        x = _plan_level(x, v)
+    return x[..., 0, :] if plan.by_column else x[..., 0, 0]

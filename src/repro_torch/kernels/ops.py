@@ -94,14 +94,25 @@ def tap_scan(cfg, probe, out, state, t0, t1):
     fn(cfg, probe, out, state, t0, t1)
 
 
-_MODULES = {"carbon_scores": _cs, "route_scores": _rs, "greedy_fill": _gf,
-            "flash_attention": _fa, "flash_decode": _fd, "ssd_chunk_intra": _ssd,
-            "threefry_draw": _tf, "tap_scan": _taps}
+def tap_probe(plan, t, inputs):
+    """Slot t of a run's probe sums (`taps.ProbePlan`: which inputs, into
+    which [*lanes, T] series, and the backlog's parts), every sum in
+    XLA:CPU's order, one launch on the card."""
+    fn = _pick(plan, _taps.tap_probe_plain, _taps.tap_probe_cuda, "tap_probe")
+    fn(plan, t, inputs)
+
+
+# kernel name -> (module, its launch counter)
+_COUNTERS = {"carbon_scores": (_cs, "launches"), "route_scores": (_rs, "launches"),
+             "greedy_fill": (_gf, "launches"), "flash_attention": (_fa, "launches"),
+             "flash_decode": (_fd, "launches"), "ssd_chunk_intra": (_ssd, "launches"),
+             "threefry_draw": (_tf, "launches"), "tap_scan": (_taps, "launches"),
+             "tap_probe": (_taps, "probe_launches")}
 
 
 def launch_counts() -> dict:
     """{kernel name: launches of its CUDA kernel so far}."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def path_launches() -> int:
@@ -111,6 +122,6 @@ def path_launches() -> int:
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
     _tf.path_launches = 0

@@ -28,6 +28,13 @@ Rounding is the contract: every operation is one float32 IEEE operation
 in the order above (the running sums are sequential, so no prefix sum of
 the card computes them), and the kernel in `csrc/tap_scan.cu` rounds as
 the plain version does, bitwise.
+
+The probe's per-slot sums are the other kernel here: `tap_probe` writes
+slot t of the tape's series (`dispatched` = the landings summed over M
+per cloud, `arrived`, the named totals such as `retry_depth`, and the
+backlog, its parts' totals added left to right) in one launch, every sum
+in XLA:CPU's compiled order (`numerics.sum_plan`), so the series are
+JAX's bits past 2**24 too. A `ProbePlan` fixes a run's sums once.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.numerics import plan_sum, sum_plan
 from repro_torch.telemetry.monitors import K
 from repro_torch.telemetry.taps import (
     GAUGES,
@@ -51,8 +59,10 @@ from repro_torch.telemetry.taps import (
     step_taps,
 )
 
-# Launches of the CUDA kernel in this process (read by chip_smoke.py).
+# Launches of the CUDA kernels in this process (read by chip_smoke.py):
+# tap_scan's and tap_probe's.
 launches = 0
+probe_launches = 0
 
 MAX_T = 32 ** 4  # the kernel's XLA-order sums nest at most four window levels
 I32, F32 = torch.int32, torch.float32
@@ -145,18 +155,18 @@ def _lib():
     return lib
 
 
-def _check(name, x, shape, dtype, device):
+def _check(name, x, shape, dtype, device, what="tap_scan"):
     if x.dtype != dtype or x.device != device or tuple(x.shape) != shape or \
             not x.is_contiguous():
         raise ValueError(
-            f"tap_scan: {name} must be contiguous {dtype} {shape} on {device}, got "
+            f"{what}: {name} must be contiguous {dtype} {shape} on {device}, got "
             f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def tap_scan_cuda(cfg, probe: TelemetryProbe, out: TapOut, state: torch.Tensor, t0: int,
                   t1: int) -> None:
-    """Launches csrc/tap_scan.cu on PyTorch's current stream: one thread
-    a lane walks slots t0..t1-1 (and the run's reductions when t1 = T).
+    """Launches csrc/tap_scan.cu on PyTorch's current stream: a block a
+    lane walks slots t0..t1-1 (and the run's reductions when t1 = T).
     Every tensor must be contiguous on the card; nothing is read back to
     the host."""
     global launches
@@ -186,3 +196,172 @@ def tap_scan_cuda(cfg, probe: TelemetryProbe, out: TapOut, state: torch.Tensor, 
     )
     build.check(lib, status, "tap_scan")
     launches += 1
+
+
+# ---------------------------------------------------------------- the probe
+
+PROBE_JOBS, PROBE_LEVELS, PROBE_PARTS = 6, 5, 4  # the kernel's argument block's room
+
+
+class _Level(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in ("rows", "cols", "w0", "w1", "lo0", "lo1", "o0", "o1",
+                                            "lanes", "nvec", "last_col")]
+
+
+class _Job(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("out_lane", ctypes.c_longlong), ("out_t", ctypes.c_longlong),
+                ("scratch", ctypes.c_void_p * PROBE_LEVELS), ("nlev", ctypes.c_int),
+                ("lev", _Level * PROBE_LEVELS)]
+
+
+class _Probe(ctypes.Structure):
+    _fields_ = [("job", _Job * PROBE_JOBS), ("njobs", ctypes.c_int), ("lanes", ctypes.c_int),
+                ("nparts", ctypes.c_int), ("phases", ctypes.c_int), ("t", ctypes.c_int),
+                ("part", ctypes.c_int * PROBE_PARTS), ("backlog", ctypes.c_void_p),
+                ("backlog_lane", ctypes.c_longlong), ("backlog_t", ctypes.c_longlong),
+                ("sync", ctypes.c_void_p)]
+
+
+class ProbePlan:
+    """The sums one `tap_probe` launch takes each slot of a run of T
+    slots, fixed for the run: each input ({name: a slot's [*lanes, rows]
+    or [*lanes, rows, cols] tensor}) is summed, in XLA:CPU's order, over
+    all its axes after the lanes or, for the names in `by_column`, over
+    its rows per column, into slot t of `outputs[name]` ([*lanes, T], by
+    column [*lanes, T, cols]; an input without one is a backlog part
+    only); `backlog[..., t]` is the totals of the inputs named in `parts`
+    added left to right. `example` gives the inputs' shapes."""
+
+    def __init__(self, lanes: tuple, T: int, example: dict, outputs: dict, parts=(),
+                 backlog=None, by_column=()):
+        if len(example) > PROBE_JOBS or len(parts) > PROBE_PARTS:
+            raise ValueError(f"tap_probe: at most {PROBE_JOBS} sums and {PROBE_PARTS} parts")
+        if parts and backlog is None:
+            raise ValueError("tap_probe: backlog parts need a backlog series")
+        self.lanes, self.T = tuple(lanes), T
+        self.names = tuple(example)
+        self.shapes = {n: tuple(x.shape) for n, x in example.items()}
+        self.by_column = frozenset(by_column)
+        self.plans = {}
+        for n, shape in self.shapes.items():
+            slab = shape[len(self.lanes):]
+            if shape[:len(self.lanes)] != self.lanes or len(slab) not in (1, 2) or \
+                    (n in self.by_column and len(slab) != 2):
+                raise ValueError(f"tap_probe: {n} {shape} is not [*{self.lanes}, rows(, cols)]")
+            self.plans[n] = sum_plan(slab[0], slab[1] if len(slab) == 2 else 1, n in self.by_column)
+            if len(self.plans[n].levels) > PROBE_LEVELS:
+                raise ValueError(f"tap_probe: {n} {shape} needs more than {PROBE_LEVELS} passes")
+        self.outputs = dict(outputs)
+        self.parts, self.backlog = tuple(parts), backlog
+        self._args = None  # the kernel's argument block, made at the first launch
+
+    @property
+    def device(self):
+        """The device of the series the plan writes."""
+        return (self.backlog if self.backlog is not None else
+                next(iter(self.outputs.values()))).device
+
+    def args(self):
+        """The CUDA kernel's argument block (scratch and barrier buffers
+        allocated here, once for the run; the per-slot sources and t are
+        set at each launch) and the threads its largest pass can use."""
+        if self._args is not None:
+            return self._args
+        device = self.device
+        n_lanes = math.prod(self.lanes)
+        a = _Probe()
+        # threads a pass can use: one a one-column window, a warp a wider one
+        keep, items = [], [0] * PROBE_LEVELS + [n_lanes if self.parts else 1]
+        for k, name in enumerate(self.names):
+            plan, job = self.plans[name], a.job[k]
+            for i, v in enumerate(plan.levels):
+                job.lev[i] = _Level(*v[:10], int(v.last_col))
+                outs = n_lanes * v.o0 * v.o1
+                items[i] += outs if v.w1 == 1 else 32 * outs
+                if i < len(plan.levels) - 1:
+                    buf = torch.empty(outs, dtype=F32, device=device)
+                    keep.append(buf)
+                    job.scratch[i] = buf.data_ptr()
+            job.nlev = len(plan.levels)
+            out = self.outputs.get(name)
+            if out is None:  # a backlog part only: its totals in a scratch row
+                out = torch.empty(n_lanes, dtype=F32, device=device)
+                keep.append(out)
+                job.out, job.out_lane, job.out_t = out.data_ptr(), 1, 0
+            else:
+                col = name in self.by_column
+                want = self.lanes + (self.T,) + ((self.shapes[name][-1],) if col else ())
+                _check(f"output {name}", out, want, F32, device, "tap_probe")
+                job.out, job.out_t = out.data_ptr(), out.stride(-2 if col else -1)
+                job.out_lane = job.out_t * self.T
+        if self.parts:
+            _check("backlog", self.backlog, self.lanes + (self.T,), F32, device, "tap_probe")
+            for i, p in enumerate(self.parts):
+                a.part[i] = self.names.index(p)
+            a.backlog, a.backlog_lane, a.backlog_t = self.backlog.data_ptr(), self.T, 1
+        sync = torch.zeros(2, dtype=torch.int32, device=device)  # the barrier, zeroed once
+        keep.append(sync)
+        a.sync = sync.data_ptr()
+        a.njobs, a.lanes, a.nparts = len(self.names), n_lanes, len(self.parts)
+        a.phases = max(len(self.plans[n].levels) for n in self.names) + (1 if self.parts else 0)
+        self._args = (a, max(items), keep, device)
+        return self._args
+
+
+def tap_probe_plain(plan: ProbePlan, t: int, inputs: dict) -> None:
+    """Slot t of the plan's series from a slot's inputs, each sum a
+    chain of elementwise float32 adds in XLA:CPU's order (on the inputs'
+    device)."""
+    nl = len(plan.lanes)
+    totals = {}
+    for name in plan.names:
+        x = inputs[name]
+        s = plan_sum(x if x.dim() - nl == 2 else x[..., None], plan.plans[name])
+        totals[name] = s
+        out = plan.outputs.get(name)
+        if out is not None:
+            if name in plan.by_column:
+                out[..., t, :] = s
+            else:
+                out[..., t] = s
+    if plan.parts:
+        acc = totals[plan.parts[0]]
+        for p in plan.parts[1:]:
+            acc = acc + totals[p]
+        plan.backlog[..., t] = acc
+
+
+def _probe_lib():
+    lib = build.load("tap_probe")
+    if lib.tap_probe_launch.argtypes is None:
+        lib.tap_probe_size.restype = ctypes.c_int
+        if lib.tap_probe_size() != ctypes.sizeof(_Probe):
+            raise RuntimeError(f"tap_probe: the kernel's argument block is {lib.tap_probe_size()} "
+                               f"bytes, the wrapper's {ctypes.sizeof(_Probe)}")
+        lib.tap_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.tap_probe_launch.restype = ctypes.c_int
+    return lib
+
+
+def tap_probe_cuda(plan: ProbePlan, t: int, inputs: dict) -> None:
+    """Launches csrc/tap_probe.cu on PyTorch's current stream: every sum
+    of slot t in one launch, into the plan's series. The inputs must be
+    contiguous float32 on the card at the plan's shapes."""
+    global probe_launches
+    a, items, _, dev = plan.args()
+    if not 0 <= t < plan.T:
+        raise ValueError(f"tap_probe: slot {t} of a run of T={plan.T}")
+    for k, name in enumerate(plan.names):
+        x = inputs[name]
+        if x.dtype != F32 or x.device != dev or tuple(x.shape) != plan.shapes[name] or \
+                not x.is_contiguous():
+            raise ValueError(f"tap_probe: {name} must be contiguous {F32} {plan.shapes[name]} on "
+                             f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        a.job[k].src = x.data_ptr()
+    a.t = t
+    lib = _probe_lib()
+    status = lib.tap_probe_launch(ctypes.addressof(a), items,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, status, "tap_probe")
+    probe_launches += 1

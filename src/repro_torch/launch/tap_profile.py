@@ -1,6 +1,6 @@
 """What the telemetry taps cost on the card: the tap kernel's time, the
-taps' cost a slot in the runs, and which call of the probe's per-slot
-sums launches what.
+taps' cost a slot in the runs, and what the probe's per-slot sums launch
+and cost.
 
     python3 src/repro_torch/launch/tap_profile.py [--src DIR] [--label NAME]
         [--turns 3] [--sums]
@@ -9,25 +9,27 @@ sums launches what.
 imported, so the script times the package of another checkout (its
 `src`) as well as this one; run it once per version, in turns, to
 compare two versions on one card. It uses only calls that both versions
-accept.
+accept, and the fused probe only where the package has one.
 
 It measures, summary records, seed 0:
   - kernel: `tap_scan_cuda` over a whole run's probe series, from a run
     with taps on, at bench_telemetry_overhead's fleet
     (`build_fleet(["diurnal-slack"], per_kind=32)`, F32 x M5 x N5,
     CarbonIntensity V=0.05, T=192) and at chip_smoke.py's main path (M4096
-    x N256, T=64: the instance of `slot_profile.py`); ms a call, the
-    median over 15 rounds of 20 back-to-back calls between CUDA events;
-  - ms_per_slot: those two runs with taps off and on, `--turns` rounds of
-    off, on, on, off, ms per slot from CUDA events;
-  - with `--sums`, probe_sums: each of the probe's per-slot sums alone
-    (arrived, dispatched, the backlog's Qe and Qc sums and their add) at
-    the main path's shape, fleet B's (F16 x M4096 x N256) and the bench
-    fleet's, written three ways: into slot t of the [*lanes, T] tape the
-    loops keep (a strided column when there are lanes), into row t of a
-    contiguous [T, *lanes] tape, and into a new tensor. torch.profiler
-    over 8 calls of each gives the kernels, memsets and host
-    cudaLaunchKernel / cudaMemsetAsync calls a call.
+    x N256, T=64: the instance of `slot_profile.py`), and on seeded series
+    at F1 x T192 (bench_stream_overhead's run length) and F16 x T64 (fleet
+    B's); ms a call from CUDA-graph replay (20 calls a graph, the median
+    of 15 replays between CUDA events);
+  - ms_per_slot: the main path, the bench fleet and fleet B (F16 x M4096 x
+    N256, chip_smoke.py's four kinds x 4, T=64) with taps off and on,
+    `--turns` rounds of off, on, on, off, ms per slot from CUDA events;
+  - with `--sums`, probe_sums at the main path's shape, fleet B's and the
+    bench fleet's: the sums of one slot (the landings by cloud, the
+    arrivals, the backlog's Qe and Qc sums and their add) as one torch
+    call each into slot t of the [*lanes, T] tape (the earlier path), and,
+    where the package has it, as one `tap_probe` launch: each one's ms
+    from CUDA-graph replay, and from torch.profiler over 8 calls the
+    kernels, memsets and host launch and memset calls a call.
 It prints one JSON line (with tap_scan's ptxas registers and spills)
 and the nvidia-smi name and power limit.
 """
@@ -40,6 +42,7 @@ import subprocess
 import sys
 
 SEED, V, T_MAIN, T_BENCH = 0, 0.05, 64, 192
+FLEET_B_KINDS, FLEET_B_PER_KIND = ("diurnal", "bursty", "heterogeneous-fleet", "overload"), 4
 
 
 def _events_ms(torch, fn, reps: int, inner: int) -> float:
@@ -58,6 +61,32 @@ def _events_ms(torch, fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def _replay_ms(torch, fn, reps: int = 15, inner: int = 20) -> float:
+    """Device ms a call: `inner` calls captured in one CUDA graph, the
+    median of `reps` replays between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def _launches(torch, fn, calls: int = 8) -> dict:
     """Device kernels and memsets, and host launch and memset calls, a
     call of `fn`, from torch.profiler."""
@@ -70,7 +99,8 @@ def _launches(torch, fn, calls: int = 8) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {"kernels": 0, "memsets": 0, "cudaLaunchKernel": 0, "cudaMemsetAsync": 0}
+    out = {"kernels": 0, "memsets": 0, "cudaLaunchKernel": 0, "cudaMemsetAsync": 0,
+           "cudaLaunchCooperativeKernel": 0}
     names = set()
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
@@ -78,14 +108,16 @@ def _launches(torch, fn, calls: int = 8) -> dict:
             out[kind] += evt.count
             if kind == "kernels":
                 names.add(evt.key[:60])
-        elif evt.key in ("cudaLaunchKernel", "cudaMemsetAsync"):
+        elif evt.key in out:
             out[evt.key] += evt.count
     out = {k: v / calls for k, v in out.items()}
     out["kernel_names"] = sorted(names)
     return out
 
 
-def _probe_sums(torch, dev) -> dict:
+def _probe_sums(torch, dev, tpk) -> dict:
+    """One slot's probe sums at three shapes: one torch call a sum and, where
+    the package has it, the fused `tap_probe`."""
     T = 64
     res = {}
     for label, lanes, M, N in (("main F1 x M4096 x N256", (), 4096, 256),
@@ -96,25 +128,28 @@ def _probe_sums(torch, dev) -> dict:
         Qc = torch.randint(0, 1000, lanes + (M, N), generator=g, device=dev).float()
         a = torch.randint(0, 400, lanes + (M,), generator=g, device=dev).float()
         d = torch.randint(0, 9, lanes + (M, N), generator=g, device=dev).float()
-        col = torch.zeros(lanes + (T,), device=dev)      # [*lanes, T], slot t a column
-        row = torch.zeros((T,) + lanes, device=dev)      # [T, *lanes], slot t a row
-        col_n = torch.zeros(lanes + (T, N), device=dev)
-        row_n = torch.zeros((T,) + lanes + (N,), device=dev)
+        series = {n: torch.zeros(lanes + (T,), device=dev) for n in ("arrived", "backlog")}
+        series["dispatched"] = torch.zeros(lanes + (T, N), device=dev)
         e1 = tuple(range(len(lanes), len(lanes) + 1))
         e2 = tuple(range(len(lanes), len(lanes) + 2))
-        se, sc = torch.sum(Qe, dim=e1), torch.sum(Qc, dim=e2)
         t = 5
-        ops = {
-            "arrived": (lambda o: torch.sum(a, dim=e1, out=o), col[..., t], row[t]),
-            "dispatched": (lambda o: torch.sum(d, dim=-2, out=o), col_n[..., t, :], row_n[t]),
-            "backlog Qe": (lambda o: torch.sum(Qe, dim=e1, out=o), col[..., t], row[t]),
-            "backlog Qc": (lambda o: torch.sum(Qc, dim=e2, out=o), col[..., t], row[t]),
-            "backlog add": (lambda o: torch.add(se, sc, out=o), col[..., t], row[t]),
-        }
-        res[label] = {name: {"tape slot": _launches(torch, lambda f=f, o=o: f(o)),
-                             "tape row": _launches(torch, lambda f=f, o=r: f(o)),
-                             "new tensor": _launches(torch, lambda f=f: f(None))}
-                      for name, (f, o, r) in ops.items()}
+
+        def sums():
+            """the main path's probe as one torch call a sum"""
+            torch.sum(d, dim=-2, out=series["dispatched"][..., t, :])
+            torch.sum(a, dim=e1, out=series["arrived"][..., t])
+            torch.add(torch.sum(Qe, dim=e1), torch.sum(Qc, dim=e2), out=series["backlog"][..., t])
+
+        res[label] = {"torch_sums": {"ms": _replay_ms(torch, sums), **_launches(torch, sums)}}
+        if hasattr(tpk, "ProbePlan"):
+            inputs = {"dispatched": d, "arrived": a, "part0": Qe, "part1": Qc}
+            plan = tpk.ProbePlan(lanes, T, inputs, {n: series[n] for n in ("dispatched", "arrived")},
+                                 ("part0", "part1"), series["backlog"], by_column=("dispatched",))
+
+            def probe():
+                tpk.tap_probe_cuda(plan, t, inputs)
+
+            res[label]["tap_probe"] = {"ms": _replay_ms(torch, probe), **_launches(torch, probe)}
     return res
 
 
@@ -141,7 +176,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import taps as tpk
     from repro_torch.launch import slot_profile
 
-    built = build.build_all(("carbon_score", "greedy_fill", "threefry", "tap_scan"))
+    names = ("carbon_score", "greedy_fill", "threefry", "tap_scan") + \
+        (("tap_probe",) if "tap_probe" in build.SOURCES else ())
+    built = build.build_all(names)
     ptxas = [ln.split(":", 1)[-1].strip() for ln in built["tap_scan"][1].splitlines()
              if "spill" in ln or "registers" in ln]
     dev = torch.device("cuda")
@@ -151,27 +188,49 @@ def main(argv=None) -> int:
     arrivals = core.UniformArrivals(M=slot_profile.M, amax=slot_profile.A_MAX)
     bench = fleet_scenarios.build_fleet(["diurnal-slack"], per_kind=32, Tc=96, seed=SEED,
                                         device=dev).to(dev)
+    fleet_b = fleet_scenarios.build_fleet(FLEET_B_KINDS, per_kind=FLEET_B_PER_KIND,
+                                          M=slot_profile.M, N=slot_profile.N, Tc=96, seed=SEED,
+                                          device=dev).to(dev)
     runs = {
         "main": (lambda tel: core.simulate(ci, spec, table, arrivals, T_MAIN, SEED, state0=state0,
                                            record="summary", device=dev, telemetry=tel), T_MAIN),
         "bench fleet": (lambda tel: core.simulate_fleet(ci, bench, T_BENCH, SEED,
                                                         record="summary", device=dev,
                                                         telemetry=tel), T_BENCH),
+        "fleet B": (lambda tel: core.simulate_fleet(ci, fleet_b, T_MAIN, SEED, record="summary",
+                                                    device=dev, telemetry=tel), T_MAIN),
     }
 
-    kernel = {}
-    for name, (run, _) in runs.items():
-        tel = run(cfg).telemetry
-        probe = tlm.TelemetryProbe(
+    def probe_of(tel):
+        return tlm.TelemetryProbe(
             emissions=tel.emission_rate, arrived=tel.arrived, dispatched=tel.dispatched_cloud,
             processed=tel.processed, failed=tel.failed, wasted=tel.wasted, backlog=tel.backlog,
             stale=tel.staleness, clouds_down=tel.clouds_down, retry_depth=tel.retry_depth,
             transfer_occupancy=tel.transfer_occupancy, missed=tel.missed, shed=tel.shed)
+
+    def seeded(lanes, T):
+        """integral counts past 2**24 and non-integral emissions"""
+        g = torch.Generator(device=dev).manual_seed(SEED + T)
+        ints = lambda hi: torch.randint(0, hi, lanes + (T,), generator=g, device=dev).float()  # noqa: E731
+        arrived = ints(2**20)
+        processed = torch.minimum(ints(2**20), arrived)
+        z = torch.zeros(lanes + (T,), device=dev)
+        return tlm.TelemetryProbe(
+            emissions=torch.rand(lanes + (T,), generator=g, device=dev) * 1e6, arrived=arrived,
+            dispatched=torch.zeros(lanes + (T, 5), device=dev), processed=processed, failed=z,
+            wasted=z, backlog=torch.cumsum(arrived - processed, dim=-1), stale=z.int(),
+            clouds_down=z, retry_depth=z, transfer_occupancy=z, missed=z, shed=z)
+
+    kernel = {}
+    probes = {"bench fleet F32 x T192": probe_of(runs["bench fleet"][0](cfg).telemetry),
+              "main F1 x T64": probe_of(runs["main"][0](cfg).telemetry),
+              "F1 x T192": seeded((1,), T_BENCH), "F16 x T64": seeded((16,), T_MAIN)}
+    for name, probe in probes.items():
         lanes, T = tuple(probe.backlog.shape[:-1]), probe.backlog.shape[-1]
         out = tpk.TapOut.empty(lanes, T, dev)
         state = torch.zeros(lanes + (7,), device=dev)
-        kernel[name] = _events_ms(torch, lambda p=probe, o=out, s=state, T=T: tpk.tap_scan_cuda(
-            cfg, p, o, s, 0, T), reps=15, inner=20)
+        kernel[name] = _replay_ms(torch, lambda p=probe, o=out, s=state, T=T: tpk.tap_scan_cuda(
+            cfg, p, o, s, 0, T))
 
     def slot_ms(run, slots, tel):
         return _events_ms(torch, lambda: run(tel), reps=1, inner=1) / slots
@@ -184,7 +243,7 @@ def main(argv=None) -> int:
     line = {"label": args.label, "package": repro_torch.__file__, "torch": torch.__version__,
             "tap_scan_ptxas": ptxas, "kernel_ms": kernel, "ms_per_slot": times}
     if args.sums:
-        line["probe_sums"] = _probe_sums(torch, dev)
+        line["probe_sums"] = _probe_sums(torch, dev, tpk)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(line), flush=True)

@@ -20,6 +20,7 @@ Every tensor may carry leading lane axes (a fleet): the series are then
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -187,18 +188,29 @@ def step_taps(cfg: TelemetryConfig, tap: TapState, probe: TelemetryProbe) -> tup
     return nxt, series
 
 
+def peak_of(backlog: torch.Tensor) -> torch.Tensor:
+    """jnp.max over the last axis as XLA computes it: -0 below +0 (a +0
+    anywhere beats every -0), and a NaN anywhere gives NaN (0x7fc00000
+    here, so the card's plain version and its kernel agree bitwise)."""
+    m = torch.amax(backlog, dim=-1)
+    pos0 = ((backlog == 0) & ~torch.signbit(backlog)).any(dim=-1)
+    m = torch.where((m == 0) & pos0, 0.0, m)
+    return torch.where(torch.isnan(m), math.nan, m)
+
+
 def finalize_taps(cfg: TelemetryConfig, series: TapSeries) -> Telemetry:
     """Reduces the stacked [..., T, ...] series into the Telemetry frame:
-    the peak, the totals over T in XLA:CPU's order (a reduce-window of
-    SUM_BLOCK slots while more remain, see `kernels.numerics.xla_sum`),
-    and the alert records, int32 throughout."""
+    the peak (`peak_of`), the totals over T in XLA:CPU's order (a
+    reduce-window of SUM_BLOCK slots while more remain, see
+    `kernels.numerics.xla_sum`), and the alert records, int32
+    throughout."""
     active = series.alert_active                                  # [..., T, K]
     count = torch.sum(active, dim=-2, dtype=I32)
     first = torch.where(count > 0, torch.argmax(active, dim=-2).to(I32), -1).to(I32)
     totals = {g: xla_sum(getattr(series, s)[..., None]) for g, s in TOTALED.items()}
     return Telemetry(
         **{f: getattr(series, f) for f in TapSeries._fields},
-        peak_backlog=torch.amax(series.backlog, dim=-1),
+        peak_backlog=peak_of(series.backlog),
         **totals,
         alert_tripped=(count > 0).to(I32),
         alert_first_slot=first,

@@ -144,9 +144,16 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     out, state = TapOut.empty((2,), 5, "cpu"), torch.zeros((2, 7))
     ops.tap_scan(TelemetryConfig(), probe, out, state, 0, 5)
     assert out.alert_active.dtype == torch.int32 and out.records.shape == (2, 3, 6)
+    from repro_torch.kernels.taps import ProbePlan
+
+    inputs = {"dispatched": torch.ones((2, 4, 3)), "part0": torch.ones((2, 4))}
+    plan = ProbePlan((2,), 5, inputs, {"dispatched": probe.dispatched}, ("part0",),
+                     probe.backlog, by_column=("dispatched",))
+    ops.tap_probe(plan, 1, inputs)
+    assert probe.dispatched[:, 1].eq(4.0).all() and probe.backlog[:, 1].eq(4.0).all()
     assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
                                    "flash_attention": 0, "flash_decode": 0, "ssd_chunk_intra": 0,
-                                   "threefry_draw": 0, "tap_scan": 0}
+                                   "threefry_draw": 0, "tap_scan": 0, "tap_probe": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
     with pytest.raises(ValueError, match="no kernel"):
@@ -159,6 +166,9 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
         ops.threefry_draw(keys.to("meta"), 3, 4)
     with pytest.raises(ValueError, match="no kernel"):
         ops.tap_scan(TelemetryConfig(), probe._replace(backlog=z.to("meta")), out, state, 0, 5)
+    plan.backlog = z.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.tap_probe(plan, 1, inputs)
 
 
 def test_cuda_wrappers_check_their_inputs_before_building():

@@ -134,3 +134,46 @@ def test_the_totals_follow_xla_order():
     for x in s["emissions"]:
         seq = np.float32(seq + x)
     assert float(tel.total_emissions) != float(seq)
+
+
+def _nan(bits):
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
+# backlogs whose peak is decided by jnp.max's rule: -0 below +0, a NaN wins
+_PEAKS = {
+    "-0 then +0": [-0.0, 0.0, -1.0], "+0 then -0": [0.0, -0.0, -3.0], "only -0": [-0.0, -0.0],
+    "NaN inside": [1.0, _nan(0x7FC00000), 5.0], "NaN first": [_nan(0x7FC00000), 1.0],
+    "-NaN": [1.0, _nan(0xFFC00000), 2.0], "a NaN with a payload": [2.0, _nan(0x7FC00005)],
+    "all below 0": [-5.0, -2.0, -7.0],
+}
+
+
+@pytest.mark.parametrize("T", [3, 40, 300])
+@pytest.mark.parametrize("case", list(_PEAKS))
+def test_peak_ties_and_nans_follow_finalize_taps(case, T):
+    """The peak against JAX's finalize_taps where a max's tie and NaN
+    rule decide it: the bits of +0 and -0 (a +0 anywhere wins), NaN
+    wherever a NaN is; placed at the start, and mid-run past a window."""
+    s = _series(np.random.default_rng(T), (2,), T, big=False)
+    s["backlog"] = np.full((2, T), -9.0, np.float32)
+    vals = np.array(_PEAKS[case], np.float32)
+    s["backlog"][0, :len(vals)] = vals
+    s["backlog"][1, T - len(vals):] = vals
+    tel = _assert_same({}, s, chunks=[1] if T > 3 else None)
+    _, jtel = _jax_frame(JT.TelemetryConfig(), s)
+    got, want = tel.peak_backlog.numpy(), np.asarray(jtel.peak_backlog)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.int32), want[ok].view(np.int32))
+
+
+@pytest.mark.parametrize("T,chunks", [(600, [1, 255, 256, 257, 300, 511]), (1100, [700, 1023]),
+                                      (257, [256])])
+def test_runs_longer_than_a_kernel_tile_in_chunks(T, chunks):
+    """Runs past the CUDA kernel's 256-slot tile, in chunks that end mid
+    tile and on its edges (the kernel's staging; the plain version has
+    no tiles): every field and the end state JAX's, past 2**24."""
+    s = _series(np.random.default_rng(T + 1), (3,), T, big=True)
+    tel = _assert_same(dict(_CONFIGS[1]), s, chunks=chunks)
+    assert float(tel.total_arrived.max()) > 2 ** 30

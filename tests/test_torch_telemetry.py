@@ -625,13 +625,16 @@ def test_taps_add_few_aten_ops_a_slot(monkeypatch):
     """Non-view aten ops that taps on add to `simulate`'s loop a slot,
     counted by a TorchDispatchMode over runs of 16 and 32 slots (the
     difference of the two cancels what a run adds once, such as the
-    tape's buffers); the tap scan after the loop is not counted."""
+    tape's buffers); the tap scan after the loop is not counted, and the
+    probe's sums count as the one op they are on the card (one
+    `tap_probe` launch a slot; the plain version's XLA-order adds are
+    not the card's cost)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.n, self.paused = 0, False
+            self.n, self.paused, self.probes = 0, False, 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             view = any(r.alias_info is not None and not r.alias_info.is_write
@@ -641,23 +644,34 @@ def test_taps_add_few_aten_ops_a_slot(monkeypatch):
             return func(*args, **(kwargs or {}))
 
     mode = Count()
-    real = ops.tap_scan
+    real_scan, real_probe = ops.tap_scan, ops.tap_probe
 
     def unseen(*a):
         mode.paused = True
         try:
-            real(*a)
+            real_scan(*a)
         finally:
             mode.paused = False
 
+    def one_op(*a):
+        mode.paused = True
+        try:
+            real_probe(*a)
+        finally:
+            mode.paused = False
+        mode.n += 1
+        mode.probes += 1
+
     monkeypatch.setattr(ops, "tap_scan", unseen)
+    monkeypatch.setattr(ops, "tap_probe", one_op)
 
     def count(Tn, telemetry):
-        mode.n = 0
+        mode.n = mode.probes = 0
         with mode:
             P.simulate(P.CarbonIntensityPolicy(V=0.05), tfs._base(M, N),
                        P.RandomCarbonSource(N=N), P.UniformArrivals(M=M), Tn, 42, device="cpu",
                        record="summary", telemetry=telemetry)
+        assert mode.probes == (Tn if telemetry is not None else 0)
         return mode.n
 
     added = [count(Tn, CFG) - count(Tn, None) for Tn in (16, 32)]
