@@ -30,12 +30,12 @@ B's width, and a deadline-aware `serve_loop`; the telemetry layer
 the JAX benches' rows, on the fault rows and W1, and at the main path's
 and fleet B's width.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-4h, 5-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
+4h, 4i, 5-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
 paths):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the nine kernels compiled from csrc/ with nvcc, in parallel;
+2. build: the ten kernels compiled from csrc/ with nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes); for greedy_fill also the classified walk's
@@ -62,6 +62,16 @@ paths):
    and 2**32-3 x 5 (wrapping), keys PRNGKey(-1) n 1030, PRNGKey(0) n 257,
    16 lanes n 4096, 512 lanes n 5; and known answers of jax 0.9.0 pasted
    below (THREEFRY_KNOWN, CHAIN_KNOWN, NORMAL_KNOWN);
+3f. knapsack_dp (ExactDPPPolicy's DP) vs its plain version, bitwise:
+   random instances at grids 16 to 1024 (K 1-40 knapsacks of M 1-16,
+   integral scores in every third: ties), the CPU tests' edge cases
+   (positives, caps past 2**n_splits - 1, items wider than the grid,
+   ties, weights near 0 with caps past int32, NaN, budgets 0, < 0, NaN,
+   inf), the crafted cases of the reference's rounding points with jax
+   0.9.0's counts (KP_CRAFTED), a fleet-A-shaped launch (512 lanes x 6
+   knapsacks of M5, grid 512, from the policy's score pass) and one slot
+   at the main width (M4096 x N256, grid 512: 257 knapsacks, the edge's
+   and the first cloud's held to the plain version);
 3c. the attention kernels vs their plain versions on the card, within
    |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
    1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
@@ -212,6 +222,23 @@ paths):
    (the landings by cloud, the arrivals, Qe, Qc, the WAN loop's Qt and the
    faulted loops' retry pool), and each loop's probe timed against the
    one torch.sum call a sum that it replaced;
+4i. the scheduler's extensions: ExactDPPPolicy (grid 512) on the Fig. 2
+   setup, T=2000, under sync debug mode with its launches (one
+   carbon_scores and one knapsack_dp a slot, no greedy_fill), its
+   reduction against QueueLength held to jax 0.9.0's (EXACT_JAX, within
+   1e-3 points), card vs CPU (T=64; ThresholdPolicy too: queues and
+   counts bitwise, conservation on every slot), in turns against
+   CarbonIntensity (ms/slot), profiled, and with the plain DP swapped in
+   on the card (ms/slot, aten calls a slot: what the kernel replaces);
+   every oracle bound (`oracle_emissions_for_work`, the horizon bound at
+   8 and the full trace) at most the emissions of ExactDPP, QueueLength,
+   CarbonIntensity and ThresholdPolicy(200); ExactDPP on fleet A's
+   shape (F512 x M5 x N5, T=192): one knapsack_dp a slot, conservation on
+   every lane and slot, lanes 0 and 511 equal to each instance alone, F2
+   card vs CPU; ThresholdPolicy(200) at the main width (T=64, launches,
+   conservation from the backlog, T=16 card vs CPU); the
+   AdaptiveVController loop of tests/test_extensions.py (T=250, target
+   30000) with V and the backlog equal card vs CPU every slot;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
    then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
@@ -282,8 +309,13 @@ byte bound; its launches those of the main path's run with taps on, the
 phase's total and a streamed run's beside them), tap_probe's row from
 phase 4h (the main path's probe, the other loops' beside it, each with
 the one-torch.sum-a-sum path as the library time; its launches the main
-path's with taps on), and a PoissonArrivals slot at M4096
-(two chain draws), beside the same slot on the plain walk.
+path's with taps on), knapsack_dp's row from phases 3f and 4i (its time
+at fleet A's shape, the paper's lane and the main width's slot beside
+it, each with its byte and operation bound and its serial floor; its
+launches those of 4i's ExactDPP run on the Fig. 2 setup, one a slot;
+the slot's ms with the kernel and with the plain DP), and a
+PoissonArrivals slot at M4096 (two chain draws), beside the same slot on
+the plain walk.
 
 The last three lines are the JSON kernel table, the nvidia-smi name and
 power limit, and the JSON device record. Any failure ends the run with a non-zero exit; nothing
@@ -342,6 +374,41 @@ VSWEEP = (0.005, 0.01, 0.02, 0.05, 0.1, 0.2)
 # within rtol 1e-6), so within FIG2_TOL points
 FIG2_JAX = {0.01: 38.01082353974602, 0.05: 58.72058679671891}
 FIG2_TOL = 1e-3
+# ExactDPPPolicy (phases 3f and 4i): its DP's grid (the JAX policy's
+# default), 3f's random grids and edge cases ([scores, weights, caps,
+# (budget, 0, 0)] of 3 items, the CPU tests' edges) and the crafted cases
+# of the reference's rounding points with jax 0.9.0's counts (jit): the
+# weight's cell count is one FMA (3 copies fit, unfused 2), the candidate
+# a multiply and then an add (fused: [1, 6, 0])
+KP_GRID = 512
+KP_GRIDS = (16, 17, 100, 257, 512, 600, 1023, 1024)
+NAN, INF = float("nan"), float("inf")
+KP_EDGES = [
+    [[3.0, 1.0, 0.5], [1.0, 2.0, 3.0], [5, 5, 5], [8.0, 0, 0]],
+    [[-1.0, -2.0, 0.0], [0.5, 1.0, 1.0], [5000, 40, 9], [8.0, 0, 0]],
+    [[-5.0, -1.0, -2.0], [20.0, 9.0, 1.0], [3, 3, 3], [8.0, 0, 0]],
+    [[-1.0, -1.0, -1.0], [2.0, 2.0, 2.0], [2, 2, 2], [8.0, 0, 0]],
+    [[-1.0, -2.0, -3.0], [1.0, 2.0, 3.0], [9, 9, 9], [8.0, 0, 0]],
+    [[-1.0, -1.0, -2.0], [0.0, 1e-12, 1.0], [1e10, 3e9, 2.0], [8.0, 0, 0]],
+    [[NAN, -1.0, -2.0], [1.0, 1.0, 1.0], [3, NAN, 2], [8.0, 0, 0]],
+    [[-1.0, -2.0, -3.0], [1.0, 1.0, 1.0], [3, 3, 3], [0.0, 0, 0]],
+    [[-1.0, -2.0, -3.0], [1.0, 1.0, 1.0], [3, 3, 3], [-3.0, 0, 0]],
+    [[-1.0, -2.0, -3.0], [1.0, 1.0, 1.0], [3, 3, 3], [NAN, 0, 0]],
+    [[-1.0, -2.0, -3.0], [1.0, 1.0, 1.0], [3, 3, 3], [INF, 0, 0]],
+]
+KP_CRAFTED = {
+    "fma cell count": (([[-1.0]], [[61.662136]], [[10.0]], [186.91333]), 194, [[3.0]]),
+    "unfused candidate": (([[-0.2, -0.7, -0.9]], [[2.0, 1.0, 3.0]], [[4.0, 6.0, 7.0]], [8.0]), 8,
+                          [[0.0, 5.0, 1.0]]),
+}
+# jax 0.9.0's emission reduction of ExactDPPPolicy(V=0.05, grid 512) vs
+# QueueLength on the Fig. 2 setup (RandomCarbonSource(N=5),
+# UniformArrivals(M=5), PRNGKey(0), T=2000, jit(simulate) on the CPU;
+# pinned by tests/test_torch_knapsack.py), held as FIG2_JAX is
+EXACT_JAX, EXACT_TOL = 82.52899978416805, 1e-3
+T_EXACT_CPU, T_EXACT_TURNS, T_EXACT_PLAIN = 64, 256, 16
+T_THRESH, T_THRESH_CPU, THRESHOLD = 64, 16, 200.0
+T_ADAPTIVE, ADAPTIVE_TARGET = 250, 30000.0
 # the registry fleet's mean reduction in JAX (fleet/F96xT200, the fleet an
 # argument of the jitted run); the port's multi-region-uk tables are
 # JAX's bitwise (the twin's normal over XLA's log1p), so the card's value
@@ -1338,6 +1405,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as core
+    from repro_torch.core import extensions as ext
     from repro_torch import convert
     import repro_torch.forecast as fcst
     import repro_torch.network as net
@@ -1354,6 +1422,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import greedy_fill as gf
+    from repro_torch.kernels import knapsack as kpk
     from repro_torch.kernels import route_score as rs
     from repro_torch.kernels import ssd_chunk as sdc
     from repro_torch.kernels import taps as tpk
@@ -1756,6 +1825,88 @@ def main() -> int:
         f"{len(THREEFRY_KNOWN)} known answers and {len(CHAIN_KNOWN)} key walks of jax 0.9.0 "
         "equal; "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 3f. knapsack_dp vs its plain version on the card --------------
+    # ExactDPPPolicy's DP (src/repro/core/knapsack.py:75, a jnp scan):
+    # random instances at grids 16 to 1024 (scores rounded to integers in
+    # every third: ties in the best row), the edges and the crafted cases
+    # of the CPU tests, a fleet-A-shaped launch (512 lanes x (1 + N)
+    # knapsacks of M5, grid 512, from the policy's own score pass on
+    # random queues) and one slot at the main width (M4096 x N256, grid
+    # 512, from the main instance's backlog), whose plain check covers the
+    # edge knapsack and the first cloud's (the plain version's count table
+    # over M4096 is the slow part); counts bitwise
+    t0 = time.perf_counter()
+    max_err["knapsack_dp"] = 0.0
+    n_kp = [0, 0]  # knapsacks checked, launches
+
+    def check_knapsacks(args, grid, label, rows=None):
+        got = kpk.knapsack_dp_cuda(*args, grid)
+        sub = args if rows is None else tuple(x[rows] for x in args)
+        want = kpk.knapsack_dp_plain(*sub, grid)
+        torch.cuda.synchronize()
+        if not torch.equal(got if rows is None else got[rows], want):
+            bad = (got if rows is None else got[rows]) != want
+            k = int(bad.any(-1).nonzero()[0])
+            fail(f"knapsack_dp {label} grid {grid}: knapsack {k} differs from the plain version")
+        n_kp[0] += want.shape[0]
+        n_kp[1] += 1
+        return got
+
+    for i, grid in enumerate(itertools.islice(itertools.cycle(KP_GRIDS), 3 * len(KP_GRIDS))):
+        K, M = int(torch.randint(1, 41, (), generator=g, device=dev)), 1 + i % 16
+        scores = torch.randn((K, M), generator=g, device=dev) * (100.0 if i % 2 else 1.0)
+        if i % 3 == 0:
+            scores = scores.round()
+        check_knapsacks((scores, rand((K, M), 0.05, 30), ints((K, M), 3000), rand((K,), 1, 500)),
+                        grid, f"random K{K} M{M}")
+    edges = torch.tensor(KP_EDGES, dtype=torch.float32, device=dev)  # [cases, 4, 3]
+    edge_args = (edges[:, 0], edges[:, 1], edges[:, 2], edges[:, 3, 0].contiguous())
+    for grid in (16, 1024):
+        check_knapsacks(tuple(x.contiguous() for x in edge_args), grid, "edges")
+    for label, (args, grid, want) in KP_CRAFTED.items():
+        got = check_knapsacks(tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                                    for x in args), grid, label)
+        if got.tolist() != want:
+            fail(f"knapsack_dp {label}: {got.tolist()} is not JAX's {want}")
+    # fleet A's shape: the policy's stacked rows on random queues
+    fa_spec = fleet_scenarios.build_fleet(["diurnal"], per_kind=FLEET_A_LANES, Tc=96, seed=SEED,
+                                          device=dev).to(dev)
+    fa_pe, fa_pc, fa_Pe, fa_Pc = fa_spec.spec
+    fa_Qe, fa_Qc = ints(tuple(fa_pe.shape), 1000), ints(tuple(fa_pc.shape), 1000)
+    fa_V = torch.full((), V_PAPER, device=dev)
+    fc_, fn1, fb = cs.carbon_scores_cuda(fa_Qc, fa_pc, fa_Qe, fa_pe, fa_V * fa_spec.carbon[:, 0, 1:],
+                                         fa_V * fa_spec.carbon[:, 0, 0])
+
+    def stacked(first, rest):
+        return torch.cat([first[..., None, :], rest], dim=-2).reshape(-1, first.shape[-1])
+
+    kp_fleet_args = (stacked(fb, fc_.transpose(-1, -2)), stacked(fa_pe, fa_pc.transpose(-1, -2)),
+                     stacked(fa_Qe, fa_Qc.transpose(-1, -2)),
+                     torch.cat([fa_Pe[:, None], fa_Pc], dim=-1).reshape(-1).contiguous())
+    check_knapsacks(kp_fleet_args, KP_GRID, f"fleet A F{FLEET_A_LANES} x (1 + N5) x M5")
+    # the main width: the main instance's backlog and spec, the table's
+    # first row (the same inputs phase 7 times)
+    kp_inst = main_instance(convert, carbon, core.UniformArrivals, dev)
+    kp_state, kp_spec = kp_inst["state0"](dev), kp_inst["spec"](dev)
+    k_pe, k_pc, k_Pe, k_Pc = kp_spec.as_arrays(dev)
+    kCe, kCc = kp_inst["carbon"](0, 0, dev)
+    kc, _, kb = cs.carbon_scores_cuda(kp_state.Qc, k_pc, kp_state.Qe, k_pe, fa_V * kCc, fa_V * kCe)
+    kp_main_args = (stacked(kb, kc.T), stacked(k_pe, k_pc.T), stacked(kp_state.Qe, kp_state.Qc.T),
+                    torch.cat([k_Pe.reshape(1), k_Pc]).contiguous())
+    t1 = time.perf_counter()
+    check_knapsacks(kp_main_args, KP_GRID, f"main M{M_MAIN} x (1 + N{N_MAIN})", rows=slice(0, 2))
+    say(f"[3f kernels] knapsack_dp at the main width: the edge and first cloud knapsacks of "
+        f"{kp_main_args[0].shape[0]} bitwise equal to the plain version "
+        f"({time.perf_counter() - t1:.1f} s, the plain count table's)")
+    say(f"[3f kernels] knapsack_dp: {n_kp[0]} knapsacks in {n_kp[1]} launches bitwise equal to "
+        f"the plain version (grids {', '.join(map(str, KP_GRIDS))}: random K 1-40 x M 1-16, "
+        f"integral scores (ties) in every third; {len(KP_EDGES)} edge cases at grids 16 and "
+        f"1024: positives, caps past 2**n_splits - 1, items wider than the grid, equal items "
+        f"and values, weights 0 and 1e-12 with caps past int32, NaN scores and caps, budgets "
+        f"0, -3, NaN, inf; the crafted cases {', '.join(KP_CRAFTED)} equal to jax 0.9.0's "
+        f"counts; fleet A's F{FLEET_A_LANES} x 6 x M5 launch; the main width's edge and first "
+        f"cloud); {time.perf_counter() - t0:.1f} s")
 
     # ---- 3c. attention kernels vs plain versions on the card ---------
     max_err["flash_attention"] = max_err["flash_decode"] = 0.0
@@ -3358,6 +3509,226 @@ def main() -> int:
         f"{k} {v}" for k, v in tap_counts.items() if v) + f"; {time.perf_counter() - t0:.1f} s")
     del tap_cases, a_res, tel_fleet
 
+    # ---- 4i. the scheduler's extensions --------------------------------
+    # ExactDPPPolicy (one score pass and one knapsack_dp launch a slot) on
+    # the Fig. 2 setup, held to JAX's reduction (EXACT_JAX) and card vs
+    # CPU; on fleet A's shape, lanes vs alone and card vs CPU; with the
+    # plain DP swapped in, what the kernel replaces; ThresholdPolicy at the
+    # main width; the AdaptiveVController loop card vs CPU; the oracles'
+    # bounds under every policy's emissions; conservation on every lane
+    t4i = time.perf_counter()
+    p5 = paper_spec().to(dev)
+    rand5, arrive5 = core.RandomCarbonSource(N=5), core.UniformArrivals(M=5, amax=A_MAX)
+    exact = core.ExactDPPPolicy(V=V_PAPER, grid=KP_GRID)
+    threshold = ext.ThresholdPolicy(THRESHOLD)
+    ext_counts = {}
+
+    def counted(tag, fn, want):
+        """fn() under sync debug mode "error", the launch counters set to
+        0 just before and read just after; `want` {kernel: launches}."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = ops.launch_counts()
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            fail(f"{tag}: launches (got, expected) {bad}")
+        ext_counts[tag] = {k: v for k, v in got.items() if v}
+        say(f"[4i extensions] {tag} under sync debug mode 'error': launches "
+            f"{ext_counts[tag]}; {secs:.2f} s")
+        return res
+
+    def paper_run(pol, T, d, record="summary"):
+        return core.simulate(pol, p5 if d == dev else paper_spec(), rand5, arrive5, T, SEED,
+                             record=record, device=d)
+
+    def conserved(res, a, q0=0.0) -> bool:
+        """Every lane and slot: Qe + sum Qc = q0 + cum(arrivals - processed)
+        (res recorded in full; a [T, ..., M] arrivals)."""
+        a_t = a.double().sum(-1).movedim(0, -1)
+        flow = q0 + torch.cumsum(a_t - res.processed.double(), dim=-1)
+        held = res.Qe.double().sum(-1) + res.Qc.double().sum((-2, -1))
+        return torch.equal(held, flow)
+
+    def arrivals_of(source, T, F=None):
+        """The arrivals a run from SEED draws, [T, (F,) M]."""
+        keys = jr.PRNGKey(SEED, device=dev) if F is None else jr.split(
+            jr.PRNGKey(SEED, device=dev), F)
+        return source.block(0, T, jr.split(keys, 3)[..., 1, :].contiguous(), dev)
+
+    # (a) the Fig. 2 setup: EXACT_JAX, launches, card vs CPU, conservation
+    ex_runs = {
+        "ExactDPP": counted(f"ExactDPP Fig. 2 M5xN5 grid {KP_GRID} T={T_PAPER}",
+                            lambda: paper_run(exact, T_PAPER, dev),
+                            {"knapsack_dp": T_PAPER, "carbon_scores": T_PAPER, "greedy_fill": 0}),
+        "QueueLength": counted(f"QueueLength Fig. 2 T={T_PAPER}",
+                               lambda: paper_run(policies["QueueLength"], T_PAPER, dev),
+                               {"knapsack_dp": 0}),
+        "CarbonIntensity": counted(f"CarbonIntensity Fig. 2 T={T_PAPER}",
+                                   lambda: paper_run(policies["CarbonIntensity"], T_PAPER, dev),
+                                   {"knapsack_dp": 0}),
+        "Threshold": counted(f"Threshold({THRESHOLD:g}) Fig. 2 T={T_PAPER}",
+                             lambda: paper_run(threshold, T_PAPER, dev),
+                             {"knapsack_dp": 0, "carbon_scores": 0, "greedy_fill": T_PAPER}),
+    }
+    exact_launches = ext_counts[f"ExactDPP Fig. 2 M5xN5 grid {KP_GRID} T={T_PAPER}"]
+    cum_ex = {k: float(r.cum_emissions[-1]) for k, r in ex_runs.items()}
+    red_exact = 100.0 * (1.0 - cum_ex["ExactDPP"] / cum_ex["QueueLength"])
+    if not abs(red_exact - EXACT_JAX) <= EXACT_TOL:
+        fail(f"ExactDPP reduction {red_exact:.6f}% is not JAX's {EXACT_JAX:.6f}%")
+    say(f"[4i extensions] Fig. 2 T={T_PAPER}: reduction vs QueueLength ExactDPP(V={V_PAPER}, "
+        f"grid {KP_GRID}) {red_exact:.6f}% (JAX {EXACT_JAX:.6f}%, limit {EXACT_TOL:g} points), "
+        f"CarbonIntensity {100.0 * (1.0 - cum_ex['CarbonIntensity'] / cum_ex['QueueLength']):.6f}%, "
+        f"Threshold({THRESHOLD:g}) "
+        f"{100.0 * (1.0 - cum_ex['Threshold'] / cum_ex['QueueLength']):.6f}%")
+    a5 = arrivals_of(arrive5, T_EXACT_CPU)
+    for pname, pol in (("ExactDPP", exact), ("Threshold", threshold)):
+        gpu, cpu = paper_run(pol, T_EXACT_CPU, dev, "full"), paper_run(pol, T_EXACT_CPU, "cpu",
+                                                                           "full")
+        bad, rel = same_result(gpu, cpu, COUNTED), emission_rtol(gpu, cpu)
+        if bad or rel > 1e-6 or not conserved(gpu, a5):
+            fail(f"{pname} Fig. 2 T={T_EXACT_CPU}: card and CPU differ in {bad}, emissions rtol "
+                 f"{rel:.3e}, or conservation fails")
+        say(f"[4i extensions] {pname} Fig. 2 T={T_EXACT_CPU} card vs CPU plain path: "
+            f"{', '.join(COUNTED)} bitwise equal, emissions max rel diff {rel:.3e} (limit 1e-6); "
+            "conservation exact on every slot")
+    # (b) the oracles: every bound at most each policy's emissions
+    k_c = jr.split(jr.PRNGKey(SEED, device=dev), 3)[0]
+    table5 = core.materialize(rand5, T_PAPER, k_c, device=dev)
+    bounds = {}
+    for pname, r in ex_runs.items():
+        ee, ec = r.energy_edge.cpu().numpy(), r.energy_cloud.cpu().numpy()
+        lb = ext.oracle_emissions_for_work(p5, table5, float(ee.sum()), ec.sum())
+        hb = {h: ext.oracle_emissions_horizon(table5, ee, ec, horizon=h) for h in (8, None)}
+        if not (lb <= cum_ex[pname] * 1.001 and all(b <= cum_ex[pname] * (1 + 1e-6)
+                                                   for b in hb.values())):
+            fail(f"oracle bound above {pname}'s emissions: {lb}, {hb}, {cum_ex[pname]}")
+        bounds[pname] = (lb / cum_ex[pname], hb[8] / cum_ex[pname], hb[None] / cum_ex[pname])
+    say("[4i extensions] oracles / emissions (for_work, horizon 8, full trace), each <= 1: "
+        + ", ".join(f"{p} " + " / ".join(f"{x:.4f}" for x in v) for p, v in bounds.items()))
+    # (c) what a slot costs: ExactDPP against CarbonIntensity in turns, its
+    # device time (profiler), and the plain DP swapped in
+    turns = {"ExactDPP": [], "CarbonIntensity": []}
+    for pname in ("ExactDPP", "CarbonIntensity", "CarbonIntensity", "ExactDPP"):
+        pol = exact if pname == "ExactDPP" else policies["CarbonIntensity"]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        paper_run(pol, T_EXACT_TURNS, dev)
+        end.record()
+        end.synchronize()
+        turns[pname].append(start.elapsed_time(end) / T_EXACT_TURNS)
+    prof, host = profile_slots(lambda: paper_run(exact, 8, dev), slots=8)
+    n_aten = sum(v[1] for k, v in host.items() if k.startswith("aten::"))
+    busy = "not measured" if prof is None else f"{prof['total']:.4f} ms"
+    with swapped(ops, dict(knapsack_dp=kpk.knapsack_dp_plain)):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain_run = paper_run(exact, T_EXACT_PLAIN, dev)
+        end.record()
+        end.synchronize()
+        plain_slot_ms = start.elapsed_time(end) / T_EXACT_PLAIN
+        _, host_p = profile_slots(lambda: paper_run(exact, 2, dev), slots=2)
+    n_aten_p = sum(v[1] for k, v in host_p.items() if k.startswith("aten::"))
+    if same_result(plain_run, paper_run(exact, T_EXACT_PLAIN, dev), COUNTED):
+        fail("ExactDPP with the plain DP on the card differs from the kernel's run")
+    say(f"[4i extensions] ExactDPP Fig. 2 slot: in turns ExactDPP / CarbonIntensity / "
+        f"CarbonIntensity / ExactDPP over T={T_EXACT_TURNS}: ExactDPP "
+        + " / ".join(f"{x:.4f}" for x in turns["ExactDPP"]) + ", CarbonIntensity "
+        + " / ".join(f"{x:.4f}" for x in turns["CarbonIntensity"])
+        + f" ms/slot; {n_aten:.1f} aten op calls a slot, device busy {busy} a slot (profiler, 8 "
+        f"slots); with the plain DP on the card {plain_slot_ms:.4f} ms/slot and {n_aten_p:.0f} "
+        f"aten op calls a slot (T={T_EXACT_PLAIN}, the same queues and counts)")
+    exact_slot = {"turns": turns, "aten": n_aten, "plain_ms": plain_slot_ms,
+                  "plain_aten": n_aten_p}
+    # (d) fleet A's shape: F512 x M5 x N5, T=192
+    fa_res = counted(f"ExactDPP fleet A F{fleet_a.F} T={T_FLEET_A}",
+                     lambda: core.simulate_fleet(exact, fleet_a, T_FLEET_A, SEED, record="full",
+                                                 device=dev),
+                     {"knapsack_dp": T_FLEET_A, "carbon_scores": T_FLEET_A, "greedy_fill": 0})
+    fleet_exact_launches = ext_counts[f"ExactDPP fleet A F{fleet_a.F} T={T_FLEET_A}"]
+    if not conserved(fa_res, arrivals_of(core.FleetArrivals(amax=fleet_a.arrival_amax),
+                                         T_FLEET_A, fleet_a.F)):
+        fail("ExactDPP fleet A: conservation fails on some lane")
+    keys_a = jr.split(jr.PRNGKey(SEED, device=dev), fleet_a.F)
+    for f in (0, fleet_a.F - 1):
+        spec_f = core.NetworkSpec(*(x[f] for x in fleet_a.spec))
+        one = core.simulate(exact, spec_f, core.TableCarbonSource(table=fleet_a.carbon[f]),
+                            core.FleetArrivals(amax=fleet_a.arrival_amax[f]), T_FLEET_A,
+                            keys_a[f], record="full", device=dev)
+        lane = lane_of(fa_res, f)
+        bad, rel = same_result(one, lane, COUNTED), emission_rtol(one, lane)
+        if bad or rel > 1e-6:
+            fail(f"ExactDPP fleet A: lane {f} differs from its instance alone in {bad}, "
+                 f"emissions rtol {rel:.3e}")
+    two_a = fleet_a._replace(spec=core.FleetSpec(*(x[:2] for x in fleet_a.spec)),
+                             carbon=fleet_a.carbon[:2], arrival_amax=fleet_a.arrival_amax[:2])
+    gpu = core.simulate_fleet(exact, two_a, T_FLEET_A, SEED, record="full", device=dev)
+    cpu = core.simulate_fleet(exact, two_a.to("cpu"), T_FLEET_A, SEED, record="full",
+                              device="cpu")
+    bad, rel = same_result(gpu, cpu, COUNTED), emission_rtol(gpu, cpu)
+    if bad or rel > 1e-6:
+        fail(f"ExactDPP fleet A F2: card and CPU differ in {bad}, emissions rtol {rel:.3e}")
+    say(f"[4i extensions] ExactDPP fleet A F{fleet_a.F} x M5 x N5 T={T_FLEET_A}: conservation "
+        f"exact on every lane and slot; lanes 0 and {fleet_a.F - 1} bitwise equal to each "
+        f"instance alone; F2 card vs CPU plain path {', '.join(COUNTED)} bitwise equal, "
+        f"emissions max rel diff {rel:.3e} (limit 1e-6)")
+    del fa_res, gpu, cpu
+    # (e) ThresholdPolicy at the main width (phase 4's instance and sim)
+    th_res = counted(f"Threshold({THRESHOLD:g}) M{M_MAIN}xN{N_MAIN} T={T_THRESH}",
+                     lambda: sim(threshold, T_THRESH, "full", dev),
+                     {"knapsack_dp": 0, "carbon_scores": 0, "greedy_fill": T_THRESH})
+    q0 = float(state0_d.Qe.double().sum() + state0_d.Qc.double().sum())
+    if not conserved(th_res, arrivals_of(inst["arrivals"], T_THRESH), q0):
+        fail("Threshold main width: conservation fails")
+    gated = int((inst["carbon"].table[:T_THRESH, 1:] >= THRESHOLD).sum())
+    say(f"[4i extensions] Threshold({THRESHOLD:g}) main width: conservation exact on every slot "
+        f"from the backlog; {gated} (slot, cloud) cells gated off; processed "
+        f"{float(th_res.processed.sum()):.6e}")
+    del th_res
+    card_vs_cpu("4i threshold", {f"Threshold({THRESHOLD:g})": threshold}, sim, T_THRESH_CPU,
+                ("Qe", "Qc", "processed", "dispatched"), dev)
+    # (f) the AdaptiveVController loop (tests/test_extensions.py's): the
+    # card and the CPU read the same backlogs and walk V alike
+    def adaptive(d):
+        ctrl = ext.AdaptiveVController(target_backlog=ADAPTIVE_TARGET, V=0.001)
+        spec = p5 if d == dev else paper_spec()
+        kc, ka = jr.split(jr.PRNGKey(1, device=d), 2)
+        st = core.init_state(5, 5, device=d)
+        Vs, backlogs = [], []
+        for t in range(T_ADAPTIVE):
+            Ce, Cc = rand5(t, kc, d)
+            a = arrive5(t, ka, d)
+            act = ctrl.policy()(st, spec, Ce, Cc, a, None)
+            st = core.step(st, act, a)
+            backlogs.append(float(st.Qe.sum() + st.Qc.sum()))  # the controller's host read
+            Vs.append(ctrl.update(backlogs[-1]))
+        return Vs, backlogs, st
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    Vg, bg, sg = adaptive(dev)
+    ad_counts = ops.launch_counts()
+    Vc, bc, sc = adaptive("cpu")
+    tail = statistics.fmean(bg[-80:])
+    if (Vg != Vc or bg != bc or not torch.equal(sg.Qc.cpu(), sc.Qc)
+            or ad_counts["carbon_scores"] != T_ADAPTIVE or ad_counts["greedy_fill"] != T_ADAPTIVE
+            or not ADAPTIVE_TARGET / 5 < tail < 3 * ADAPTIVE_TARGET):
+        fail(f"AdaptiveVController: card and CPU differ, launches {ad_counts}, or the tail "
+             f"backlog {tail:.1f} is off its target")
+    say(f"[4i extensions] AdaptiveVController T={T_ADAPTIVE} target {ADAPTIVE_TARGET:g}: V and "
+        f"the backlog bitwise equal card vs CPU every slot, final queues equal; tail backlog "
+        f"{tail:.1f}, final V {Vg[-1]:.6g}; launches {dict((k, v) for k, v in ad_counts.items() if v)}")
+    say(f"[4i extensions] phase 4i: {time.perf_counter() - t4i:.1f} s")
+
     # ---- 5. paper headline -----------------------------------------
     pspec = paper_spec().to(dev)
     uk = core.UKRegionalTraceSource(N=5).to(dev)
@@ -3882,6 +4253,57 @@ def main() -> int:
          "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": "bytes",
          "library_ms": x["library_ms"], "library_warm_ms": x["library_warm_ms"]}
         for x in probe_times[1:]]
+
+    # knapsack_dp (phase 3f's inputs): the row at fleet A's shape (512
+    # lanes x 6 knapsacks of M5, grid 512: the widest ExactDPP launch a
+    # path of 4i makes), the paper setup's one lane and the main width's
+    # slot beside it. Bytes: each input read once, the counts written once;
+    # operations: about 6 a cell (a subtract, a compare, an add, a
+    # compare, two selects) for each step this data takes (k > 0); beside
+    # them the serial floor, the longest knapsack's steps as dependent
+    # 4-cycle adds at clocks.max.sm. No PyTorch call computes the DP.
+    def kp_work(args):
+        K, M = args[0].shape
+        _, cap = kpk.knapsack_items(*args, KP_GRID)
+        steps = torch.where(cap > 0, torch.floor(torch.log2(cap.clamp_min(1).double())) + 1, 0)
+        steps = steps.clamp_max(kpk.n_splits(KP_GRID)).sum(-1)
+        return (4 * (4 * K * M + K), 6 * (KP_GRID + 1) * float(steps.sum()),
+                float(steps.max()) * 4 / clk_mhz / 1e3)
+
+    kp_shapes = {"fleet A F512 x 6 x M5": (kp_fleet_args, 20, 5),
+                 "paper 6 x M5": (tuple(x[:6] for x in kp_fleet_args), 20, 5),
+                 f"main 257 x M{M_MAIN}": (kp_main_args, 3, 1)}
+    kp_rows = []
+    for label, (args, reps, inner) in kp_shapes.items():
+        times = graph_ms(lambda args=args: kpk.knapsack_dp_cuda(*args, KP_GRID), reps=reps,
+                         inner=inner)
+        call_ms = cuda_ms(lambda args=args: kpk.knapsack_dp_cuda(*args, KP_GRID), reps=reps,
+                          inner=inner)
+        plain_ms = None if label.startswith("main") else cuda_ms(
+            lambda args=args: kpk.knapsack_dp_plain(*args, KP_GRID), reps=3, inner=1)
+        nbytes, nops, floor_ms = kp_work(args)
+        kp_rows.append(dict(shape=label, times=times, call_ms=call_ms, plain_ms=plain_ms,
+                            nbytes=nbytes, nops=nops, floor_ms=floor_ms))
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
+        say(f"[7 time] knapsack_dp {label} grid {KP_GRID}: {times[1]:.5f} ms cold, "
+            f"{times[0]:.5f} ms warm (CUDA graph replay), {call_ms:.5f} ms per eager call; bound "
+            f"{bound:.6f} ms ({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} M ops), serial floor "
+            f"{floor_ms:.5f} ms; plain version "
+            + ("not timed (its count table)" if plain_ms is None else f"{plain_ms:.3f} ms"))
+    kr = kp_rows[0]
+    row("knapsack_dp", "src/repro_torch/kernels/csrc/knapsack.cu",
+        "src/repro/core/knapsack.py:75", exact_launches["knapsack_dp"], kr["times"],
+        kr["call_ms"], kr["plain_ms"], nbytes=kr["nbytes"], nops=kr["nops"])
+    rows[-1].update(shape=kr["shape"], serial_floor_ms=kr["floor_ms"],
+                    fleet_a_launches=fleet_exact_launches["knapsack_dp"],
+                    exact_slot=exact_slot)
+    rows[-1]["other_shapes"] = [
+        {"shape": x["shape"], "ms": x["times"][1], "warm_ms": x["times"][0],
+         "plain_ms": x["plain_ms"], "serial_floor_ms": x["floor_ms"],
+         "bound_ms": max(x["nbytes"] / HBM_BYTES_PER_S, x["nops"] / FP32_OPS_PER_S) * 1e3,
+         "bound_by": "bytes" if x["nbytes"] / HBM_BYTES_PER_S >= x["nops"] / FP32_OPS_PER_S
+         else "operations"}
+        for x in kp_rows[1:]]
 
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it

@@ -13,6 +13,7 @@ from repro_torch.core.carbon import (
 )
 from repro_torch.core.policies import (
     CarbonIntensityPolicy,
+    ExactDPPPolicy,
     LookaheadDPPPolicy,
     QueueLengthPolicy,
     RandomPolicy,
@@ -48,6 +49,7 @@ __all__ = [
     "Action",
     "CarbonIntensityPolicy",
     "ConstantCarbonSource",
+    "ExactDPPPolicy",
     "FleetArrivals",
     "FleetScenario",
     "FleetSpec",
@@ -80,4 +82,18 @@ __all__ = [
     "step",
     "sweep_forecast_errors",
     "uk_regional_table",
+]
+
+from repro_torch.core.extensions import (  # noqa: E402
+    AdaptiveVController,
+    ThresholdPolicy,
+    oracle_emissions_for_work,
+    oracle_emissions_horizon,
+)
+
+__all__ += [
+    "AdaptiveVController",
+    "ThresholdPolicy",
+    "oracle_emissions_for_work",
+    "oracle_emissions_horizon",
 ]

@@ -9,6 +9,8 @@
 * QueueLengthPolicy -- the paper's baseline: longest edge queue ->
   shortest cloud queue; clouds process their longest queues; carbon-blind.
 * RandomPolicy -- feasible random actions (stress/property tests).
+* ExactDPPPolicy -- the exact per-slot minimizer of (19): bounded
+  knapsacks on an energy grid, one `knapsack_dp` launch a slot.
 * literal_algorithm1 -- the numpy transcription of Algorithm 1, the
   oracle the vectorised policy must match.
 
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng
+from repro_torch.core.knapsack import bounded_knapsack_min_batch
 from repro_torch.core.queueing import Action, NetworkSpec, NetworkState
 from repro_torch.kernels import ops
 from repro_torch.kernels.numerics import fma_f32
@@ -109,6 +112,22 @@ def _stacked_fill(scores, pe, pc, Qe, Qc, Pe, Pc, **kw):
     return counts.reshape(lanes + (-1, M))
 
 
+def _policy_V(V, dev) -> torch.Tensor:
+    """A policy's V as a float32 tensor on `dev` (one value, or one a lane)."""
+    if torch.is_tensor(V):
+        return V.to(device=dev, dtype=torch.float32)
+    return _scalar(V, dev)
+
+
+def _score_pass(state, pe, pc, Ce, Cc, V):
+    """Score pass (c [..., M, N], n1 [..., M], b [..., M]) on pre-scaled
+    intensities; a V of one value per lane scales its lane's
+    intensities."""
+    VCc = V[..., None] * Cc if V.dim() else V * Cc
+    with phase("policy_score"):
+        return ops.carbon_scores(state.Qc, pc, state.Qe, pe, VCc, V * Ce)
+
+
 @dataclasses.dataclass(frozen=True)
 class CarbonIntensityPolicy:
     """Paper Algorithm 1: carbon-intensity based drift-plus-penalty greedy.
@@ -149,17 +168,10 @@ class CarbonIntensityPolicy:
         return counts[..., 0, :], counts[..., 1:, :].transpose(-1, -2)
 
     def _scores(self, state, pe, pc, Ce, Cc, V):
-        """Score pass (c [..., M, N], n1 [..., M], b [..., M]) on
-        pre-scaled intensities; a V of one value per lane scales its
-        lane's intensities."""
-        VCc = V[..., None] * Cc if V.dim() else V * Cc
-        with phase("policy_score"):
-            return ops.carbon_scores(state.Qc, pc, state.Qe, pe, VCc, V * Ce)
+        return _score_pass(state, pe, pc, Ce, Cc, V)
 
     def _V(self, dev) -> torch.Tensor:
-        if torch.is_tensor(self.V):
-            return self.V.to(device=dev, dtype=torch.float32)
-        return _scalar(self.V, dev)
+        return _policy_V(self.V, dev)
 
     def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
                  arrivals=None, key=None, *, fault_view=None, deadline_view=None) -> Action:
@@ -274,6 +286,40 @@ class RandomPolicy:
         cap_w = torch.minimum(state.Qc, (Pc[..., None, :] / M) / pc)
         w = torch.floor(fw * torch.clamp_min(cap_w, 0.0))
         return Action(d=d, w=w)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactDPPPolicy:
+    """Beyond-paper: exact per-slot minimizer of (19) via bounded-
+    knapsack DP over a discretized energy grid (`core.knapsack`):
+    O(M * grid) a knapsack, for small instances, to measure the greedy
+    gap.
+
+    One score pass (`kernels.ops.carbon_scores`: c = fma(V*Cc, pc, -Qc),
+    b = fma(V*Ce, pe, min Qc) - Qe, as the JAX policy rounds under jit),
+    then the edge knapsack at n1 and the N cloud knapsacks of every lane
+    as one `knapsack_dp` launch. V may be a tensor (one value, or one a
+    lane: `simulate_vsweep`, `faults.StalenessGuardPolicy`)."""
+
+    V: float = 0.05
+    grid: int = 512  # energy discretization cells per knapsack
+
+    def __call__(self, state: NetworkState, spec: NetworkSpec, Ce, Cc,
+                 arrivals=None, key=None, *, fault_view=None, deadline_view=None) -> Action:
+        del arrivals, key, fault_view, deadline_view
+        dev = state.Qc.device
+        pe, pc, Pe, Pc = spec.as_arrays(dev)
+        c, n1, b = _score_pass(state, pe, pc, Ce, Cc, _policy_V(self.V, dev))
+        lanes, M = tuple(state.Qc.shape[:-2]), state.Qc.shape[-2]
+        counts = bounded_knapsack_min_batch(
+            _stack_rows(b, c.transpose(-1, -2)),
+            _stack_rows(pe, pc.transpose(-1, -2)),
+            _stack_rows(state.Qe, state.Qc.transpose(-1, -2)),
+            torch.cat([Pe[..., None], Pc], dim=-1).reshape(-1),
+            self.grid,
+        ).reshape(lanes + (-1, M))
+        return Action(d=_dispatch_matrix(state.Qc, n1, counts[..., 0, :]),
+                      w=counts[..., 1:, :].transpose(-1, -2))
 
 
 def _np64(x) -> np.ndarray:

@@ -39,6 +39,7 @@ from repro_torch.core.queueing import DTYPE, NetworkSpec, NetworkState, emission
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.taps import ProbePlan, TapOut
+from repro_torch.telemetry.profile import slot_range
 from repro_torch.telemetry.stream import check_stream, split_telemetry, stream_flush
 from repro_torch.telemetry.taps import TelemetryProbe
 
@@ -555,7 +556,7 @@ def _drive(loop: SlotLoop, state: NetworkState, T: int, record, feed=None,
         dstate, tape = start_deadlines(loop.deadlines, M, lanes, T, record, dev)
     taps = start_taps(telemetry, lanes, T, N, record, dev, emissions=C, processed=proc,
                       **({} if tape is None else {"missed": tape.missed, "shed": tape.shed}))
-    for t in range(T):
+    for t in slot_range(T):
         s = slot_step(loop, state, t, feed, dstate)
         state, act = s.state, s.act
         C[..., t] = s.C

@@ -66,6 +66,7 @@ from repro_torch.faults.model import (
     requeue_failed,
     step_faults,
 )
+from repro_torch.telemetry.profile import slot_range
 
 
 class FaultSimResult(NamedTuple):
@@ -269,7 +270,7 @@ def simulate_faulted(policy: Callable, spec: NetworkSpec, faults: FaultParams,
     run = _Faulted(loop, faults, key, state0, T, record, forecaster, error_params, telemetry)
     _, _, k_policy = loop.keys
     pe, pc = run.pe, run.pc
-    for t in range(T):
+    for t in slot_range(T):
         Ce, Cc, a, view, spec_t, obs_Ce, obs_Cc, kw = run.observe(t)
         act = policy(run.state, spec_t, obs_Ce, obs_Cc, a, rng.SlotKey(k_policy, t), **kw)
         w_eff = act.w * view.cloud_on[..., None, :]
@@ -329,7 +330,7 @@ def simulate_network_faulted(policy: Callable, spec: NetworkSpec, graph, faults:
     links = init_links(run.M, g.L, device=loop.device, F=run.lanes[0] if run.lanes else None)
     _, _, k_policy = loop.keys
     pe, pc = run.pe, run.pc
-    for t in range(T):
+    for t in slot_range(T):
         Ce, Cc, a, view, spec_t, obs_Ce, obs_Cc, kw = run.observe(t)
         act = policy(run.state, spec_t, obs_Ce, obs_Cc, a, rng.SlotKey(k_policy, t), graph=g,
                      Qt=links.Qt, **kw)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.kernels.numerics import xla_sum
+from repro_torch.kernels.numerics import sqrt_rn, xla_sum
 
 
 def rolling_forecasts(forecaster, table, *, key=None, device=DEFAULT_DEVICE) -> torch.Tensor:
@@ -47,6 +47,6 @@ def forecast_errors(forecaster, table, *, key=None, burn_in: int = 0,
     per_lead = lambda x: xla_sum(x.permute(1, 0, 2))  # noqa: E731  [H-1]
     denom = torch.clamp_min(total(w), 1.0)
     mae = total(torch.abs(err) * w) / denom
-    rmse = torch.sqrt(total(err * err * w) / denom)
+    rmse = sqrt_rn(total(err * err * w) / denom)
     mae_per_lead = per_lead(torch.abs(err) * w) / torch.clamp_min(per_lead(w), 1.0)
     return {"mae": mae, "rmse": rmse, "mae_per_lead": mae_per_lead}

@@ -35,7 +35,7 @@ from repro_torch import random as R
 from repro_torch.core import rng
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.numerics import fma_f32
+from repro_torch.kernels.numerics import fma_f32, sqrt_rn
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -87,7 +87,7 @@ class ForecastErrorModel:
         dev = truth.device
         H, n_cols = truth.shape[-2], truth.shape[-1]
         eps = ops.threefry_draw(stream, t, H * n_cols, finish="normal").reshape(truth.shape)
-        h = torch.sqrt(torch.arange(H, dtype=torch.float32, device=dev))[:, None]
+        h = sqrt_rn(torch.arange(H, dtype=torch.float32, device=dev))[:, None]
         if override:
             b = _f32(self.bias if bias is None else bias, dev)
             n = _f32(self.noise if noise is None else noise, dev)

@@ -23,6 +23,7 @@ one IEEE operation, which no compiler can contract with another.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -33,10 +34,27 @@ SCAN_BLOCK = 16  # the block length of XLA:CPU's compiled cumsum (read from its 
 SUM_BLOCK = 32  # the window of XLA:CPU's reductions (read from the HLO)
 
 
+# Set by `repro_torch.analysis.sanitize` while it checks a run: called as
+# OP_HOOK(fn, args, kwargs) in place of each emulation marked `one_op`,
+# which stands for one operation of XLA's (its intermediates, such as
+# TwoSum's inf - inf on an infinite sum, are not the program's values).
+OP_HOOK = None
+
+
+def one_op(fn):
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        hook = OP_HOOK
+        return fn(*args, **kwargs) if hook is None else hook(fn, args, kwargs)
+
+    return op
+
+
 _F32_MID_MASK = (1 << 29) - 1  # the float64 fraction bits below float32's 23
 _F32_MID = 1 << 28  # ... as they stand in a float32 midpoint: 1 then zeros
 
 
+@one_op
 def fma_f32(a, b, c) -> torch.Tensor:
     """Single-rounded float32 `a*b + c`, elementwise with broadcasting
     (a or b a tensor; any of them may be a Python float).
@@ -82,6 +100,7 @@ def _two_prod(a, b):
     return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl  # p + err == a*b exactly
 
 
+@one_op
 def fma_f64(a, b, c) -> torch.Tensor:
     """Single-rounded float64 `a*b + c`, as an x86 `vfmadd` gives it.
 
@@ -114,6 +133,7 @@ _TANH_Q = tuple(float.fromhex(h) for h in (
     "0x1.41a7b0p-20", "0x1.f12bacp-14", "0x1.29540ap-9", "0x1.40b3bap-8"))
 
 
+@one_op
 def tanh_xla(x: torch.Tensor) -> torch.Tensor:
     """float32 tanh bitwise as XLA:CPU computes it under `jit`."""
     xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
@@ -184,6 +204,7 @@ def _log_f32(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y == math.inf, math.inf, r)
 
 
+@one_op
 def log1p_xla(x: torch.Tensor) -> torch.Tensor:
     """float32 log1p bitwise as XLA:CPU computes it under `jit`."""
     x2 = x * x
@@ -204,6 +225,7 @@ _EXP_P = _hexf("0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7", "0x1.555382p
 _LN2_F32 = float.fromhex("0x1.62e430p-1")
 
 
+@one_op
 def exp_xla(x: torch.Tensor) -> torch.Tensor:
     """float32 exp bitwise as XLA:CPU computes it under `jit` (finite x;
     below -87.8 the result is flushed, as XLA's 2^-127 is 0)."""
@@ -217,6 +239,7 @@ def exp_xla(x: torch.Tensor) -> torch.Tensor:
     return y * scale
 
 
+@one_op
 def exp2_xla(x: torch.Tensor) -> torch.Tensor:
     """float32 `jnp.exp2` under `jit`: exp(x * 0.6931472)."""
     return exp_xla(x * _LN2_F32)
@@ -232,16 +255,24 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt, correctly rounded as XLA's `jnp.sqrt` and numpy's
+    are: the float64 root rounded once, which is exact for a float32
+    input (53 >= 2 * 24 + 2 bits). torch's float32 sqrt on the CPU is an
+    ulp off on about 0.7% of inputs."""
+    return torch.sqrt(x.double()).float()
+
+
+@one_op
 def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv bitwise as XLA:CPU computes it under `jit`: its
     polynomial and rounding points over its own `log1p` (`log1p_xla`;
     `torch.log1p` differs on about 8% of the inputs here, `torch.erfinv`,
-    another function, on about 33% of uniform draws). sqrt(w) is the
-    float64 root rounded once, correctly rounded as XLA's is: torch's
-    float32 sqrt on the CPU is an ulp off on about 0.7% of inputs."""
+    another function, on about 33% of uniform draws). sqrt(w) is
+    correctly rounded (`sqrt_rn`), as XLA's is."""
     w = -log1p_xla(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt_rn(w) - 3.0)
 
     def coef(i):  # Python floats: filled on the device, no copy from the host
         return torch.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i]).to(torch.float32)
@@ -311,6 +342,7 @@ def _reduce_large(xi: torch.Tensor):
     return n, v * _PI63
 
 
+@one_op
 def sincos_glibc(x: torch.Tensor):
     """float32 x -> (sinf(x), cosf(x)) bitwise as glibc 2.36's x86-64 FMA
     build computes them (and so as XLA:CPU's jitted sin/cos, which call

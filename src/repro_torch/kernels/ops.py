@@ -11,6 +11,7 @@ from repro_torch.kernels import carbon_score as _cs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import greedy_fill as _gf
+from repro_torch.kernels import knapsack as _kp
 from repro_torch.kernels import route_score as _rs
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import taps as _taps
@@ -49,6 +50,14 @@ def greedy_fill(scores, unit_energy, max_items, budget, *,
     return fn(scores, unit_energy, max_items, budget,
               stop_at_first_unfit=stop_at_first_unfit,
               literal_edge_budget=literal_edge_budget, sort_key=sort_key)
+
+
+def knapsack_dp(scores, weights, caps, budget, grid):
+    """K bounded knapsacks (minimisation) on an energy grid of `grid`
+    cells: [K, M] scores, weights and caps and a [K] budget -> counts
+    [K, M] float32 (`repro.core.knapsack.bounded_knapsack_min` a row)."""
+    fn = _pick(scores, _kp.knapsack_dp_plain, _kp.knapsack_dp_cuda, "knapsack_dp")
+    return fn(scores, weights, caps, budget, grid)
 
 
 def flash_attention(q, k, v, *, mask_mode="causal", prefix_len=0):
@@ -107,7 +116,7 @@ _COUNTERS = {"carbon_scores": (_cs, "launches"), "route_scores": (_rs, "launches
              "greedy_fill": (_gf, "launches"), "flash_attention": (_fa, "launches"),
              "flash_decode": (_fd, "launches"), "ssd_chunk_intra": (_ssd, "launches"),
              "threefry_draw": (_tf, "launches"), "tap_scan": (_taps, "launches"),
-             "tap_probe": (_taps, "probe_launches")}
+             "tap_probe": (_taps, "probe_launches"), "knapsack_dp": (_kp, "launches")}
 
 
 def launch_counts() -> dict:

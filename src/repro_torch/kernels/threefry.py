@@ -274,7 +274,8 @@ def threefry_draw_blocks(keys, t, n, *, finish="uniform", seg=None, fold_each=Fa
                     counter = torch.zeros_like(j)
                 else:
                     rc = j // n
-                    for q in torch.unique(rc).tolist():
+                    # the plain version reads the rows' chains on the host
+                    for q in torch.unique(rc).tolist():  # lint: allow=host-cast,torch-for
                         r, c = divmod(q, chain[1])
                         kk = base
                         for _ in range(r):

@@ -51,6 +51,7 @@ from repro_torch.network.transfer import (
     step_links,
     transfer_energy,
 )
+from repro_torch.telemetry.profile import slot_range
 
 
 class NetSimResult(NamedTuple):
@@ -144,7 +145,7 @@ def simulate_network(
         dstate, tape = start_deadlines(dl, M, lanes, T, record, dev)
     taps = start_taps(telemetry, lanes, T, N, record, dev, emissions=C, processed=proc,
                       **({} if dl is None else {"missed": tape.missed, "shed": tape.shed}))
-    for t in range(T):
+    for t in slot_range(T):
         Ce, Cc = loop.carbon_source(t, k_carbon, dev)
         a = loop.arrival_source(t, k_arrive, dev)
         kw = {} if feed is None else {"forecast": feed(Ce, Cc, t)}

@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.queueing import NetworkSpec, NetworkState, init_state
 from repro_torch.core.simulator import make_slot_loop, slot_step
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.telemetry.profile import phase
 
 # Latency histogram buckets (microseconds), Prometheus-style with a
 # terminal +Inf bucket appended by the exporter.
@@ -104,7 +105,8 @@ def make_serve_step(policy, spec: NetworkSpec, carbon_source, arrival_source,
         dstate = None
         if deadlines is not None:
             state, dstate = state
-        s = slot_step(loop, state, t, dstate=dstate)
+        with phase("slot"):
+            s = slot_step(loop, state, t, dstate=dstate)
         nxt, act = s.state, s.act
         metrics = [
             s.C,

@@ -12,21 +12,31 @@ import contextlib
 
 import torch
 
-# The slot anatomy, in execution order; the names the JAX package uses.
-# Each is placed in the port's slot loops.
+# The slot anatomy, in execution order: the names the JAX package uses,
+# and two of the port's own. Each is placed in the port's slot loops.
 PHASES = (
+    "slot",           # one slot of a loop, around the others (the port's)
     "policy_score",   # DPP score tables
     "route_score",    # WAN (type, route, cloud) score tables
     "greedy_fill",    # budget fill
     "transfer_step",  # link injection / drain / delivery
     "fault_step",     # fault chain transitions + observation masking
     "fault_retry",    # failure draws + retry-pool backoff
+    "stream_flush",   # a streamed chunk's copy to the host channel (the port's)
 )
 
 
 def phase(name: str):
     """Context manager labelling the ops run inside it as `repro.<name>`."""
     return torch.profiler.record_function(f"repro.{name}")
+
+
+def slot_range(T: int):
+    """range(T) for a loop over a run's slots, each slot's body labelled
+    `repro.slot` (what `repro_torch.analysis.audit` reads as a slot)."""
+    for t in range(T):
+        with phase("slot"):
+            yield t
 
 
 @contextlib.contextmanager

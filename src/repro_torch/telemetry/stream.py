@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.telemetry.profile import phase
 from repro_torch.telemetry.taps import TapSeries, TelemetryConfig
 
 
@@ -191,10 +192,12 @@ def host_slices(series: TapSeries, t0: int, t1: int) -> List[TapSeries]:
 
 def stream_flush(cfg: StreamConfig, series: TapSeries, t0: int, t1: int) -> None:
     """Hands slots t0..t1-1 of the run's TapSeries to the host channel,
-    one push a lane tagged (lane, t0)."""
+    one push a lane tagged (lane, t0): the one copy to the host a run
+    makes inside its slots, labelled `repro.stream_flush`."""
     ch = channel(cfg.channel, cfg.capacity)
-    for lane, slice_ in enumerate(host_slices(series, t0, t1)):
-        ch.push(lane, t0, slice_)
+    with phase("stream_flush"):
+        for lane, slice_ in enumerate(host_slices(series, t0, t1)):
+            ch.push(lane, t0, slice_)
 
 
 __all__ = [

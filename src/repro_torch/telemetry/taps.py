@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.numerics import xla_sum
 from repro_torch.telemetry.monitors import MONITORS, f32, monitor_conditions
 
@@ -153,7 +154,8 @@ TOTALED = {"total_emissions": "emission_rate", "total_arrived": "arrived",
 RECORDS = ("alert_tripped", "alert_first_slot", "alert_count")
 
 
-def init_taps(lanes: tuple = (), device="cpu") -> TapState:
+def init_taps(lanes: tuple = (), device=DEFAULT_DEVICE) -> TapState:
+    device = resolve_device(device)
     z = torch.zeros(lanes, dtype=torch.float32, device=device)
     return TapState(prev_backlog=z, growth_run=torch.zeros(lanes, dtype=I32, device=device),
                     cum_arrived=z, cum_processed=z, cum_failed=z, cum_missed=z, cum_shed=z)

@@ -140,6 +140,38 @@ def test_forecast_errors_match_jax():
                 np.testing.assert_array_equal(got[k].numpy(), np.asarray(jitted[k]), err_msg=k)
 
 
+def test_rmse_takes_a_correctly_rounded_sqrt():
+    """F7: a mean square of 40.955097 (errors 4 and 8.118509 on the one
+    scored lead), where torch 2.13's float32 sqrt on the CPU gives
+    6.3996167 and jnp.sqrt, jit and numpy 6.399617: `rmse` is JAX's
+    bitwise (tolerance: none)."""
+    table = np.array([[4.0, 8.118509], [0.0, 0.0]], f32)
+    jfc, tfc = _pair("PersistenceForecaster", H=2)
+    got = PF.forecast_errors(tfc, table, device="cpu")["rmse"].numpy()
+    for ref in (JF.forecast_errors(jfc, table)["rmse"],
+                jax.jit(lambda t: JF.forecast_errors(jfc, t)["rmse"])(table)):
+        np.testing.assert_array_equal(got, np.asarray(ref))
+    assert got == np.sqrt(f32(40.955097)) == f32(6.399617)
+    x = torch.tensor(f32(40.955097))
+    assert numerics.sqrt_rn(x).item() == np.sqrt(f32(40.955097))
+
+
+@pytest.mark.parametrize("H", [1, 16, 266, 267, 268, 1000, 4096])
+def test_sqrt_of_the_leads_is_numpy_s(H):
+    """F7: the error model's sqrt(h) over h = 0..H-1 is numpy's float32
+    sqrt bitwise (torch's CPU sqrt is first an ulp off at h = 267)."""
+    got = numerics.sqrt_rn(torch.arange(H, dtype=torch.float32)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(np.arange(H, dtype=f32)))
+
+
+def test_error_model_past_lead_267_matches_jax():
+    """F7: a clairvoyant forecaster with H = 300 (sqrt(h) rounds apart in
+    torch's CPU sqrt at h = 267) is JAX's forecast bitwise."""
+    jfc, tfc = _pair("ClairvoyantTableForecaster", H=300, error=(0.0, 0.1, 1))
+    got, ref = _rolling(jfc, tfc, table=TABLE[:12])
+    np.testing.assert_array_equal(got, ref)
+
+
 @pytest.mark.parametrize("T", [1, 32, 33, 40, 150, 1100])
 def test_xla_sum_is_jax_order(T):
     """`xla_sum` against jnp.sum over [T, 7, 6] (all axes, and per lead),

@@ -79,7 +79,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.models import Model, build_model
     from repro_torch.serve import serve_loop
     from repro_torch.serve.loop import main
-    from repro_torch.telemetry import StreamConfig, TelemetryConfig
+    from repro_torch.telemetry import StreamConfig, TelemetryConfig, init_taps
+    from repro_torch.core import ExactDPPPolicy, ThresholdPolicy
+    from repro_torch.core.knapsack import bounded_knapsack_min, bounded_knapsack_min_batch
+    from repro_torch import analysis
+    from repro_torch.analysis import __main__ as analysis_cli
 
     args = (CarbonIntensityPolicy(), paper_spec(), ConstantCarbonSource(N=5), UniformArrivals(M=5), 3)
     net_args = (NetworkAwareDPPPolicy(),) + args[1:]
@@ -110,6 +114,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: lm_serve.greedy_generate(Model(get_smoke_config("glm4_9b"), torch.device("cuda")),
                                          {}, torch.zeros((1, 2), dtype=torch.int32), 1, 4),
         lambda: lm_serve.main(["--arch", "glm4_9b", "--smoke"]),
+        lambda: init_taps(),
+        lambda: init_taps((2,)),
+        lambda: simulate(ExactDPPPolicy(), *args[1:]),
+        lambda: simulate(ThresholdPolicy(), *args[1:]),
+        lambda: bounded_knapsack_min([-1.0], [1.0], [2.0], 4.0, 4),
+        lambda: bounded_knapsack_min_batch([[-1.0]], [[1.0]], [[2.0]], [4.0], 4),
+        lambda: analysis.iter_combos(),
+        lambda: analysis.audit_all(),
+        lambda: analysis.sanitize_smoke(),
+        lambda: analysis.sanitized_simulate_fleet(
+            CarbonIntensityPolicy(), build_fleet(["diurnal"], per_kind=2, device="cpu"), 3),
+        lambda: analysis_cli.main(["--audit"]),
+        lambda: analysis_cli.main(["--sanitize-smoke"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -151,9 +168,13 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
                      probe.backlog, by_column=("dispatched",))
     ops.tap_probe(plan, 1, inputs)
     assert probe.dispatched[:, 1].eq(4.0).all() and probe.backlog[:, 1].eq(4.0).all()
+    counts = ops.knapsack_dp(-torch.ones((2, 3)), torch.ones((2, 3)), torch.full((2, 3), 9.0),
+                             torch.full((2,), 4.0), 4)
+    assert counts.shape == (2, 3) and counts.sum(-1).eq(4.0).all()
     assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
                                    "flash_attention": 0, "flash_decode": 0, "ssd_chunk_intra": 0,
-                                   "threefry_draw": 0, "tap_scan": 0, "tap_probe": 0}
+                                   "threefry_draw": 0, "tap_scan": 0, "tap_probe": 0,
+                                   "knapsack_dp": 0}
     with pytest.raises(ValueError, match="no kernel"):
         ops.carbon_scores(Qc.to("meta"), Qc, Qc[:, 0], Qc[:, 0], Qc[0], torch.tensor(1.0))
     with pytest.raises(ValueError, match="no kernel"):
@@ -166,6 +187,8 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
         ops.threefry_draw(keys.to("meta"), 3, 4)
     with pytest.raises(ValueError, match="no kernel"):
         ops.tap_scan(TelemetryConfig(), probe._replace(backlog=z.to("meta")), out, state, 0, 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.knapsack_dp(Qc.to("meta"), Qc, Qc, Qc[:, 0], 4)
     plan.backlog = z.to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.tap_probe(plan, 1, inputs)

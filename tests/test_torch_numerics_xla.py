@@ -48,7 +48,7 @@ def _tbits(t):
 
 
 def _libm():
-    return ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    return ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")  # lint: allow=kernel-import
 
 
 def _rope_params():

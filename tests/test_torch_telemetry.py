@@ -182,7 +182,7 @@ def _run_taps(cfg, probes):
     """The probes through the plain per-slot step and `finalize_taps`,
     and through the kernel's plain version over the stacked series: the
     two frames must be bitwise equal; returns the first."""
-    tap, rows = PT.init_taps(), []
+    tap, rows = PT.init_taps(device="cpu"), []
     for p in probes:
         tap, row = PT.step_taps(cfg, tap, p)
         rows.append(row)
