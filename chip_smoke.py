@@ -71,7 +71,15 @@ paths):
    0.9.0's counts (KP_CRAFTED), a fleet-A-shaped launch (512 lanes x 6
    knapsacks of M5, grid 512, from the policy's score pass) and one slot
    at the main width (M4096 x N256, grid 512: 257 knapsacks, the edge's
-   and the first cloud's held to the plain version);
+   and the first cloud's held to the plain version); launches of 1, 6
+   and 3,072 of fleet A's rows (held to the plain version) and of the
+   main slot's rows (the first 2 held to the plain version, the rest to
+   the slot's launch), which pick other group sizes; every kernel instance
+   (cells a thread, a warp or a group, records in shared memory or
+   streamed) through the inputs that pick it (KP_PLAN_GRIDS x KP_PLAN_KS,
+   M5 and a streamed M), held to the plain version; 70 types past the
+   staged 64 and grids past 4096 up to the kernel's limit (KP_WIDE),
+   held to the plain version;
 3c. the attention kernels vs their plain versions on the card, within
    |err| <= 2e-5 + 2e-5*|plain| in f32 (tests/test_kernels.py's) and
    1e-4 + 2**-7*|plain| in bf16 (one bf16 rounding step): flash_attention at the prefill shape (B 8,
@@ -236,9 +244,13 @@ paths):
    shape (F512 x M5 x N5, T=192): one knapsack_dp a slot, conservation on
    every lane and slot, lanes 0 and 511 equal to each instance alone, F2
    card vs CPU; ThresholdPolicy(200) at the main width (T=64, launches,
-   conservation from the backlog, T=16 card vs CPU); the
-   AdaptiveVController loop of tests/test_extensions.py (T=250, target
-   30000) with V and the backlog equal card vs CPU every slot;
+   conservation from the backlog, T=16 card vs CPU); ExactDPP at the main
+   width (M4096 x N256, grid 512, T=16: one knapsack_dp of 257 knapsacks a
+   slot, conservation from the backlog, slot 0's edge and first-cloud
+   counts held to the plain DP) in turns with CarbonIntensity on the same
+   instance (ms/slot, idle share); the AdaptiveVController loop of
+   tests/test_extensions.py (T=250, target 30000) with V and the backlog
+   equal card vs CPU every slot;
 5. paper headline: `paper_spec()`, T=2000, V=0.05, both policies on the
    UK-regional source; the emission reduction (the paper reports 54%);
    then Fig. 2 on JAX's streams (RandomCarbonSource, UniformArrivals,
@@ -311,9 +323,11 @@ phase 4h (the main path's probe, the other loops' beside it, each with
 the one-torch.sum-a-sum path as the library time; its launches the main
 path's with taps on), knapsack_dp's row from phases 3f and 4i (its time
 at fleet A's shape, the paper's lane and the main width's slot beside
-it, each with its byte and operation bound and its serial floor; its
-launches those of 4i's ExactDPP run on the Fig. 2 setup, one a slot;
-the slot's ms with the kernel and with the plain DP), and a
+it, each with its byte and operation bound and its serial floor, and
+the one-block-a-knapsack kernel's times printed beside them
+(KP_BLOCK_KERNEL); its launches those of 4i's
+ExactDPP run on the Fig. 2 setup, one a slot; the slot's ms with the
+kernel and with the plain DP), and a
 PoissonArrivals slot at M4096 (two chain draws), beside the same slot on
 the plain walk.
 
@@ -407,6 +421,19 @@ KP_CRAFTED = {
 # pinned by tests/test_torch_knapsack.py), held as FIG2_JAX is
 EXACT_JAX, EXACT_TOL = 82.52899978416805, 1e-3
 T_EXACT_CPU, T_EXACT_TURNS, T_EXACT_PLAIN = 64, 256, 16
+T_EXACT_MAIN = 16  # ExactDPP at the main width (4i)
+# 3f's launches past the staged 64 types and past grid 4096, up to the
+# kernel's limit: (K, M, grids)
+KP_WIDE = (3, 70, (4097, 8192, 23455))
+# 3f's search for the inputs that pick each knapsack_dp instance (cells a
+# thread, a warp or not): grids and K tried in this order
+KP_PLAN_GRIDS = (2000, 1049, 1000, 512, 400, 200, 100, 48, 16)  # wide first: fewer steps
+KP_PLAN_KS = (1, 6, 257, 500, 1000, 1500, 2000, 3072)
+# the earlier knapsack_dp design (one block a knapsack) at phase 7's
+# shapes, ms cold (warm), H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table): printed beside this run's times
+KP_BLOCK_KERNEL = {"fleet A F512 x 6 x M5": (0.15995, 0.16059), "paper 6 x M5": (0.02118, 0.02362),
+           "main 257 x M4096": (29.87773, 29.88221)}
 T_THRESH, T_THRESH_CPU, THRESHOLD = 64, 16, 200.0
 T_ADAPTIVE, ADAPTIVE_TARGET = 250, 30000.0
 # the registry fleet's mean reduction in JAX (fleet/F96xT200, the fleet an
@@ -1894,19 +1921,121 @@ def main() -> int:
     kc, _, kb = cs.carbon_scores_cuda(kp_state.Qc, k_pc, kp_state.Qe, k_pe, fa_V * kCc, fa_V * kCe)
     kp_main_args = (stacked(kb, kc.T), stacked(k_pe, k_pc.T), stacked(kp_state.Qe, kp_state.Qc.T),
                     torch.cat([k_Pe.reshape(1), k_Pc]).contiguous())
+    # the main width: the plain version holds the edge's knapsack and the
+    # first cloud's (its count table over M4096 is the slow part) in every
+    # launch that has them: the slot's 257, and the launches of 1, 6 and
+    # 3,072 of its rows, which pick other group sizes (the 3,072 repeat the
+    # 257); their other knapsacks are held to the slot's launch
     t1 = time.perf_counter()
-    check_knapsacks(kp_main_args, KP_GRID, f"main M{M_MAIN} x (1 + N{N_MAIN})", rows=slice(0, 2))
-    say(f"[3f kernels] knapsack_dp at the main width: the edge and first cloud knapsacks of "
-        f"{kp_main_args[0].shape[0]} bitwise equal to the plain version "
-        f"({time.perf_counter() - t1:.1f} s, the plain count table's)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    instances = kpk.kernel_instances()
+    K_main = kp_main_args[0].shape[0]
+    kp_main_out = check_knapsacks(kp_main_args, KP_GRID, f"main M{M_MAIN} x (1 + N{N_MAIN})",
+                                  rows=slice(0, 2))
+    n_same = [0, 0]  # knapsacks held to the slot's launch, launches
+    plans = {}
+    for K in (1, 6, 3 * 1024):
+        plans[K] = kpk.group_plan(K, KP_GRID, sms, instances)
+        check_knapsacks(tuple(x[:K].contiguous() for x in kp_fleet_args), KP_GRID,
+                        f"fleet A rows K{K} {plans[K]}")
+        idx = torch.arange(K, device=dev) % K_main
+        got = kpk.knapsack_dp_cuda(*(x[idx].contiguous() for x in kp_main_args), KP_GRID)
+        torch.cuda.synchronize()
+        n = min(K, 2)
+        if not torch.equal(got[:n], kp_main_out[:n]):
+            fail(f"knapsack_dp main rows K{K} {plans[K]}: the first {n} differ from the plain "
+                 "version")
+        n_kp[0] += n
+        n_kp[1] += 1
+        if K > 2:
+            if not torch.equal(got[2:], kp_main_out[idx[2:]]):
+                k = 2 + int((got[2:] != kp_main_out[idx[2:]]).any(-1).nonzero()[0])
+                fail(f"knapsack_dp main rows K{K} {plans[K]}: knapsack {k} differs from the "
+                     "slot's launch")
+            n_same[0] += K - 2
+            n_same[1] += 1
+    plans[K_main] = kpk.group_plan(K_main, KP_GRID, sms, instances)
+    say(f"[3f kernels] knapsack_dp at the main width: the edge's and first cloud's knapsacks "
+        f"in the slot's {K_main} and in launches of its rows at K 1, 6 and 3,072 bitwise equal "
+        f"to the plain version; the other {n_same[0]} knapsacks of the 6 and the 3,072 equal "
+        f"to the slot's launch; "
+        f"(group, cells a thread) at grid {KP_GRID} ({sms} SMs): "
+        + ", ".join(f"K{k} {p}" for k, p in sorted(plans.items()))
+        + f" (fleet A's first K rows each held to the plain version too); "
+        f"{time.perf_counter() - t1:.1f} s")
+    # every kernel instance (cells a thread, a warp or a group with its own
+    # barrier, records in shared memory or streamed) through the inputs
+    # that pick it: the first (grid, K) of KP_PLAN_GRIDS x KP_PLAN_KS whose
+    # plan it is, at M5 and at the M whose records take 4 x 4096 words
+    # if every step is active (streamed: past 48 KB a group; past the
+    # ring's 3 chunks of about 4096 words, so through the global scratch);
+    # rows from a generator of their own (g's later draws stay as they
+    # were), held to the plain version on every row where the count table
+    # is small, else on 6 rows across the launch's blocks
+    t1 = time.perf_counter()
+    gi = torch.Generator(device=dev)
+    gi.manual_seed(SEED + 2)
+    picks = {}
+    for grid, K in itertools.product(KP_PLAN_GRIDS, KP_PLAN_KS):
+        group, cpt = kpk.group_plan(K, grid, sms, instances)
+        picks.setdefault((cpt, group == 32), (grid, K))
+    missing = [(c, w) for c, _ in instances for w in (False, True) if (c, w) not in picks]
+    if missing:
+        fail(f"knapsack_dp: no input of KP_PLAN_GRIDS x KP_PLAN_KS picks the instances "
+             f"(cells a thread, a warp) {missing}")
+    reached = []
+    for (cpt, warp), (grid, K) in sorted(picks.items()):
+        ns, W = kpk.n_splits(grid), (grid + 32) // 32
+        for M in (5, -(-4 * 4096 // (ns * W))):
+            budget = torch.rand((K,), generator=gi, device=dev) * 499 + 1
+            scores = -(torch.rand((K, M), generator=gi, device=dev) * 9.9 + 0.1)
+            if len(reached) % 3 == 0:
+                scores = scores.round()  # ties in the best row
+            weights = (budget / grid)[:, None] * (torch.rand((K, M), generator=gi, device=dev)
+                                                  * 2.7 + 0.3)
+            caps = torch.randint(0, 2 * grid, (K, M), generator=gi, device=dev).float()
+            group, _, words, _ = kpk.kernel_plan(K, M, grid, dev)
+            if bool(words) != (M > 5):
+                fail(f"knapsack_dp grid {grid} K{K} M{M}: records streamed={bool(words)}")
+            rows = (None if K * (grid + 1) * M <= 2 ** 24 else
+                    sorted({0, 1, K // 3, K // 2, K - 2, K - 1}))
+            check_knapsacks((scores, weights, caps, budget), grid,
+                            f"instance ({cpt} cells, group {group}) K{K} M{M}",
+                            rows=None if rows is None else torch.tensor(rows, device=dev))
+            reached.append(f"({cpt}, {group}{', streamed' if words else ''}) grid {grid} K{K} "
+                           f"M{M}{'' if rows is None else f' ({len(rows)} rows)'}")
+    say(f"[3f kernels] knapsack_dp: each of the {2 * len(picks)} instances (cells a thread, "
+        f"group; records in shared memory or streamed) launched by the inputs that pick it and "
+        f"held to the plain version: {'; '.join(reached)}; {time.perf_counter() - t1:.1f} s")
+    # past the staged types and past grid 4096 (the grid limit L4 before),
+    # drawn from a generator of their own (g's later draws stay as they were)
+    t1 = time.perf_counter()
+    K, M, wide = KP_WIDE
+    gw = torch.Generator(device=dev)
+    gw.manual_seed(SEED + 1)
+
+    def wide_rand(shape, lo, hi):
+        return torch.rand(shape, generator=gw, device=dev) * (hi - lo) + lo
+
+    for grid in wide:
+        wargs = (-wide_rand((K, M), 0.1, 10), wide_rand((K, M), 0.05, 30),
+                 torch.randint(0, 3000, (K, M), generator=gw, device=dev).float(),
+                 wide_rand((K,), 1, 500))
+        check_knapsacks(wargs, grid, f"wide K{K} M{M}")
+    say(f"[3f kernels] knapsack_dp K{K} x M{M} (past the 64 staged types) at grids "
+        f"{', '.join(map(str, wide))} (the kernel's limit {kpk.MAX_GRID}; records streamed) "
+        f"bitwise the plain version; {time.perf_counter() - t1:.1f} s")
     say(f"[3f kernels] knapsack_dp: {n_kp[0]} knapsacks in {n_kp[1]} launches bitwise equal to "
         f"the plain version (grids {', '.join(map(str, KP_GRIDS))}: random K 1-40 x M 1-16, "
         f"integral scores (ties) in every third; {len(KP_EDGES)} edge cases at grids 16 and "
         f"1024: positives, caps past 2**n_splits - 1, items wider than the grid, equal items "
         f"and values, weights 0 and 1e-12 with caps past int32, NaN scores and caps, budgets "
         f"0, -3, NaN, inf; the crafted cases {', '.join(KP_CRAFTED)} equal to jax 0.9.0's "
-        f"counts; fleet A's F{FLEET_A_LANES} x 6 x M5 launch; the main width's edge and first "
-        f"cloud); {time.perf_counter() - t0:.1f} s")
+        f"counts; fleet A's F{FLEET_A_LANES} x 6 x M5 launch and its first 1, 6 and 3,072 "
+        f"rows; the main width's edge and first cloud in 4 launches; every kernel instance; "
+        f"KP_WIDE); "
+        f"{n_same[0]} more knapsacks in {n_same[1]} launches equal to the main slot's launch; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3c. attention kernels vs plain versions on the card ---------
     max_err["flash_attention"] = max_err["flash_decode"] = 0.0
@@ -3696,6 +3825,58 @@ def main() -> int:
     del th_res
     card_vs_cpu("4i threshold", {f"Threshold({THRESHOLD:g})": threshold}, sim, T_THRESH_CPU,
                 ("Qe", "Qc", "processed", "dispatched"), dev)
+    # (e2) ExactDPP at the main width (phase 4's instance and sim): one
+    # knapsack_dp of 257 knapsacks of M4096 a slot; conservation from the
+    # backlog; slot 0's edge and first-cloud counts against the plain DP on
+    # the inputs the policy gave the kernel (the plain count table over all
+    # 257 is the slow part); in turns with CarbonIntensity (ms/slot) and the
+    # device's busy time a slot from the profiler (idle share)
+    ex_tag = f"ExactDPP M{M_MAIN}xN{N_MAIN} grid {KP_GRID} T={T_EXACT_MAIN}"
+    ex_res = counted(ex_tag, lambda: sim(exact, T_EXACT_MAIN, "full", dev),
+                     {"knapsack_dp": T_EXACT_MAIN, "carbon_scores": T_EXACT_MAIN,
+                      "greedy_fill": 0})
+    if not conserved(ex_res, arrivals_of(inst["arrivals"], T_EXACT_MAIN), q0):
+        fail("ExactDPP main width: conservation fails")
+    del ex_res
+    seen = {}
+
+    def kernel_seen(*args):
+        seen["args"], seen["out"] = args, kpk.knapsack_dp_cuda(*args)
+        return seen["out"]
+
+    Ce0, Cc0 = inst["carbon"](0, 0, dev)
+    with swapped(ops, dict(knapsack_dp=kernel_seen)):
+        exact(state0_d, spec_d, Ce0, Cc0)
+    want0 = kpk.knapsack_dp_plain(*(x[:2] for x in seen["args"][:4]), KP_GRID)
+    torch.cuda.synchronize()
+    if not torch.equal(seen["out"][:2], want0):
+        fail("ExactDPP main width: slot 0's edge or first-cloud counts differ from the plain DP")
+    ex_turns = {"ExactDPP": [], "CarbonIntensity": []}
+    for pname in ("ExactDPP", "CarbonIntensity", "CarbonIntensity", "ExactDPP"):
+        pol = exact if pname == "ExactDPP" else policies["CarbonIntensity"]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim(pol, T_EXACT_MAIN, "summary", dev)
+        end.record()
+        end.synchronize()
+        ex_turns[pname].append(start.elapsed_time(end) / T_EXACT_MAIN)
+    prof_main, _ = profile_slots(lambda: sim(exact, 4, "summary", dev), slots=4)
+    ex_slot = statistics.mean(ex_turns["ExactDPP"])
+    busy_main = None if prof_main is None else prof_main["total"]
+    exact_main = {"turns": ex_turns, "busy_ms": busy_main,
+                  "idle": None if busy_main is None else 1.0 - busy_main / ex_slot,
+                  "knapsack_ms": None if prof_main is None else sum(
+                      v for k, v in prof_main.items() if "knapsack" in k)}
+    say(f"[4i extensions] {ex_tag}: conservation exact on every slot from the backlog; slot 0's "
+        f"edge and first-cloud counts ({seen['out'].shape[0]} knapsacks) bitwise the plain DP's; "
+        f"in turns ExactDPP / CarbonIntensity / CarbonIntensity / ExactDPP: ExactDPP "
+        + " / ".join(f"{x:.4f}" for x in ex_turns["ExactDPP"]) + ", CarbonIntensity "
+        + " / ".join(f"{x:.4f}" for x in ex_turns["CarbonIntensity"]) + " ms/slot; device busy "
+        + ("not measured" if busy_main is None else
+           f"{busy_main:.4f} ms a slot, knapsack_dp {exact_main['knapsack_ms']:.4f}, idle share "
+           f"{exact_main['idle']:.4f}") + " (profiler, 4 slots)")
+    del seen
     # (f) the AdaptiveVController loop (tests/test_extensions.py's): the
     # card and the CPU read the same backlogs and walk V alike
     def adaptive(d):
@@ -4288,7 +4469,9 @@ def main() -> int:
         say(f"[7 time] knapsack_dp {label} grid {KP_GRID}: {times[1]:.5f} ms cold, "
             f"{times[0]:.5f} ms warm (CUDA graph replay), {call_ms:.5f} ms per eager call; bound "
             f"{bound:.6f} ms ({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} M ops), serial floor "
-            f"{floor_ms:.5f} ms; plain version "
+            f"{floor_ms:.5f} ms; the one-block-a-knapsack kernel "
+            f"{KP_BLOCK_KERNEL[label][0]:.5f} ms cold ({KP_BLOCK_KERNEL[label][1]:.5f} warm); "
+            f"plain version "
             + ("not timed (its count table)" if plain_ms is None else f"{plain_ms:.3f} ms"))
     kr = kp_rows[0]
     row("knapsack_dp", "src/repro_torch/kernels/csrc/knapsack.cu",
@@ -4296,7 +4479,7 @@ def main() -> int:
         kr["call_ms"], kr["plain_ms"], nbytes=kr["nbytes"], nops=kr["nops"])
     rows[-1].update(shape=kr["shape"], serial_floor_ms=kr["floor_ms"],
                     fleet_a_launches=fleet_exact_launches["knapsack_dp"],
-                    exact_slot=exact_slot)
+                    exact_slot=exact_slot, exact_main_slot=exact_main)
     rows[-1]["other_shapes"] = [
         {"shape": x["shape"], "ms": x["times"][1], "warm_ms": x["times"][0],
          "plain_ms": x["plain_ms"], "serial_floor_ms": x["floor_ms"],

@@ -27,9 +27,13 @@ where i32 is XLA's saturating conversion (NaN to 0). The multiply-add of
 computed once a step, outside the loop over the row).
 
 `knapsack_dp_plain` runs that forward DP with the count table. The CUDA
-kernel (`csrc/knapsack.cu`) keeps one decision bit a step and cell
-instead and walks back from e*; the table only ever adds small integers
-along the path, so the walk gives the table's counts bitwise.
+kernel (`csrc/knapsack.cu`) runs a thread group a knapsack over the
+active steps only (those with k > 0: a type whose cap > 0 takes
+min(bit_length(cap), n_splits) of them), keeps one decision bit a step
+and cell instead of the table, in records ordered by active step (bit
+e & 31 of word e >> 5 for cell e), and walks back from e*; the table
+only ever adds small integers along the path, so the walk gives the
+table's counts bitwise.
 """
 from __future__ import annotations
 
@@ -135,25 +139,69 @@ def knapsack_dp_plain(scores, weights, caps, budget, grid: int) -> torch.Tensor:
 def _lib():
     lib = build.load("knapsack")
     if lib.knapsack_dp_launch.argtypes is None:
-        lib.knapsack_dp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        lib.knapsack_dp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p] * 3
         lib.knapsack_dp_launch.restype = ctypes.c_int
-        lib.knapsack_dp_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.knapsack_dp_smem_bytes.restype = ctypes.c_longlong
+        lib.knapsack_dp_instances.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int]
+        lib.knapsack_dp_instances.restype = ctypes.c_int
+        lib.knapsack_dp_scratch.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.knapsack_dp_scratch.restype = ctypes.c_int
     return lib
 
 
-def bit_words(M: int, grid: int) -> int:
-    """32-bit words of decision bits a knapsack keeps: one bit a step
-    and cell, M * n_splits steps of ceil((grid + 1) / 32) words."""
-    return M * n_splits(grid) * ((grid + 32) // 32)
+# The kernel's widest grid: the most cells for which a group's two best
+# rows, its ring of record chunks, its step table and its staged types fit
+# one block's shared memory (227 KB) for any M (ROADMAP Queue 3, limit L4;
+# the reference takes any grid). Checked before the kernel is built; the
+# library refuses a wider grid by its own layout.
+MAX_GRID = 23455
+
+
+def group_plan(K: int, grid: int, sms: int, instances) -> tuple:
+    """(group, cells a thread) among the kernel's `instances` ((cells a
+    thread, widest group), ...; `kernel_instances()` on the card): the
+    least cells a thread, so the most threads, whose groups fit all K on
+    the card at once (ceil(K / SMs) groups an SM within its warps; a warp
+    a knapsack where K fills the card); past that, the fewest threads with
+    the fewest cells a thread. Thread t holds cells t + j * group; any
+    group size gives the same bits."""
+    cells = grid + 1
+    plans = [(threads, cpt) for cpt, most in instances
+             for threads in (32 * -(-cells // (32 * cpt)),) if threads <= most]
+    per_sm = -(-K // sms)
+    for threads, cpt in plans:
+        if per_sm * threads <= 1024:  # 64 registers a thread: 32 warps an SM
+            return threads, cpt
+    return min(plans)
+
+
+def kernel_instances() -> tuple:
+    """The library's instances: ((cells a thread, widest group), ...)."""
+    lib = _lib()
+    cells, most = (ctypes.c_int * 16)(), (ctypes.c_int * 16)()
+    n = lib.knapsack_dp_instances(cells, most, 16)
+    return tuple(zip(cells[:n], most[:n]))
+
+
+def kernel_plan(K: int, M: int, grid: int, device) -> tuple:
+    """A launch's (group, cells a thread, streamed record words a knapsack
+    (0: the records stay in shared memory), staged types a knapsack past
+    the 64 in shared memory), as `knapsack_dp_cuda` launches it."""
+    group, cpt = group_plan(K, grid, torch.cuda.get_device_properties(device).multi_processor_count,
+                            kernel_instances())
+    out = (ctypes.c_longlong * 2)()
+    if _lib().knapsack_dp_scratch(M, grid, group, out) != 0:
+        raise ValueError(f"knapsack_dp: M={M} at grid {grid} does not fit shared memory")
+    return group, cpt, int(out[0]), int(out[1])
 
 
 def knapsack_dp_cuda(scores, weights, caps, budget, grid: int) -> torch.Tensor:
-    """Launches csrc/knapsack.cu on PyTorch's current stream: one block a
-    knapsack, all K in one launch. The decision bits stay in shared
-    memory where they fit, else in a global scratch of K * bit_words
-    words."""
+    """Launches csrc/knapsack.cu on PyTorch's current stream: a group of
+    threads a knapsack (`kernel_plan`'s), all K in one launch. The records
+    stay in shared memory where a group's share is at most 48 KB with
+    them; else they pass through a ring of chunks to a global scratch, and
+    back for the walk; M > 64 adds a [K, M - 64] int4 list of staged
+    types. No host sync; capturable in a CUDA graph."""
     global launches
     _check(scores, weights, caps, budget, grid)
     K, M = scores.shape
@@ -161,8 +209,9 @@ def knapsack_dp_cuda(scores, weights, caps, budget, grid: int) -> torch.Tensor:
     dev = scores.device
     if K < 1 or M < 1:
         raise ValueError(f"knapsack_dp: empty problem K={K}, M={M}")
-    if G > 4096:
-        raise ValueError(f"knapsack_dp: grid={G} above the kernel's 4096 cells")
+    if G > MAX_GRID:
+        raise ValueError(f"knapsack_dp: grid={G} above the kernel's {MAX_GRID} cells "
+                         "(limit L4: the reference takes any grid)")
     ins = []
     for name, x, shape in (("scores", scores, (K, M)), ("weights", weights, (K, M)),
                            ("caps", caps, (K, M)), ("budget", budget, (K,))):
@@ -170,17 +219,15 @@ def knapsack_dp_cuda(scores, weights, caps, budget, grid: int) -> torch.Tensor:
             raise ValueError(f"knapsack_dp: {name} must be float32 {shape} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
         ins.append(x.contiguous())
+    group, cpt, words, staged = kernel_plan(K, M, G, dev)
     out = torch.empty(K, M, dtype=torch.float32, device=dev)
+    scratch = torch.empty(K * words, dtype=torch.int32, device=dev) if words else None
+    glist = torch.empty(K * staged * 4, dtype=torch.int32, device=dev) if staged else None
     lib = _lib()
-    words = bit_words(M, G)
-    smem = lib.knapsack_dp_smem_bytes(M, G, 1)
-    scratch = None
-    if smem < 0:  # the bits do not fit beside the rows: global scratch
-        scratch = torch.empty(K * words, dtype=torch.int32, device=dev)
     status = lib.knapsack_dp_launch(
-        *(x.data_ptr() for x in ins), out.data_ptr(), K, M, G, n_splits(G),
-        None if scratch is None else scratch.data_ptr(), words,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(x.data_ptr() for x in ins), out.data_ptr(), K, M, G, group, cpt,
+        None if scratch is None else scratch.data_ptr(),
+        None if glist is None else glist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, status, "knapsack_dp")
     launches += 1
     return out

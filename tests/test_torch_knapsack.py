@@ -10,8 +10,10 @@ the reference's rounding points (the weight's cell count is one FMA
 under jit; `best + score * k` is a multiply, then an add). The batched
 form equals each knapsack run alone; the value equals the exact numpy
 oracle where the grid is an integral budget; the CUDA kernel's design
-(decision bits, a walk back from e*) is emulated against the count
-table. ExactDPPPolicy's actions are JAX's under jit (the score pass
+is emulated: its prologue's active types and their steps against the
+plain DP's own (k, w, val) sequence, its decision bits by active step for
+every group size, and its walk back from e* against the count table.
+ExactDPPPolicy's actions are JAX's under jit (the score pass
 contracted, as `carbon_scores` rounds it), on the eight instances of
 `tests/test_policies.py::test_greedy_vs_exact_dpp_gap` with its bounds,
 and through `simulate`, the fleet, `simulate_vsweep`, the staleness
@@ -164,66 +166,221 @@ def test_value_equals_exact_oracle_on_an_integral_grid(seed):
     assert exact_knapsack_min_py(sc[0], w[0], caps[0], 0.0)[1] == 0.0
 
 
-def _walk_back(sc, w, caps, bud, grid):
-    """The CUDA kernel's algorithm in numpy: the forward DP on the best row
-    alone, one decision bit a step and cell, then the walk back from
-    e* = argmin(best) adding k at every step whose bit is set."""
+def _active_types(iw, cap, sc, group):
+    """The kernel's prologue for one knapsack: `group` threads each count
+    the active types (cap > 0) of their block of ceil(M / group) types, a
+    prefix sum over the threads orders them -> [(iw, cap, score, m)]."""
+    M = len(cap)
+    per = -(-M // group)
+    blocks = [range(min(M, t * per), min(M, t * per + per)) for t in range(group)]
+    counts = [sum(1 for m in blk if cap[m] > 0) for blk in blocks]
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out = [None] * int(sum(counts))
+    for t, blk in enumerate(blocks):
+        p = int(first[t])
+        for m in blk:
+            if cap[m] > 0:
+                out[p] = (int(iw[m]), int(cap[m]), f32(sc[m]), m)
+                p += 1
+    return out
+
+
+def _split_k(cap, s):
+    """The walk's closed form of step s's k: the copies left after steps
+    0..s-1 of 1, 2, ..., 2**(s-1)."""
+    return min(2 ** s, cap - 2 ** s + 1)
+
+
+def _w(iw, k):
+    return int(KN.to_i32(torch.tensor(f32(iw) * f32(k))))
+
+
+def _active_steps(types, grid):
+    """The table the kernel expands the active types into, in step order:
+    [(m, k, w, val)]; a type takes min(bit_length(cap), n_splits) steps."""
+    steps = []
+    for iw, cap, score, m in types:
+        for s in range(min(cap.bit_length(), KN.n_splits(grid))):
+            k = _split_k(cap, s)
+            steps.append((m, k, _w(iw, k), f32(score * f32(k))))
+    return steps
+
+
+def _plain_steps(sc, w, caps, bud, grid):
+    """The plain DP's own (m, k, w, val) sequence, a knapsack a list: its
+    steps with k > 0, by its formulas (`knapsack_dp_plain`'s loop)."""
+    K, M = sc.shape
+    scores = torch.from_numpy(sc)
+    iw, cap = KN.knapsack_items(*(torch.from_numpy(x) for x in (sc, w, caps, bud)), grid)
+    out = [[] for _ in range(K)]
+    for m in range(M):
+        remaining = cap[:, m]
+        for s in range(KN.n_splits(grid)):
+            k = torch.minimum(torch.full_like(remaining, 2 ** s), remaining)
+            kf = k.float()
+            wk = KN.to_i32(iw[:, m].float() * kf)
+            val = scores[:, m] * kf
+            for r in range(K):
+                if int(k[r]) > 0:
+                    out[r].append((m, int(k[r]), int(wk[r]), f32(val[r])))
+            remaining = remaining - k
+    return out
+
+
+def _kernel_emulation(sc, w, caps, bud, grid, group):
+    """The CUDA kernel's algorithm in numpy for a group of `group` threads:
+    the prologue's active types, their steps, the forward DP on the best
+    row alone with thread t holding cells t + j * group and one ballot word
+    a warp and j (cell e: bit e & 31 of word e >> 5), one record of bit
+    words an active step; then the walk back from e* = argmin(best), the
+    last step first, recomputing each step's k and w from the active types
+    walked backwards. -> (counts [K, M], [records of each knapsack])."""
     K, M = sc.shape
     iw, cap = (x.numpy() for x in KN.knapsack_items(*(torch.from_numpy(x) for x in
                                                       (sc, w, caps, bud)), grid))
-    ns = KN.n_splits(grid)
+    cells = grid + 1
+    W = (cells + 31) // 32
     out = np.zeros((K, M), f32)
-    e_all = np.arange(grid + 1)
-    for k in range(K):
-        best = np.zeros(grid + 1, f32)
-        bits, steps = {}, {}
-        for m in range(M):
-            rem, seq = int(cap[k, m]), []
-            for s in range(ns):
-                kk = min(2 ** s, rem)
-                rem -= kk
-                if kk <= 0:
-                    break
-                wk = int(KN.to_i32(torch.tensor(f32(iw[k, m]) * f32(kk))))
-                val = f32(sc[k, m] * f32(kk))
-                cand = np.full(grid + 1, np.inf, f32)
-                ok = e_all >= wk
-                cand[ok] = best[e_all[ok] - wk] + val
-                better = cand < (best + f32(-1e-9))
-                best = np.where(better, cand, best)
-                bits[m, s] = better
-                seq.append((kk, wk))
-            steps[m] = seq
+    records = []
+    for r in range(K):
+        types = _active_types(iw[r], cap[r], sc[r], group)
+        best = np.zeros(cells, f32)
+        recs = []
+        for m, k, wk, val in _active_steps(types, grid):
+            words = np.zeros(W, np.uint32)
+            new = best.copy()
+            for t in range(group):  # thread t, then its warp's ballot
+                for e in range(t, cells, group):
+                    if e >= wk:
+                        cand = f32(best[e - wk] + val)
+                        if cand < f32(best[e] + f32(-1e-9)):
+                            new[e] = cand
+                            words[e >> 5] |= np.uint32(1) << np.uint32(e & 31)
+            best = new
+            recs.append(words)
+        records.append(recs)
         e = int(KN.first_argmin(torch.from_numpy(best)))
-        for m in range(M - 1, -1, -1):
-            for s in range(len(steps[m]) - 1, -1, -1):
-                if bits[m, s][e]:
-                    out[k, m] += steps[m][s][0]
-                    e -= steps[m][s][1]
-    return out
+        i = len(recs) - 1
+        for iw_q, cap_q, _, m in reversed(types):
+            taken = 0
+            for s in range(min(cap_q.bit_length(), KN.n_splits(grid)) - 1, -1, -1):
+                k = _split_k(cap_q, s)
+                if (int(recs[i][e >> 5]) >> (e & 31)) & 1:
+                    taken += k
+                    e -= _w(iw_q, k)
+                i -= 1
+            out[r, m] = taken
+        assert i == -1
+    return out, records
+
+
+def _walk_back(sc, w, caps, bud, grid):
+    return _kernel_emulation(sc, w, caps, bud, grid, group=96)[0]
 
 
 @pytest.mark.parametrize("M,grid", [(4, 16), (9, 40), (3, 512)])
 def test_kernel_walk_back_equals_the_count_table(M, grid):
-    """Decision bits and the walk back give the forward count table's
-    counts bitwise (the kernel keeps no table)."""
+    """Decision bits in records by active step and the walk back (its
+    k and w recomputed from the active types) give the forward count
+    table's counts bitwise (the kernel keeps no table)."""
     rng = np.random.default_rng(M + grid)
     args = _random(rng, 12, M, grid)
     args[0][:3] = np.round(args[0][:3])  # integral scores: ties in the best row
     np.testing.assert_array_equal(_walk_back(*args, grid), _plain(*args, grid))
 
 
+def _step_cases():
+    """Types with cap 0 between active ones, caps past 2**n_splits - 1,
+    NaN and inf scores, weights, caps and budgets (grid 8: 4 splits)."""
+    sc = np.array([[-1.0, -2.0, 3.0, -0.5, -4.0, -1.5],
+                   [-1.0, np.nan, -2.0, -np.inf, -3.0, -1.0],
+                   [-2.0, -1.0, -1.0, -3.0, -1.0, -0.25],
+                   [-1.0, -2.0, -3.0, -1.0, -2.0, -3.0],
+                   [-1.0, -2.0, -3.0, -1.0, -2.0, -3.0]], f32)
+    w = np.array([[1.0, 0.5, 1.0, 2.0, 0.25, 1.0],
+                  [1.0, 1.0, np.inf, 1.0, np.nan, 0.5],
+                  [0.125, 0.5, 1.0, 1e-12, 2.0, 0.75],
+                  [1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+                  [1.0, 1.0, 1.0, 1.0, 1.0, 1.0]], f32)
+    caps = np.array([[5.0, 0.0, 7.0, 0.0, 40.0, 3.0],
+                     [9.0, 3.0, 2.0, 8.0, 4.0, np.inf],
+                     [1e6, 15.0, 16.0, 3e9, 0.0, 2.0],
+                     [3.0, 3.0, 3.0, 3.0, 3.0, 3.0],
+                     [3.0, 3.0, 3.0, 3.0, 3.0, 3.0]], f32)
+    bud = np.array([8.0, 8.0, 8.0, np.inf, np.nan], f32)
+    return sc, w, caps, bud
+
+
+def test_active_steps_are_the_plain_dps_steps():
+    """The prologue's active types, expanded into steps, are the plain
+    DP's own (m, k, w, val) sequence bitwise, and the walk's closed-form k
+    is the DP's min(2**s, remaining), for every group size's blocks of
+    types; the NaN-budget knapsack and the inf-budget one included."""
+    for grid in (8, 40):
+        sc, w, caps, bud = _step_cases()
+        want = _plain_steps(sc, w, caps, bud, grid)
+        iw, cap = (x.numpy() for x in KN.knapsack_items(*(torch.from_numpy(x) for x in
+                                                          (sc, w, caps, bud)), grid))
+        assert any(c > 2 ** KN.n_splits(grid) - 1 for c in cap.ravel())  # caps past the splits
+        for group in (32, 64, 96, 288, 544, 1024):
+            for r in range(sc.shape[0]):
+                got = _active_steps(_active_types(iw[r], cap[r], sc[r], group), grid)
+                assert [(m, k, wk) for m, k, wk, _ in got] == [(m, k, wk) for m, k, wk, _ in
+                                                               want[r]], (grid, group, r)
+                np.testing.assert_array_equal(np.array([v for *_, v in got], f32),
+                                              np.array([v for *_, v in want[r]], f32))
+
+
+@pytest.mark.parametrize("grid", [16, 100, 512])
+def test_every_group_size_gives_one_set_of_bits(grid):
+    """The records of every group size are the same bits (cell e: bit
+    e & 31 of word e >> 5), and each walks back to the count table's
+    counts. Tolerance: none."""
+    rng = np.random.default_rng(grid)
+    args = _random(rng, 3, 5, grid)
+    want = _plain(*args, grid)
+    first = None
+    for group in (32, 64, 96, 160, 288, 544, 1024):
+        counts, records = _kernel_emulation(*args, grid, group)
+        np.testing.assert_array_equal(counts, want)
+        flat = [np.concatenate(r) if r else np.zeros(0, np.uint32) for r in records]
+        if first is None:
+            first = flat
+        for a, b in zip(flat, first):
+            np.testing.assert_array_equal(a, b)
+
+
+# csrc/knapsack.cu's instances (kCells, most_threads): (cells a thread, widest group)
+_INSTANCES = ((1, 1024), (2, 1024), (4, 1024), (8, 1024), (16, 1024), (17, 768), (32, 768))
+
+
+def test_group_plan_covers_the_row_and_fits_the_card():
+    """The host's (group, cells a thread): the most threads whose groups
+    fit all K on a 132-SM card at once, a warp a knapsack where K fills it,
+    and past that the warp with the fewest cells a thread."""
+    plans = {K: KN.group_plan(K, 512, 132, _INSTANCES)
+             for K in (1, 6, 257, 600, 1000, 2000, 3072, 5000)}
+    assert plans == {1: (544, 1), 6: (544, 1), 257: (288, 2), 600: (160, 4), 1000: (96, 8),
+                     2000: (64, 16), 3072: (32, 17), 5000: (32, 17)}
+    assert KN.group_plan(100000, 1000, 132, _INSTANCES) == (32, 32)
+    assert KN.group_plan(100000, 16, 132, _INSTANCES) == (32, 1)
+    for grid in (1, 16, 512, 1023, 4097, KN.MAX_GRID):
+        for K in (1, 257, 3072, 100000):
+            group, cpt = KN.group_plan(K, grid, 132, _INSTANCES)
+            assert group % 32 == 0 and group * cpt >= grid + 1
+            assert cpt in dict(_INSTANCES) and group <= dict(_INSTANCES)[cpt]
+
+
 def test_cuda_wrapper_checks_before_building():
     z = torch.zeros((2, 3))
     with pytest.raises(ValueError, match="budget"):
         KN.knapsack_dp_cuda(z, z, z, torch.zeros(3), 8)
-    with pytest.raises(ValueError, match="4096"):
-        KN.knapsack_dp_cuda(z, z, z, torch.zeros(2), 5000)
+    with pytest.raises(ValueError, match="23455"):
+        KN.knapsack_dp_cuda(z, z, z, torch.zeros(2), 23456)
     with pytest.raises(ValueError, match="float32"):
         KN.knapsack_dp_cuda(z.double(), z, z, torch.zeros(2), 8)
     assert KN.launches == 0
     assert KN.n_splits(512) == 10 and KN.n_splits(600) == 11 and KN.n_splits(1) == 1
-    assert KN.bit_words(5, 512) == 5 * 10 * 17
 
 
 # ------------------------------------------------------------ the policy
