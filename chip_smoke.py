@@ -228,8 +228,12 @@ paths):
    whose sums depend on their order at the main, fleet B, W2, bench fleet,
    fleet A, W1 and stream shapes and off the 32-grid, every sum at once
    (the landings by cloud, the arrivals, Qe, Qc, the WAN loop's Qt and the
-   faulted loops' retry pool), and each loop's probe timed against the
-   one torch.sum call a sum that it replaced;
+   faulted loops' retry pool); at main and fleet B, two plans launched in
+   turns on one stream for 64 slots each in one CUDA graph, every slot
+   bitwise (the counters reset themselves); on main with taps (profiler)
+   one tap_probe kernel a slot, no cooperative launch, no memset; and each
+   loop's probe timed against the one torch.sum call a
+   sum that it replaced, beside its byte bound and its serial floor;
 4i. the scheduler's extensions: ExactDPPPolicy (grid 512) on the Fig. 2
    setup, T=2000, under sync debug mode with its launches (one
    carbon_scores and one knapsack_dp a slot, no greedy_fill), its
@@ -320,8 +324,9 @@ with its serial floor, T adds of 4 cycles at clocks.max.sm, beside the
 byte bound; its launches those of the main path's run with taps on, the
 phase's total and a streamed run's beside them), tap_probe's row from
 phase 4h (the main path's probe, the other loops' beside it, each with
-the one-torch.sum-a-sum path as the library time; its launches the main
-path's with taps on), knapsack_dp's row from phases 3f and 4i (its time
+the one-torch.sum-a-sum path as the library time and the serial floor,
+the plan's longest chain of dependent adds at 4 cycles, beside the byte
+bound; its launches the main path's with taps on), knapsack_dp's row from phases 3f and 4i (its time
 at fleet A's shape, the paper's lane and the main width's slot beside
 it, each with its byte and operation bound and its serial floor, and
 the one-block-a-knapsack kernel's times printed beside them
@@ -3335,17 +3340,21 @@ def main() -> int:
         f"cancel); overheads main {d_over:.2f}%, fleet B {b_over:.2f}% ({smi})")
 
     def device_events(fn):
-        """(kernels, memsets) the card ran during fn(), from torch.profiler"""
+        """(kernels, memsets, tap_probe kernels) the card ran during fn()
+        and the cooperative launches the host made, from torch.profiler"""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        n = [0, 0]
+        n = [0, 0, 0, 0]
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA and not evt.key.startswith("repro."):
                 n["memset" in evt.key.lower()] += evt.count
+                n[2] += evt.count if "tap_probe_kernel" in evt.key else 0
+            elif evt.key == "cudaLaunchCooperativeKernel":
+                n[3] += evt.count
         return n
 
     ev = {(n, T): device_events(lambda T=T, n=n: d_runs[n][0](T, "summary"))
@@ -3356,6 +3365,15 @@ def main() -> int:
         f"{ev_added[0]:g}, memsets {ev_added[1]:g} (16 against 8 slots)")
     if ev_added[1] != 0:
         fail(f"4h main with taps: {ev_added[1]:g} memsets a slot (the probe must add none)")
+    # the probe: one kernel a slot, an ordinary launch (no cooperative one)
+    probe_a_slot = (ev["main on", 16][2] - ev["main on", 8][2]) / 8
+    coop = sum(v[3] for v in ev.values())
+    say(f"[4h telemetry] tap_probe on main with taps (profiler): {probe_a_slot:g} kernel a slot "
+        f"(16 against 8 slots), {coop} cooperative launches; "
+        f"{tpk._probe_lib().tap_probe_occupancy()} blocks an SM")
+    if probe_a_slot != 1 or coop:
+        fail(f"4h main with taps: tap_probe {probe_a_slot:g} kernels a slot, {coop} cooperative "
+             "launches (one ordinary launch a slot expected)")
     del main_on, b_res
 
     # tap_scan against its plain version on the card: on every run's probe
@@ -3587,6 +3605,45 @@ def main() -> int:
         f"{', '.join(probe_shapes)}: landings by cloud, arrivals, Qe, Qc, Qt (where L) and the "
         "retry pool, named sums and four backlog parts in one launch, slots 0 and 3")
 
+    # the counters each group and lane keeps reset themselves: at main and
+    # fleet B, two plans (the loop's probe on two sets of inputs) launched
+    # in turns on one stream, 64 slots each, captured in one CUDA graph and
+    # replayed; every slot of both bitwise the plain version
+    T_GR = 64
+    for label in (f"main F1 x M{M_MAIN} x N{N_MAIN}", f"fleet B F{F_B} x M{M_MAIN} x N{N_MAIN}"):
+        lanes_x, M_x, N_x, _ = probe_shapes[label]
+        pairs = [probe_inputs(lanes_x, M_x, N_x) for _ in range(2)]
+        kern = [probe_plan(lanes_x, x_, parts_, T_GR) for x_, parts_ in pairs]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the argument blocks and counters, made before capture
+            for (_, plan_), (x_, _) in zip(kern, pairs):
+                tpk.tap_probe_cuda(plan_, 0, x_)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        for series_, _ in kern:
+            for v_ in series_.values():
+                v_.zero_()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for t_ in range(T_GR):
+                for (_, plan_), (x_, _) in zip(kern, pairs):
+                    tpk.tap_probe_cuda(plan_, t_, x_)
+        graph.replay()
+        torch.cuda.synchronize()
+        for (series_, _), (x_, parts_) in zip(kern, pairs):
+            want_, plan_w = probe_plan(lanes_x, x_, parts_, T_GR)
+            for t_ in range(T_GR):
+                tpk.tap_probe_plain(plan_w, t_, x_)
+            bad = [n for n in series_ if not same_bits(series_[n], want_[n])]
+            if bad:
+                fail(f"tap_probe {label}: {bad} differ from the plain version over {T_GR} "
+                     "graph-replayed slots of two plans in turns")
+        del pairs, kern, graph
+    say(f"[4h telemetry] tap_probe: two plans in turns on one stream, {T_GR} slots each in one "
+        f"CUDA graph, at main and fleet B: every slot bitwise the plain version")
+
+
     probe_loops = {  # the loops' own probes: (lanes, M, N, L, faulted)
         f"main F1 x M{M_MAIN} x N{N_MAIN}": ((), M_MAIN, N_MAIN, None, False),
         f"fleet B F{F_B} x M{M_MAIN} x N{N_MAIN}": ((F_B,), M_MAIN, N_MAIN, None, False),
@@ -3597,6 +3654,9 @@ def main() -> int:
         f"fleet B faulted F{F_B} x M{M_MAIN} x N{N_MAIN}": ((F_B,), M_MAIN, N_MAIN, None, True),
     }
     probe_times = []
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()[0])
     for label, (lanes_x, M_x, N_x, L_x, faulted) in probe_loops.items():
         inputs, parts = probe_inputs(lanes_x, M_x, N_x, L_x, faulted=faulted)
         series, plan = probe_plan(lanes_x, inputs, parts)
@@ -3628,11 +3688,14 @@ def main() -> int:
                 plan, 1, inputs), reps=3, inner=1),
             "library_ms": lib[1], "library_warm_ms": lib[0], "nbytes": nbytes,
             "nops": sum(x.numel() for x in inputs.values()),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "serial_adds": plan.longest_chain(),
+            "serial_floor_ms": plan.longest_chain() * 4 / clk / 1e3})
         say(f"[4h time] tap_probe {label}: {times[1]:.5f} ms cold, {times[0]:.5f} ms warm (CUDA "
             f"graph replay, CUDA events, median) vs byte bound {probe_times[-1]['bound_ms']:.6f} ms "
-            f"({nbytes / 1e6:.3f} MB); the torch.sum calls it replaced {lib[1]:.5f} ms cold, {lib[0]:.5f} "
-            f"warm; {probe_times[-1]['call_ms']:.5f} ms per eager call; plain version "
+            f"({nbytes / 1e6:.3f} MB) and serial floor {probe_times[-1]['serial_floor_ms']:.5f} ms "
+            f"({plan.longest_chain()} dependent adds of 4 cycles at {clk:.0f} MHz); the torch.sum "
+            f"calls it replaced {lib[1]:.5f} ms cold, {lib[0]:.5f} warm; "
+            f"{probe_times[-1]['call_ms']:.5f} ms per eager call; plain version "
             f"{probe_times[-1]['plain_ms']:.3f} ms ({smi})")
     say("[4h telemetry] launches over the phase's driven runs: " + ", ".join(
         f"{k} {v}" for k, v in tap_counts.items() if v) + f"; {time.perf_counter() - t0:.1f} s")
@@ -4428,10 +4491,12 @@ def main() -> int:
         "src/repro/core/simulator.py:412", main_tap_launches["tap_probe"], pt["times"],
         pt["call_ms"], pt["plain_ms"], nbytes=pt["nbytes"], nops=pt["nops"],
         library_ms=pt["library_ms"])
-    rows[-1].update(shape=pt["shape"], library_warm_ms=pt["library_warm_ms"])
+    rows[-1].update(shape=pt["shape"], library_warm_ms=pt["library_warm_ms"],
+                    serial_adds=pt["serial_adds"], serial_floor_ms=pt["serial_floor_ms"])
     rows[-1]["other_shapes"] = [
         {"shape": x["shape"], "ms": x["times"][1], "warm_ms": x["times"][0],
          "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"], "bound_by": "bytes",
+         "serial_adds": x["serial_adds"], "serial_floor_ms": x["serial_floor_ms"],
          "library_ms": x["library_ms"], "library_warm_ms": x["library_warm_ms"]}
         for x in probe_times[1:]]
 

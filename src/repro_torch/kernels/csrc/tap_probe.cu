@@ -23,41 +23,55 @@
 //
 // Bound: memory. Each input is read once: at the main path (M4096 x N256)
 // the landings and Qc are 4.19 MB each, 8.42 MB a slot, 2.51 us at 3.35
-// TB/s; fleet B (16 lanes) 134.7 MB, 40.2 us.
+// TB/s; fleet B (16 lanes) 134.7 MB, 40.2 us. Beside it the serial floor:
+// the plan's longest chain of dependent adds (1,095 at main: a 32 x 32
+// window, then 32 x 8 rows in 4 lanes, 4 and the backlog's add).
 //
-// Design: a job a sum, up to six; each pass of every job is spread over
-// the whole grid, the passes of a slot separated by a grid barrier, so no
-// pass runs on one SM while the others wait. A window of one column (a
-// column sum's, a 1-D sum's) is a thread's: its <= 32 values loaded at once,
-// neighbouring threads on neighbouring columns. A wider window (up to 32 x
-// 32, a chain of 1,024 dependent adds) is a warp's: the warp stages it into
-// shared memory with cp.async, then one lane adds it; where windows
-// outnumber the grid's warps, a warp stages two and two lanes add them side
-// by side. The grid is launched cooperatively (every block resident); the
-// barrier is a counter and a generation word in a buffer the caller
-// allocates once, the last block to arrive resetting the counter, so
-// nothing is cleared between launches: no memset and no allocation a slot.
+// Design: an ordinary launch, a block a task of the first pass, the tasks
+// of the wide windows (those of several columns) first, so that their long
+// chains start before the rest. No grid barrier: a sum's first-pass windows
+// fall in groups (a lane's, or 32 of a lane's columns for a sum by column),
+// and every pass above the first is taken by the block that completes a
+// group's first pass (a counter a group, which that block resets), the
+// backlog's add by the block whose part finishes last (a counter a lane). So
+// nothing is cleared between launches (no memset, no allocation a slot) and
+// no block waits for another; a count is released and acquired by one
+// thread's gpu-scope fence beside its atomic, after the block's barrier.
+// - A window of one column (a column sum's, a 1-D sum's) is a thread's: its
+//   <= 32 values loaded at once, neighbouring threads on neighbouring
+//   windows, 256 a block.
+// - A wide window is one lane's chain of up to 1,024 dependent adds. P
+//   lanes of a warp add P windows side by side, 32 x 32 windows' rows
+//   streamed through the warp's ring in shared memory by cp.async, D rows
+//   ahead of the adds, a batch of 4 rows a wait (P x D <= 64 rows; P from 1
+//   to 8 with the number of windows, kernels/taps.py `probe_schedule`);
+//   other wide windows are staged whole, a warp one at a time.
+// - The passes above the first (at the main path 128 + 32 outputs a group
+//   of the landings, a handful for the others) run in the block that
+//   completes the group, read through L2.
+// Two blocks an SM: under three, the register limit made the compiler roll
+// a one-column window's 32 loads into a loop of 4 a round trip, and spill.
 // Each output is one thread's, in the plan's order, so the result is
-// deterministic. Pass outputs go to scratch buffers allocated once for the
-// run and are read back through L2, past any stale L1 line.
+// deterministic.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxJobs = 6;
 constexpr int kMaxLevels = 5;
 constexpr int kMaxParts = 4;
 constexpr int kWindow = 32;  // XLA:CPU's reduce window: a window holds <= 32 x 32 values
-constexpr int kWarps = kThreads / 32;
-// windows a warp takes at once: it stages them all, then as many lanes add
-// one each, side by side (a lone lane's chain would hold the warp's issue
-// slots for 1,024 adds a window); a tile is four words longer than a
-// window, so that the lanes' reads fall in different banks and every tile
-// starts 16-byte aligned
-constexpr int kPerWarp = 2;
-constexpr int kTileFloats = kWindow * kWindow + 4;
-constexpr int kSmemBytes = kWarps * kPerWarp * kTileFloats * static_cast<int>(sizeof(float));
+// a warp's ring: 64 rows of 32 values and 4 more, so that the adding lanes'
+// 16-byte reads of their rows fall in different banks; two blocks an SM
+constexpr int kRingRows = 64;
+constexpr int kRowFloats = kWindow + 4;
+constexpr int kSmemBytes = kWarps * kRingRows * kRowFloats * static_cast<int>(sizeof(float));
+constexpr int kBlocksPerSM = 2;
+// a streamed window's rows are copied and waited for a batch at a time,
+// D rows ahead of its adds: 16 with up to 4 windows a warp, 8 with 8
+constexpr int kBatch = 4;
 
 // one pass of a sum (numerics.SumLevel): the [rows, cols] slab of a lane in
 // windows w0 x w1 (lo0, lo1 zeros before), o0 x o1 outputs
@@ -72,48 +86,56 @@ struct Job {
   float* scratch[kMaxLevels];   // [lanes, o0, o1] of every pass but the last
   int nlev;
   Level lev[kMaxLevels];
+  int task0, ntask, per_task;   // the first pass: blocks task0.., per_task windows each
+  int P, D;                     // a wide first pass: lanes adding a warp, ring rows a window
+  int cw, groups, count0;       // a group's columns (0: all), groups a lane, its first count
 };
 
 struct Probe {
   Job job[kMaxJobs];
-  int njobs, lanes, nparts, phases, t;
+  int njobs, lanes, nparts, t, count_backlog;
   int part[kMaxParts];          // the job of each backlog part, left to right
   float* backlog;               // lane 0, slot 0 of the backlog series
   long long backlog_lane, backlog_t;
-  unsigned* sync;               // the grid barrier: arrivals, generation
-};
+  unsigned* count;              // each job's [lanes, groups] first-pass tasks done, then [lanes]
+};                              // backlog parts done
 
-__device__ __forceinline__ float load(const float* p, bool l2) { return l2 ? __ldcg(p) : *p; }
+// cp.async of 16 bytes into shared memory through L2 only; `in` false: zeros
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 16 : 0));
+}
 
-// cp.async into shared memory: 4 bytes through L1 (a first pass's input,
-// written before this launch), or 16 bytes through L2 only (.cg: also a
-// later pass's input, which other blocks wrote in this launch)
-__device__ __forceinline__ void copy4_ca(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
+// A gpu-scope acquire-release fence, by the one thread that counts: after
+// the block's barrier and before its atomic it releases the block's writes
+// to the count; after the atomic that completes a count it acquires what the
+// other blocks released to it (a grid barrier's arrival, per count; acquire
+// and release suffice, where __threadfence is sequentially consistent).
+__device__ __forceinline__ void fence_gpu() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
+
+__device__ __forceinline__ void commit_row() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void copy16_cg(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void copies_done() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wait_rows() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A window of one column (w1 = 1: a column sum's, a 1-D sum's), a thread:
-// its <= 32 values loaded at once into registers, then added in order from
-// +0 (no such window is split into lanes). Neighbouring threads take
-// neighbouring columns, so each row's loads are coalesced.
-__device__ __forceinline__ float column_window(const float* x, const Level v, int i, int j, bool l2) {
+// its <= 32 values loaded at once into registers through L2 (a later
+// pass's input was written in this launch, some of it by other blocks),
+// then added in order from +0 (no such window is split into lanes).
+__device__ __forceinline__ float column_window(const float* x, const Level& v, int i, int j) {
   const int r0 = i * v.w0 - v.lo0;
+  const long long stride = v.cols;
+  const float* q = x + r0 * stride + j;  // row r0 + r at q + r * stride (one address live),
+                                         // read only in range
   float t[kWindow];
 #pragma unroll
   for (int r = 0; r < kWindow; ++r) {
-    const int rr = r0 + r;
-    t[r] = (r < v.w0 && rr >= 0 && rr < v.rows)
-               ? load(x + static_cast<long long>(rr) * v.cols + j, l2) : 0.0f;
+    t[r] = (r < v.w0 && r0 + r >= 0 && r0 + r < v.rows) ? __ldcg(q) : 0.0f;
+    q += stride;
   }
   float acc = 0.0f;
 #pragma unroll
@@ -123,301 +145,385 @@ __device__ __forceinline__ float column_window(const float* x, const Level v, in
   return acc;
 }
 
-// tile[e] for e in [begin, end) added to acc in order, read 32 at a time
-// ahead of the adds (16-byte reads where aligned) so that only the adds are
-// serial: a chain holds its warp's issue slots, so fewer reads, more adds
-__device__ __forceinline__ float in_order(const float* tile, int begin, int end, float acc) {
-  int e = begin;
-  if (e % 4 == 0) {  // a tile starts 16-byte aligned
-    for (; e + 32 <= end; e += 32) {
-      float4 v[8];
+// N values of a row (a multiple of 4) in order, read 16 bytes at a time
+// ahead of the adds, so that only the adds are serial
+template <int N>
+__device__ __forceinline__ float add_quads(const float* row, float acc) {
+  float4 q[N / 4];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = reinterpret_cast<const float4*>(tile + e)[k];
+  for (int k = 0; k < N / 4; ++k) q[k] = reinterpret_cast<const float4*>(row)[k];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        acc = __fadd_rn(acc, v[k].x);
-        acc = __fadd_rn(acc, v[k].y);
-        acc = __fadd_rn(acc, v[k].z);
-        acc = __fadd_rn(acc, v[k].w);
-      }
-    }
+  for (int k = 0; k < N / 4; ++k) {
+    acc = __fadd_rn(acc, q[k].x);
+    acc = __fadd_rn(acc, q[k].y);
+    acc = __fadd_rn(acc, q[k].z);
+    acc = __fadd_rn(acc, q[k].w);
   }
-  for (; e + 32 <= end; e += 32) {
-    float v[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) v[k] = tile[e + k];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) acc = __fadd_rn(acc, v[k]);
-  }
-  for (; e < end; ++e) acc = __fadd_rn(acc, tile[e]);
   return acc;
 }
 
-// the first `first` rows of a staged tile of whole rows in L running sums
-template <int L>
-__device__ __forceinline__ float in_lanes(const float* t, int w1, int first) {
-  float lane[L];
-  lane[0] = 0.0f;
+// a row's first n values in order: N of them (N > 0), or any n (N = 0)
+template <int N>
+__device__ __forceinline__ float add_row(const float* row, int n, float acc) {
+  if (N > 0) return add_quads<(N > 0 ? N : 4)>(row, acc);
+#pragma unroll 4
+  for (int e = 0; e < n; ++e) acc = __fadd_rn(acc, row[e]);
+  return acc;
+}
+
+// rows [r0, r1) of a staged window (a row every kRowFloats) into acc in order
+template <int N>
+__device__ __forceinline__ float rows_in_order(const float* rows, int r0, int r1, int n,
+                                               float acc) {
+#pragma unroll 1
+  for (int r = r0; r < r1; ++r) acc = add_row<N>(rows + r * kRowFloats, n, acc);
+  return acc;
+}
+
+// rows [0, first) in L running sums (row r in lane r % L; lane 0 from +0,
+// the others from -0), then the lanes added pairwise by halving
+template <int L, int N>
+__device__ __forceinline__ float rows_in_lanes(const float* rows, int first, int n) {
+  float a[L];
+  a[0] = 0.0f;
 #pragma unroll
-  for (int l = 1; l < L; ++l) lane[l] = -0.0f;
-  for (int r = 0; r < first; r += L) {  // a split row loop is one of <= 8 values a row
-    float v[L][8];
+  for (int l = 1; l < L; ++l) a[l] = -0.0f;
+#pragma unroll 1
+  for (int r = 0; r < first; r += L) {
 #pragma unroll
-    for (int l = 0; l < L; ++l) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) v[l][c] = c < w1 ? t[(r + l) * w1 + c] : 0.0f;
-    }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        if (c < w1) lane[l] = __fadd_rn(lane[l], v[l][c]);
-      }
-    }
+    for (int l = 0; l < L; ++l) a[l] = add_row<N>(rows + (r + l) * kRowFloats, n, a[l]);
   }
 #pragma unroll
   for (int h = L / 2; h >= 1; h /= 2) {
 #pragma unroll
-    for (int l = 0; l < h; ++l) lane[l] = __fadd_rn(lane[l], lane[l + h]);
+    for (int l = 0; l < h; ++l) a[l] = __fadd_rn(a[l], a[l + h]);
   }
-  return lane[0];
+  return a[0];
 }
 
-// (The window functions take their pass by value: a pass is read from the
-// kernel's parameter block with a job index known only at run time, and a
-// copy in registers keeps those loads out of the inner loops.)
-
-// A window of several columns is staged by a whole warp into a tile in
-// shared memory (row-major, zeros in the pad; a 32-wide window's rows read
-// coalesced), then added by one lane in the plan's order. A padded zero
-// never changes the sum's bits: every running sum a pad can reach starts at
-// +0 and so never holds -0. Staging goes by cp.async (every load in flight
-// at once, none through registers): rows of whole 16-byte quads through L2,
-// else value by value, a later pass's (which other blocks wrote in this
-// launch) through L2 into registers.
-__device__ __forceinline__ void stage_window(const float* x, const Level v, int i, int j, bool l2,
-                                             float* tile, int lane_id) {
-  const int rows = v.rows, cols = v.cols, w1 = v.w1;
-  const int r0 = i * v.w0 - v.lo0, c0 = j * w1 - v.lo1;
-  const int n = v.w0 * w1;
-  if (c0 >= 0 && c0 + w1 <= cols && w1 % 4 == 0 &&
-      ((reinterpret_cast<unsigned long long>(x) | 4ull * cols | 4ull * c0) & 15) == 0) {
-    // whole aligned rows: 16-byte copies through L2, four values each
-    const int quads = w1 / 4;
-#pragma unroll 1
-    for (int q = lane_id; q < n / 4; q += 32) {
-      const int r = q / quads, c = (q - r * quads) * 4;
-      const int rr = r0 + r;
-      float* dst = tile + r * w1 + c;
-      if (rr >= 0 && rr < rows) {
-        copy16_cg(dst, x + static_cast<long long>(rr) * cols + c0 + c);
-      } else {
-        dst[0] = dst[1] = dst[2] = dst[3] = 0.0f;
-      }
-    }
-    return;
-  }
-  // value by value: rolled (the copies are asynchronous, and a short body
-  // stays in the instruction cache); a later pass through L2, eight loads
-  // in flight
-#pragma unroll 8
-  for (int e = lane_id; e < n; e += 32) {
-    const int r = e / w1, c = e - r * w1;
-    const int rr = r0 + r, cc = c0 + c;
-    const bool in = rr >= 0 && rr < rows && cc >= 0 && cc < cols;
-    const float* src = x + static_cast<long long>(rr) * cols + cc;
-    if (!in) {
-      tile[e] = 0.0f;
-    } else if (l2) {
-      tile[e] = __ldcg(src);
-    } else {
-      copy4_ca(tile + e, src);
-    }
-  }
-}
-
-// a staged window's sum in the plan's order
-__device__ __forceinline__ float window_chain(const float* tile, const Level v) {
-  const int n = v.w0 * v.w1;
-  float acc = 0.0f;
-  if (v.last_col) {
-    for (int r = 0; r < v.w0; ++r) acc = in_order(tile, r * v.w1, r * v.w1 + v.w1 - 1, acc);
-    for (int r = 0; r < v.w0; ++r) acc = __fadd_rn(acc, tile[r * v.w1 + v.w1 - 1]);
-    return acc;
-  }
+template <int N>
+__device__ __forceinline__ float lanes_then_order(const float* rows, const Level& v, int n) {
   int first = 0;
-  if (v.lanes > 1) {  // whole rows, every one of the first nvec rows in range
+  float acc = 0.0f;
+  if (v.lanes > 1) {  // whole rows of 2..8 values, every one of the first nvec rows in range
     first = v.nvec / v.lanes * v.lanes;
-    switch (v.lanes) {
-      case 2: acc = in_lanes<2>(tile, v.w1, first); break;
-      case 4: acc = in_lanes<4>(tile, v.w1, first); break;
-      default: acc = in_lanes<8>(tile, v.w1, first); break;
-    }
+    acc = v.lanes == 2 ? rows_in_lanes<2, N>(rows, first, n)
+        : v.lanes == 4 ? rows_in_lanes<4, N>(rows, first, n)
+                       : rows_in_lanes<8, N>(rows, first, n);
   }
-  return in_order(tile, first * v.w1, n, acc);
+  return rows_in_order<N>(rows, first, v.w0, n, acc);
 }
 
-// every block arrives, the last one resets the count and opens the next
-// generation; the fences order each thread's writes before the arrival
-__device__ void grid_sync(unsigned* sync) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = sync + 1;
-    const unsigned g = *gen;
-    if (atomicAdd(sync, 1u) == gridDim.x - 1) {
-      atomicExch(sync, 0u);
-      __threadfence();
-      atomicAdd(sync + 1, 1u);
-    } else {
-      // a block that never arrives (none should: the launch is cooperative)
-      // ends the kernel with an error after a few seconds instead of hanging it
-      unsigned ns = 32;  // backing off, so that the polls leave L2 to the working blocks
-      for (long long spins = 0; *gen == g; ++spins) {
-        if (spins > (1ll << 24)) __trap();
-        __nanosleep(ns);
-        ns = ns < 256 ? 2 * ns : 256;
-      }
-    }
-    __threadfence();
+// A staged wide window's sum in the plan's order (rows every kRowFloats,
+// zeros in the pad), the width's case chosen once a window: rows before
+// `first` in lanes, the rest in order, each row's values in order, but
+// without each row's last value where the window ends in a padded column
+// (those are added by `chain_end`). A padded zero never changes the bits:
+// every running sum a pad can reach starts at +0 and so never holds -0.
+__device__ __noinline__ float window_sum(const float* rows, const Level v) {
+  const int n = v.last_col ? v.w1 - 1 : v.w1;
+  switch (n) {
+    case 32: return lanes_then_order<32>(rows, v, n);
+    case 16: return lanes_then_order<16>(rows, v, n);
+    case 8: return lanes_then_order<8>(rows, v, n);
+    case 4: return lanes_then_order<4>(rows, v, n);
+    default: return lanes_then_order<0>(rows, v, n);
   }
-  __syncthreads();
 }
 
-// output idx of pass `phase` among the one-column windows (`column`) or the
-// wider ones, counted job after job: its job, lane, window and input slab
-struct Item {
-  int k, o, i, j;
-  long long lane;
-  const float* x;
+// the window's sum: where it ends in a padded column, each row's last value
+// added after all the others, read again through L2 (x: its lane's slab)
+__device__ __forceinline__ float chain_end(float acc, const Level& v, const float* x, int row0,
+                                           int col0) {
+  if (v.last_col) {
+    const int cc = col0 + v.w1 - 1;
+    for (int r = 0; r < v.w0; ++r) {
+      const int rr = row0 + r;
+      if (rr >= 0 && rr < v.rows && cc < v.cols)
+        acc = __fadd_rn(acc, __ldcg(x + static_cast<long long>(rr) * v.cols + cc));
+    }
+  }
+  return acc;
+}
+
+// window F of a pass, group-major: a group is a lane's windows (cw = 0) or,
+// for a sum by column, those of cw of its columns (o1 / cw groups a lane,
+// the last one's columns past o1 void), its windows row-major; group F / (o0
+// w) (w = cw, or o1), or the list's entry of that index. Its lane, its
+// output o = i o1 + j, and its first row and column (pads included). A
+// pass has fewer than 2**31 windows: 32-bit divisions (a 64-bit one is a
+// long software routine on the card).
+struct Win {
+  unsigned group, lane, o;
+  int i, j, row0, col0;
+  bool real;
 };
 
-__device__ Item find(const Probe& p, int phase, long long idx, bool column) {
-  long long rest = idx;
+__device__ __forceinline__ Win window_at(const Job& jb, const Level& v, unsigned F,
+                                         const int* list) {
+  const unsigned w = jb.cw ? static_cast<unsigned>(jb.cw) : static_cast<unsigned>(v.o1);
+  const unsigned per = static_cast<unsigned>(v.o0) * w;
+  const unsigned c = F / per;
+  Win x;
+  x.group = list ? static_cast<unsigned>(list[c]) : c;
+  x.lane = x.group / static_cast<unsigned>(jb.groups);
+  const unsigned f = F - c * per;
+  x.i = static_cast<int>(f / w);
+  x.j = static_cast<int>((x.group - x.lane * jb.groups) * w + (f - x.i * w));
+  x.real = x.j < v.o1;
+  x.o = static_cast<unsigned>(x.i * v.o1 + x.j);
+  x.row0 = x.i * v.w0 - v.lo0;
+  x.col0 = x.j * v.w1 - v.lo1;
+  return x;
+}
+
+// a pass's output: the last pass's (o0 = 1: o is the column) to the series,
+// the others to scratch
+__device__ __forceinline__ void put(const Job& jb, int lev, int t, const Win& w, float s) {
+  const Level& v = jb.lev[lev];
+  if (lev == jb.nlev - 1) {
+    jb.out[w.lane * jb.out_lane + static_cast<long long>(t) * jb.out_t + w.o] = s;
+  } else {
+    jb.scratch[lev][w.lane * static_cast<long long>(v.o0) * v.o1 + w.o] = s;
+  }
+}
+
+// The first pass's wide windows F0 .. F0 + count - 1 (count <= P) of a
+// warp, each 32 x 32 values of whole rows added in order (kernels/taps.py
+// `streams`): lane l < count adds window F0 + l; the warp's 32 / P lanes
+// of each window copy its rows into the ring (row r in slot r % D), D rows
+// ahead of the adds (P x D <= kRingRows), a batch of kBatch rows a commit
+// group, each lane one or two quads of a row (rows out of range as zeros;
+// the rows 16-byte aligned).
+template <int D>
+__device__ void stream_windows(const Job& jb, int t, unsigned F0, int count, int P, float* ring,
+                               int lid) {
+  const Level v = jb.lev[0];
+  const long long slab = static_cast<long long>(v.rows) * v.cols;
+  const int per_win = 32 / P;  // lanes copying a window: quad part, and part + 4 at P = 8
+  const int cw = lid / per_win, part = lid - cw * per_win;
+  const bool copies = cw < count && part < kWindow / 4;
+  const Win cwin = window_at(jb, v, F0 + (copies ? cw : 0), nullptr);
+  const float* crow = jb.src + cwin.lane * slab + cwin.col0 + 4 * part;  // + rr * cols: row rr's
+  float* cdst = ring + cw * kRowFloats + 4 * part;
+  auto copy_batch = [&](int r0) {  // rows r0 .. r0 + kBatch - 1, one commit group
+    if (copies && r0 < kWindow) {
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int rr = cwin.row0 + r0 + q;
+        const bool in = rr >= 0 && rr < v.rows;
+        const float* src = in ? crow + static_cast<long long>(rr) * v.cols : jb.src;
+        float* dst = cdst + ((r0 + q) % D) * P * kRowFloats;
+        copy16(dst, src, in);
+        if (per_win == 4) copy16(dst + 16, in ? src + 16 : jb.src, in);
+      }
+    }
+    commit_row();
+  };
+  // ITEM 2 first pass: a warp's wait for its first rows
+#pragma unroll 1
+  for (int r = 0; r < D; r += kBatch) copy_batch(r);
+  const float* mine = ring + lid * kRowFloats;  // this lane's row in slot 0
+  float acc = 0.0f;
+  wait_rows<D / kBatch - 1>();  // rows 0 .. kBatch - 1
+  __syncwarp();
+  // ITEM_END 2
+#pragma unroll 1
+  for (int r0 = 0; r0 < kWindow; r0 += kBatch) {
+    if (lid < count) {
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q)
+        acc = add_quads<kWindow>(mine + ((r0 + q) % D) * P * kRowFloats, acc);
+    }
+    __syncwarp();  // the batch's slots are free for rows r0 + D ..
+    copy_batch(r0 + D);
+    wait_rows<D / kBatch - 1>();  // rows r0 + kBatch .. r0 + 2 kBatch - 1
+    __syncwarp();
+  }
+  wait_rows<0>();
+  if (lid < count) put(jb, 0, t, window_at(jb, v, F0 + lid, nullptr), acc);
+}
+
+// A wide window of pass `lev`, a warp: staged whole through L2 (a later
+// pass's input was written in this launch, some of it by other blocks),
+// every lane's loads in flight at once, zeros in the pad, then added by lane
+// 0 in the plan's order. The first pass's windows that do not stream (other
+// widths, lanes, a padded column, an input not 16-byte aligned) come here too.
+__device__ void staged_window(const Job& jb, int lev, int t, unsigned F, const int* list,
+                              float* ring, int lid) {
+  const Level v = jb.lev[lev];
+  const Win w = window_at(jb, v, F, list);
+  const float* x = (lev ? jb.scratch[lev - 1] : jb.src) +
+                   w.lane * static_cast<long long>(v.rows) * v.cols;
+  // step rows a pass, a lane a value: this lane's row r1 (then r1 + step, ..)
+  const int step = kWindow / v.w1, r1 = lid / v.w1, c = lid - r1 * v.w1;
+  const int cc = w.col0 + c;
+  if (r1 < step) {
+    const bool col_in = cc >= 0 && cc < v.cols;
+#pragma unroll 8
+    for (int r = r1; r < v.w0; r += step) {
+      const int rr = w.row0 + r;
+      const bool in = col_in && rr >= 0 && rr < v.rows;
+      ring[r * kRowFloats + c] = in ? __ldcg(x + static_cast<long long>(rr) * v.cols + cc) : 0.0f;
+    }
+  }
+  __syncwarp();
+  if (lid == 0) {
+    // ITEM 5 a staged wide window's chain
+    put(jb, lev, t, w, chain_end(window_sum(ring, v), v, x, w.row0, w.col0));
+    // ITEM_END 5
+  }
+  __syncwarp();  // the ring is free for the warp's next window
+}
+
+// Passes 1.. of job k for the `nl` groups in `list`, whose first pass is
+// complete: a pass's outputs a thread (one column) or a warp (wide) each,
+// the passes apart by the block's barrier.
+__device__ void upper_passes(const Probe& p, const Job& jb, const int* list, int nl, float* ring,
+                             int lid, int wid) {
+  for (int lev = 1; lev < jb.nlev; ++lev) {
+    // ITEM 3 upper passes: a thread's pass
+    const Level v = jb.lev[lev];
+    const unsigned n = static_cast<unsigned>(nl) * v.o0 * (jb.cw ? jb.cw : v.o1);
+    if (v.w1 == 1) {
+      const long long slab = static_cast<long long>(v.rows) * v.cols;
+      for (unsigned F = threadIdx.x; F < n; F += kThreads) {
+        const Win w = window_at(jb, v, F, list);
+        if (w.real)
+          put(jb, lev, p.t, w, column_window(jb.scratch[lev - 1] + w.lane * slab, v, w.i, w.j));
+      }
+    } else {
+      for (unsigned F = wid; F < n; F += kWarps) staged_window(jb, lev, p.t, F, list, ring, lid);
+    }
+    // ITEM_END 3
+    __syncthreads();  // the pass's outputs are the next pass's inputs, or the backlog's
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) tap_probe_kernel(
+    const __grid_constant__ Probe p) {
+  extern __shared__ __align__(16) float rings[];  // kWarps rings of kRingRows rows
+  __shared__ int list[kThreads];                  // the groups this block completes
+  __shared__ int nlist;
+  // STAMP 0 start
   int k = 0;
-  for (; k < p.njobs; ++k) {
-    if (phase >= p.job[k].nlev || (p.job[k].lev[phase].w1 == 1) != column) continue;
-    const Level& v = p.job[k].lev[phase];
-    const long long n = static_cast<long long>(p.lanes) * v.o0 * v.o1;
-    if (rest < n) break;
-    rest -= n;
+  for (int q = 0; q < p.njobs; ++q) {
+    if (static_cast<int>(blockIdx.x) >= p.job[q].task0 &&
+        static_cast<int>(blockIdx.x) < p.job[q].task0 + p.job[q].ntask) k = q;
   }
   const Job& jb = p.job[k];
-  const Level& v = jb.lev[phase];
-  // a pass has fewer than 2**31 outputs: 32-bit divisions (a 64-bit one is a
-  // long software routine on the card)
-  const unsigned per_lane = static_cast<unsigned>(v.o0) * v.o1;
-  const unsigned r32 = static_cast<unsigned>(rest), o1 = static_cast<unsigned>(v.o1);
-  Item it;
-  it.k = k;
-  it.lane = r32 / per_lane;
-  it.o = static_cast<int>(r32 - static_cast<unsigned>(it.lane) * per_lane);
-  it.i = static_cast<int>(static_cast<unsigned>(it.o) / o1);
-  it.j = it.o - it.i * v.o1;
-  it.x = (phase == 0 ? jb.src : jb.scratch[phase - 1]) +
-         it.lane * static_cast<long long>(v.rows) * v.cols;
-  return it;
-}
-
-// a pass's output: the last pass's (o0 = 1) to the series, the others to scratch
-__device__ void put(const Probe& p, int phase, const Item& it, float s) {
-  const Job& jb = p.job[it.k];
-  const Level& v = jb.lev[phase];
-  if (phase == jb.nlev - 1) {
-    jb.out[it.lane * jb.out_lane + p.t * jb.out_t + it.j] = s;
-  } else {
-    jb.scratch[phase][it.lane * static_cast<long long>(v.o0) * v.o1 + it.o] = s;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) tap_probe_kernel(const __grid_constant__ Probe p) {
-  extern __shared__ float tiles[];  // kWarps x kPerWarp tiles of kTileFloats
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long start = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  for (int phase = 0; phase < p.phases; ++phase) {
-    if (phase > 0) grid_sync(p.sync);
-    if (phase == p.phases - 1 && p.nparts > 0) {  // the backlog: the parts' totals left to right
-      for (long long lane = start; lane < p.lanes; lane += stride) {
-        float acc = 0.0f;
-        for (int k = 0; k < p.nparts; ++k) {
-          const Job& jb = p.job[p.part[k]];
-          const float v = __ldcg(jb.out + lane * jb.out_lane + p.t * jb.out_t);
-          acc = k == 0 ? v : __fadd_rn(acc, v);
-        }
-        p.backlog[lane * p.backlog_lane + p.t * p.backlog_t] = acc;
-      }
-      continue;
+  const Level v0 = jb.lev[0];
+  const unsigned per = static_cast<unsigned>(v0.o0) * (jb.cw ? jb.cw : v0.o1);  // a group's
+  const unsigned F0 = static_cast<unsigned>(blockIdx.x - jb.task0) * jb.per_task;
+  const int n = static_cast<int>(
+      min(static_cast<unsigned>(jb.per_task), per * p.lanes * jb.groups - F0));
+  const int lid = threadIdx.x % 32, wid = threadIdx.x / 32;
+  float* ring = rings + wid * kRingRows * kRowFloats;
+  if (v0.w1 == 1) {  // a thread a window
+    if (static_cast<int>(threadIdx.x) < n) {
+      // ITEM 0 first pass: a one-column window
+      const Win w = window_at(jb, v0, F0 + threadIdx.x, nullptr);
+      const long long slab = static_cast<long long>(v0.rows) * v0.cols;
+      if (w.real) put(jb, 0, p.t, w, column_window(jb.src + w.lane * slab, v0, w.i, w.j));
+      // ITEM_END 0
     }
-    // pass `phase` of every job that has one: a thread a one-column window,
-    // a lane of a warp a wider one
-    long long threads = 0, warps = 0;
-    for (int k = 0; k < p.njobs; ++k) {
-      if (phase < p.job[k].nlev) {
-        const Level& v = p.job[k].lev[phase];
-        const long long n = static_cast<long long>(p.lanes) * v.o0 * v.o1;
-        (v.w1 == 1 ? threads : warps) += n;
+  } else {  // a warp P windows
+    const int mine = min(jb.P, n - wid * jb.P);
+    if (mine > 0) {
+      // ITEM 1 first pass: a warp's wide windows
+      const unsigned Fw = F0 + wid * jb.P;
+      const bool aligned =
+          ((reinterpret_cast<unsigned long long>(jb.src) | 4ull * v0.cols) & 15) == 0;
+      if (jb.D == 16 && aligned) {  // streamed D rows ahead (kernels/taps.py `probe_schedule`)
+        stream_windows<16>(jb, p.t, Fw, mine, jb.P, ring, lid);
+      } else if (jb.D == 8 && aligned) {
+        stream_windows<8>(jb, p.t, Fw, mine, jb.P, ring, lid);
+      } else {
+        for (int w = 0; w < mine; ++w) staged_window(jb, 0, p.t, Fw + w, nullptr, ring, lid);
       }
-    }
-    // the one-column windows, a thread each
-    for (long long idx = start; idx < threads; idx += stride) {
-      const Item it = find(p, phase, idx, true);
-      const Level& v = p.job[it.k].lev[phase];
-      put(p, phase, it, column_window(it.x, v, it.i, it.j, phase > 0));
-    }
-    // the wider ones: a window a warp while there are warps enough, else
-    // up to kPerWarp a warp
-    const int lane_id = threadIdx.x % 32;
-    float* tile = tiles + (threadIdx.x / 32) * kPerWarp * kTileFloats;
-    const long long all_warps = stride / 32;
-    const int per = static_cast<int>(
-        min(static_cast<long long>(kPerWarp), max(1ll, (warps + all_warps - 1) / all_warps)));
-    const long long groups = (warps + per - 1) / per;
-    for (long long grp = start / 32; grp < groups; grp += all_warps) {
-      for (int w = 0; w < per; ++w) {  // the whole warp stages each window
-        const long long idx = grp * per + w;
-        if (idx < warps) {
-          const Item it = find(p, phase, idx, false);
-          stage_window(it.x, p.job[it.k].lev[phase], it.i, it.j, phase > 0,
-                       tile + w * kTileFloats, lane_id);
-        }
-      }
-      copies_done();
-      __syncwarp();
-      const long long mine = grp * per + lane_id;  // lanes 0..per-1 add, side by side
-      if (lane_id < per && mine < warps) {
-        const Item it = find(p, phase, mine, false);
-        put(p, phase, it, window_chain(tile + lane_id * kTileFloats, p.job[it.k].lev[phase]));
-      }
-      __syncwarp();  // the tiles are free for the warp's next windows
+      // ITEM_END 1
     }
   }
+  __syncthreads();  // this task's outputs before its counts
+  // STAMP 1 first pass done
+  bool is_part = false;
+  for (int q = 0; q < p.nparts; ++q) is_part |= p.part[q] == k;
+  // the groups this task touches: a group whose first pass is all here is
+  // complete; another counts its tasks, and the last to arrive takes it
+  const unsigned ga = F0 / per, gb = (F0 + n - 1) / per;
+  for (unsigned base = ga; base <= gb; base += kThreads) {
+    if (threadIdx.x == 0) nlist = 0;
+    __syncthreads();
+    const unsigned g = base + threadIdx.x;
+    if (g <= gb) {
+      const unsigned tf = g * per / jb.per_task, tl = ((g + 1) * per - 1) / jb.per_task;
+      bool last = tf == tl;
+      if (!last) {
+        unsigned* c = p.count + jb.count0 + g;
+        fence_gpu();
+        last = atomicAdd(c, 1u) == tl - tf;
+        if (last) {
+          atomicExch(c, 0u);  // ready for the next launch
+          fence_gpu();
+        }
+      }
+      if (last) list[atomicAdd(&nlist, 1)] = static_cast<int>(g);
+    }
+    __syncthreads();
+    const int nl = nlist;
+    if (nl > 0) {
+      // STAMP 2 upper passes begin
+      upper_passes(p, jb, list, nl, ring, lid, wid);
+      // STAMP 3 upper passes done
+      if (is_part) {  // the backlog: the parts' totals left to right, by the last part
+        for (int c = threadIdx.x; c < nl; c += kThreads) {
+          const unsigned lane_c = static_cast<unsigned>(list[c]);  // a part's group is a lane
+          unsigned* bc = p.count + p.count_backlog + lane_c;
+          fence_gpu();
+          if (atomicAdd(bc, 1u) == static_cast<unsigned>(p.nparts - 1)) {
+            atomicExch(bc, 0u);
+            fence_gpu();
+            float acc = 0.0f;
+            for (int q = 0; q < p.nparts; ++q) {
+              const Job& pj = p.job[p.part[q]];
+              const float x = __ldcg(pj.out + lane_c * pj.out_lane +
+                                     static_cast<long long>(p.t) * pj.out_t);
+              acc = q == 0 ? x : __fadd_rn(acc, x);
+            }
+            p.backlog[lane_c * p.backlog_lane + static_cast<long long>(p.t) * p.backlog_t] = acc;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the list is free
+  }
+  // STAMP 15 end
 }
 
 }  // namespace
 
 extern "C" int tap_probe_size() { return static_cast<int>(sizeof(Probe)); }
 
-extern "C" int tap_probe_launch(const void* probe, int items, void* stream) {
-  static int capacity = 0;  // blocks resident at once: a cooperative launch's most
-  if (capacity == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(tap_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBytes);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tap_probe_kernel, kThreads, kSmemBytes);
-    const cudaError_t err = cudaGetLastError();
+// blocks an SM can hold at once (the occupancy kSmemBytes and the
+// registers leave), or a negative CUDA error
+extern "C" int tap_probe_occupancy() {
+  int per_sm = 0;
+  cudaFuncSetAttribute(tap_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tap_probe_kernel, kThreads, kSmemBytes);
+  const cudaError_t err = cudaGetLastError();
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+}
+
+extern "C" int tap_probe_launch(const void* probe, int blocks, void* stream) {
+  static bool ready = false;  // the dynamic shared memory above 48 KB, allowed once
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tap_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    capacity = sms * per_sm;
+    ready = true;
   }
-  int blocks = (items + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > capacity ? capacity : blocks);
-  Probe p = *static_cast<const Probe*>(probe);
-  void* args[] = {&p};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(tap_probe_kernel), dim3(blocks), dim3(kThreads), args,
-      kSmemBytes, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const Probe p = *static_cast<const Probe*>(probe);
+  tap_probe_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -201,6 +201,12 @@ def tap_scan_cuda(cfg, probe: TelemetryProbe, out: TapOut, state: torch.Tensor, 
 # ---------------------------------------------------------------- the probe
 
 PROBE_JOBS, PROBE_LEVELS, PROBE_PARTS = 6, 5, 4  # the kernel's argument block's room
+# the kernel's geometry (csrc/tap_probe.cu): threads a block, a warp's ring
+# rows, the most windows a warp streams side by side, and the warps the wide
+# first passes are spread over, about
+PROBE_THREADS, PROBE_RING_ROWS, PROBE_MAX_P, PROBE_CHAIN_WARPS = 256, 64, 8, 2048
+PROBE_WARPS = PROBE_THREADS // 32
+PROBE_GROUP_COLS = 32  # a sum by column's columns a group
 
 
 class _Level(ctypes.Structure):
@@ -212,15 +218,77 @@ class _Job(ctypes.Structure):
     _fields_ = [("src", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("out_lane", ctypes.c_longlong), ("out_t", ctypes.c_longlong),
                 ("scratch", ctypes.c_void_p * PROBE_LEVELS), ("nlev", ctypes.c_int),
-                ("lev", _Level * PROBE_LEVELS)]
+                ("lev", _Level * PROBE_LEVELS), ("task0", ctypes.c_int), ("ntask", ctypes.c_int),
+                ("per_task", ctypes.c_int), ("P", ctypes.c_int), ("D", ctypes.c_int),
+                ("cw", ctypes.c_int), ("groups", ctypes.c_int), ("count0", ctypes.c_int)]
 
 
 class _Probe(ctypes.Structure):
     _fields_ = [("job", _Job * PROBE_JOBS), ("njobs", ctypes.c_int), ("lanes", ctypes.c_int),
-                ("nparts", ctypes.c_int), ("phases", ctypes.c_int), ("t", ctypes.c_int),
+                ("nparts", ctypes.c_int), ("t", ctypes.c_int), ("count_backlog", ctypes.c_int),
                 ("part", ctypes.c_int * PROBE_PARTS), ("backlog", ctypes.c_void_p),
                 ("backlog_lane", ctypes.c_longlong), ("backlog_t", ctypes.c_longlong),
-                ("sync", ctypes.c_void_p)]
+                ("count", ctypes.c_void_p)]
+
+
+class FirstPass(NamedTuple):
+    """How one `tap_probe` launch splits a sum's first pass: its windows
+    in groups of a lane's (cw = 0) or, for a sum by column, of cw of a
+    lane's columns (`groups` a lane), each group's row-major, the groups
+    in order; blocks task0 .. task0 + ntask - 1 take `per_task` of them
+    each: a block's 256 threads a one-column window each, or its 8 warps
+    P wide windows each, P lanes adding side by side, their rows streamed
+    D rows ahead of the adds (D = 0: staged whole). The block that
+    completes a group's first pass takes its upper passes."""
+
+    task0: int
+    ntask: int
+    per_task: int
+    P: int
+    D: int
+    cw: int
+    groups: int
+
+
+def streams(v) -> bool:
+    """Whether the kernel streams a first pass's wide windows row by row:
+    windows of 32 x 32 whole columns (rows of 32 values added in order, no
+    lanes, no padded column)."""
+    return v.w0 == 32 and v.w1 == 32 and v.cols % 32 == 0
+
+
+def probe_schedule(plans, n_lanes: int) -> tuple:
+    """The first passes' split (a `FirstPass` a sum, in the plans' order)
+    of one launch over `n_lanes` lanes: the wide passes' tasks first, so
+    that their chains start first, then the one-column passes'. P is the
+    power of two that spreads all wide windows over about
+    PROBE_CHAIN_WARPS warps (1 to PROBE_MAX_P), D the rows a warp's ring
+    holds for each (16, or 8 at P = 8); a wide pass that does not stream
+    takes at most 2 windows a warp, staged whole one at a time. A sum by
+    column's groups are of PROBE_GROUP_COLS columns, so that its upper
+    passes run in several blocks, as their first passes complete."""
+    firsts = [plan.levels[0] for plan in plans]
+    cws = [min(PROBE_GROUP_COLS, v.o1) if plan.by_column else 0
+           for plan, v in zip(plans, firsts)]
+    groups = [-(-v.o1 // cw) if cw else 1 for v, cw in zip(firsts, cws)]
+    windows = [n_lanes * g * v.o0 * (cw or v.o1) for v, cw, g in zip(firsts, cws, groups)]
+    if max(windows) >= 2 ** 31:
+        raise ValueError(f"tap_probe: a pass of {max(windows)} windows (at most 2**31 - 1)")
+    wide = sum(n for n, v in zip(windows, firsts) if v.w1 > 1)
+    P = min(PROBE_MAX_P, 1 << max(0, math.ceil(wide / PROBE_CHAIN_WARPS) - 1).bit_length())
+    out, task0 = [None] * len(plans), 0
+    for k in sorted(range(len(plans)), key=lambda k: firsts[k].w1 == 1):
+        v = firsts[k]
+        if v.w1 == 1:
+            Pk, D, per_task = 1, 0, PROBE_THREADS
+        else:
+            Pk, D = (P, min(16, PROBE_RING_ROWS // P)) if streams(v) else \
+                (min(P, PROBE_RING_ROWS // 32), 0)
+            per_task = PROBE_WARPS * Pk
+        ntask = -(-windows[k] // per_task)
+        out[k] = FirstPass(task0, ntask, per_task, Pk, D, cws[k], groups[k])
+        task0 += ntask
+    return tuple(out)
 
 
 class ProbePlan:
@@ -239,6 +307,8 @@ class ProbePlan:
             raise ValueError(f"tap_probe: at most {PROBE_JOBS} sums and {PROBE_PARTS} parts")
         if parts and backlog is None:
             raise ValueError("tap_probe: backlog parts need a backlog series")
+        if set(parts) & set(by_column):
+            raise ValueError("tap_probe: a backlog part is a total, not a sum by column")
         self.lanes, self.T = tuple(lanes), T
         self.names = tuple(example)
         self.shapes = {n: tuple(x.shape) for n, x in example.items()}
@@ -252,9 +322,25 @@ class ProbePlan:
             self.plans[n] = sum_plan(slab[0], slab[1] if len(slab) == 2 else 1, n in self.by_column)
             if len(self.plans[n].levels) > PROBE_LEVELS:
                 raise ValueError(f"tap_probe: {n} {shape} needs more than {PROBE_LEVELS} passes")
+        self.schedule = probe_schedule([self.plans[n] for n in self.names], math.prod(self.lanes))
         self.outputs = dict(outputs)
         self.parts, self.backlog = tuple(parts), backlog
         self._args = None  # the kernel's argument block, made at the first launch
+
+    def longest_chain(self) -> int:
+        """The plan's longest chain of dependent adds, its sums' passes
+        and the backlog's adds after them: a window of w0 x w1 values is
+        w0 w1 adds, or (first / lanes) w1 + log2(lanes) + (w0 - first) w1
+        where the vectorizer split it into lanes."""
+        def chain(name):
+            n = 0
+            for v in self.plans[name].levels:
+                first = v.nvec // v.lanes * v.lanes if v.lanes > 1 else 0
+                n += first // v.lanes * v.w1 + (v.lanes.bit_length() - 1) + (v.w0 - first) * v.w1
+            return n
+
+        return max([chain(n) for n in self.names] +
+                   [chain(p) + len(self.parts) - max(j, 1) for j, p in enumerate(self.parts)])
 
     @property
     def device(self):
@@ -263,27 +349,29 @@ class ProbePlan:
                 next(iter(self.outputs.values()))).device
 
     def args(self):
-        """The CUDA kernel's argument block (scratch and barrier buffers
-        allocated here, once for the run; the per-slot sources and t are
-        set at each launch) and the threads its largest pass can use."""
+        """The CUDA kernel's argument block (scratch buffers and the
+        counters allocated here, once for the run, the counters zeroed;
+        the per-slot sources and t are set at each launch) and its
+        blocks."""
         if self._args is not None:
             return self._args
         device = self.device
         n_lanes = math.prod(self.lanes)
         a = _Probe()
-        # threads a pass can use: one a one-column window, a warp a wider one
-        keep, items = [], [0] * PROBE_LEVELS + [n_lanes if self.parts else 1]
+        keep, n_count = [], 0
         for k, name in enumerate(self.names):
             plan, job = self.plans[name], a.job[k]
             for i, v in enumerate(plan.levels):
                 job.lev[i] = _Level(*v[:10], int(v.last_col))
-                outs = n_lanes * v.o0 * v.o1
-                items[i] += outs if v.w1 == 1 else 32 * outs
                 if i < len(plan.levels) - 1:
-                    buf = torch.empty(outs, dtype=F32, device=device)
+                    buf = torch.empty(n_lanes * v.o0 * v.o1, dtype=F32, device=device)
                     keep.append(buf)
                     job.scratch[i] = buf.data_ptr()
             job.nlev = len(plan.levels)
+            (job.task0, job.ntask, job.per_task, job.P, job.D, job.cw,
+             job.groups) = self.schedule[k]
+            job.count0 = n_count
+            n_count += n_lanes * job.groups
             out = self.outputs.get(name)
             if out is None:  # a backlog part only: its totals in a scratch row
                 out = torch.empty(n_lanes, dtype=F32, device=device)
@@ -300,12 +388,15 @@ class ProbePlan:
             for i, p in enumerate(self.parts):
                 a.part[i] = self.names.index(p)
             a.backlog, a.backlog_lane, a.backlog_t = self.backlog.data_ptr(), self.T, 1
-        sync = torch.zeros(2, dtype=torch.int32, device=device)  # the barrier, zeroed once
-        keep.append(sync)
-        a.sync = sync.data_ptr()
+        # a count a job's group, then a lane's: zeroed once, each reset by the
+        # block that completes it
+        a.count_backlog = n_count
+        count = torch.zeros(n_count + n_lanes, dtype=torch.int32, device=device)
+        keep.append(count)
+        a.count = count.data_ptr()
         a.njobs, a.lanes, a.nparts = len(self.names), n_lanes, len(self.parts)
-        a.phases = max(len(self.plans[n].levels) for n in self.names) + (1 if self.parts else 0)
-        self._args = (a, max(items), keep, device)
+        blocks = sum(s.ntask for s in self.schedule)
+        self._args = (a, blocks, keep, device)
         return self._args
 
 
@@ -349,7 +440,7 @@ def tap_probe_cuda(plan: ProbePlan, t: int, inputs: dict) -> None:
     of slot t in one launch, into the plan's series. The inputs must be
     contiguous float32 on the card at the plan's shapes."""
     global probe_launches
-    a, items, _, dev = plan.args()
+    a, blocks, _, dev = plan.args()
     if not 0 <= t < plan.T:
         raise ValueError(f"tap_probe: slot {t} of a run of T={plan.T}")
     for k, name in enumerate(plan.names):
@@ -361,7 +452,7 @@ def tap_probe_cuda(plan: ProbePlan, t: int, inputs: dict) -> None:
         a.job[k].src = x.data_ptr()
     a.t = t
     lib = _probe_lib()
-    status = lib.tap_probe_launch(ctypes.addressof(a), items,
+    status = lib.tap_probe_launch(ctypes.addressof(a), blocks,
                                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, status, "tap_probe")
     probe_launches += 1

@@ -3,7 +3,7 @@ taps' cost a slot in the runs, and what the probe's per-slot sums launch
 and cost.
 
     python3 src/repro_torch/launch/tap_profile.py [--src DIR] [--label NAME]
-        [--turns 3] [--sums]
+        [--turns 3] [--sums] [--sums-only]
 
 `--src DIR` puts DIR first on the module path before `repro_torch` is
 imported, so the script times the package of another checkout (its
@@ -23,13 +23,17 @@ It measures, summary records, seed 0:
   - ms_per_slot: the main path, the bench fleet and fleet B (F16 x M4096 x
     N256, chip_smoke.py's four kinds x 4, T=64) with taps off and on,
     `--turns` rounds of off, on, on, off, ms per slot from CUDA events;
-  - with `--sums`, probe_sums at the main path's shape, fleet B's and the
-    bench fleet's: the sums of one slot (the landings by cloud, the
-    arrivals, the backlog's Qe and Qc sums and their add) as one torch
-    call each into slot t of the [*lanes, T] tape (the earlier path), and,
-    where the package has it, as one `tap_probe` launch: each one's ms
-    from CUDA-graph replay, and from torch.profiler over 8 calls the
-    kernels, memsets and host launch and memset calls a call.
+  - with `--sums`, probe_sums at the six loops' probe shapes (the main
+    path, fleet B, W2 with Qt at L512, the bench fleet, the stream
+    instance M2048 x N64, fleet B faulted: the retry pool, no arrivals):
+    the sums of one slot (the landings by cloud, the arrivals, the
+    backlog's parts and their adds) as one torch call each into slot t of
+    the [*lanes, T] tape (the earlier path), and, where the package has
+    it, as one `tap_probe` launch: each one's ms from CUDA-graph replay,
+    cold (a 128 MB read before each call, its own time subtracted) and
+    warm, and from torch.profiler over 8 calls the kernels, memsets and
+    host launch, cooperative launch and memset calls a call; with
+    `--sums-only`, that alone (run it in turns against another tree).
 It prints one JSON line (with tap_scan's ptxas registers and spills)
 and the nvidia-smi name and power limit.
 """
@@ -59,6 +63,22 @@ def _events_ms(torch, fn, reps: int, inner: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _cold_ms(torch, fn) -> float:
+    """Device ms a call from a cold L2: each call after a 128 MB read
+    (CUDA-graph replay), minus the time of that read alone."""
+    flush = torch.empty(32 * 2**20, device="cuda")
+    sink = torch.empty((), device="cuda")
+
+    def evict():
+        torch.sum(flush, dim=0, out=sink)
+
+    def cold():
+        evict()
+        fn()
+
+    return _replay_ms(torch, cold) - _replay_ms(torch, evict)
 
 
 def _replay_ms(torch, fn, reps: int = 15, inner: int = 20) -> float:
@@ -115,41 +135,70 @@ def _launches(torch, fn, calls: int = 8) -> dict:
     return out
 
 
+PROBE_SHAPES = {  # label: (lanes, M, N, L, faulted)
+    "main F1 x M4096 x N256": ((), 4096, 256, None, False),
+    "fleet B F16 x M4096 x N256": ((16,), 4096, 256, None, False),
+    "W2 F16 x M4096 x N256 x L512": ((16,), 4096, 256, 512, False),
+    "bench fleet F32 x M5 x N5": ((32,), 5, 5, None, False),
+    "stream M2048 x N64": ((), 2048, 64, None, False),
+    "fleet B faulted F16 x M4096 x N256": ((16,), 4096, 256, None, True),
+}
+
+
 def _probe_sums(torch, dev, tpk) -> dict:
-    """One slot's probe sums at three shapes: one torch call a sum and, where
-    the package has it, the fused `tap_probe`."""
-    T = 64
+    """One slot's probe sums at the loops' shapes: one torch call a sum
+    and, where the package has it, the fused `tap_probe`."""
+    T, t = 64, 5
     res = {}
-    for label, lanes, M, N in (("main F1 x M4096 x N256", (), 4096, 256),
-                               ("fleet B F16 x M4096 x N256", (16,), 4096, 256),
-                               ("bench fleet F32 x M5 x N5", (32,), 5, 5)):
+    for label, (lanes, M, N, L, faulted) in PROBE_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(SEED)
-        Qe = torch.randint(0, 1000, lanes + (M,), generator=g, device=dev).float()
-        Qc = torch.randint(0, 1000, lanes + (M, N), generator=g, device=dev).float()
-        a = torch.randint(0, 400, lanes + (M,), generator=g, device=dev).float()
-        d = torch.randint(0, 9, lanes + (M, N), generator=g, device=dev).float()
-        series = {n: torch.zeros(lanes + (T,), device=dev) for n in ("arrived", "backlog")}
+
+        def ints(*shape, hi=1000):
+            return torch.randint(0, hi, lanes + shape, generator=g, device=dev).float()
+
+        inputs = {"dispatched": ints(M, N, hi=9)}
+        if not faulted:
+            inputs["arrived"] = ints(M, hi=400)
+        inputs["part0"], inputs["part1"] = ints(M), ints(M, N)
+        parts = ["part0", "part1"]
+        if L:
+            inputs["transfer_occupancy"] = ints(M, L)
+            parts.append("transfer_occupancy")
+        if faulted:
+            inputs["retry_depth"] = ints(M, N, hi=9)
+            parts.append("retry_depth")
+        series = {n: torch.zeros(lanes + (T,), device=dev)
+                  for n in ("arrived", "transfer_occupancy", "retry_depth", "backlog")}
         series["dispatched"] = torch.zeros(lanes + (T, N), device=dev)
         e1 = tuple(range(len(lanes), len(lanes) + 1))
         e2 = tuple(range(len(lanes), len(lanes) + 2))
-        t = 5
 
-        def sums():
-            """the main path's probe as one torch call a sum"""
-            torch.sum(d, dim=-2, out=series["dispatched"][..., t, :])
-            torch.sum(a, dim=e1, out=series["arrived"][..., t])
-            torch.add(torch.sum(Qe, dim=e1), torch.sum(Qc, dim=e2), out=series["backlog"][..., t])
+        def sums(inputs=inputs, series=series, e1=e1, e2=e2):
+            """the probe as one torch call a sum and the adds (the earlier path)"""
+            torch.sum(inputs["dispatched"], dim=-2, out=series["dispatched"][..., t, :])
+            if "arrived" in inputs:
+                torch.sum(inputs["arrived"], dim=e1, out=series["arrived"][..., t])
+            totals = [torch.sum(inputs["part0"], dim=e1), torch.sum(inputs["part1"], dim=e2)]
+            for n in ("transfer_occupancy", "retry_depth"):
+                if n in inputs:
+                    totals.append(torch.sum(inputs[n], dim=e2, out=series[n][..., t]))
+            acc = totals[0]
+            for x in totals[1:-1]:
+                acc = acc + x
+            torch.add(acc, totals[-1], out=series["backlog"][..., t])
 
-        res[label] = {"torch_sums": {"ms": _replay_ms(torch, sums), **_launches(torch, sums)}}
+        res[label] = {"torch_sums": {"ms": _cold_ms(torch, sums),
+                                     "warm_ms": _replay_ms(torch, sums), **_launches(torch, sums)}}
         if hasattr(tpk, "ProbePlan"):
-            inputs = {"dispatched": d, "arrived": a, "part0": Qe, "part1": Qc}
-            plan = tpk.ProbePlan(lanes, T, inputs, {n: series[n] for n in ("dispatched", "arrived")},
-                                 ("part0", "part1"), series["backlog"], by_column=("dispatched",))
+            plan = tpk.ProbePlan(lanes, T, inputs, {n: series[n] for n in inputs if n in series},
+                                 parts, series["backlog"], by_column=("dispatched",))
 
-            def probe():
+            def probe(plan=plan, inputs=inputs):
                 tpk.tap_probe_cuda(plan, t, inputs)
 
-            res[label]["tap_probe"] = {"ms": _replay_ms(torch, probe), **_launches(torch, probe)}
+            res[label]["tap_probe"] = {"ms": _cold_ms(torch, probe),
+                                       "warm_ms": _replay_ms(torch, probe),
+                                       **_launches(torch, probe)}
     return res
 
 
@@ -159,6 +208,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this")
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--sums", action="store_true", help="also the probe sums' launches")
+    ap.add_argument("--sums-only", action="store_true", help="the probe sums alone")
     args = ap.parse_args(argv)
     if args.src:
         sys.path.insert(0, args.src)
@@ -179,9 +229,16 @@ def main(argv=None) -> int:
     names = ("carbon_score", "greedy_fill", "threefry", "tap_scan") + \
         (("tap_probe",) if "tap_probe" in build.SOURCES else ())
     built = build.build_all(names)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    if args.sums_only:
+        print(json.dumps({"label": args.label, "package": repro_torch.__file__,
+                          "probe_sums": _probe_sums(torch, dev, tpk)}), flush=True)
+        print(smi, flush=True)
+        return 0
     ptxas = [ln.split(":", 1)[-1].strip() for ln in built["tap_scan"][1].splitlines()
              if "spill" in ln or "registers" in ln]
-    dev = torch.device("cuda")
     cfg = tlm.TelemetryConfig()
     ci = core.CarbonIntensityPolicy(V=V)
     spec, state0, table, _ = slot_profile._instance(torch, convert, carbon, dev)
@@ -244,8 +301,6 @@ def main(argv=None) -> int:
             "tap_scan_ptxas": ptxas, "kernel_ms": kernel, "ms_per_slot": times}
     if args.sums:
         line["probe_sums"] = _probe_sums(torch, dev, tpk)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     return 0

@@ -26,7 +26,9 @@ lanes. `numerics.sum_plan` writes that order down (ROADMAP hazard 34):
 chip_smoke.py holds the CUDA kernel bitwise to this plain version on the
 card.
 """
+import ctypes
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +51,7 @@ from repro.configs import fleet_scenarios as jfs  # noqa: E402
 from repro_torch.configs import fleet_scenarios as tfs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.numerics import plan_sum, sum_plan  # noqa: E402
+from repro_torch.kernels import taps as tpk  # noqa: E402
 from repro_torch.kernels.taps import ProbePlan  # noqa: E402
 
 f32 = np.float32
@@ -119,6 +122,9 @@ def test_probe_plan_refuses_what_the_kernel_does_not_take():
         ProbePlan((2,), 8, {"part0": torch.zeros((2, 4))}, {}, ("part0",))
     with pytest.raises(ValueError, match="at most"):
         ProbePlan((2,), 8, {f"part{i}": torch.zeros((2, 4)) for i in range(7)}, {})
+    with pytest.raises(ValueError, match="by column"):
+        ProbePlan((2,), 8, {"part0": torch.zeros((2, 4, 3))}, {}, ("part0",), z,
+                  by_column=("part0",))
 
 
 def test_tap_probe_plain_writes_every_series():
@@ -147,6 +153,253 @@ def test_tap_probe_plain_writes_every_series():
                                   (sums["Qe"] + sums["Qc"]) + sums["retry"])
     for x in series.values():
         assert not x[:, :4].any() and not x[:, 5:].any()
+
+
+# ------------------------------------------------ the kernel's schedule
+#
+# csrc/tap_probe.cu cannot run here, so its work split is modelled in
+# Python from the numbers the host code puts in its argument block
+# (`ProbePlan.schedule`, from `taps.probe_schedule`): block b takes the
+# first-pass windows [F0, F0 + n) of one sum, lane-major; then, for each
+# lane those windows touch, either the lane's first pass lies in this block
+# alone or the block counts it, and the block whose count completes the
+# lane takes the lane's upper passes and then counts the backlog's parts.
+
+# chip_smoke.py 4h's shapes: (lanes, M, N, L)
+_PROBE_SHAPES = {
+    "main": ((), 4096, 256, None), "fleet B": ((16,), 4096, 256, None),
+    "W2": ((16,), 4096, 256, 512), "bench fleet": ((32,), 5, 5, None),
+    "fleet A": ((512,), 5, 5, None), "W1": ((64,), 5, 5, 10), "stream": ((), 2048, 64, None),
+    "F3 x M33 x N5": ((3,), 33, 5, None), "F2 x M127 x N63": ((2,), 127, 63, None),
+    "M63 x N5 x L40": ((), 63, 5, 40),
+}
+
+
+def _probe_plan_at(lanes, M, N, L, full=True, device="meta"):
+    """chip_smoke 4h's probe at a shape: with `full`, every sum the kernel
+    takes at once (the landings by cloud, arrivals, Qe, Qc, Qt where L,
+    the retry pool; four backlog parts), else a fault-free loop's."""
+    T = 4
+    shapes = {"dispatched": (M, N), "arrived": (M,), "part0": (M,), "part1": (M, N),
+              **({"transfer_occupancy": (M, L)} if L else {}),
+              **({"retry_depth": (M, N)} if full else {})}
+    inputs = {n: torch.empty(lanes + s, device=device) for n, s in shapes.items()}
+    series = {n: torch.empty(lanes + (T,), device=device)
+              for n in ("arrived", "transfer_occupancy", "retry_depth", "backlog")}
+    series["dispatched"] = torch.empty(lanes + (T, N), device=device)
+    parts = ("part0", "part1") + (("transfer_occupancy",) if L else ()) + \
+        (("retry_depth",) if full else ())
+    return ProbePlan(lanes, T, inputs, {n: series[n] for n in inputs if n in series}, parts,
+                     series["backlog"], by_column=("dispatched",)), inputs, series
+
+
+def _model_launch(plan, order):
+    """The kernel's control flow over its blocks, finishing in `order`:
+    returns how often each output of each pass of each job and lane and
+    each lane's backlog was written, and the counters at the end. Asserts
+    that a group's upper pass runs only after every output below it is in,
+    that the backlog waits for every part's total, and that no counter
+    passes its target."""
+    n_lanes = math.prod(plan.lanes)
+    jobs = [plan.plans[n] for n in plan.names]
+    written = [[np.zeros((n_lanes, v.o0 * v.o1), np.int64) for v in pl.levels] for pl in jobs]
+    count = [np.zeros(n_lanes * s.groups, np.int64) for s in plan.schedule]
+    bcount = np.zeros(n_lanes, np.int64)
+    backlog = np.zeros(n_lanes, np.int64)
+    parts = [plan.names.index(p) for p in plan.parts]
+    starts = sorted((s.task0, k) for k, s in enumerate(plan.schedule))
+
+    def columns(v, s, g):  # a group's columns of a pass
+        w = s.cw or v.o1
+        return np.arange((g % s.groups) * w, min((g % s.groups + 1) * w, v.o1))
+
+    for b in order:
+        k = [k for t0, k in starts if t0 <= b][-1]
+        s, v0 = plan.schedule[k], jobs[k].levels[0]
+        w = s.cw or v0.o1
+        per = v0.o0 * w
+        F0 = (b - s.task0) * s.per_task
+        n = min(s.per_task, per * n_lanes * s.groups - F0)
+        assert 0 <= b - s.task0 < s.ntask and n > 0
+        if v0.w1 > 1:  # wide: warp w takes P windows, lane l < count adds window F0 + w P + l
+            assert s.per_task == tpk.PROBE_WARPS * s.P and 32 % s.P == 0
+            assert s.groups == 1 and s.cw == 0
+            if tpk.streams(v0):  # rows streamed D ahead through P x D ring rows
+                assert s.D in (8, 16) and s.P * s.D <= tpk.PROBE_RING_ROWS
+            else:  # staged whole: P windows of up to 32 rows
+                assert s.D == 0 and s.P * 32 <= tpk.PROBE_RING_ROWS
+        else:
+            assert s.per_task == tpk.PROBE_THREADS
+        F = np.arange(F0, F0 + n)
+        g, f = F // per, F % per
+        i, j = f // w, (g % s.groups) * w + f % w
+        real = j < v0.o1
+        np.add.at(written[k][0], (g[real] // s.groups, (i * v0.o1 + j)[real]), 1)
+        for grp in range(F0 // per, (F0 + n - 1) // per + 1):
+            tf, tl = grp * per // s.per_task, ((grp + 1) * per - 1) // s.per_task
+            if tf != tl:
+                count[k][grp] += 1
+                assert count[k][grp] <= tl - tf + 1
+                if count[k][grp] < tl - tf + 1:
+                    continue
+                count[k][grp] = 0
+            lane = grp // s.groups
+            for lev, v in enumerate(jobs[k].levels):
+                below = written[k][lev - 1][lane].reshape(-1, jobs[k].levels[lev - 1].o1) \
+                    if lev else None
+                cols = columns(v, s, grp)
+                if lev:  # every window of the group reads only outputs already in
+                    assert (below[:, cols if s.cw else slice(None)] == 1).all(), \
+                        "an upper window read too early"
+                    out = written[k][lev][lane].reshape(v.o0, v.o1)
+                    out[:, cols] += 1
+                else:
+                    assert (written[k][0][lane].reshape(v.o0, v.o1)[:, cols] == 1).all(), \
+                        "a group taken before its first pass is in"
+            if k in parts:
+                bcount[lane] += 1
+                assert bcount[lane] <= len(parts)
+                if bcount[lane] == len(parts):
+                    bcount[lane] = 0
+                    assert all((written[q][-1][lane] == 1).all() for q in parts)
+                    backlog[lane] += 1
+    return written, np.concatenate(count + [bcount]), backlog
+
+
+def _windows_cover(v):
+    """Each pass's windows (pads clipped) cover its [rows, cols] exactly
+    once, and its outputs are [o0, o1]: every child read once."""
+    hits = np.zeros((v.rows, v.cols), np.int64)
+    for i in range(v.o0):
+        for j in range(v.o1):
+            r0, c0 = i * v.w0 - v.lo0, j * v.w1 - v.lo1
+            hits[max(r0, 0):max(r0 + v.w0, 0), max(c0, 0):max(c0 + v.w1, 0)] += 1
+    return (hits == 1).all()
+
+
+@pytest.mark.parametrize("shape", list(_PROBE_SHAPES))
+def test_probe_schedule_writes_every_output_once(shape):
+    """Every output of every pass of every job and lane, and every
+    backlog, is written exactly once, whatever order the blocks finish
+    in; each counter gets exactly its target's arrivals and ends at 0;
+    each upper window is read only after all its children are in."""
+    plan = _probe_plan_at(*_PROBE_SHAPES[shape])[0]
+    blocks = sum(s.ntask for s in plan.schedule)
+    assert sorted(b for s in plan.schedule for b in range(s.task0, s.task0 + s.ntask)) == \
+        list(range(blocks)), "every block one task"
+    rng = np.random.default_rng(len(shape))
+    for order in (range(blocks), range(blocks - 1, -1, -1), rng.permutation(blocks)):
+        written, count, backlog = _model_launch(plan, [int(b) for b in order])
+        for per_job in written:
+            for w in per_job:
+                assert (w == 1).all()
+        assert not count.any() and (backlog == 1).all()
+    for name in plan.names:
+        assert all(_windows_cover(v) for v in plan.plans[name].levels)
+
+
+@pytest.mark.parametrize("shape", list(_PROBE_SHAPES))
+def test_probe_schedule_fits_the_kernel(shape):
+    """The argument block fits a kernel's parameters and its room (jobs,
+    passes, parts); the wide passes start first; P and D fit the ring, P
+    grows with the wide windows, and a pass's windows fit 32-bit indices."""
+    lanes, M, N, L = _PROBE_SHAPES[shape]
+    plan = _probe_plan_at(lanes, M, N, L)[0]
+    assert ctypes.sizeof(tpk._Probe) <= 4096  # a kernel's parameters: the argument block
+    assert len(plan.names) <= tpk.PROBE_JOBS and len(plan.parts) <= tpk.PROBE_PARTS
+    assert all(len(p.levels) <= tpk.PROBE_LEVELS for p in plan.plans.values())
+    wide = [k for k, n in enumerate(plan.names) if plan.plans[n].levels[0].w1 > 1]
+    col = [k for k in range(len(plan.names)) if k not in wide]
+    assert max(plan.schedule[k].task0 for k in wide) < min(plan.schedule[k].task0 for k in col)
+    n_lanes = math.prod(lanes)
+    n_wide = sum(n_lanes * plan.plans[plan.names[k]].levels[0].o0 *
+                 plan.plans[plan.names[k]].levels[0].o1 for k in wide)
+    P = max(plan.schedule[k].P for k in wide)
+    assert P == tpk.PROBE_MAX_P or n_wide <= P * tpk.PROBE_CHAIN_WARPS
+    assert P == 1 or n_wide > P // 2 * tpk.PROBE_CHAIN_WARPS
+    for k in wide:
+        v, s = plan.plans[plan.names[k]].levels[0], plan.schedule[k]
+        assert (s.P, s.D) == ((P, min(16, tpk.PROBE_RING_ROWS // P)) if tpk.streams(v) else
+                              (min(P, 2), 0))
+
+
+def test_probe_schedule_at_the_loops_widths():
+    """The split the loops' own probes get (Qc's first pass): main's 1,024
+    wide windows a warp each, 16 rows ahead of the adds; fleet B's 16,384
+    and W2's 49,152 (with Qt's) eight a warp, 8 rows ahead."""
+    got = [_probe_plan_at(*_PROBE_SHAPES[s], full=False)[0].schedule[3]
+           for s in ("main", "fleet B", "W2")]
+    assert [(g.P, g.D, g.ntask) for g in got] == [(1, 16, 128), (8, 8, 256), (8, 8, 256)]
+
+
+def test_probe_longest_chain_is_the_serial_floor():
+    """The plans' longest chains of dependent adds: main's Qc (32 x 32,
+    then 32 x 8 rows in 4 lanes, 4, the backlog's add) 1,095; W2's Qt
+    (32 x 32, 32 x 16 in order, 4, the add) 1,541."""
+    got = [_probe_plan_at(*_PROBE_SHAPES[s], full=False)[0].longest_chain()
+           for s in ("main", "W2")]
+    assert got == [1095, 1541]
+
+
+def _kernel_order_sum(x, plan):
+    """x [rows, cols] (one lane) summed by the kernel's walk of `plan`:
+    a one-column window from +0 in order; a wide window's rows before
+    `first` L at a time, row r + l into lane l (lane 0 from +0, the others
+    from -0), the lanes folded pairwise, then the other rows into the sum
+    in order, pads added as +0 or skipped, a padded column's values after
+    all rows; float32."""
+    add = lambda a, b: np.float32(np.float32(a) + np.float32(b))  # noqa: E731
+    for v in plan.levels:
+        y = np.zeros((v.o0, v.o1), f32)
+        n = v.w1 - 1 if v.last_col else v.w1
+        for i in range(v.o0):
+            for j in range(v.o1):
+                r0, c0 = i * v.w0 - v.lo0, j * v.w1 - v.lo1
+
+                def row(r, upto):
+                    rr = r0 + r
+                    return [x[rr, c0 + c] if 0 <= rr < v.rows and 0 <= c0 + c < v.cols else f32(0)
+                            for c in range(upto)]
+
+                first, acc = 0, f32(0)
+                if v.lanes > 1:
+                    first = v.nvec // v.lanes * v.lanes
+                    a = [f32(0)] + [f32(-0.0)] * (v.lanes - 1)
+                    for r in range(0, first, v.lanes):
+                        for q in range(v.lanes):
+                            for val in row(r + q, n):
+                                a[q] = add(a[q], val)
+                    h = v.lanes // 2
+                    while h:
+                        a[:h] = [add(a[q], a[q + h]) for q in range(h)]
+                        h //= 2
+                    acc = a[0]
+                for r in range(first, v.w0):
+                    for val in row(r, n):
+                        acc = add(acc, val)
+                if v.last_col:
+                    for r in range(v.w0):
+                        acc = add(acc, row(r, v.w1)[-1])
+                y[i, j] = acc
+        x = y
+    return x[0, :] if plan.by_column else x[0, 0]
+
+
+@pytest.mark.parametrize("rows,cols,by_column", [
+    (33, 5, False), (127, 63, False), (63, 5, False), (63, 40, False), (5, 5, False),
+    (64, 7, False), (16, 7, False), (20, 6, False), (28, 2, False), (95, 8, False),
+    (1000, 40, False), (2048, 64, False), (4096, 8, False), (127, 63, True), (33, 5, True)])
+def test_kernel_walk_is_the_plan(rows, cols, by_column):
+    """The kernel's walk of a window (rows into L lane sums a group of L at
+    a time, padded values skipped or added as +0, a padded column's values
+    read again at the end), emulated in float32, is bitwise plan_sum
+    on data whose sums depend on their order, wherever the vectorizer
+    splits a window into lanes or a column is padded."""
+    rng = np.random.default_rng(rows * 17 + cols)
+    x = _data(rng, (rows, cols))
+    plan = sum_plan(rows, cols, by_column)
+    want = plan_sum(torch.from_numpy(x), plan).numpy()
+    np.testing.assert_array_equal(_bits(_kernel_order_sum(x, plan)), _bits(want))
 
 
 # ------------------------------------------------------- inside the scans
