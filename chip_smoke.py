@@ -28,10 +28,13 @@ the deadline layer, `simulate_fleet` on fleets with a deadline axis
 B's width, and a deadline-aware `serve_loop`; the telemetry layer
 (`telemetry=` on `simulate` and `simulate_fleet`, batch and streamed) at
 the JAX benches' rows, on the fault rows and W1, and at the main path's
-and fleet B's width.
+and fleet B's width; MoE serving, the same `greedy_generate`, for
+Qwen1.5-MoE-A2.7B at full width and depth and Snowflake Arctic at full
+width and one layer, in bf16 at the same batch and lengths.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-4h, 4i, 5-6, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
-paths):
+4h, 4i, 5-6, 10, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
+paths; phase 10 frees its models before phase 8 builds GLM-4-9B, which
+phase 7 keeps):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
@@ -289,6 +292,23 @@ paths):
    the port's seeded init): as phase 8, with ssd_chunk_intra 48 launches
    (one per layer of the prefill; the decode step runs no kernel) and
    the plain SSD intra-chunk step swapped in for the comparison;
+10. MoE serving: first flash_attention and flash_decode at the two MoE
+   configs' serving shapes (H 16 K 16: G 1; H 56 K 8: G 7; hd 128, bf16)
+   held to their plain versions within phase 3c's tolerance, and the
+   profiler's kernel names showing the tensor-core routes
+   (`attention_tc`, `decode_tc`); then as phase 8 (the same launch
+   checks, timing, profiles and logit bounds), for Qwen1.5-MoE-A2.7B
+   (`configs/qwen2_moe_a2_7b.py`, 60 experts padded to 64, top 4, 4
+   shared; 15.1 B parameters held; flash_attention 24, flash_decode
+   24 x 64) and Arctic (`configs/arctic_480b.py` cut to one layer: 128
+   experts top 2 of width 4864 at d_model 7168 and the dense residual
+   FFN; flash_attention 1, flash_decode 64), each freed before the next;
+   before the comparisons, for one prefill each layer's (token, slot)
+   routing choices that differ between the kernel and the plain path (bf16
+   and float32 activations), the pairs dropped per layer at the prefill
+   (of 131,072 and 65,536) and a decode step (of 32 and 16), the prefill
+   run twice with its logits and caches bitwise equal, and the bounds
+   from the shapes (prefill operations, a decode step's bytes);
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
@@ -677,6 +697,10 @@ def stream_instance_arrays():
 
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "glm4_9b", 8, 4096, 64
 SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and length
+# phase 10 serves Qwen1.5-MoE-A2.7B at full size and Arctic at full width,
+# one layer deep (its 35 layers hold 477 B parameters), at phase 8's
+# batch, prompt and length
+MOE_ARCH, MOE_WIDE_ARCH = "qwen2_moe_a2_7b", "arctic_480b"
 LM_CACHE = LM_PROMPT + LM_GEN + 1
 # teacher-forced logits, kernels vs plain attention: with float32
 # activations (the same bf16 weights) both kernels agree with their plain
@@ -1268,7 +1292,8 @@ def swapped(ops, plain):
             setattr(ops, name, fn)
 
 
-def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_generate):
+def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_generate,
+             before_checks=None):
     """One LM serving phase (8 dense, 9 ssm) at `cfg`'s full size with
     the port's seeded init: batch LM_BATCH, prompts of LM_PROMPT tokens
     from SEED, LM_GEN greedy tokens. `greedy_generate` once under sync
@@ -1281,8 +1306,10 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
     activations over the same bf16 weights, kernels vs plain within a
     relative L2 of LOGIT_F32_TOL; in bf16, each path against the float32
     plain one, the kernels' relative L2 error at most LOGIT_ERR_RATIO x
-    the plain path's; and the greedy tokens' agreement. Returns (the
-    launch counts of the greedy run, model, params, prompts)."""
+    the plain path's; and the greedy tokens' agreement. `before_checks`,
+    if given, is called as before_checks(model, params, prompts) after
+    the profiles and before the comparisons. Returns (the launch counts
+    of the greedy run, model, params, prompts)."""
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
@@ -1369,6 +1396,8 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
             f"{sum(v[1] for k, v in host.items() if k.startswith('aten::')):.0f} aten op calls; "
             "top kernels " + ", ".join(f"{k[:56]} {v:.3f} ms" for v, k in top[:8]))
     del cache, runs
+    if before_checks is not None:
+        before_checks(model, params, prompts)
 
     def plain_ctx():
         return swapped(ops, plain)
@@ -1430,6 +1459,143 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
     return launches, model, params, prompts
 
 
+@contextlib.contextmanager
+def recording_plans(moe):
+    """Every MoE layer's routing while the block runs: `moe.dispatch_plan`
+    wrapped to keep (idx [T, k], keep [T*k]) of each call, in layer
+    order."""
+    plans, inner = [], moe.dispatch_plan
+
+    def record(*args, **kwargs):
+        plan = inner(*args, **kwargs)
+        plans.append((plan.idx, plan.keep))
+        return plan
+
+    moe.dispatch_plan = record
+    try:
+        yield plans
+    finally:
+        moe.dispatch_plan = inner
+
+
+def moe_bounds(cfg, E: int, C: int) -> tuple:
+    """(prefill operations, decode-step bytes) of a MoE config at phase
+    10's shape, from the shapes: the prefill's products (attention
+    projections, the causal q.k and p.v pairs, the router, every expert's
+    C-row buffer, the shared and dense residual MLPs; the logits of the
+    last position), 2 operations a multiply-add; a decode step's bytes
+    (every weight once but the embedding, of which one row a token; every
+    expert runs on its buffer, so every expert's weights are read; the
+    valid KV cache once)."""
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    T, ff, Lr = LM_BATCH * LM_PROMPT, cfg.moe_d_ff or cfg.d_ff, cfg.n_layers
+    shared = (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
+    dense_ff = cfg.d_ff if cfg.moe_dense_residual else 0
+    proj = 2 * T * D * (H + 2 * K) * hd + 2 * T * H * hd * D
+    attn = 4 * LM_BATCH * H * hd * LM_PROMPT * (LM_PROMPT + 1) // 2
+    ffn = 6 * E * C * D * ff + 6 * T * D * (shared + dense_ff) + 2 * T * D * E
+    nops = Lr * (proj + attn + ffn) + 2 * LM_BATCH * D * cfg.vocab_size
+    layer_w = D * (H + 2 * K) * hd + H * hd * D + 3 * D * (E * ff + shared + dense_ff) + 2 * D
+    cache = 2 * Lr * LM_BATCH * LM_CACHE * K * hd * 2
+    nbytes = 2 * Lr * layer_w + 4 * Lr * D * E + cache + 2 * D * cfg.vocab_size + 2 * LM_BATCH * D
+    return nops, nbytes
+
+
+def moe_attention_routes(cfgs, dev, fa, fd, held, randn):
+    """flash_attention and flash_decode at each MoE config's serving shapes
+    (bf16; G 1 for Qwen1.5-MoE, 7 for Arctic), held to their plain
+    versions by `held` (phase 3c's tolerance); the profiler's kernel
+    names must show the tensor-core routes, attention_tc and decode_tc."""
+    bf16 = torch.bfloat16
+    for c in cfgs:
+        H, K, hd = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        q, k, v = (randn((LM_BATCH, LM_PROMPT, n, hd), bf16).transpose(1, 2) for n in (H, K, K))
+        held("flash_attention", fa.flash_attention_cuda(q, k, v), fa.flash_attention_plain(q, k, v),
+             f"{c.name} prefill B{LM_BATCH} H{H} K{K} S{LM_PROMPT} hd{hd} bf16 causal (G {H // K}, "
+             "strided [B,S,H,hd] views)")
+        qd, kd, vd = (randn((LM_BATCH, H, hd), bf16), randn((LM_BATCH, LM_CACHE, K, hd), bf16),
+                      randn((LM_BATCH, LM_CACHE, K, hd), bf16))
+        pd = torch.full((1,), LM_CACHE - 1, dtype=torch.int32, device=dev)
+        held("flash_decode", fd.flash_decode_cuda(qd, kd, vd, pd),
+             fd.flash_decode_plain(qd, kd, vd, pd),
+             f"{c.name} decode B{LM_BATCH} H{H} K{K} S{LM_CACHE} hd{hd} bf16 pos {LM_CACHE - 1} "
+             f"(G {H // K})")
+        prof, _ = profile_slots(lambda: (fa.flash_attention_cuda(q, k, v),
+                                         fd.flash_decode_cuda(qd, kd, vd, pd)), slots=1)
+        names = sorted(n for n in (prof or {}) if "attention" in n or "decode" in n)
+        if prof is not None and not (any("attention_tc" in n for n in names)
+                                     and any("decode_tc" in n for n in names)):
+            fail(f"10 moe: at G {H // K} the attention kernels ran {names}, not the tensor-core "
+                 "routes attention_tc and decode_tc")
+        say(f"[10 moe] G {H // K} (H {H}, K {K}, hd {hd}): the profiler's kernels "
+            + (", ".join(n[:48] for n in names) if prof is not None else "not measured"))
+
+
+def moe_serve(tag, cfg, dev, ops, moe, build_model, greedy_generate, plain):
+    """Phase 10 for one MoE config: `serve_lm` (phase 8's run and bounds)
+    with the MoE checks before its comparisons: for one prefill each
+    layer's (token, slot) routing choices that differ between the kernel
+    path and the plain path, in bf16 and with float32 activations; the
+    pairs dropped per layer at the prefill and a decode step; the prefill
+    run twice, its logits and caches bitwise equal (the combine gathers
+    and adds in a fixed order); the bounds of `moe_bounds`. Returns the
+    greedy run's launch counts."""
+    E = moe.padded_expert_count(cfg.n_experts, cfg.ep_axis)
+    k = cfg.n_experts_active
+    T = LM_BATCH * LM_PROMPT
+    C = moe.capacity(T, k, E, cfg.moe_capacity_factor)
+    C_dec = moe.capacity(LM_BATCH, k, E, cfg.moe_capacity_factor)
+
+    def checks(model, params, prompts):
+        batch = {"tokens": prompts}
+        diffs = {}
+        for dt, m in (("bf16", model),
+                      ("float32", build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                                              dev))):
+            with recording_plans(moe) as kern:
+                logits, cache = m.prefill(params, batch, cache_len=LM_CACHE)
+            with swapped(ops, plain), recording_plans(moe) as pl:
+                m.prefill(params, batch, cache_len=LM_CACHE)
+            if len(kern) != cfg.n_layers or len(pl) != cfg.n_layers:
+                fail(f"{tag}: {len(kern)} and {len(pl)} routed layers in a prefill, expected "
+                     f"{cfg.n_layers}")
+            diffs[dt] = [int((a[0] != b[0]).sum()) for a, b in zip(kern, pl)]
+            if dt == "bf16":
+                drops = [int((~keep).sum()) for _, keep in kern]
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+                with recording_plans(moe) as dec:
+                    model.decode_step(params, tok, cache)
+                dec_drops = [int((~keep).sum()) for _, keep in dec]
+            del logits, cache
+        say(f"[{tag}] routing, kernels vs plain attention, (token, slot) choices that differ per "
+            f"layer of one prefill ({T * k:,} pairs a layer): bf16 {diffs['bf16']}, float32 "
+            f"activations {diffs['float32']}")
+        say(f"[{tag}] dropped pairs per layer (E {E} experts, k {k}, capacity factor "
+            f"{cfg.moe_capacity_factor:g}): prefill C {C}, of {T * k:,}: {drops}; a decode step "
+            f"C {C_dec}, of {LM_BATCH * k}: {dec_drops}")
+        # the prefill twice: logits and caches bitwise equal
+        runs = [model.prefill(params, batch, cache_len=LM_CACHE) for _ in range(2)]
+        (l1, c1), (l2, c2) = runs
+        same = (same_bits(l1, l2) and torch.equal(c1["pos"], c2["pos"])
+                and all(torch.equal(c1[n].view(torch.int16), c2[n].view(torch.int16))
+                        for n in ("k", "v")))
+        if not same:
+            fail(f"{tag}: two prefills of the same prompts differ (logits or caches)")
+        say(f"[{tag}] prefill run twice: logits and KV caches bitwise equal")
+        del runs, l1, l2, c1, c2
+        nops, nbytes = moe_bounds(cfg, E, C)
+        say(f"[{tag}] bounds from the shapes: prefill {nops / 1e12:.2f} TFLOP, "
+            f"{nops / BF16_OPS_PER_S * 1e3:.1f} ms at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
+            f"a decode step {nbytes / 1e9:.2f} GB, {nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    launches, *_ = serve_lm(
+        tag, cfg, dict(flash_attention=cfg.n_layers, flash_decode=cfg.n_layers * LM_GEN), plain,
+        "plain attention", dev, ops, build_model, greedy_generate, before_checks=checks)
+    torch.cuda.empty_cache()  # the model's weights go before the next phase's
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1463,6 +1629,7 @@ def main() -> int:
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import build_model
     from repro_torch.models import layers as lm_layers
+    from repro_torch.models import moe as moe_lib
     from repro_torch.serve import serve_loop
 
     dev = torch.device("cuda", 0)
@@ -2048,7 +2215,7 @@ def main() -> int:
     def randn(shape, dt):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
-    def held(kname, got, want, label):
+    def attn_held(kname, got, want, label):
         torch.cuda.synchronize()
         atol, rtol = ATTN_TOL[want.dtype]
         diff = (got.float() - want.float()).abs()
@@ -2085,7 +2252,7 @@ def main() -> int:
     attn_main = None
     for B, H, K, Sq, Skv, hd, dt, mode, pl in attn_cases:
         q, k, v = randn((B, H, Sq, hd), dt), randn((B, K, Skv, hd), dt), randn((B, K, Skv, hd), dt)
-        held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode=mode, prefix_len=pl),
+        attn_held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode=mode, prefix_len=pl),
              fa.flash_attention_plain(q, k, v, mask_mode=mode, prefix_len=pl),
              f"B{B} H{H} K{K} Sq{Sq} Skv{Skv} hd{hd} {str(dt)[6:]} {mode}"
              + (f" prefix_len {pl}" if mode == "prefix" else ""))
@@ -2094,11 +2261,11 @@ def main() -> int:
     # the model's [B,S,H,hd] projections, passed transposed (strided)
     q, k, v = randn((2, 300, 32, 128), bf16), randn((2, 300, 2, 128), bf16), randn((2, 300, 2, 128), bf16)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
+    attn_held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
          "B2 H32 K2 S300 hd128 bf16 causal, strided [B,S,H,hd] views")
     q, k, v = randn((2, 437, 16, 64), bf16), randn((2, 437, 4, 64), bf16), randn((2, 437, 4, 64), bf16)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
+    attn_held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
          "B2 H16 K4 S437 hd64 bf16 causal, strided [B,S,H,hd] views")
     del q, k, v, qt, kt, vt
 
@@ -2123,7 +2290,7 @@ def main() -> int:
     for B, H, K, S, hd, dt, pos in decode_cases:
         q, k, v = randn((B, H, hd), dt), randn((B, S, K, hd), dt), randn((B, S, K, hd), dt)
         p = torch.full((1,), pos, dtype=torch.int32, device=dev)
-        held("flash_decode", fd.flash_decode_cuda(q, k, v, p), fd.flash_decode_plain(q, k, v, p),
+        attn_held("flash_decode", fd.flash_decode_cuda(q, k, v, p), fd.flash_decode_plain(q, k, v, p),
              f"B{B} H{H} K{K} S{S} hd{hd} {str(dt)[6:]} pos {pos}")
     del q, k, v
 
@@ -4106,6 +4273,21 @@ def main() -> int:
         f"{rep.age_p95:g}/{rep.age_p99:g}, over the deadline {rep.age_over_deadline_frac:.3f}; "
         "trajectory (queues, rings, counts) bitwise equal to simulate(deadlines=)")
 
+    # ---- 10. MoE serving: Qwen1.5-MoE-A2.7B, Arctic at one layer ------
+    # (before phase 8, whose model phase 7 keeps: no two models are held)
+    t10 = time.perf_counter()
+    moe_cfgs = [registry.get_config(MOE_ARCH),
+                dataclasses.replace(registry.get_config(MOE_WIDE_ARCH), n_layers=1)]
+    moe_attention_routes(moe_cfgs, dev, fa, fd, attn_held, randn)
+    attn_plain = dict(flash_attention=fa.flash_attention_plain,
+                      flash_decode=fd.flash_decode_plain)
+    moe_launches = {}
+    for mcfg, mtag in zip(moe_cfgs, ("10 moe", "10 moe arctic")):
+        name_m = mcfg.name + ("" if mcfg is moe_cfgs[0] else f" ({mcfg.n_layers} layer)")
+        moe_launches[name_m] = moe_serve(mtag, mcfg, dev, ops, moe_lib, build_model,
+                                         greedy_generate, attn_plain)
+    say(f"[10 moe] phase 10: {time.perf_counter() - t10:.1f} s")
+
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
     lm_cfg = registry.get_config(LM_ARCH)
     lm_launches, model, params, prompts = serve_lm(
@@ -4292,6 +4474,7 @@ def main() -> int:
         "src/repro/kernels/flash_attention.py:87", lm_launches["flash_attention"], ms, call_ms,
         plain_ms, nbytes=2 * (2 * B * H * S * hd + 2 * B * Ka * S * hd), nops=nops,
         ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
+    rows[-1]["moe_launches"] = {n: c["flash_attention"] for n, c in moe_launches.items()}
     issued = nops * 3 // 2  # q.k, p_hi.v and p_lo.v on the tensor cores
     say(f"[7 time] flash_attention: bf16 runs on the tensor cores (wgmma, TMA), float32 on the "
         f"CUDA cores; the bf16 kernel issues {issued / 1e12:.3f} TFLOP of tensor-core work "
@@ -4331,6 +4514,7 @@ def main() -> int:
         "src/repro/kernels/flash_decode.py:76", lm_launches["flash_decode"], ms, call_ms,
         plain_ms, nbytes=2 * (2 * B * H * hd + 2 * B * n_valid * Kd * hd),
         nops=4 * B * H * n_valid * hd, ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
+    rows[-1]["moe_launches"] = {n: c["flash_decode"] for n, c in moe_launches.items()}
     del dcache, kd, vd
 
     # ssd_chunk_intra: the prefill shape of phase 9 (phase 3d's first

@@ -146,11 +146,13 @@ def _tree(tree, device):
 
 
 def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
-    """The port's parameters from the JAX package's pytree of a dense or
-    ssm model (`Model(cfg).init(key)`), given as nested dicts of arrays:
-    the same names, shapes (the stacked layer axis included), dtypes and
-    bits (an SSM layer's A_log, D and dt_bias stay float32 in a bf16
-    model)."""
+    """The port's parameters from the JAX package's pytree of a dense, moe
+    or ssm model (`Model(cfg).init(key)`), given as nested dicts of
+    arrays: the same names, shapes (the stacked layer axis included, a
+    MoE layer's experts padded to a multiple of `ep_axis`), dtypes and
+    bits (an SSM layer's A_log, D and dt_bias, and a MoE router, stay
+    float32 in a bf16 model)."""
+    from repro_torch.models.moe import padded_expert_count
     from repro_torch.models.transformer import require_ported
 
     require_ported(cfg)
@@ -158,6 +160,14 @@ def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
     if tuple(out["embed"].shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"params_from_reference: embed {tuple(out['embed'].shape)} does not "
                          f"fit {cfg.name}")
+    if cfg.n_experts:
+        E = padded_expert_count(cfg.n_experts, cfg.ep_axis)
+        router = out["layers"]["moe"]["router"]
+        if tuple(router.shape) != (cfg.n_layers, cfg.d_model, E) or router.dtype != torch.float32:
+            raise ValueError(f"params_from_reference: router {router.dtype} "
+                             f"{tuple(router.shape)} does not fit {cfg.name} (float32 "
+                             f"{(cfg.n_layers, cfg.d_model, E)}: {cfg.n_experts} experts padded "
+                             f"to {E})")
     return out
 
 

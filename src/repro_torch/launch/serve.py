@@ -1,8 +1,9 @@
 """Serving CLI (counterpart of `repro.launch.serve`): batched prefill
-and greedy decode, for the dense family (KV caches) and the ssm family
-(state caches).
+and greedy decode, for the dense and moe families (KV caches) and the
+ssm family (state caches).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2_7b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_1_3b --smoke --device cpu
 
 Runs on the CUDA card by default; --device cpu runs the kernels' plain

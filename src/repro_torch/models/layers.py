@@ -39,7 +39,7 @@ def dense_init(gen: torch.Generator, shape, scale: float | None = None, dtype=to
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(tuple(shape), generator=gen, device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)  # in place: one float32 copy at the peak
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32):

@@ -1,5 +1,5 @@
 """The Model API of the port (counterpart of `repro.models.model`), for
-the dense and ssm families.
+the dense, moe and ssm families.
 
 `build_model(cfg, device)` gives a `Model` with
   init(generator) -> params

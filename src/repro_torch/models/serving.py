@@ -1,8 +1,10 @@
-"""Serving entry points for the dense and ssm families (counterpart of
-`repro.models.serving`): prefill (build the cache) and one-token decode.
+"""Serving entry points for the dense, moe and ssm families (counterpart
+of `repro.models.serving`): prefill (build the cache) and one-token
+decode. The moe family serves through the dense path, its layers' FFN
+that of JAX's `_ffn_sub` (`transformer._apply_ffn`).
 
 Caches:
-  dense: {"k" [L,B,C,K,hd], "v" [L,B,C,K,hd] in the compute dtype, "pos"
+  dense, moe: {"k" [L,B,C,K,hd], "v" [L,B,C,K,hd] in the compute dtype, "pos"
          a 0-d int32 tensor on the device}, C the cache capacity. The
          cache holds the rotated keys.
   ssm:   {"ssm" [L,B,H,N,P] float32, "conv" [L,B,W-1,C] in the compute

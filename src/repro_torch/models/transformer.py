@@ -1,13 +1,16 @@
-"""Dense and SSM decoder stacks (counterpart of the dense and ssm parts
-of `repro.models.transformer`).
+"""Dense, MoE and SSM decoder stacks (counterpart of the dense, moe and
+ssm parts of `repro.models.transformer`).
 
 Parameters are nested dicts with the JAX package's names, and the layer
 stack keeps its leading layer axis ([L, ...] per leaf), so
 `convert.params_from_reference` maps a JAX pytree onto them leaf for
 leaf. Where the JAX package scans over the layer axis, the port loops
 over it in Python. There is no rematerialisation: this is the inference
-path. MoE, hybrid, VLM and enc-dec stacks, and the training loss, are
-later slices (ROADMAP Queue 1, next slices 3).
+path. A MoE layer's FFN is `moe.apply_moe` plus the always-on shared
+MLP and Arctic's parallel dense residual MLP (`_apply_ffn`). Hybrid,
+VLM and enc-dec stacks, MoE on every other layer (`moe_every` 2, which
+only the hybrid Jamba uses), and the training loss are later slices
+(ROADMAP Queue 1, next slices 3).
 """
 from __future__ import annotations
 
@@ -17,17 +20,22 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 
 
 def require_ported(cfg) -> None:
-    """Admits the families the port serves, dense and ssm; raises
-    NotImplementedError for the rest."""
-    ported = cfg.family == "ssm" or (cfg.family == "dense" and not cfg.n_experts)
+    """Admits the families the port serves, dense, moe (MoE on every
+    layer) and ssm; raises NotImplementedError for the rest."""
+    if cfg.n_experts and cfg.moe_every > 1 and cfg.family in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE every {cfg.moe_every} layers is not ported to repro_torch yet; the "
+            "JAX package stacks such layers in pairs, which only the hybrid family uses "
+            "(ROADMAP Queue 1, next slices 3.3)")
+    ported = cfg.family in ("dense", "moe", "ssm")
     if not ported or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, next slices 3); the port serves the dense and ssm families")
+            "(ROADMAP Queue 1, next slices 3); the port serves the dense, moe and ssm families")
 
 
 def tree_map(fn, tree):
@@ -46,7 +54,19 @@ def layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 def _init_ffn(gen, cfg, dtype):
-    return {"mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.n_layers, dtype)}
+    """A dense MLP, or MoE (+ the shared MLP, + the dense residual MLP)."""
+    if not cfg.n_experts:
+        return {"mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.n_layers,
+                                  dtype)}
+    p = {"moe": moe.init_moe(gen, cfg, dtype)}
+    if cfg.n_shared_experts:
+        p["shared"] = L.init_mlp(gen, cfg.d_model,
+                                 (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts,
+                                 cfg.activation, cfg.n_layers, dtype)
+    if cfg.moe_dense_residual:
+        p["dense_res"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.n_layers,
+                                    dtype)
+    return p
 
 
 def _init_dense_layer(gen, cfg, dtype):
@@ -71,6 +91,8 @@ def _stack(make, n: int):
     layer at a time (the peak is the stack plus one layer, not two
     stacks)."""
     first = make()
+    if n == 1:  # a view: no second copy of the layer
+        return tree_map(lambda t: t.unsqueeze(0), first)
     out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
 
     def put(dst, src, i):
@@ -108,7 +130,17 @@ def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 def _apply_ffn(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    return L.apply_mlp(p["mlp"], x, cfg.activation, cfg.compute_dtype)
+    """The layer's FFN on x (p: the layer's parameters). A MoE layer adds
+    moe + shared, then + dense_res, each sum rounded to x's dtype, as the
+    JAX package does before its residual add."""
+    if "mlp" in p:
+        return L.apply_mlp(p["mlp"], x, cfg.activation, cfg.compute_dtype)
+    y = moe.apply_moe(p["moe"], x, cfg)
+    if "shared" in p:
+        y = y + L.apply_mlp(p["shared"], x, cfg.activation, cfg.compute_dtype)
+    if "dense_res" in p:
+        y = y + L.apply_mlp(p["dense_res"], x, cfg.activation, cfg.compute_dtype)
+    return y
 
 
 def _dense_block(x, lp, cfg, rope, mask_mode, prefix_len):

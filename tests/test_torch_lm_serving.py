@@ -1,4 +1,4 @@
-"""The port's dense LM serving path against the JAX package.
+"""The port's dense and MoE LM serving paths against the JAX package.
 
 For each of the four dense SMOKE configs (GLM-4, Qwen1.5, InternLM2,
 StarCoder2: GQA and MHA, partial and full rotary, QKV bias, tied
@@ -14,6 +14,11 @@ decode step are also bitwise equal to JAX's: the port follows XLA:CPU's
 rounding of rope (FMAs, glibc's sinf/cosf), silu, GELU and the residual
 there (tests/test_torch_numerics_xla.py). Attention runs through the
 kernels' plain versions, as every CPU tensor does.
+
+The two MoE SMOKE configs (Qwen1.5-MoE with shared experts, Arctic with
+its dense residual FFN) run the same checks as configured (the exact
+dense MoE path) and through the capacity path (dispatch, drops,
+combine).
 """
 import dataclasses
 import subprocess
@@ -44,12 +49,13 @@ def tol(dtype):
     return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
 
 
-def _pair(arch, dtype="float32"):
+def _pair(arch, dtype="float32", **overrides):
     jcfg = jregistry.get_smoke_config(arch)
     tcfg = registry.get_smoke_config(arch)
     if dtype != "float32":
-        jcfg = dataclasses.replace(jcfg, param_dtype=dtype, compute_dtype=dtype)
-        tcfg = dataclasses.replace(tcfg, param_dtype=dtype, compute_dtype=dtype)
+        overrides.update(param_dtype=dtype, compute_dtype=dtype)
+    jcfg = dataclasses.replace(jcfg, **overrides)
+    tcfg = dataclasses.replace(tcfg, **overrides)
     jm = jax_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(tcfg, "cpu")
@@ -68,8 +74,8 @@ def _assert_cache(tc, jc, dtype, what):
                                           err_msg=f"{what} layer 0 {name}")
 
 
-def _prefill_and_decode(arch, dtype):
-    jm, jp, tm, tp = _pair(arch, dtype)
+def _prefill_and_decode(arch, dtype, **overrides):
+    jm, jp, tm, tp = _pair(arch, dtype, **overrides)
     cfg = tm.cfg
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -100,12 +106,74 @@ def test_prefill_and_decode_match_jax_bf16(arch):
 
 @pytest.mark.parametrize("arch", registry.DENSE_ARCHS)
 def test_greedy_tokens_equal_jax(arch):
-    jm, jp, tm, tp = _pair(arch)
+    _greedy_tokens_equal_jax(arch)
+
+
+def _greedy_tokens_equal_jax(arch, **overrides):
+    jm, jp, tm, tp = _pair(arch, **overrides)
     prompts = np.random.default_rng(2).integers(0, tm.cfg.vocab_size, (B, S)).astype(np.int32)
     want = np.asarray(jax_greedy(jm, jp, jnp.asarray(prompts), 8, C))
     got = greedy_generate(tm, tp, torch.from_numpy(prompts), 8, C)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the MoE family: each SMOKE config as configured (moe_path "dense", the
+# exact oracle) and through the production capacity path
+MOE_CASES = [(arch, path) for arch in registry.MOE_ARCHS for path in ("dense", "capacity")]
+MOE_IDS = [f"{arch}-{path}" for arch, path in MOE_CASES]
+
+
+@pytest.mark.parametrize("arch,path", MOE_CASES, ids=MOE_IDS)
+def test_moe_prefill_and_decode_match_jax(arch, path):
+    _prefill_and_decode(arch, "float32", moe_path=path)
+
+
+@pytest.mark.parametrize("arch,path", MOE_CASES, ids=MOE_IDS)
+def test_moe_prefill_and_decode_match_jax_bf16(arch, path):
+    _prefill_and_decode(arch, "bfloat16", moe_path=path)
+
+
+@pytest.mark.parametrize("arch,path", MOE_CASES, ids=MOE_IDS)
+def test_moe_greedy_tokens_equal_jax(arch, path):
+    _greedy_tokens_equal_jax(arch, moe_path=path)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", registry.MOE_ARCHS)
+def test_moe_params_match_jax_shapes(arch, dtype):
+    """The port's own init has the shapes and dtypes of JAX's `eval_shape`
+    (experts padded to ep_axis, here 4: Qwen's 6 -> 8; the router float32
+    in a bf16 model), and `params_from_reference` carries JAX's MoE tree
+    over leaf for leaf, refusing a router that does not fit."""
+    jcfg = dataclasses.replace(jregistry.get_smoke_config(arch), ep_axis=4,
+                               param_dtype=dtype, compute_dtype=dtype)
+    tcfg = registry.ModelConfig(**dataclasses.asdict(jcfg))
+    jm = jax_build(jcfg)
+    spec = jm.param_specs()
+    own = build_model(tcfg, "cpu").init(torch.Generator().manual_seed(0))
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{prefix}/{k}").items()}
+        return {prefix: tree}
+
+    want = {k: (tuple(v.shape), str(v.dtype)) for k, v in flat(spec).items()}
+    got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in flat(own).items()}
+    assert got == want
+    assert got["/layers/moe/router"][1] == "float32"
+    E = -(-jcfg.n_experts // 4) * 4
+    assert got["/layers/moe/w_in"][0][1] == E
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = convert.params_from_reference(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    for k, v in flat(tp).items():
+        ref = np.asarray(flat(jp)[k])
+        assert tuple(v.shape) == ref.shape
+        np.testing.assert_array_equal(v.float().numpy(), ref.astype(np.float32))
+    bad = jax.tree.map(np.asarray, jp)
+    bad["layers"]["moe"]["router"] = bad["layers"]["moe"]["router"][:, :, :-1]
+    with pytest.raises(ValueError, match="router"):
+        convert.params_from_reference(bad, tcfg, "cpu")
 
 
 @pytest.mark.parametrize("arch", registry.DENSE_ARCHS)
@@ -139,7 +207,7 @@ def test_decode_continues_a_jax_cache():
 
 
 def test_configs_and_cache_specs_match_jax():
-    for arch in registry.DENSE_ARCHS:
+    for arch in registry.DENSE_ARCHS + registry.MOE_ARCHS:
         for getter in ("get_config", "get_smoke_config"):
             t, j = getattr(registry, getter)(arch), getattr(jregistry, getter)(arch)
             assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
@@ -151,6 +219,7 @@ def test_configs_and_cache_specs_match_jax():
             assert tspec[name][0] == tuple(jspec[name].shape), (arch, name)
             assert str(tspec[name][1]).split(".")[-1] == str(jspec[name].dtype), (arch, name)
     assert registry.get_config("glm4_9b").total_params() == 9_399_435_264
+    assert registry.get_config("qwen2_moe_a2_7b").total_params() == 14_315_487_232  # 60 experts; 64 padded are held
     assert set(registry.ARCH_IDS) == set(jregistry.ARCH_IDS)
 
 
@@ -165,8 +234,8 @@ def test_init_cache_and_own_init():
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "paligemma_3b", "seamless_m4t_medium",
-                                  "jamba_1_5_large_398b", "arctic_480b"])
+@pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_medium",
+                                  "jamba_1_5_large_398b"])
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_config(arch)
@@ -176,10 +245,34 @@ def test_other_families_are_not_ported_yet(arch):
         build_model(cfg, "cpu")
 
 
-def test_serve_cli_runs_on_the_cpu():
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "arctic_480b"])
+def test_moe_families_build_and_serve(arch):
+    """The two MoE configs, not ported before this slice, come from the
+    registry as the JAX package's, and build_model serves both."""
+    for getter in ("get_config", "get_smoke_config"):
+        t, j = getattr(registry, getter)(arch), getattr(jregistry, getter)(arch)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    cfg = registry.ModelConfig(**dataclasses.asdict(jregistry.get_smoke_config(arch)))
+    m = build_model(cfg, "cpu")
+    params = m.init(torch.Generator().manual_seed(1))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(2),
+                            dtype=torch.int32)
+    toks = greedy_generate(m, params, prompts, 3, 10)
+    assert toks.shape == (2, 3) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+
+
+def test_moe_on_alternate_layers_is_not_ported_yet():
+    """MoE every other layer (JAX stacks such layers in pairs; only the
+    hybrid family uses it) is refused, naming the hybrid slice."""
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen2_moe_a2_7b"), moe_every=2)
+    with pytest.raises(NotImplementedError, match="3.3"):
+        build_model(cfg, "cpu")
+
+
+def _serve_cli(arch):
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "glm4_9b", "--smoke",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
          "--device", "cpu", "--requests", "4", "--batch", "2", "--prompt-len", "16",
          "--gen-len", "4"],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
@@ -187,3 +280,11 @@ def test_serve_cli_runs_on_the_cpu():
     lines = out.stdout.strip().splitlines()
     assert lines[0].startswith("batch 0: generated (2, 4)")
     assert lines[-1].startswith("served 4 reqs, 16 tokens on cpu")
+
+
+def test_serve_cli_runs_on_the_cpu():
+    _serve_cli("glm4_9b")
+
+
+def test_serve_cli_serves_moe_on_the_cpu():
+    _serve_cli("qwen2_moe_a2_7b")
