@@ -30,11 +30,14 @@ B's width, and a deadline-aware `serve_loop`; the telemetry layer
 the JAX benches' rows, on the fault rows and W1, and at the main path's
 and fleet B's width; MoE serving, the same `greedy_generate`, for
 Qwen1.5-MoE-A2.7B at full width and depth and Snowflake Arctic at full
-width and one layer, in bf16 at the same batch and lengths.
+width and one layer, in bf16 at the same batch and lengths; VLM serving,
+`Model.prefill` and `Model.decode_step` on a batch of image patch
+embeddings and text tokens, for PaliGemma-3B at full size in bf16 at the
+same batch and lengths.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-4h, 4i, 5-6, 10, 8, 9, 7 (phase 7 times every kernel with the launch counts of all
-paths; phase 10 frees its models before phase 8 builds GLM-4-9B, which
-phase 7 keeps):
+4h, 4i, 5-6, 10, 11, 8, 9, 7 (phase 7 times every kernel with the launch
+counts of all paths; phases 10 and 11 free their models before phase 8
+builds GLM-4-9B, which phase 7 keeps):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
@@ -93,8 +96,14 @@ phase 7 keeps):
    causal Sq > Skv and a single block (B 1, H 1, S 64); flash_decode
    at B 8, H 32, K 2, S 4161, hd 128 for pos 0, 127, 128 (a tile edge),
    511, 512, 527, 528 (a split edge), 4095, 4160, G = 1, 8 and 32, hd
-   16, 32, 64 off the 128-key tile, B = 1 and f32; and the LM layers'
-   emulations of XLA:CPU (rope_angles at positions 0-32767 for every
+   16, 32, 64 off the 128-key tile, B = 1 and f32; PaliGemma's heads at
+   hd 256 (MQA, H 8 on K 1) in bf16 and f32: flash_attention at B 2, S
+   256, 1000 and 4096, causal, prefix_len 1, 255, 256, 257 and 1000
+   (either side of the hd 256 instance's 64-key tiles), full, Sq 128
+   against Skv 1000, causal Sq > Skv and strided views; flash_decode at
+   S 4161 for pos 0, 63, 64, 127, 128, 4095, 4160, G 1, 8 and 32 and B
+   1; the profiler naming attention_tc<256> and decode_tc<256>; and the
+   LM layers' emulations of XLA:CPU (rope_angles at positions 0-32767 for every
    dense config, gelu_tanh, apply_rope) bitwise equal to the CPU's;
 3d. ssd_chunk_intra vs its plain version on the card, within
    |err| <= 2e-5 * max(1, sum|terms|) + 2e-5*|plain| (sum|terms|: the plain
@@ -280,8 +289,10 @@ phase 7 keeps):
    mode "error" (prefill, every decode step and argmax: the loop never
    syncs), launch counters checked (flash_attention 40, flash_decode
    40 x 64); then timed with CUDA events (prefill ms, decode ms/step,
-   tokens/s, peak memory), one decode step profiled (device idle share,
-   top kernels); then against the plain attention versions on the card
+   tokens/s, peak memory), the two timed runs' prefills bitwise equal
+   (logits, the caches at the prompt's positions), one decode step
+   profiled (device idle share, top kernels); then against the plain
+   attention versions on the card
    (swapped in for this comparison only), prefill logits and 4
    teacher-forced decode steps: with float32 activations over the same
    bf16 weights, kernels vs plain within a relative L2 of 1e-4; in bf16,
@@ -291,7 +302,8 @@ phase 7 keeps):
 9. SSM serving, mamba2-1.3B (`configs/mamba2_1_3b.py`, 1.45 B parameters,
    the port's seeded init): as phase 8, with ssd_chunk_intra 48 launches
    (one per layer of the prefill; the decode step runs no kernel) and
-   the plain SSD intra-chunk step swapped in for the comparison;
+   the plain SSD intra-chunk step swapped in for the comparison (its
+   state cache advances in place, so no prefill repeat is compared);
 10. MoE serving: first flash_attention and flash_decode at the two MoE
    configs' serving shapes (H 16 K 16: G 1; H 56 K 8: G 7; hd 128, bf16)
    held to their plain versions within phase 3c's tolerance, and the
@@ -306,13 +318,27 @@ phase 7 keeps):
    before the comparisons, for one prefill each layer's (token, slot)
    routing choices that differ between the kernel and the plain path (bf16
    and float32 activations), the pairs dropped per layer at the prefill
-   (of 131,072 and 65,536) and a decode step (of 32 and 16), the prefill
-   run twice with its logits and caches bitwise equal, and the bounds
-   from the shapes (prefill operations, a decode step's bytes);
+   (of 131,072 and 65,536) and a decode step (of 32 and 16), and the
+   bounds from the shapes (prefill operations, a decode step's bytes);
+11. VLM serving, PaliGemma-3B (`configs/paligemma_3b.py`, 2.51 B
+   parameters, the port's seeded init; head_dim 256, MQA, GeGLU, tied
+   embeddings): prompts of 256 patch embeddings from SEED (numpy's
+   normal in bf16, the SigLIP frontend's stub, as JAX's dummy_batch
+   draws it) and 3,840 text tokens, 4,096 positions under the prefix
+   mask, through `Model.prefill` and `Model.decode_step` (the serve CLI,
+   as JAX's, takes decoder-only LMs); as phase 8 (flash_attention 18,
+   flash_decode 18 x 64 launches under sync debug mode "error", timing,
+   the prefills of the two timed runs bitwise equal, profiles, the logit
+   bounds against the plain attention versions, the greedy tokens'
+   agreement), the GELU's and the tied unembedding's cost, and the
+   bounds from the shapes;
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
-   never calls it); flash_decode and SDPA also in turns (A, B, B, A),
+   never calls it), the attention kernels also at PaliGemma's hd 256
+   shapes (prefill B 8, H 8, K 1, S 4096, prefix 256; decode pos 4160)
+   with the hd 256 instances' ptxas registers and spills; flash_decode
+   and SDPA also in turns (A, B, B, A),
    both from CUDA-graph replay, with the decode kernel's ptxas
    registers and spills; ssd_chunk_intra (its two launches timed
    together; phase 9's prefill profile names each) with its bound on the
@@ -701,6 +727,10 @@ SSM_ARCH = "mamba2_1_3b"  # phase 9 serves it at phase 8's batch, prompt and len
 # one layer deep (its 35 layers hold 477 B parameters), at phase 8's
 # batch, prompt and length
 MOE_ARCH, MOE_WIDE_ARCH = "qwen2_moe_a2_7b", "arctic_480b"
+# phase 11 serves PaliGemma-3B at full size at phase 8's batch, length
+# and generated tokens: 256 patch embeddings (the SigLIP frontend's stub)
+# and 3,840 text tokens make the same 4,096 positions
+VLM_ARCH = "paligemma_3b"
 LM_CACHE = LM_PROMPT + LM_GEN + 1
 # teacher-forced logits, kernels vs plain attention: with float32
 # activations (the same bf16 weights) both kernels agree with their plain
@@ -1292,11 +1322,30 @@ def swapped(ops, plain):
             setattr(ops, name, fn)
 
 
+def vlm_generate(model, params, batch, gen_len: int, cache_len: int) -> torch.Tensor:
+    """Greedy decoding of a vlm batch (patches and tokens) through the
+    Model API, `Model.prefill` then `Model.decode_step` and argmax on the
+    device, as the port's `greedy_generate` does for token prompts (the
+    serve CLI takes decoder-only LMs, as JAX's does) -> [B, gen_len]
+    int32 tokens on the device."""
+    logits, cache = model.prefill(params, batch, cache_len=cache_len)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    out = []
+    for _ in range(gen_len):
+        out.append(tok)
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
 def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_generate,
              before_checks=None):
-    """One LM serving phase (8 dense, 9 ssm) at `cfg`'s full size with
-    the port's seeded init: batch LM_BATCH, prompts of LM_PROMPT tokens
-    from SEED, LM_GEN greedy tokens. `greedy_generate` once under sync
+    """One LM serving phase (8 dense, 9 ssm, 10 moe, 11 vlm) at `cfg`'s
+    full size with the port's seeded init: batch LM_BATCH, prompts of
+    LM_PROMPT positions from SEED (for a vlm, prefix_len patch embeddings
+    drawn with numpy's normal in the compute dtype, the frontend stub's
+    output, then LM_PROMPT - prefix_len tokens, generated by
+    `vlm_generate`), LM_GEN greedy tokens. `greedy_generate` once under sync
     debug mode "error" with the launch counters set to 0 just before and
     checked against `expected` just after (every other kernel 0); timed
     with CUDA events (prefill ms, decode ms/step, tokens/s, peak memory);
@@ -1306,20 +1355,37 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
     activations over the same bf16 weights, kernels vs plain within a
     relative L2 of LOGIT_F32_TOL; in bf16, each path against the float32
     plain one, the kernels' relative L2 error at most LOGIT_ERR_RATIO x
-    the plain path's; and the greedy tokens' agreement. `before_checks`,
-    if given, is called as before_checks(model, params, prompts) after
-    the profiles and before the comparisons. Returns (the launch counts
-    of the greedy run, model, params, prompts)."""
+    the plain path's; and the greedy tokens' agreement. With a KV cache,
+    the two timed runs' prefills must give bitwise equal logits and
+    caches at the prompt's positions (which no decode step writes; an
+    SSM's states advance in place). `before_checks`, if given, is called
+    as before_checks(model, params, batch) after the profiles and before
+    the comparisons. Returns (the launch counts of the greedy run, model,
+    params, prompts)."""
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
+    P = cfg.prefix_len  # image patches before the text (vlm), else 0
     say(f"[{tag}] {cfg.name}: {n_params:,} parameters ({cfg.param_dtype}) made on the card in "
-        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, prompts of {LM_PROMPT} tokens, "
-        f"{LM_GEN} generated, cache {LM_CACHE}")
-    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, prompts of {LM_PROMPT} "
+        + (f"positions ({P} patches, {LM_PROMPT - P} tokens)" if P else "tokens")
+        + f", {LM_GEN} generated, cache {LM_CACHE}")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT - P)).astype(np.int32), device=dev)
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (LM_BATCH, P, cfg.d_model), dtype=np.float32), device=dev).to(
+            getattr(torch, cfg.compute_dtype))
+
+    def generate():
+        if cfg.family == "vlm":
+            return vlm_generate(model, params, batch, LM_GEN, LM_CACHE)
+        return greedy_generate(model, params, prompts, LM_GEN, LM_CACHE)
+
     torch.cuda.synchronize()
     held_gib = torch.cuda.memory_allocated() / 2**30  # weights and what earlier phases hold
     torch.cuda.reset_peak_memory_stats()
@@ -1327,7 +1393,7 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        toks = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE)
+        toks = generate()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = ops.launch_counts()
@@ -1345,25 +1411,36 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
         f"first tokens {toks_h[0, :8].tolist()}")
 
     def timed_generate():
-        """(prefill ms, decode ms per step incl. argmax, cache) from CUDA
-        events, greedy_generate's own steps without the debug mode."""
+        """(prefill ms, decode ms per step incl. argmax, cache, last
+        token, the prefill's logits) from CUDA events, greedy_generate's
+        own steps without the debug mode."""
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
         ev[0].record()
-        logits, cache = model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+        logits, cache = model.prefill(params, batch, cache_len=LM_CACHE)
         ev[1].record()
+        first = logits
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         for _ in range(LM_GEN):
             logits, cache = model.decode_step(params, tok, cache)
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         ev[2].record()
         ev[2].synchronize()
-        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / LM_GEN, cache, tok
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / LM_GEN, cache, tok, first
 
     torch.cuda.reset_peak_memory_stats()
     runs = [timed_generate() for _ in range(2)]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    prefill_ms, decode_ms, cache, tok = runs[-1]
+    prefill_ms, decode_ms, cache, tok, _ = runs[-1]
+    if "k" in cache:
+        (_, _, c1, _, l1), (_, _, c2, _, l2) = runs
+        if not (same_bits(l1, l2) and all(
+                torch.equal(c1[n][:, :, :LM_PROMPT].view(torch.int16),
+                            c2[n][:, :, :LM_PROMPT].view(torch.int16)) for n in ("k", "v"))):
+            fail(f"{tag}: the two timed runs' prefills differ (logits or caches)")
+        say(f"[{tag}] the two timed runs' prefills: logits and the KV caches' {LM_PROMPT} prompt "
+            "positions bitwise equal")
+        del c1, c2, l1, l2
     say(f"[{tag}] timed (CUDA events, 2 runs): prefill "
         + " / ".join(f"{r[0]:.1f}" for r in runs) + " ms for "
         f"{LM_BATCH}x{LM_PROMPT} tokens; decode " + " / ".join(f"{r[1]:.3f}" for r in runs)
@@ -1372,8 +1449,7 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
         f"({LM_BATCH * LM_GEN * 1e3 / (prefill_ms + LM_GEN * decode_ms):,.1f} generated tokens/s); "
         f"peak memory {peak_gib:.2f} GiB ({held_gib:.2f} GiB allocated before the phase's "
         "first run, weights included)")
-    prof, _ = profile_slots(lambda: model.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE),
-                            slots=1)
+    prof, _ = profile_slots(lambda: model.prefill(params, batch, cache_len=LM_CACHE), slots=1)
     if prof is not None:
         busy = prof.pop("total")
         top = sorted(((v, k) for k, v in prof.items()), reverse=True)
@@ -1397,7 +1473,7 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
             "top kernels " + ", ".join(f"{k[:56]} {v:.3f} ms" for v, k in top[:8]))
     del cache, runs
     if before_checks is not None:
-        before_checks(model, params, prompts)
+        before_checks(model, params, batch)
 
     def plain_ctx():
         return swapped(ops, plain)
@@ -1408,7 +1484,7 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
         versions, none of the swapped kernels may launch."""
         ops.reset_launch_counts()
         with ctx():
-            logits, cache = m.prefill(params, {"tokens": prompts}, cache_len=LM_CACHE)
+            logits, cache = m.prefill(params, batch, cache_len=LM_CACHE)
             out = [logits]
             for t in range(LM_TEACHER_STEPS):
                 logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
@@ -1451,7 +1527,7 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
                  f"beyond {LOGIT_ERR_RATIO:g} x the {what} path's {err_p:.3e}")
     del steps, ref_model
     with plain_ctx():
-        toks_plain = greedy_generate(model, params, prompts, LM_GEN, LM_CACHE).cpu()
+        toks_plain = generate().cpu()
     same = toks_plain == toks_h
     first = [int(row.logical_not().nonzero()[0]) if not bool(row.all()) else LM_GEN for row in same]
     say(f"[{tag}] greedy tokens, kernels vs {what}: {float(same.float().mean()):.4f} equal; "
@@ -1501,6 +1577,35 @@ def moe_bounds(cfg, E: int, C: int) -> tuple:
     return nops, nbytes
 
 
+def prefix_pairs(S: int, P: int) -> int:
+    """(query, key) pairs of one head that the prefix mask admits over S
+    positions: key j <= query i, or j < P."""
+    return P * P + S * (S + 1) // 2 - P * (P + 1) // 2
+
+
+def vlm_bounds(cfg) -> dict:
+    """Phase 11's bounds from the shapes of a vlm config (a dense stack
+    with a gated MLP and tied embeddings): the prefill's operations (the
+    attention projections, q.k and p.v over the pairs the prefix mask
+    admits, the MLP's three products; the logits of the last position),
+    2 a multiply-add; a decode step's bytes (every layer weight once, the
+    tied embedding once as the unembedding, the valid KV cache once; one
+    embedding row a token); the weights' and the cache's bytes."""
+    D, H, K, hd, ff, Lr = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                           cfg.d_ff, cfg.n_layers)
+    T = LM_BATCH * LM_PROMPT
+    layers_ops = Lr * (2 * T * D * (H + 2 * K) * hd + 2 * T * H * hd * D + 6 * T * D * ff)
+    attn_ops = Lr * 4 * LM_BATCH * H * hd * prefix_pairs(LM_PROMPT, cfg.prefix_len)
+    logits_ops = 2 * LM_BATCH * D * cfg.vocab_size
+    layer_w = 2 * Lr * (D * (H + 2 * K) * hd + H * hd * D + 3 * D * ff + 2 * D)
+    unembed = 2 * D * cfg.vocab_size
+    cache = 2 * Lr * LM_BATCH * LM_CACHE * K * hd * 2
+    return dict(prefill_ops=layers_ops + attn_ops + logits_ops, layers_ops=layers_ops,
+                attn_ops=attn_ops, logits_ops=logits_ops,
+                step_bytes=layer_w + unembed + cache + 2 * LM_BATCH * D, layer_bytes=layer_w,
+                unembed_bytes=unembed, cache_bytes=cache, weight_bytes=layer_w + unembed + 2 * D)
+
+
 def moe_attention_routes(cfgs, dev, fa, fd, held, randn):
     """flash_attention and flash_decode at each MoE config's serving shapes
     (bf16; G 1 for Qwen1.5-MoE, 7 for Arctic), held to their plain
@@ -1536,9 +1641,9 @@ def moe_serve(tag, cfg, dev, ops, moe, build_model, greedy_generate, plain):
     with the MoE checks before its comparisons: for one prefill each
     layer's (token, slot) routing choices that differ between the kernel
     path and the plain path, in bf16 and with float32 activations; the
-    pairs dropped per layer at the prefill and a decode step; the prefill
-    run twice, its logits and caches bitwise equal (the combine gathers
-    and adds in a fixed order); the bounds of `moe_bounds`. Returns the
+    pairs dropped per layer at the prefill and a decode step; the bounds
+    of `moe_bounds`. `serve_lm` holds the two timed runs' prefills bitwise
+    equal (the combine gathers and adds in a fixed order). Returns the
     greedy run's launch counts."""
     E = moe.padded_expert_count(cfg.n_experts, cfg.ep_axis)
     k = cfg.n_experts_active
@@ -1546,8 +1651,7 @@ def moe_serve(tag, cfg, dev, ops, moe, build_model, greedy_generate, plain):
     C = moe.capacity(T, k, E, cfg.moe_capacity_factor)
     C_dec = moe.capacity(LM_BATCH, k, E, cfg.moe_capacity_factor)
 
-    def checks(model, params, prompts):
-        batch = {"tokens": prompts}
+    def checks(model, params, batch):
         diffs = {}
         for dt, m in (("bf16", model),
                       ("float32", build_model(dataclasses.replace(cfg, compute_dtype="float32"),
@@ -1573,16 +1677,6 @@ def moe_serve(tag, cfg, dev, ops, moe, build_model, greedy_generate, plain):
         say(f"[{tag}] dropped pairs per layer (E {E} experts, k {k}, capacity factor "
             f"{cfg.moe_capacity_factor:g}): prefill C {C}, of {T * k:,}: {drops}; a decode step "
             f"C {C_dec}, of {LM_BATCH * k}: {dec_drops}")
-        # the prefill twice: logits and caches bitwise equal
-        runs = [model.prefill(params, batch, cache_len=LM_CACHE) for _ in range(2)]
-        (l1, c1), (l2, c2) = runs
-        same = (same_bits(l1, l2) and torch.equal(c1["pos"], c2["pos"])
-                and all(torch.equal(c1[n].view(torch.int16), c2[n].view(torch.int16))
-                        for n in ("k", "v")))
-        if not same:
-            fail(f"{tag}: two prefills of the same prompts differ (logits or caches)")
-        say(f"[{tag}] prefill run twice: logits and KV caches bitwise equal")
-        del runs, l1, l2, c1, c2
         nops, nbytes = moe_bounds(cfg, E, C)
         say(f"[{tag}] bounds from the shapes: prefill {nops / 1e12:.2f} TFLOP, "
             f"{nops / BF16_OPS_PER_S * 1e3:.1f} ms at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
@@ -2267,6 +2361,32 @@ def main() -> int:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     attn_held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
          "B2 H16 K4 S437 hd64 bf16 causal, strided [B,S,H,hd] views")
+    # PaliGemma's heads, hd 256 (attention_tc<256>: one consumer
+    # warpgroup over 64-key tiles; attention_f32<256>), MQA H 8 on K 1:
+    # every mask, the prefix edge on either side of a 64-key tile and far
+    # past it, Sq against a longer Skv, causal Sq > Skv, in both dtypes
+    hd256_cases = [(2, 8, 1, Sq, Skv, 256, dt, mode, pl) for dt in (bf16, f32)
+                   for Sq, Skv, mode, pl in (
+                       (256, 256, "causal", 0), (1000, 1000, "causal", 0),
+                       (LM_PROMPT, LM_PROMPT, "causal", 0),
+                       (1000, 1000, "prefix", 1), (1000, 1000, "prefix", 255),
+                       (1000, 1000, "prefix", 256), (1000, 1000, "prefix", 257),
+                       (1000, 1000, "prefix", 1000), (LM_PROMPT, LM_PROMPT, "prefix", 256),
+                       (LM_PROMPT, LM_PROMPT, "prefix", 1000), (1000, 1000, "full", 0),
+                       (LM_PROMPT, LM_PROMPT, "full", 0), (128, 1000, "full", 0),
+                       (600, 200, "causal", 0))]
+    for B, H, K, Sq, Skv, hd, dt, mode, pl in hd256_cases:
+        q, k, v = randn((B, H, Sq, hd), dt), randn((B, K, Skv, hd), dt), randn((B, K, Skv, hd), dt)
+        attn_held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode=mode, prefix_len=pl),
+                  fa.flash_attention_plain(q, k, v, mask_mode=mode, prefix_len=pl),
+                  f"B{B} H{H} K{K} Sq{Sq} Skv{Skv} hd{hd} {str(dt)[6:]} {mode}"
+                  + (f" prefix_len {pl}" if mode == "prefix" else ""))
+    q, k, v = randn((2, 300, 8, 256), bf16), randn((2, 300, 1, 256), bf16), randn((2, 300, 1, 256), bf16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    attn_held("flash_attention",
+              fa.flash_attention_cuda(qt, kt, vt, mask_mode="prefix", prefix_len=256),
+              fa.flash_attention_plain(qt, kt, vt, mask_mode="prefix", prefix_len=256),
+              "B2 H8 K1 S300 hd256 bf16 prefix_len 256, strided [B,S,H,hd] views")
     del q, k, v, qt, kt, vt
 
     decode_cases = [(LM_BATCH, 32, 2, LM_CACHE, 128, bf16, pos)
@@ -2287,12 +2407,38 @@ def main() -> int:
                      (LM_BATCH, 32, 2, LM_CACHE, 128, bf16, 528),
                      (1, 32, 2, LM_CACHE, 128, bf16, LM_CACHE - 1),
                      (1, 32, 2, LM_CACHE, 128, bf16, 300)]
+    # PaliGemma's decode, hd 256 (decode_tc<256>: 4 warps, 64-key tiles;
+    # decode_f32<256>): G 8 on K 1 at pos on either side of a tile and at
+    # the serving cache's end, G 1 and 32, B 1
+    decode_cases += [(LM_BATCH, 8, 1, LM_CACHE, 256, bf16, pos)
+                     for pos in (0, 63, 64, 127, 128, 4095, LM_CACHE - 1)]
+    decode_cases += [(LM_BATCH, 8, 8, LM_CACHE, 256, bf16, LM_CACHE - 1),   # G 1
+                     (LM_BATCH, 32, 1, LM_CACHE, 256, bf16, LM_CACHE - 1),  # G 32
+                     (1, 8, 1, LM_CACHE, 256, bf16, LM_CACHE - 1), (1, 8, 1, LM_CACHE, 256, bf16, 300),
+                     (LM_BATCH, 8, 1, LM_CACHE, 256, f32, LM_CACHE - 1),
+                     (LM_BATCH, 8, 1, LM_CACHE, 256, f32, 63), (2, 32, 1, 1000, 256, f32, 999)]
     for B, H, K, S, hd, dt, pos in decode_cases:
         q, k, v = randn((B, H, hd), dt), randn((B, S, K, hd), dt), randn((B, S, K, hd), dt)
         p = torch.full((1,), pos, dtype=torch.int32, device=dev)
         attn_held("flash_decode", fd.flash_decode_cuda(q, k, v, p), fd.flash_decode_plain(q, k, v, p),
              f"B{B} H{H} K{K} S{S} hd{hd} {str(dt)[6:]} pos {pos}")
     del q, k, v
+    # the profiler names the hd 256 tensor-core instances on bf16 inputs
+    q, k, v = (randn((2, 8, 1000, 256), bf16), randn((2, 1, 1000, 256), bf16),
+               randn((2, 1, 1000, 256), bf16))
+    qd, kd, vd = randn((2, 8, 256), bf16), randn((2, 1000, 1, 256), bf16), randn((2, 1000, 1, 256), bf16)
+    pd = torch.full((1,), 999, dtype=torch.int32, device=dev)
+    prof, _ = profile_slots(lambda: (fa.flash_attention_cuda(q, k, v, mask_mode="prefix",
+                                                             prefix_len=256),
+                                     fd.flash_decode_cuda(qd, kd, vd, pd)), slots=1)
+    names = sorted(n for n in (prof or {}) if "attention" in n or "decode" in n)
+    if prof is not None and not (any("attention_tc<256>" in n for n in names)
+                                 and any("decode_tc<256>" in n for n in names)):
+        fail(f"3c: at hd 256 the attention kernels ran {names}, not attention_tc<256> and "
+             "decode_tc<256>")
+    say("[3c kernels] hd 256 bf16: the profiler's kernels "
+        + (", ".join(n[:60] for n in names) if prof is not None else "not measured"))
+    del q, k, v, qd, kd, vd
 
     # ---- 3d. ssd_chunk_intra vs its plain version on the card -----------
     max_err["ssd_chunk_intra"] = 0.0
@@ -4288,6 +4434,54 @@ def main() -> int:
                                          greedy_generate, attn_plain)
     say(f"[10 moe] phase 10: {time.perf_counter() - t10:.1f} s")
 
+    # ---- 11. VLM serving: PaliGemma-3B at full size ------------------
+    # (after phase 10; its model is freed before phase 8 builds GLM-4-9B)
+    t11 = time.perf_counter()
+    vlm_cfg = registry.get_config(VLM_ARCH)
+    vb = vlm_bounds(vlm_cfg)
+
+    def vlm_checks(model, params, batch):
+        """What GeGLU's GELU costs the prefill (XLA:CPU's rounding, its
+        tanh's FMAs emulated in float64), and the bounds from the shapes."""
+        gate = randn((LM_BATCH, LM_PROMPT, vlm_cfg.d_ff), bf16)
+        gelu_ms = cuda_ms(lambda: lm_layers.gelu_tanh(gate), reps=2, inner=1)
+        del gate
+        say(f"[11 vlm] gelu_tanh on one layer's gate [{LM_BATCH}, {LM_PROMPT}, {vlm_cfg.d_ff}] bf16 "
+            f"(tanh_xla's nine FMAs, each emulated in float64): {gelu_ms:.1f} ms (CUDA events, "
+            f"eager), x {vlm_cfg.n_layers} layers = {gelu_ms * vlm_cfg.n_layers:.0f} ms of the prefill")
+        from repro_torch.models.serving import _logits
+
+        x_last = randn((LM_BATCH, vlm_cfg.d_model), bf16)
+        logit_ms = cuda_ms(lambda: _logits(params, x_last, vlm_cfg), reps=5, inner=3)
+        emb = vlm_cfg.vocab_size * vlm_cfg.d_model
+        say(f"[11 vlm] the tied unembedding (`_logits`: embed.T cast to float32, "
+            f"{4 * emb / 1e9:.2f} GB written a call, then the float32 product): {logit_ms:.3f} ms "
+            f"a call (CUDA events, eager), one a prefill and one a decode step; the bytes it moves "
+            f"(bf16 read, float32 written and read) {10 * emb / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the function's own (the bf16 table once) "
+            f"{2 * emb / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        del x_last
+        say(f"[11 vlm] bounds from the shapes: prefill {vb['prefill_ops'] / 1e12:.2f} TFLOP "
+            f"({vb['layers_ops'] / 1e12:.2f} in the layers' products, "
+            f"{vb['attn_ops'] / 1e12:.3f} in attention over "
+            f"{prefix_pairs(LM_PROMPT, vlm_cfg.prefix_len):,} prefix-mask pairs a head, "
+            f"{vb['logits_ops'] / 1e9:.2f} G in the last position's logits), "
+            f"{vb['prefill_ops'] / BF16_OPS_PER_S * 1e3:.1f} ms at "
+            f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; a decode step "
+            f"{vb['step_bytes'] / 1e9:.2f} GB ({vb['layer_bytes'] / 1e9:.2f} of layer weights, "
+            f"{vb['unembed_bytes'] / 1e9:.2f} of tied unembedding, {vb['cache_bytes'] / 1e9:.3f} "
+            f"of KV cache), {vb['step_bytes'] / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; weights {vb['weight_bytes'] / 1e9:.2f} GB, "
+            f"cache {vb['cache_bytes'] / 1e6:.1f} MB")
+
+    vlm_launches = serve_lm(
+        "11 vlm", vlm_cfg, dict(flash_attention=vlm_cfg.n_layers,
+                                flash_decode=vlm_cfg.n_layers * LM_GEN),
+        attn_plain, "plain attention", dev, ops, build_model, greedy_generate,
+        before_checks=vlm_checks)[0]
+    torch.cuda.empty_cache()  # the model's weights go before phase 8's
+    say(f"[11 vlm] phase 11: {time.perf_counter() - t11:.1f} s")
+
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
     lm_cfg = registry.get_config(LM_ARCH)
     lm_launches, model, params, prompts = serve_lm(
@@ -4483,6 +4677,45 @@ def main() -> int:
         f"x {lm_cfg.n_layers} layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
     del q, k, v, attn_main
 
+    def hd256_entry(shape, launches, times, call_ms, plain_ms, lib_ms, nbytes, nops, entry, log):
+        """A hd 256 entry of the attention rows (PaliGemma's shapes)."""
+        bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+        ptx = ptxas_lines(log, entry)
+        out = {"shape": shape, "launches": launches, "ms": times[1], "warm_ms": times[0],
+               "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
+               "bound_by": "bytes" if bound_b >= bound_o else "operations",
+               "library_ms": lib_ms, "ptxas": [ln for ln in ptx if "<256>" in ln]}
+        say(f"[7 time] {entry}<256> at {shape}: {times[1]:.5f} ms from a cold L2, {times[0]:.5f} "
+            f"ms warm (CUDA graph replay) vs bound {max(bound_b, bound_o):.5f} ms "
+            f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.1f} G ops, {out['bound_by']}); {call_ms:.5f} "
+            f"ms per eager call; plain version {plain_ms:.3f} ms; library call {lib_ms:.5f} ms; "
+            f"{launches} launches on phase 11's path; " + " | ".join(out["ptxas"]))
+        return out
+
+    # flash_attention at PaliGemma's prefill (hd 256, MQA H 8 on K 1,
+    # prefix 256): attention_tc<256>; its yardstick SDPA causal at the
+    # same shape (timed only)
+    Hv, Kv, hdv, Pv = (vlm_cfg.n_heads, vlm_cfg.n_kv_heads, vlm_cfg.resolved_head_dim,
+                       vlm_cfg.prefix_len)
+    q = randn((LM_BATCH, Hv, LM_PROMPT, hdv), bf16)
+    k, v = (randn((LM_BATCH, Kv, LM_PROMPT, hdv), bf16) for _ in range(2))
+    run = lambda: fa.flash_attention_cuda(q, k, v, mask_mode="prefix", prefix_len=Pv)  # noqa: E731
+    rows[-1]["hd256"] = hd256_entry(
+        f"PaliGemma-3B prefill B{LM_BATCH} H{Hv} K{Kv} S{LM_PROMPT} hd{hdv} prefix {Pv}",
+        vlm_launches["flash_attention"], graph_ms(run, reps=3, inner=2),
+        cuda_ms(run, reps=3, inner=2),
+        cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask_mode="prefix", prefix_len=Pv),
+                reps=2, inner=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                reps=3, inner=5),
+        nbytes=2 * (2 * LM_BATCH * Hv * LM_PROMPT * hdv + 2 * LM_BATCH * Kv * LM_PROMPT * hdv),
+        nops=4 * LM_BATCH * Hv * hdv * prefix_pairs(LM_PROMPT, Pv), entry="attention_tc",
+        log=built["flash_attention"][1])
+    rows[-1]["hd256"]["f32_ptxas"] = [ln for ln in ptxas_lines(built["flash_attention"][1],
+                                                               "attention_f32") if "<256>" in ln]
+    say("[7 time] attention_f32<256> (float32 inputs): " + " | ".join(rows[-1]["hd256"]["f32_ptxas"]))
+    del q, k, v, run
+
     # flash_decode: layer 0's cache after the serving prefill (4096
     # positions written, the rest zero), read up to pos 4160 as the last
     # decode step reads it; the library call attends over the same slice
@@ -4516,6 +4749,25 @@ def main() -> int:
         nops=4 * B * H * n_valid * hd, ops_per_s=BF16_OPS_PER_S, library_ms=lib_ms)
     rows[-1]["moe_launches"] = {n: c["flash_decode"] for n, c in moe_launches.items()}
     del dcache, kd, vd
+
+    # flash_decode at PaliGemma's decode (hd 256, G 8 on K 1, its last
+    # step's pos 4160 of a random cache): decode_tc<256>; SDPA over the
+    # same slice (timed only)
+    qd = randn((LM_BATCH, Hv, hdv), bf16)
+    kd, vd = (randn((LM_BATCH, LM_CACHE, Kv, hdv), bf16) for _ in range(2))
+    kv_t, vv_t = kd.transpose(1, 2), vd.transpose(1, 2)
+    run = lambda: fd.flash_decode_cuda(qd, kd, vd, posd)  # noqa: E731
+    rows[-1]["hd256"] = hd256_entry(
+        f"PaliGemma-3B decode B{LM_BATCH} H{Hv} K{Kv} S{LM_CACHE} hd{hdv} pos {LM_CACHE - 1}",
+        vlm_launches["flash_decode"], graph_ms(run, reps=20, inner=50),
+        cuda_ms(run, reps=20, inner=50),
+        cuda_ms(lambda: fd.flash_decode_plain(qd, kd, vd, posd), reps=5, inner=3),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t,
+                                                       enable_gqa=True), reps=20, inner=50),
+        nbytes=2 * (2 * LM_BATCH * Hv * hdv + 2 * LM_BATCH * LM_CACHE * Kv * hdv),
+        nops=4 * LM_BATCH * Hv * LM_CACHE * hdv, entry="decode_tc",
+        log=built["flash_decode"][1])
+    del qd, kd, vd, kv_t, vv_t, run
 
     # ssd_chunk_intra: the prefill shape of phase 9 (phase 3d's first
     # case); y counts the causal (i, j) pairs, S_c every (j, n) pair, the

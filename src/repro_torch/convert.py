@@ -146,12 +146,13 @@ def _tree(tree, device):
 
 
 def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
-    """The port's parameters from the JAX package's pytree of a dense, moe
-    or ssm model (`Model(cfg).init(key)`), given as nested dicts of
+    """The port's parameters from the JAX package's pytree of a dense, moe,
+    ssm or vlm model (`Model(cfg).init(key)`), given as nested dicts of
     arrays: the same names, shapes (the stacked layer axis included, a
     MoE layer's experts padded to a multiple of `ep_axis`), dtypes and
     bits (an SSM layer's A_log, D and dt_bias, and a MoE router, stay
-    float32 in a bf16 model)."""
+    float32 in a bf16 model). A tied tree (tie_embeddings: PaliGemma,
+    Qwen1.5-0.5B) has no "unembed" leaf, an untied one must have it."""
     from repro_torch.models.moe import padded_expert_count
     from repro_torch.models.transformer import require_ported
 
@@ -160,6 +161,10 @@ def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
     if tuple(out["embed"].shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"params_from_reference: embed {tuple(out['embed'].shape)} does not "
                          f"fit {cfg.name}")
+    if ("unembed" in out) == cfg.tie_embeddings:
+        raise ValueError(f"params_from_reference: {cfg.name} has tie_embeddings="
+                         f"{cfg.tie_embeddings}, but the tree "
+                         f"{'has' if 'unembed' in out else 'lacks'} an 'unembed' leaf")
     if cfg.n_experts:
         E = padded_expert_count(cfg.n_experts, cfg.ep_axis)
         router = out["layers"]["moe"]["router"]

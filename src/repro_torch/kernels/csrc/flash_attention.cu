@@ -74,6 +74,18 @@
 //   CUDA cores (one warp per scheduler, latency-bound) as in its two
 //   products, so the tensor cores are busy a bit over half the time; the
 //   split's third product; the 168-register cap above.
+// - hd 256 (`attention_tc<256>`, PaliGemma's heads; `Cfg<256>`): one
+//   consumer warpgroup's O is 64 x 256 float32, 128 registers a thread,
+//   so the instance runs one consumer warpgroup of 64 query rows beside
+//   the producer (256 threads, up to 255 registers, no setmaxnreg) over
+//   64-key tiles: S with wgmma m64n64k16 in 16 k16 steps over hd, P.V as
+//   two m64n128k16 products a step over the same P fragments, each on
+//   its half of O, rows of four 64-value TMA boxes; Q 32 KB and the rings
+//   128 KB of shared memory. With one consumer a block nothing hides its
+//   softmax behind another warpgroup's products: a simple instance, its
+//   time in PERF.md beside its bound. At PaliGemma's prefill (B 8, H 8,
+//   K 1, S 4096, prefix 256) the mask admits 539.1 M pairs: 0.552 TFLOP,
+//   0.558 ms at the peak (0.837 ms of issued work with the split).
 //
 // float32 route (`attention_f32`, only float32 inputs): the CUDA cores.
 // One block of 128 threads per (64 query rows, head, batch) over 32-key
@@ -287,6 +299,7 @@ int launch(int hd, const void* q, const void* k, const void* v, void* out, int B
     case 32: return launch_hd<32>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
     case 64: return launch_hd<64>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
     case 128: return launch_hd<128>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
+    case 256: return launch_hd<256>(q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -296,15 +309,36 @@ int launch(int hd, const void* q, const void* k, const void* v, void* out, int B
 // ===================== bf16: tensor cores =====================
 namespace tc {
 
-constexpr int kBQ = 128;           // query rows per block: two consumer warpgroups of 64
-constexpr int kBK = 96;            // keys per tile (64, 96 and 128 timed on the card)
 constexpr int kStages = 2;         // depth of the K ring and of the V ring
-constexpr int kConsumers = 256;    // threads of the two consumer warpgroups
-constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr int kProducerRegs = 40;  // setmaxnreg targets (multiples of 8)
 constexpr int kConsumerRegs = 232;
 constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16 head-dim values
 constexpr long long kSpinLimit = 1ll << 26;  // a deadlocked wait traps instead of hanging
+
+// Tiles and threads of the instance for head dims up to HDP. hd 16-128:
+// two consumer warpgroups of 64 query rows (setmaxnreg 232) and a
+// producer, 96-key tiles (64, 96 and 128 timed on the card). hd 256: one
+// warpgroup's O is 64 x 256 float32, 128 registers a thread before S and
+// P, so one consumer warpgroup of 64 rows and a producer (256 threads, up
+// to 255 registers each with no setmaxnreg) over 64-key tiles: Q 32 KB
+// and two stages of K and V 128 KB of shared memory (96-key tiles and 128
+// rows would need 256 KB).
+template <int HDP>
+struct Cfg {
+  static constexpr int kBQ = 128;         // query rows per block
+  static constexpr int kBK = 96;          // keys per tile
+  static constexpr int kConsumers = 256;  // threads of the consumer warpgroups
+  static constexpr bool kSetMaxNReg = true;
+  static constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+};
+template <>
+struct Cfg<256> {
+  static constexpr int kBQ = 64;
+  static constexpr int kBK = 64;
+  static constexpr int kConsumers = 128;
+  static constexpr bool kSetMaxNReg = false;
+  static constexpr int kThreads = kConsumers + 128;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -405,6 +439,22 @@ __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -444,6 +494,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// S tile: m64 x BK keys, both operands from shared memory
+template <int BK>
+__device__ __forceinline__ void mma_ss(float (&d)[BK / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BK == 96) wgmma_ss_n96(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
@@ -461,8 +518,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
 // empty_v (kStages each).
 template <int HDP>
 struct Layout {
-  static constexpr int kQBytes = kBQ * HDP * 2;
-  static constexpr int kTileBytes = kBK * HDP * 2;  // one K or V tile
+  static constexpr int kQBytes = Cfg<HDP>::kBQ * HDP * 2;
+  static constexpr int kTileBytes = Cfg<HDP>::kBK * HDP * 2;  // one K or V tile
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBars = kV + kStages * kTileBytes;
@@ -491,12 +548,12 @@ struct Softmax {
   // straddles the causal diagonal, the prefix edge or the end of the keys.
   // Branch-free, both rows at once, so their chains of max, shuffle and
   // exp overlap.
-  template <bool kEdge>
-  __device__ __forceinline__ void step(float (&sc)[kBK / 2], int k0, int r0, int qd, int Skv,
+  template <bool kEdge, int BK>
+  __device__ __forceinline__ void step(float (&sc)[BK / 2], int k0, int r0, int qd, int Skv,
                                        int mode, int prefix_len, float c) {
     float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -525,7 +582,7 @@ struct Softmax {
     }
     float ps[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -541,10 +598,11 @@ struct Softmax {
 
 // P = hi + lo in bf16, laid out as the A fragments of P.V (for 16-bit
 // types the accumulator layout is the A layout).
-__device__ __forceinline__ void split_p(const float (&p)[kBK / 2], uint32_t (&hi)[kBK / 16][4],
-                                        uint32_t (&lo)[kBK / 16][4]) {
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&p)[BK / 2], uint32_t (&hi)[BK / 16][4],
+                                        uint32_t (&lo)[BK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const float p0 = p[8 * kk + 2 * r], p1 = p[8 * kk + 2 * r + 1];
@@ -569,43 +627,55 @@ __device__ __forceinline__ void rescale(float (&o)[HDP / 2], const float (&alpha
 
 // S = Q K^T over the head dim, 16 at a time (4 steps per swizzled row).
 template <int HDP>
-__device__ __forceinline__ void issue_scores(float (&sc)[kBK / 2], uint32_t qa, uint32_t ka) {
+__device__ __forceinline__ void issue_scores(float (&sc)[Cfg<HDP>::kBK / 2], uint32_t qa,
+                                             uint32_t ka) {
+  constexpr int kBQ = Cfg<HDP>::kBQ, kBK = Cfg<HDP>::kBK;
   fence_regs(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk) {
     const uint32_t step = kk / 4, within = (kk % 4) * 32;
-    wgmma_ss_n96(sc, desc(qa + step * kBQ * kRowBytes + within, 16, 8 * kRowBytes),
-                 desc(ka + step * kBK * kRowBytes + within, 16, 8 * kRowBytes), kk > 0);
+    mma_ss<kBK>(sc, desc(qa + step * kBQ * kRowBytes + within, 16, 8 * kRowBytes),
+                desc(ka + step * kBK * kRowBytes + within, 16, 8 * kRowBytes), kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P_hi V + P_lo V, 16 keys a step (8-key groups 1024 bytes apart,
-// 64-wide head-dim boxes kBK rows apart: the MN-major layout).
+// 64-wide head-dim boxes kBK rows apart: the MN-major layout). hd 256
+// takes two n128 products per step over the same P fragments, each on
+// its half of O's columns (registers 64 on hold columns 128 on).
 template <int HDP>
-__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2], uint32_t (&hi)[kBK / 16][4],
-                                         uint32_t (&lo)[kBK / 16][4], uint32_t va) {
+__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
+                                         uint32_t (&hi)[Cfg<HDP>::kBK / 16][4],
+                                         uint32_t (&lo)[Cfg<HDP>::kBK / 16][4], uint32_t va) {
+  constexpr int kBK = Cfg<HDP>::kBK;
+  constexpr int kN = HDP < 128 ? HDP : 128;  // columns of one product
   fence_regs(o);
   fence_regs(hi);
   fence_regs(lo);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t dv = desc(va + kk * 16 * kRowBytes, kBK * kRowBytes, 8 * kRowBytes);
-    mma_rs<HDP>(o, hi[kk], dv);
-    mma_rs<HDP>(o, lo[kk], dv);
-  }
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int part = 0; part < HDP / kN; ++part) {
+      const uint64_t dv = desc(va + part * (kN / 64) * kBK * kRowBytes + kk * 16 * kRowBytes,
+                               kBK * kRowBytes, 8 * kRowBytes);
+      float(&op)[kN / 2] = *reinterpret_cast<float(*)[kN / 2]>(&o[part * (kN / 2)]);
+      mma_rs<kN>(op, hi[kk], dv);
+      mma_rs<kN>(op, lo[kk], dv);
+    }
   wgmma_commit();
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
 attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int H,
              int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
              float scale_log2) {
   using L = Layout<HDP>;
+  constexpr int kBQ = Cfg<HDP>::kBQ, kBK = Cfg<HDP>::kBK, kConsumers = Cfg<HDP>::kConsumers;
   constexpr int kAtoms = HDP / 64;  // 64-wide head-dim boxes per row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -630,8 +700,8 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty_k + 8 * s, 8);  // one arrival per consumer warp
-      mbar_init(empty_v + 8 * s, 8);
+      mbar_init(empty_k + 8 * s, kConsumers / 32);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -639,14 +709,15 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
   if (threadIdx.x >= kConsumers) {
     // ---- producer warpgroup: one thread issues every TMA load ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if constexpr (Cfg<HDP>::kSetMaxNReg)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
       for (int a = 0; a < kAtoms; ++a)
         tma_load(sq + a * kBQ * kRowBytes, &qmap, q_full, 64 * a, q0, h, b);
-      // tile t of K (or V) into stage t % kStages, once both consumer
-      // warpgroups have released tile t - kStages there
+      // tile t of K (or V) into stage t % kStages, once every consumer
+      // warp has released tile t - kStages there
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
 #pragma unroll
@@ -663,9 +734,10 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     }
   } else {
     // ---- consumers: 64 query rows each; per tile S = Q K^T, the online
-    // softmax, P split, O += P V. While one warpgroup is in its softmax
-    // the other's products keep the tensor cores busy. ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // softmax, P split, O += P V. With two consumers, while one warpgroup
+    // is in its softmax the other's products keep the tensor cores busy. ----
+    if constexpr (Cfg<HDP>::kSetMaxNReg)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int c = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32, qd = lane % 4;
@@ -695,10 +767,10 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       // edge or the end of the keys for these rows
       const bool edge = k0 + kBK > Skv || (mode != 2 && k0 + kBK - 1 > row_first &&
                                            !(mode == 1 && k0 + kBK - 1 < prefix_len));
-      if (edge) sm.step<true>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
-      else sm.step<false>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
+      if (edge) sm.step<true, kBK>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
+      else sm.step<false, kBK>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
       uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
-      split_p(sc, hi, lo);
+      split_p<kBK>(sc, hi, lo);
       rescale<HDP>(o, sm.alpha);
       mbar_wait(full_v + 8 * s, parity);
       issue_pv<HDP>(o, hi, lo, sv + s * L::kTileBytes);
@@ -781,6 +853,7 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
                int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os, int mode,
                int prefix_len, float scale, cudaStream_t stream) {
   using L = Layout<HDP>;
+  using C = Cfg<HDP>;
   auto kern = attention_tc<HDP>;
   static bool opted_in[kMaxDevices] = {};
   cudaError_t err = opt_in(kern, L::kBytes, opted_in);
@@ -788,23 +861,25 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
   // setmaxnreg moves registers inside the block's allocation: the entry
   // count must cover the producer's 40 plus the consumers' 232, or the
   // consumers would wait for registers forever.
-  static int entry_regs = 0;
-  if (entry_regs == 0) {
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kern);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    entry_regs = attr.numRegs;
+  if constexpr (C::kSetMaxNReg) {
+    static int entry_regs = 0;
+    if (entry_regs == 0) {
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kern);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      entry_regs = attr.numRegs;
+    }
+    if (entry_regs * C::kThreads < kProducerRegs * 128 + kConsumerRegs * C::kConsumers)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (entry_regs * kThreads < kProducerRegs * 128 + kConsumerRegs * kConsumers)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
   alignas(64) CUtensorMap maps[3];
-  int status = encode(&maps[0], q, hd, Sq, H, B, qs, kBQ);
-  if (status == 0) status = encode(&maps[1], k, hd, Skv, K, B, ks, kBK);
-  if (status == 0) status = encode(&maps[2], v, hd, Skv, K, B, vs, kBK);
+  int status = encode(&maps[0], q, hd, Sq, H, B, qs, C::kBQ);
+  if (status == 0) status = encode(&maps[1], k, hd, Skv, K, B, ks, C::kBK);
+  if (status == 0) status = encode(&maps[2], v, hd, Skv, K, B, vs, C::kBK);
   if (status != 0) return status;
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + C::kBQ - 1) / C::kBQ);
   const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
+  kern<<<grid, C::kThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
                                               static_cast<__nv_bfloat16*>(out), H, K, Sq, Skv, hd,
                                               os, mode, prefix_len, scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -813,11 +888,15 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
 int launch(int hd, const void* q, const void* k, const void* v, void* out, int B, int H, int K,
            int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
            int prefix_len, float scale, cudaStream_t s) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)  // hd 16 and 32 ride in 64-wide boxes, zero-padded by the TMA
     return launch_hdp<64>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
                           scale, s);
-  return launch_hdp<128>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
+  if (hd == 128)
+    return launch_hdp<128>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
+                           scale, s);
+  return launch_hdp<256>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
                          scale, s);
 }
 
@@ -828,7 +907,7 @@ int launch(int hd, const void* q, const void* k, const void* v, void* out, int B
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). mode: 0
 // causal, 1 prefix, 2 full. Strides are in elements, [b, h, s] for each
 // of q, k, v, out; the head dimension is contiguous. hd must be 16, 32,
-// 64 or 128. For bf16, q, k, v need 16-byte aligned bases and strides.
+// 64, 128 or 256. For bf16, q, k, v need 16-byte aligned bases and strides.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int dtype, int B, int H, int K, int Sq, int Skv, int hd,
                                       const long long* strides, int mode, int prefix_len,

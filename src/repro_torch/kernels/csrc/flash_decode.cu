@@ -32,8 +32,9 @@
 //   (split, kv head and 16-query row tile, batch); G < 16 pads the rows
 //   with zero queries, G = 32 takes two row tiles (two blocks, the second
 //   reading K/V from L2).
-// - Loads. K and V tiles of 128 cached rows go into a 3-stage ring in
-//   shared memory (192 KB at hd 128) with cp.async (16 bytes a thread,
+// - Loads. K and V tiles of 128 cached rows (64 at hd 256, where a block
+//   has 4 warps) go into a 3-stage ring in shared memory (192 KB at hd
+//   128 and 256) with cp.async (16 bytes a thread,
 //   neighbouring threads on neighbouring pieces of a row, rows
 //   XOR-swizzled so ldmatrix reads no bank twice); while one tile is
 //   scored the next two are in flight. Rows past pos or past the split
@@ -100,10 +101,7 @@ __device__ __forceinline__ int last_valid(const int* pos, int S) { return min(*p
 // bf16 route: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpKeys = 16;                // keys per warp per tile (one k16 step of P.V)
-constexpr int kTile = kWarps * kWarpKeys;   // 128 keys per tile
 constexpr int kStages = 3;
 constexpr int kRows = 16;                    // query rows per block (one m16 tile)
 constexpr int kMinSplit = 256;               // positions per split, at least
@@ -113,8 +111,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Shared memory per stage: K [kTile][HD] then V [kTile][HD], bf16, each
 // row's 16-byte pieces XOR-swizzled by row (phys = piece ^ swz(row)) so
 // that the 8 rows an ldmatrix reads land in 8 different bank groups.
+// hd <= 128: 8 warps, 128-key tiles (192 KB of ring at hd 128). hd 256:
+// three stages of 128-key tiles would take 384 KB, so 4 warps take
+// 64-key tiles (192 KB of ring; the merge 66 KB).
 template <int HD>
 struct Tc {
+  static constexpr int kWarps = HD > 128 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTile = kWarps * kWarpKeys;    // keys per tile
   static constexpr int kPieces = HD / 8;              // 16-byte pieces per row
   static constexpr int kTileBytes = kTile * HD * 2;   // one K or V tile
   static constexpr int kStageBytes = 2 * kTileBytes;
@@ -194,13 +198,14 @@ int split_len(int units, int S, int sms) {
 // Grid (splits, K * row tiles, B). Scratch per unit: [NS][kRows][HD]
 // float32 O, then [NS][kRows][2] (m, l); one int ticket per unit.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tc<HD>::kThreads)
 decode_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
           const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos_ptr,
           __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
           float* __restrict__ part_ml, int* __restrict__ tickets, int S, int K, int G,
           int MT, int len, int NS, float scale) {
   using L = Tc<HD>;
+  constexpr int kWarps = L::kWarps, kThreads = L::kThreads, kTile = L::kTile;
   constexpr int kSteps = HD / 16;  // k16 steps of Q.K
   constexpr int kNt = HD / 8;      // n8 tiles of P.V
   const int split = blockIdx.x, unit_in_b = blockIdx.y, b = blockIdx.z;
@@ -506,7 +511,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
   static bool opted_in[kMaxDevices] = {};
   cudaError_t err = opt_in(kern, Tc<HD>::kSmem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(NS, K * MT, B), kThreads, Tc<HD>::kSmem, stream>>>(
+  kern<<<dim3(NS, K * MT, B), Tc<HD>::kThreads, Tc<HD>::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos),
       static_cast<__nv_bfloat16*>(out), part_o, part_ml, tickets, S, K, G, MT, len, NS, scale);
@@ -717,7 +722,7 @@ extern "C" int flash_decode_scratch(int dtype, int B, int S, int K, int G, int h
 }
 
 // q [B,H,hd], k/v [B,S,K,hd] and out [B,H,hd] contiguous; pos a device
-// int32; hd 16, 32, 64 or 128; G <= 32; scratch and tickets as
+// int32; hd 16, 32, 64, 128 or 256; G <= 32; scratch and tickets as
 // flash_decode_scratch sizes them.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, const void* pos,
                                    void* out, void* scratch, void* tickets, int dtype, int B,
@@ -732,6 +737,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
       case 32: return launch_f32<32>(q, k, v, pos, out, f, B, S, K, G, scale, s);
       case 64: return launch_f32<64>(q, k, v, pos, out, f, B, S, K, G, scale, s);
       case 128: return launch_f32<128>(q, k, v, pos, out, f, B, S, K, G, scale, s);
+      case 256: return launch_f32<256>(q, k, v, pos, out, f, B, S, K, G, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -740,6 +746,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
     case 32: return launch_tc<32>(q, k, v, pos, out, f, t, B, S, K, G, scale, s);
     case 64: return launch_tc<64>(q, k, v, pos, out, f, t, B, S, K, G, scale, s);
     case 128: return launch_tc<128>(q, k, v, pos, out, f, t, B, S, K, G, scale, s);
+    case 256: return launch_tc<256>(q, k, v, pos, out, f, t, B, S, K, G, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

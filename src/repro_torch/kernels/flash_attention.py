@@ -9,8 +9,9 @@ output sum are float32; the output has q's dtype. A rejected score is
 -1e30 (the kernels' mask value; the JAX model uses finfo(f32).min / 2,
 and both give weight exactly 0 beside one valid key). The kernels live in
 `csrc/flash_attention.cu`: bf16 inputs run on the tensor cores (wgmma,
-TMA), float32 inputs on the CUDA cores; its source note gives the bound
-and the design.
+TMA), float32 inputs on the CUDA cores, at hd 16, 32, 64, 128 and 256
+(any other hd raises ValueError before a build); its source note gives
+the bound and the design.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MODES = {"causal": 0, "prefix": 1, "full": 2}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # both routes; hd 256 has its own instances
 QUERY_CHUNK = 512  # rows per score block of the plain version
 
 # Launches of the CUDA kernel in this process (read by chip_smoke.py).

@@ -7,7 +7,8 @@ its oracle `repro.kernels.ref.flash_decode_ref`, with their layout: q
 G = H/K query heads per kv head (head h reads kv head h // G). Scores,
 softmax and the output sum are float32; the output has q's dtype; a
 rejected position scores -1e30. The kernel lives in
-`csrc/flash_decode.cu`; its source note gives its bound and design.
+`csrc/flash_decode.cu` (hd 16, 32, 64, 128 and 256, as flash_attention's
+HEAD_DIMS); its source note gives its bound and design.
 """
 from __future__ import annotations
 

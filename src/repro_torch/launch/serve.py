@@ -1,6 +1,8 @@
 """Serving CLI (counterpart of `repro.launch.serve`): batched prefill
 and greedy decode, for the dense and moe families (KV caches) and the
-ssm family (state caches).
+ssm family (state caches). As the JAX package's CLI does, it refuses
+the vlm and enc-dec families (decoder-only LMs only): a VLM is served through
+`build_model(cfg).prefill` / `.decode_step` with a "patches" batch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2_7b --smoke --device cpu
@@ -55,6 +57,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
+    if cfg.is_encoder_decoder or cfg.family == "vlm":
+        raise SystemExit("the serve CLI takes decoder-only LMs")
     model = build_model(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
 

@@ -1,5 +1,6 @@
 """The Model API of the port (counterpart of `repro.models.model`), for
-the dense, moe and ssm families.
+the dense, moe, ssm and vlm families (a vlm's cache is the dense KV
+cache; its prefill batch holds "patches" beside "tokens").
 
 `build_model(cfg, device)` gives a `Model` with
   init(generator) -> params

@@ -1,10 +1,13 @@
-"""Serving entry points for the dense, moe and ssm families (counterpart
-of `repro.models.serving`): prefill (build the cache) and one-token
-decode. The moe family serves through the dense path, its layers' FFN
-that of JAX's `_ffn_sub` (`transformer._apply_ffn`).
+"""Serving entry points for the dense, moe, ssm and vlm families
+(counterpart of `repro.models.serving`): prefill (build the cache) and
+one-token decode. The moe family serves through the dense path, its
+layers' FFN that of JAX's `_ffn_sub` (`transformer._apply_ffn`). The vlm
+family's prefill puts the image's patch embeddings (the frontend stub's
+output) before the text tokens and attends with the prefix-LM mask (every
+position sees the whole image prefix); its decode step is the dense one.
 
 Caches:
-  dense, moe: {"k" [L,B,C,K,hd], "v" [L,B,C,K,hd] in the compute dtype, "pos"
+  dense, moe, vlm: {"k" [L,B,C,K,hd], "v" [L,B,C,K,hd] in the compute dtype, "pos"
          a 0-d int32 tensor on the device}, C the cache capacity. The
          cache holds the rotated keys.
   ssm:   {"ssm" [L,B,H,N,P] float32, "conv" [L,B,W-1,C] in the compute
@@ -41,17 +44,39 @@ def _logits(params, x_last: torch.Tensor, cfg) -> torch.Tensor:
     return x_last.float() @ w.float()
 
 
+def _patches(batch, cfg, tok_emb: torch.Tensor) -> torch.Tensor:
+    """A vlm batch's "patches" [B, prefix_len, D], floating point, on the
+    tokens' device (any float dtype: it is cast to the compute dtype, as
+    the JAX package casts it)."""
+    want = (tok_emb.shape[0], cfg.prefix_len, cfg.d_model)
+    p = batch.get("patches")
+    if p is None:
+        raise ValueError(f"prefill: a {cfg.family} batch needs 'patches' {want} beside 'tokens'")
+    if tuple(p.shape) != want or not p.dtype.is_floating_point or p.device != tok_emb.device:
+        raise ValueError(f"prefill: patches must be floating point {want} on {tok_emb.device}, "
+                         f"got {p.dtype} {tuple(p.shape)} on {p.device}")
+    return p
+
+
 def prefill(params, batch: Dict[str, torch.Tensor], cfg, cache_len: int | None = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """batch {"tokens": [B,S] int on the device} -> (logits of the last
     position [B,V] float32, cache of capacity cache_len (default S),
     zero beyond S, pos = S); for the ssm family (logits, the states
-    after the prompt), which needs S >= ssm_conv - 1."""
+    after the prompt), which needs S >= ssm_conv - 1. A vlm batch also
+    holds "patches" [B, prefix_len, D]: the sequence is the patches and
+    then the text tokens, S = prefix_len + S_text, rotated over positions
+    0..S-1 and attended under the prefix mask (prefix_len = cfg's); the
+    cache holds all S positions."""
     require_ported(cfg)
     if cfg.family == "ssm":
         return _prefill_ssm(params, batch, cfg)
     cd = L.dtype_of(cfg.compute_dtype)
     x = F.embedding(batch["tokens"], params["embed"]).to(cd)
+    mask_mode, prefix_len = "causal", 0
+    if cfg.family == "vlm":
+        x = torch.cat([_patches(batch, cfg, x).to(cd), x], dim=1)
+        mask_mode, prefix_len = "prefix", cfg.prefix_len
     B, S, _ = x.shape
     C = cache_len or S
     if C < S:
@@ -63,7 +88,8 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, cache_len: int | None =
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         h = L.apply_norm(lp["ln1"], x, cfg.norm)
-        y, (k, v) = L.gqa_attention(lp["attn"], h, cfg, rope, mask_mode="causal", return_kv=True)
+        y, (k, v) = L.gqa_attention(lp["attn"], h, cfg, rope, mask_mode=mask_mode,
+                                    prefix_len=prefix_len, return_kv=True)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
         x, h = L.residual_norm(lp["ln2"], x, y, cfg.norm)

@@ -1,5 +1,5 @@
-"""Dense, MoE and SSM decoder stacks (counterpart of the dense, moe and
-ssm parts of `repro.models.transformer`).
+"""Dense, MoE, SSM and VLM decoder stacks (counterpart of the dense,
+moe, ssm and vlm parts of `repro.models.transformer`).
 
 Parameters are nested dicts with the JAX package's names, and the layer
 stack keeps its leading layer axis ([L, ...] per leaf), so
@@ -7,10 +7,12 @@ stack keeps its leading layer axis ([L, ...] per leaf), so
 leaf. Where the JAX package scans over the layer axis, the port loops
 over it in Python. There is no rematerialisation: this is the inference
 path. A MoE layer's FFN is `moe.apply_moe` plus the always-on shared
-MLP and Arctic's parallel dense residual MLP (`_apply_ffn`). Hybrid,
-VLM and enc-dec stacks, MoE on every other layer (`moe_every` 2, which
-only the hybrid Jamba uses), and the training loss are later slices
-(ROADMAP Queue 1, next slices 3).
+MLP and Arctic's parallel dense residual MLP (`_apply_ffn`). A VLM's
+stack is the dense one (PaliGemma: MQA, GeGLU, tied embeddings, so no
+`unembed` leaf); its image prefix enters in `serving.prefill`. Hybrid
+and enc-dec stacks, MoE on every other layer (`moe_every` 2, which only
+the hybrid Jamba uses), and the training loss are later slices (ROADMAP
+Queue 1, next slices 3.3, 3.5 and 3.6).
 """
 from __future__ import annotations
 
@@ -25,17 +27,18 @@ from repro_torch.models import mamba2, moe
 
 def require_ported(cfg) -> None:
     """Admits the families the port serves, dense, moe (MoE on every
-    layer) and ssm; raises NotImplementedError for the rest."""
+    layer), ssm and vlm; raises NotImplementedError for the rest."""
     if cfg.n_experts and cfg.moe_every > 1 and cfg.family in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: MoE every {cfg.moe_every} layers is not ported to repro_torch yet; the "
             "JAX package stacks such layers in pairs, which only the hybrid family uses "
             "(ROADMAP Queue 1, next slices 3.3)")
-    ported = cfg.family in ("dense", "moe", "ssm")
+    ported = cfg.family in ("dense", "moe", "ssm", "vlm")
     if not ported or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, next slices 3); the port serves the dense, moe and ssm families")
+            "(ROADMAP Queue 1, next slices 3.3 hybrid, 3.5 enc-dec); the port serves the dense, "
+            "moe, ssm and vlm families")
 
 
 def tree_map(fn, tree):

@@ -5,9 +5,12 @@ inputs rounded from the same float32 numbers on each side). The oracle
 is `repro.kernels.ops.flash_attention_ref` over `tests/test_kernels.py`'s
 sweep (MHA, GQA, MQA, rectangular, all three masks, f32 and bf16), plus
 ragged Sq / Skv and Sq > Skv under causal; a few cases also go against
-the Pallas kernel in interpret mode. Tolerances are test_kernels.py's:
-2e-5 in f32, 2e-2 in bf16. The CUDA kernel is held against this plain
-version on the card by chip_smoke.py (phase 3c).
+the Pallas kernel in interpret mode. PaliGemma's heads (hd 256, MQA at
+K 1, G 8) run every mask, the prefix edge at 1, 255, 256 and 257, in f32
+and bf16, against both. Tolerances are test_kernels.py's: 2e-5 in f32,
+2e-2 in bf16. The CUDA kernel is held against this plain version on the
+card by chip_smoke.py (phase 3c); its wrapper refuses a head dim that
+neither route takes before anything is built.
 """
 import numpy as np
 import pytest
@@ -88,6 +91,48 @@ def test_plain_matches_pallas_interpret(B, H, K, Sq, Skv, hd, bq, mode, dtype):
     _check(got, want, dtype)
 
 
+# PaliGemma's attention: hd 256, MQA (H 8 on K 1), the prefix mask with
+# its edge on either side of the kernels' 64-key tiles
+HD256_MASKS = [("causal", 0), ("full", 0), ("prefix", 1), ("prefix", 255), ("prefix", 256),
+               ("prefix", 257)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode,prefix", HD256_MASKS)
+def test_plain_matches_reference_hd256(mode, prefix, dtype):
+    B, H, K, S, hd = 1, 8, 1, 300, 256
+    (tq, tk, tv), (jq, jk, jv) = _inputs(B, H, K, S, S, hd, dtype, seed=prefix + 256)
+    got = ops.flash_attention(tq, tk, tv, mask_mode=mode, prefix_len=prefix)
+    assert got.dtype == tq.dtype and got.shape == (B, H, S, hd)
+    _check(got, jops.flash_attention_ref(jq, jk, jv, mask_mode=mode, prefix_len=prefix), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode,prefix", [("prefix", 255), ("prefix", 257), ("causal", 0),
+                                         ("full", 0)])
+def test_plain_matches_pallas_interpret_hd256(mode, prefix, dtype):
+    (tq, tk, tv), (jq, jk, jv) = _inputs(1, 8, 1, 256, 256, 256, dtype, seed=prefix + 7)
+    got = ops.flash_attention(tq, tk, tv, mask_mode=mode, prefix_len=prefix)
+    want = jops.flash_attention(jq, jk, jv, mask_mode=mode, prefix_len=prefix, bq=128, bk=128,
+                                interpret=True)
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("hd", [48, 512])
+def test_cuda_wrapper_refuses_other_head_dims_before_building(hd, monkeypatch):
+    """A head dim that neither route takes raises ValueError from the
+    checks, before the library is built or loaded."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(fa_module.build, "load", no_build)
+    for dtype in DTYPES:
+        (tq, tk, tv), _ = _inputs(1, 8, 1, 16, 16, hd, dtype, seed=hd)
+        with pytest.raises(ValueError, match="hd"):
+            fa_module.flash_attention_cuda(tq, tk, tv)
+    assert 256 in fa_module.HEAD_DIMS and hd not in fa_module.HEAD_DIMS
+
+
 def test_plain_matches_model_chunked_attention():
     """The contract the model serves with: the JAX model's query-chunked
     attention (grouped layout [B,S,K,G,hd]) equals the plain version."""
@@ -162,18 +207,25 @@ def _misses(got, want):
     return int((diff > BF16_ATOL + BF16_RTOL * want.float().abs()).sum())
 
 
-def _split_case():
-    (tq, tk, tv), _ = _inputs(2, 8, 2, 256, 256, 128, "bfloat16", seed=0)
+# (K, hd, key tile): the hd 128 instance's shape, and the hd 256
+# instance's (`attention_tc<256>`: 64-key tiles) at PaliGemma's MQA heads
+SPLIT_CASES = [(2, 128, 128), (1, 256, 64)]
+
+
+def _split_case(K, hd):
+    (tq, tk, tv), _ = _inputs(2, 8, K, 256, 256, hd, "bfloat16", seed=0)
     return tq, tk, tv, flash_attention_plain(tq, tk, tv)
 
 
-def test_bf16_probabilities_would_miss_one_step():
-    tq, tk, tv, want = _split_case()
-    assert _misses(_tiled_emulation(tq, tk, tv, split=False), want) > 1000
+@pytest.mark.parametrize("K,hd,bk", SPLIT_CASES)
+def test_bf16_probabilities_would_miss_one_step(K, hd, bk):
+    tq, tk, tv, want = _split_case(K, hd)
+    assert _misses(_tiled_emulation(tq, tk, tv, split=False, bk=bk), want) > 1000
 
 
-def test_split_probabilities_keep_one_step():
-    tq, tk, tv, want = _split_case()
-    got = _tiled_emulation(tq, tk, tv, split=True)
+@pytest.mark.parametrize("K,hd,bk", SPLIT_CASES)
+def test_split_probabilities_keep_one_step(K, hd, bk):
+    tq, tk, tv, want = _split_case(K, hd)
+    got = _tiled_emulation(tq, tk, tv, split=True, bk=bk)
     assert _misses(got, want) == 0
     assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8

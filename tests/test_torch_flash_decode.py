@@ -4,9 +4,13 @@ Inputs are made with numpy from a seed and handed to both packages. The
 oracle is `repro.kernels.ops.flash_decode_ref` over `tests/test_kernels.py`'s
 decode sweep, plus pos = 0, pos = S-1, a ragged S (the serving run's
 4161) and G = 16 queries per kv head (GLM-4-9B's 32 on 2); two cases also
-go against the Pallas kernel in interpret mode. Tolerances are
+go against the Pallas kernel in interpret mode. PaliGemma's decode (hd
+256, MQA at K 1, G 8) runs at pos 0, 63, 64, 127, 128 and 4160 of its
+4161-slot cache, in f32 and bf16, against both. Tolerances are
 test_kernels.py's: 2e-5 in f32, 2e-2 in bf16. The CUDA kernel is held
-against this plain version on the card by chip_smoke.py (phase 3c).
+against this plain version on the card by chip_smoke.py (phase 3c); its
+wrapper refuses a head dim that neither route takes before anything is
+built.
 """
 import numpy as np
 import pytest
@@ -76,6 +80,36 @@ def test_plain_matches_pallas_interpret(B, H, K, S, hd, bs, pos, dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("pos", [0, 63, 64, 127, 128, 4160])
+def test_plain_matches_reference_hd256(pos, dtype):
+    """PaliGemma's decode: G 8 on one kv head, hd 256, its serving cache
+    of 4161 slots; pos on either side of the hd 256 kernel's 64-key tiles."""
+    _run(1, 8, 1, 4161, 256, pos, dtype, seed=pos + 256)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_pallas_interpret_hd256(dtype):
+    (tq, tk, tv), (jq, jk, jv) = _inputs(2, 8, 1, 512, 256, dtype, seed=13)
+    got = ops.flash_decode(tq, tk, tv, torch.tensor(300, dtype=torch.int32))
+    want = jops.flash_decode(jq, jk, jv, jnp.int32(300), block_s=256, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol(dtype))
+
+
+@pytest.mark.parametrize("hd", [48, 512])
+def test_cuda_wrapper_refuses_other_head_dims_before_building(hd, monkeypatch):
+    from repro_torch.kernels import flash_decode as fd_module
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(fd_module.build, "load", no_build)
+    for dtype in DTYPES:
+        (tq, tk, tv), _ = _inputs(1, 8, 1, 32, hd, dtype, seed=hd)
+        with pytest.raises(ValueError, match="hd"):
+            fd_module.flash_decode_cuda(tq, tk, tv, torch.tensor([5], dtype=torch.int32))
+
+
 def test_positions_past_pos_are_ignored():
     """Changing the cache beyond pos changes nothing; pos may be an int."""
     (tq, tk, tv), _ = _inputs(1, 8, 2, 64, 16, "float32", seed=5)
@@ -88,16 +122,22 @@ def test_positions_past_pos_are_ignored():
 
 # --- the bf16 CUDA kernel's arithmetic -----------------------------------
 # csrc/flash_decode.cu's bf16 route (`decode_tc`) splits the cache into
-# `_split_len` positions per block, scores 128-key tiles with each of 8
-# warps on 16 keys and its own online softmax (scores q.k in float32, the
-# scale log2(e)/sqrt(hd) inside exp2), runs P.V on bf16 tensor cores with
+# `_split_len` positions per block, scores 128-key tiles (64 at hd 256)
+# with each of 8 warps (4 at hd 256) on 16 keys and its own online
+# softmax (scores q.k in float32, the scale log2(e)/sqrt(hd) inside
+# exp2), runs P.V on bf16 tensor cores with
 # P split into hi + lo, merges the warps, then the splits. This float32
 # emulation of that order is held to chip_smoke.py phase 3c's bf16
 # tolerance against the plain version, at 3c's decode shapes with B cut
 # to 1-2; rounding P once instead misses it.
 
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7  # chip_smoke.py ATTN_TOL: one bf16 rounding step
-SMS, TILE, WARP_KEYS, MIN_SPLIT, MAX_SPLITS = 132, 128, 16, 256, 64  # as csrc/flash_decode.cu
+SMS, WARP_KEYS, MIN_SPLIT, MAX_SPLITS = 132, 16, 256, 64  # as csrc/flash_decode.cu
+
+
+def _tile(hd):
+    """Keys a tile: 8 warps x 16, or 4 warps x 16 at hd 256 (`Tc<HD>`)."""
+    return 64 if hd > 128 else 128
 
 
 def _split_len(units, S):
@@ -112,6 +152,7 @@ def _decode_emulation(q, k, v, pos, *, split=True):
     G = H // K
     c = (1.0 / np.sqrt(hd)) * np.log2(np.e)
     n = _split_len(B * K * -(-G // 16), S)
+    tile = _tile(hd)
     last = min(pos, S - 1)
     qf = q.float().reshape(B, K, G, hd)
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B,K,S,hd]
@@ -119,11 +160,11 @@ def _decode_emulation(q, k, v, pos, *, split=True):
     for s0 in range(0, last + 1, n):
         s1 = min(s0 + n, last + 1)
         warps = []
-        for w in range(TILE // WARP_KEYS):
+        for w in range(tile // WARP_KEYS):
             m = torch.full((B, K, G), -np.inf)
             l = torch.zeros((B, K, G))
             o = torch.zeros((B, K, G, hd))
-            for t0 in range(s0, s1, TILE):
+            for t0 in range(s0, s1, tile):
                 a, e = t0 + w * WARP_KEYS, min(t0 + (w + 1) * WARP_KEYS, s1)
                 if a >= e:
                     continue
@@ -164,6 +205,9 @@ DECODE_CASES = [  # chip_smoke 3c's bf16 decode cases with B cut: B, H, K, S, hd
     (2, 8, 2, 777, 16, 700), (2, 8, 2, 777, 32, 776), (2, 16, 2, 1500, 64, 1499),
     (1, 32, 2, 4161, 128, 4159),   # B = 1: many splits
     (1, 32, 2, 4161, 128, 127), (1, 32, 2, 4161, 128, 128),  # a tile edge
+    # PaliGemma's decode (G 8 on K 1, hd 256: 64-key tiles of 4 warps)
+    (2, 8, 1, 4161, 256, 4160), (2, 8, 1, 4161, 256, 63), (2, 8, 1, 4161, 256, 64),
+    (1, 32, 1, 1000, 256, 999),    # G = 32 at hd 256: two row tiles
 ]
 
 
