@@ -98,10 +98,13 @@ builds GLM-4-9B, which phase 7 keeps):
    511, 512, 527, 528 (a split edge), 4095, 4160, G = 1, 8 and 32, hd
    16, 32, 64 off the 128-key tile, B = 1 and f32; PaliGemma's heads at
    hd 256 (MQA, H 8 on K 1) in bf16 and f32: flash_attention at B 2, S
-   256, 1000 and 4096, causal, prefix_len 1, 255, 256, 257 and 1000
-   (either side of the hd 256 instance's 64-key tiles), full, Sq 128
-   against Skv 1000, causal Sq > Skv and strided views; flash_decode at
-   S 4161 for pos 0, 63, 64, 127, 128, 4095, 4160, G 1, 8 and 32 and B
+   256, 1000 and 4096, causal, prefix_len 1, 255, 256, 257 and 1000,
+   full, Sq 128 against Skv 1000, causal Sq > Skv and strided views, and
+   the hd 256 instance's edges: Sq 127, 128, 129, 255, 257 (either side
+   of its 128-row blocks), prefix_len 79, 80, 81, 159, 160, 161 (either
+   side of its 80-key tiles) and 127, 129; flash_decode at S 4161 for
+   pos 0, 63, 64, 127, 128 (either side of its 64-key tiles), 271, 272
+   (of its 272-position splits at B 8), 4095, 4160, G 1, 8 and 32 and B
    1; the profiler naming attention_tc<256> and decode_tc<256>; and the
    LM layers' emulations of XLA:CPU (rope_angles at positions 0-32767 for every
    dense config, gelu_tanh, apply_rope) bitwise equal to the CPU's;
@@ -337,7 +340,8 @@ builds GLM-4-9B, which phase 7 keeps):
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
    never calls it), the attention kernels also at PaliGemma's hd 256
    shapes (prefill B 8, H 8, K 1, S 4096, prefix 256; decode pos 4160)
-   with the hd 256 instances' ptxas registers and spills; flash_decode
+   with the hd 256 instances' ptxas registers and spills (a spill store
+   in either fails the run); flash_decode
    and SDPA also in turns (A, B, B, A),
    both from CUDA-graph replay, with the decode kernel's ptxas
    registers and spills; ssd_chunk_intra (its two launches timed
@@ -2361,10 +2365,13 @@ def main() -> int:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     attn_held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
          "B2 H16 K4 S437 hd64 bf16 causal, strided [B,S,H,hd] views")
-    # PaliGemma's heads, hd 256 (attention_tc<256>: one consumer
-    # warpgroup over 64-key tiles; attention_f32<256>), MQA H 8 on K 1:
-    # every mask, the prefix edge on either side of a 64-key tile and far
-    # past it, Sq against a longer Skv, causal Sq > Skv, in both dtypes
+    # PaliGemma's heads, hd 256 (attention_tc<256>: two consumer
+    # warpgroups over 128-row blocks and 80-key tiles; attention_f32<256>),
+    # MQA H 8 on K 1: every mask, the prefix edge far past a tile, Sq
+    # against a longer Skv, causal Sq > Skv, and the tensor-core
+    # instance's edges: Sq either side of a 128-row block (and the lower
+    # warpgroup's rows alone in the last block), the prefix edge either
+    # side of an 80-key tile and of a block, in both dtypes
     hd256_cases = [(2, 8, 1, Sq, Skv, 256, dt, mode, pl) for dt in (bf16, f32)
                    for Sq, Skv, mode, pl in (
                        (256, 256, "causal", 0), (1000, 1000, "causal", 0),
@@ -2374,7 +2381,14 @@ def main() -> int:
                        (1000, 1000, "prefix", 1000), (LM_PROMPT, LM_PROMPT, "prefix", 256),
                        (LM_PROMPT, LM_PROMPT, "prefix", 1000), (1000, 1000, "full", 0),
                        (LM_PROMPT, LM_PROMPT, "full", 0), (128, 1000, "full", 0),
-                       (600, 200, "causal", 0))]
+                       (600, 200, "causal", 0),
+                       (127, 127, "causal", 0), (128, 128, "causal", 0), (129, 129, "causal", 0),
+                       (255, 255, "causal", 0), (257, 257, "causal", 0),
+                       (500, 500, "prefix", 79), (500, 500, "prefix", 80),
+                       (500, 500, "prefix", 81), (500, 500, "prefix", 159),
+                       (500, 500, "prefix", 160), (500, 500, "prefix", 161),
+                       (500, 500, "prefix", 127), (500, 500, "prefix", 129),
+                       (129, 400, "prefix", 300))]
     for B, H, K, Sq, Skv, hd, dt, mode, pl in hd256_cases:
         q, k, v = randn((B, H, Sq, hd), dt), randn((B, K, Skv, hd), dt), randn((B, K, Skv, hd), dt)
         attn_held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode=mode, prefix_len=pl),
@@ -2407,11 +2421,12 @@ def main() -> int:
                      (LM_BATCH, 32, 2, LM_CACHE, 128, bf16, 528),
                      (1, 32, 2, LM_CACHE, 128, bf16, LM_CACHE - 1),
                      (1, 32, 2, LM_CACHE, 128, bf16, 300)]
-    # PaliGemma's decode, hd 256 (decode_tc<256>: 4 warps, 64-key tiles;
-    # decode_f32<256>): G 8 on K 1 at pos on either side of a tile and at
-    # the serving cache's end, G 1 and 32, B 1
+    # PaliGemma's decode, hd 256 (decode_tc<256>: 8 warps, 64-key tiles,
+    # 272-position splits at B 8; decode_f32<256>): G 8 on K 1 at pos on
+    # either side of a tile and of a split and at the serving cache's
+    # end, G 1 and 32, B 1
     decode_cases += [(LM_BATCH, 8, 1, LM_CACHE, 256, bf16, pos)
-                     for pos in (0, 63, 64, 127, 128, 4095, LM_CACHE - 1)]
+                     for pos in (0, 63, 64, 127, 128, 271, 272, 4095, LM_CACHE - 1)]
     decode_cases += [(LM_BATCH, 8, 8, LM_CACHE, 256, bf16, LM_CACHE - 1),   # G 1
                      (LM_BATCH, 32, 1, LM_CACHE, 256, bf16, LM_CACHE - 1),  # G 32
                      (1, 8, 1, LM_CACHE, 256, bf16, LM_CACHE - 1), (1, 8, 1, LM_CACHE, 256, bf16, 300),
@@ -4677,18 +4692,29 @@ def main() -> int:
         f"x {lm_cfg.n_layers} layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
     del q, k, v, attn_main
 
-    def hd256_entry(shape, launches, times, call_ms, plain_ms, lib_ms, nbytes, nops, entry, log):
-        """A hd 256 entry of the attention rows (PaliGemma's shapes)."""
+    def hd256_entry(shape, launches, times, call_ms, plain_ms, lib_ms, lib_times, nbytes, nops,
+                    entry, log):
+        """A hd 256 entry of the attention rows (PaliGemma's shapes);
+        `lib_times` the library call's (warm, cold) from CUDA-graph replay,
+        as the kernel's `times`."""
         bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
         ptx = ptxas_lines(log, entry)
         out = {"shape": shape, "launches": launches, "ms": times[1], "warm_ms": times[0],
                "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
                "bound_by": "bytes" if bound_b >= bound_o else "operations",
-               "library_ms": lib_ms, "ptxas": [ln for ln in ptx if "<256>" in ln]}
+               "library_ms": lib_ms, "library_replay_ms": lib_times[1],
+               "library_replay_warm_ms": lib_times[0],
+               "ptxas": [ln for ln in ptx if "<256>" in ln]}
+        spills = [int(n) for ln in out["ptxas"]
+                  for n in re.findall(r"(\d+) bytes spill stores", ln)]
+        if not spills or any(spills):
+            fail(f"7: {entry}<256> spills (ptxas: {' | '.join(out['ptxas'])})")
         say(f"[7 time] {entry}<256> at {shape}: {times[1]:.5f} ms from a cold L2, {times[0]:.5f} "
             f"ms warm (CUDA graph replay) vs bound {max(bound_b, bound_o):.5f} ms "
             f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.1f} G ops, {out['bound_by']}); {call_ms:.5f} "
-            f"ms per eager call; plain version {plain_ms:.3f} ms; library call {lib_ms:.5f} ms; "
+            f"ms per eager call; plain version {plain_ms:.3f} ms; library call {lib_ms:.5f} ms "
+            f"per eager call, {lib_times[1]:.5f} ms cold, {lib_times[0]:.5f} ms warm (CUDA graph "
+            f"replay); "
             f"{launches} launches on phase 11's path; " + " | ".join(out["ptxas"]))
         return out
 
@@ -4700,21 +4726,21 @@ def main() -> int:
     q = randn((LM_BATCH, Hv, LM_PROMPT, hdv), bf16)
     k, v = (randn((LM_BATCH, Kv, LM_PROMPT, hdv), bf16) for _ in range(2))
     run = lambda: fa.flash_attention_cuda(q, k, v, mask_mode="prefix", prefix_len=Pv)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
     rows[-1]["hd256"] = hd256_entry(
         f"PaliGemma-3B prefill B{LM_BATCH} H{Hv} K{Kv} S{LM_PROMPT} hd{hdv} prefix {Pv}",
         vlm_launches["flash_attention"], graph_ms(run, reps=3, inner=2),
         cuda_ms(run, reps=3, inner=2),
         cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask_mode="prefix", prefix_len=Pv),
                 reps=2, inner=1),
-        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-                reps=3, inner=5),
+        cuda_ms(lib, reps=3, inner=5), graph_ms(lib, reps=3, inner=2),
         nbytes=2 * (2 * LM_BATCH * Hv * LM_PROMPT * hdv + 2 * LM_BATCH * Kv * LM_PROMPT * hdv),
         nops=4 * LM_BATCH * Hv * hdv * prefix_pairs(LM_PROMPT, Pv), entry="attention_tc",
         log=built["flash_attention"][1])
     rows[-1]["hd256"]["f32_ptxas"] = [ln for ln in ptxas_lines(built["flash_attention"][1],
                                                                "attention_f32") if "<256>" in ln]
     say("[7 time] attention_f32<256> (float32 inputs): " + " | ".join(rows[-1]["hd256"]["f32_ptxas"]))
-    del q, k, v, run
+    del q, k, v, run, lib
 
     # flash_decode: layer 0's cache after the serving prefill (4096
     # positions written, the rest zero), read up to pos 4160 as the last
@@ -4757,17 +4783,18 @@ def main() -> int:
     kd, vd = (randn((LM_BATCH, LM_CACHE, Kv, hdv), bf16) for _ in range(2))
     kv_t, vv_t = kd.transpose(1, 2), vd.transpose(1, 2)
     run = lambda: fd.flash_decode_cuda(qd, kd, vd, posd)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t,  # noqa: E731
+                                                 enable_gqa=True)
     rows[-1]["hd256"] = hd256_entry(
         f"PaliGemma-3B decode B{LM_BATCH} H{Hv} K{Kv} S{LM_CACHE} hd{hdv} pos {LM_CACHE - 1}",
         vlm_launches["flash_decode"], graph_ms(run, reps=20, inner=50),
         cuda_ms(run, reps=20, inner=50),
         cuda_ms(lambda: fd.flash_decode_plain(qd, kd, vd, posd), reps=5, inner=3),
-        cuda_ms(lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t,
-                                                       enable_gqa=True), reps=20, inner=50),
+        cuda_ms(lib, reps=20, inner=50), graph_ms(lib, reps=20, inner=50),
         nbytes=2 * (2 * LM_BATCH * Hv * hdv + 2 * LM_BATCH * LM_CACHE * Kv * hdv),
         nops=4 * LM_BATCH * Hv * LM_CACHE * hdv, entry="decode_tc",
         log=built["flash_decode"][1])
-    del qd, kd, vd, kv_t, vv_t, run
+    del qd, kd, vd, kv_t, vv_t, run, lib
 
     # ssd_chunk_intra: the prefill shape of phase 9 (phase 3d's first
     # case); y counts the causal (i, j) pairs, S_c every (j, n) pair, the

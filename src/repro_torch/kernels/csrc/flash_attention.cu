@@ -74,18 +74,44 @@
 //   CUDA cores (one warp per scheduler, latency-bound) as in its two
 //   products, so the tensor cores are busy a bit over half the time; the
 //   split's third product; the 168-register cap above.
-// - hd 256 (`attention_tc<256>`, PaliGemma's heads; `Cfg<256>`): one
-//   consumer warpgroup's O is 64 x 256 float32, 128 registers a thread,
-//   so the instance runs one consumer warpgroup of 64 query rows beside
-//   the producer (256 threads, up to 255 registers, no setmaxnreg) over
-//   64-key tiles: S with wgmma m64n64k16 in 16 k16 steps over hd, P.V as
-//   two m64n128k16 products a step over the same P fragments, each on
-//   its half of O, rows of four 64-value TMA boxes; Q 32 KB and the rings
-//   128 KB of shared memory. With one consumer a block nothing hides its
-//   softmax behind another warpgroup's products: a simple instance, its
-//   time in PERF.md beside its bound. At PaliGemma's prefill (B 8, H 8,
-//   K 1, S 4096, prefix 256) the mask admits 539.1 M pairs: 0.552 TFLOP,
-//   0.558 ms at the peak (0.837 ms of issued work with the split).
+// - hd 256 (`attention_tc<256>`, PaliGemma's heads: an explicit
+//   specialisation of the kernel, `Cfg<256>`). Bound: operations. At
+//   PaliGemma's prefill (B 8, H 8, K 1, S 4096, prefix 256) the mask
+//   admits 539.1 M pairs: 0.552 TFLOP, 0.558 ms at the peak, 0.837 ms of
+//   issued work with the split. A warpgroup's O is 64 x 256 float32, 128
+//   registers a thread; with S, P's halves and addresses a consumer needs
+//   about 220. ptxas gives a thread more than 168 registers only while at
+//   most two warps share a scheduler (16,384 registers each): a block of
+//   more than 8 warps (the 3 warpgroups above, or 2 and a producer warp)
+//   is compiled to 168, setmaxnreg or not, and its consumers spill. So the
+//   instance runs two consumer warpgroups of 64 query rows (128-row blocks:
+//   each K/V tile read once per 128 rows) and no producer role: 256
+//   threads, 222 registers, no spills. One thread of the upper warpgroup
+//   (whose rows see every tile of the block) issues the TMA loads: Q and
+//   the first two tiles, then each stage again once all 8 warps have
+//   released it. The lower warpgroup releases unread the tiles wholly
+//   above its causal limit. 80-key tiles: S by m64n80k16 (Q 64 KB and two
+//   stages of K and V 160 KB of shared memory), P.V one m64n256k16 product
+//   a k16 step for each of P's halves. The two warpgroups' softmaxes and
+//   products interleave on the SM; the first version, one consumer
+//   warpgroup a block, left the tensor cores idle through every softmax.
+//   Timed at the prefill shape on an H100 (attention_profile.py, cold L2;
+//   the dropped designs built from edited copies of this source, not
+//   kept): 1.362-1.380 ms (222 registers); 64-key tiles 1.549 (207); P.V
+//   as two m64n128k16 a step 1.389 (222); the warp-specialised design
+//   above at hd 256 over 80-key tiles 3.507 (168 registers, 1,412 bytes of
+//   spills); the first version 1.885-1.886 (207); each stage refilled by
+//   the last of the 8 warps to release it (a count in shared memory, so
+//   the issuing warp never waits for the other warpgroup) 1.368 and 1.376
+//   (221) against 1.364 and 1.367 in the same turns: the warpgroups run
+//   near lockstep anyway, and that wait costs nothing measurable. An
+//   FA3-style pipeline (S of tile t issued beside P.V of tile t-1, the
+//   softmax between) ran no faster, at 64 or 80 keys, and ptxas
+//   serialises every wgmma (C7518) unless no branch sits between a
+//   product's issue and its wait. What holds it back: the split's third
+//   product (1.5x the function's work) and the softmax, split and rescale
+//   between each warpgroup's products (61% of the tensor cores' peak on
+//   the issued work).
 //
 // float32 route (`attention_f32`, only float32 inputs): the CUDA cores.
 // One block of 128 threads per (64 query rows, head, batch) over 32-key
@@ -317,12 +343,12 @@ constexpr long long kSpinLimit = 1ll << 26;  // a deadlocked wait traps instead 
 
 // Tiles and threads of the instance for head dims up to HDP. hd 16-128:
 // two consumer warpgroups of 64 query rows (setmaxnreg 232) and a
-// producer, 96-key tiles (64, 96 and 128 timed on the card). hd 256: one
-// warpgroup's O is 64 x 256 float32, 128 registers a thread before S and
-// P, so one consumer warpgroup of 64 rows and a producer (256 threads, up
-// to 255 registers each with no setmaxnreg) over 64-key tiles: Q 32 KB
-// and two stages of K and V 128 KB of shared memory (96-key tiles and 128
-// rows would need 256 KB).
+// producer, 96-key tiles (64, 96 and 128 timed on the card). hd 256
+// (`attention_tc<256>`, below the generic kernel): two consumer
+// warpgroups and no producer (at most 8 warps keep 255 registers a
+// thread), 80-key tiles: Q 64 KB and two stages of K and V 160 KB of
+// shared memory (96-key tiles would need 256 KB); P.V one m64n256k16 a
+// step.
 template <int HDP>
 struct Cfg {
   static constexpr int kBQ = 128;         // query rows per block
@@ -333,11 +359,11 @@ struct Cfg {
 };
 template <>
 struct Cfg<256> {
-  static constexpr int kBQ = 64;
-  static constexpr int kBK = 64;
-  static constexpr int kConsumers = 128;
+  static constexpr int kBQ = 128;
+  static constexpr int kBK = 80;
+  static constexpr int kConsumers = 256;
   static constexpr bool kSetMaxNReg = false;
-  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kThreads = kConsumers;  // no producer role
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -439,19 +465,21 @@ __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -494,16 +522,56 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // S tile: m64 x BK keys, both operands from shared memory
 template <int BK>
 __device__ __forceinline__ void mma_ss(float (&d)[BK / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(BK == 96 || BK == 80, "key tiles of 96 (hd <= 128) or 80 (hd 256)");
   if constexpr (BK == 96) wgmma_ss_n96(d, da, db, scale_d);
-  else wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n80(d, da, db, scale_d);
 }
 
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  if constexpr (N == 256) wgmma_rs_n256(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
   else wgmma_rs_n64(d, a, db, 1);
 }
 
@@ -642,29 +710,23 @@ __device__ __forceinline__ void issue_scores(float (&sc)[Cfg<HDP>::kBK / 2], uin
 }
 
 // O += P_hi V + P_lo V, 16 keys a step (8-key groups 1024 bytes apart,
-// 64-wide head-dim boxes kBK rows apart: the MN-major layout). hd 256
-// takes two n128 products per step over the same P fragments, each on
-// its half of O's columns (registers 64 on hold columns 128 on).
+// 64-wide head-dim boxes kBK rows apart: the MN-major layout), one
+// product over all of O's columns (m64n256k16 at hd 256).
 template <int HDP>
 __device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
                                          uint32_t (&hi)[Cfg<HDP>::kBK / 16][4],
                                          uint32_t (&lo)[Cfg<HDP>::kBK / 16][4], uint32_t va) {
   constexpr int kBK = Cfg<HDP>::kBK;
-  constexpr int kN = HDP < 128 ? HDP : 128;  // columns of one product
   fence_regs(o);
   fence_regs(hi);
   fence_regs(lo);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int part = 0; part < HDP / kN; ++part) {
-      const uint64_t dv = desc(va + part * (kN / 64) * kBK * kRowBytes + kk * 16 * kRowBytes,
-                               kBK * kRowBytes, 8 * kRowBytes);
-      float(&op)[kN / 2] = *reinterpret_cast<float(*)[kN / 2]>(&o[part * (kN / 2)]);
-      mma_rs<kN>(op, hi[kk], dv);
-      mma_rs<kN>(op, lo[kk], dv);
-    }
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t dv = desc(va + kk * 16 * kRowBytes, kBK * kRowBytes, 8 * kRowBytes);
+    mma_rs<HDP>(o, hi[kk], dv);
+    mma_rs<HDP>(o, lo[kk], dv);
+  }
   wgmma_commit();
 }
 
@@ -798,6 +860,163 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
           *reinterpret_cast<__nv_bfloat162*>(orow + col) =
               __floats2bfloat162_rn(o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
       }
+    }
+  }
+}
+
+// hd 256: two consumer warpgroups of 64 query rows each and no producer
+// role (256 threads: ptxas allows 255 registers a thread only with at
+// most two warps per scheduler). One thread of the upper warpgroup (its
+// rows see every tile of the block) loads Q and the first two tiles and
+// refills a stage once every consumer warp has released it; the lower
+// warpgroup releases, unread, the tiles wholly above its causal limit.
+template <>
+__global__ void __launch_bounds__(Cfg<256>::kThreads, 1)
+attention_tc<256>(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                  int H, int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
+                  float scale_log2) {
+  constexpr int HDP = 256;
+  using L = Layout<HDP>;
+  constexpr int kBQ = Cfg<HDP>::kBQ, kBK = Cfg<HDP>::kBK, kConsumers = Cfg<HDP>::kConsumers;
+  constexpr int kAtoms = HDP / 64;  // 64-wide head-dim boxes per row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full_k = q_full + 8, full_v = full_k + 8 * kStages;  // + 8 * stage
+  const uint32_t empty_k = full_v + 8 * kStages, empty_v = empty_k + 8 * kStages;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / K);
+  const int q0 = qt * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
+  int k_end = Skv;  // the last key any row of this block may see, plus one
+  if (mode == 0) k_end = min(Skv, q_end);
+  if (mode == 1) k_end = min(Skv, max(q_end, prefix_len));
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, kConsumers / 32);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32, qd = lane % 4;
+  const int row_first = q0 + 64 * c;
+  const int r0 = row_first + 16 * (tid / 32) + lane / 4;
+  const uint32_t qa = sq + c * 64 * kRowBytes;
+  const bool issuer = threadIdx.x == 128;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto load_tile = [&](int kv, int t) {  // tile t of K (kv 0) or V (kv 1), stage t % kStages
+    const int s = t % kStages;
+    const uint32_t full = (kv ? full_v : full_k) + 8 * s;
+    mbar_expect_tx(full, L::kTileBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load((kv ? sv : sk) + s * L::kTileBytes + a * kBK * kRowBytes, kv ? &vmap : &kmap, full,
+               64 * a, t * kBK, kh, b);
+  };
+  // after this warp released tile t: tile t + kStages into its stage once
+  // every consumer warp has released it (the other warpgroup is then at
+  // most a softmax behind)
+  auto refill = [&](int kv, int t) {
+    if (issuer && t + kStages < n_tiles) {
+      mbar_wait((kv ? empty_v : empty_k) + 8 * (t % kStages), (t / kStages) & 1);
+      load_tile(kv, t + kStages);
+    }
+    __syncwarp();
+  };
+  if (issuer) {
+    mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load(sq + a * kBQ * kRowBytes, &qmap, q_full, 64 * a, q0, h, b);
+    for (int t = 0; t < kStages && t < n_tiles; ++t) {
+      load_tile(0, t);
+      load_tile(1, t);
+    }
+  }
+  __syncwarp();
+  // the tiles these 64 rows see
+  const int row_last = min(row_first + 63, Sq - 1);
+  int k_mine = Skv;
+  if (mode == 0) k_mine = min(Skv, row_last + 1);
+  if (mode == 1) k_mine = min(Skv, max(row_last + 1, prefix_len));
+  const int n_mine = row_first < Sq ? (k_mine + kBK - 1) / kBK : 0;
+
+  float o[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.0f;
+  Softmax sm;
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_mine; ++t) {
+    const int s = t % kStages, parity = (t / kStages) & 1, k0 = t * kBK;
+    float sc[kBK / 2];
+    mbar_wait(full_k + 8 * s, parity);
+    issue_scores<HDP>(sc, qa, sk + s * L::kTileBytes);
+    wgmma_wait_all();
+    fence_regs(sc);
+    release(empty_k + 8 * s);
+    refill(0, t);
+    const bool edge = k0 + kBK > Skv || (mode != 2 && k0 + kBK - 1 > row_first &&
+                                         !(mode == 1 && k0 + kBK - 1 < prefix_len));
+    if (edge) sm.step<true, kBK>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
+    else sm.step<false, kBK>(sc, k0, r0, qd, Skv, mode, prefix_len, scale_log2);
+    uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
+    split_p<kBK>(sc, hi, lo);
+    rescale<HDP>(o, sm.alpha);
+    mbar_wait(full_v + 8 * s, parity);
+    issue_pv<HDP>(o, hi, lo, sv + s * L::kTileBytes);
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(hi);
+    fence_regs(lo);
+    release(empty_v + 8 * s);
+    refill(1, t);
+  }
+  // the block's later tiles, released as they land (each barrier phase
+  // counts every consumer warp once)
+  for (int t = n_mine; t < n_tiles; ++t) {
+    const int s = t % kStages, parity = (t / kStages) & 1;
+    mbar_wait(full_k + 8 * s, parity);
+    release(empty_k + 8 * s);
+    refill(0, t);
+    mbar_wait(full_v + 8 * s, parity);
+    release(empty_v + 8 * s);
+    refill(1, t);
+  }
+
+  // epilogue: as attention_tc's
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = sm.l[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = r0 + 8 * i;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l, 1e-30f);
+    __nv_bfloat16* orow = out + b * os.b + h * os.h + row * os.s;
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
     }
   }
 }

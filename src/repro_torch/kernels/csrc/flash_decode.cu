@@ -32,9 +32,9 @@
 //   (split, kv head and 16-query row tile, batch); G < 16 pads the rows
 //   with zero queries, G = 32 takes two row tiles (two blocks, the second
 //   reading K/V from L2).
-// - Loads. K and V tiles of 128 cached rows (64 at hd 256, where a block
-//   has 4 warps) go into a 3-stage ring in shared memory (192 KB at hd
-//   128 and 256) with cp.async (16 bytes a thread,
+// - Loads. K and V tiles of 128 cached rows (64 at hd 256) go into a
+//   3-stage ring in shared memory (192 KB at hd 128 and 256) with
+//   cp.async (16 bytes a thread,
 //   neighbouring threads on neighbouring pieces of a row, rows
 //   XOR-swizzled so ldmatrix reads no bank twice); while one tile is
 //   scored the next two are in flight. Rows past pos or past the split
@@ -65,6 +65,28 @@
 //   by exp(m_s - max m), and writes the bf16 output: no second launch.
 //   Its reads of the splits' float32 partials (64 KB a unit at GLM-4-9B's
 //   shape) are the kernel's tail.
+// - hd 256 (`decode_tc<256>`, PaliGemma's decode: B 8, G 8 on K 1, pos
+//   4160 reads 34.15 MB, 0.01019 ms at 3.35 TB/s; an explicit
+//   specialisation, `Tc<256>`). Three stages of 128-key tiles would take
+//   384 KB, so the tiles are 64 keys. The first version gave them to 4
+//   warps, a warp per 16-key slice: Q's A fragments (64 registers) held
+//   across the split beside O's 128 took it to 255 registers and 340 bytes
+//   of spills, one warp a scheduler had nothing to hide its dependent
+//   products behind, and the last block of each unit merged 16 splits x
+//   16 rows (8 of them zero queries) x 256 float32 with 128 threads. Timed
+//   on an H100 (attention_profile.py --split, cold L2): 0.0424-0.0433 ms,
+//   of which a copy that only loads took 0.0131 and one without the
+//   combine 0.0332. Now 8 warps: warp w scores the 16 keys of slice w % 4
+//   (both warps of a slice compute the same S, over the whole head dim, in
+//   two accumulator chains of 8 k16 steps) and multiplies its P into the
+//   128 output columns of half w / 4, so O is 64 registers; Q is staged
+//   once in shared memory (8 KB, swizzled as K) and read with ldmatrix at
+//   each step; the slices' merge (rows padded so float2 stores hit no bank
+//   twice), the partials and the combine carry only the rows of real
+//   queries, and the combine's weights take a warp a row. 197 registers,
+//   no spills: 0.0216-0.0223 ms (loads alone 0.0134, without the combine
+//   0.0185), the loads' time plus 0.005 of scores and merge and 0.003 of
+//   combine.
 //
 // float32 route (`decode_f32` + `combine_f32`, only float32 inputs): the
 // CUDA cores, as ported first. Chunks of 256 positions, one block of 256
@@ -111,12 +133,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Shared memory per stage: K [kTile][HD] then V [kTile][HD], bf16, each
 // row's 16-byte pieces XOR-swizzled by row (phys = piece ^ swz(row)) so
 // that the 8 rows an ldmatrix reads land in 8 different bank groups.
-// hd <= 128: 8 warps, 128-key tiles (192 KB of ring at hd 128). hd 256:
-// three stages of 128-key tiles would take 384 KB, so 4 warps take
-// 64-key tiles (192 KB of ring; the merge 66 KB).
+// hd <= 128: 8 warps, 128-key tiles (192 KB of ring at hd 128). hd 256
+// (`Tc<256>` below): 8 warps over 64-key tiles, 4 key slices x 2 column
+// halves, Q 8 KB before 192 KB of ring.
 template <int HD>
 struct Tc {
-  static constexpr int kWarps = HD > 128 ? 4 : 8;
+  static constexpr int kWarps = 8;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kTile = kWarps * kWarpKeys;    // keys per tile
   static constexpr int kPieces = HD / 8;              // 16-byte pieces per row
@@ -133,6 +155,31 @@ struct Tc {
   // byte offset of piece c of row r inside a tile
   __device__ static __forceinline__ uint32_t off(int r, int c) {
     return static_cast<uint32_t>(r * HD * 2 + ((c ^ swz(r)) << 4));
+  }
+};
+
+// hd 256 (`decode_tc<256>`; the file's note gives the design)
+template <>
+struct Tc<256> {
+  static constexpr int kHD = 256;
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSlices = 4;                     // 16-key slices of a tile
+  static constexpr int kTile = kSlices * kWarpKeys;     // keys per tile
+  static constexpr int kPieces = kHD / 8;               // 16-byte pieces per row
+  static constexpr int kTileBytes = kTile * kHD * 2;    // one K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kQBytes = kRows * kHD * 2;       // the query tile, swizzled as K
+  // merge rows padded by 8 floats: a warp's float2 stores hit no bank twice
+  static constexpr int kOStride = kHD + 8;
+  static constexpr int kMergeBytes = (2 * kSlices * kRows + kSlices * kRows * kOStride) * 4;
+  static constexpr int kSmem = kQBytes + (kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes);
+  static constexpr int kLoads = 2 * kTile * kPieces / kThreads;  // cp.async per thread per tile
+  static_assert(2 * kTile * kPieces % kThreads == 0, "whole loads per thread");
+  static_assert(kThreads == kHD, "the split's merge gives each thread one column");
+  __device__ static __forceinline__ uint32_t off(int r, int c) {
+    return static_cast<uint32_t>(r * kHD * 2 + ((c ^ (r & 7)) << 4));
   }
 };
 
@@ -473,6 +520,315 @@ decode_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
     const int e = 4 * (tid + i * kThreads);
     const int row = e / HD, d = e % HD;
     if (e < kRows * HD && row < rows) {
+      __nv_bfloat16* dst = out + (static_cast<long long>(b) * H + kh * G + g0 + row) * HD + d;
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[i].x, acc[i].y);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(acc[i].z, acc[i].w);
+    }
+  }
+  if (tid == 0) tickets[unit] = 0;  // ready for the next launch
+}
+
+// hd 256: decode_tc's contract and grid with 8 warps a block over 64-key
+// tiles, warp w on the 16 keys of slice w % 4 and the output columns of
+// half w / 4 (the file's note). The `// SPLIT` lines mark where
+// launch/attention_profile.py --split cuts copies of it.
+template <>
+__global__ void __launch_bounds__(Tc<256>::kThreads)
+decode_tc<256>(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos_ptr,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+               float* __restrict__ part_ml, int* __restrict__ tickets, int S, int K, int G,
+               int MT, int len, int NS, float scale) {
+  using L = Tc<256>;
+  constexpr int HD = L::kHD, kThreads = L::kThreads, kTile = L::kTile, kSlices = L::kSlices;
+  constexpr int kSteps = HD / 16;     // k16 steps of Q.K
+  constexpr int kNt = HD / 8 / 2;     // n8 tiles of P.V in a column half
+  const int split = blockIdx.x, unit_in_b = blockIdx.y, b = blockIdx.z;
+  const int kh = unit_in_b / MT, mt = unit_in_b % MT;
+  const int last = last_valid(pos_ptr, S);
+  const int s0 = split * len;
+  if (s0 > last) return;  // nothing valid here: read nothing, take no ticket
+  const int s1 = min(s0 + len, last + 1);
+  const int ntiles = (s1 - s0 + kTile - 1) / kTile;
+  const int nactive = min(NS, last / len + 1);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qr = lane >> 2, qc = lane & 3;  // fragment row (and row + 8), column pair
+  const int slice = warp % kSlices, half = warp / kSlices;
+  const int H = K * G;
+  const int g0 = mt * kRows;
+  const int rows = min(kRows, G - g0);
+  const float c = scale * kLog2e;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t ring = qs + L::kQBytes;
+
+  const long long row_stride = static_cast<long long>(K) * HD;  // elements between positions
+  const __nv_bfloat16* kb = k + (static_cast<long long>(b) * S) * row_stride + kh * HD;
+  const __nv_bfloat16* vb = v + (static_cast<long long>(b) * S) * row_stride + kh * HD;
+
+  auto load_tile = [&](int t) {
+    const uint32_t st = ring + (t % kStages) * L::kStageBytes;
+    const int j0 = s0 + t * kTile;
+#pragma unroll
+    for (int it = 0; it < L::kLoads; ++it) {
+      const int i = tid + it * kThreads;
+      const int which = i / (kTile * L::kPieces);  // 0 K, 1 V
+      const int rem = i % (kTile * L::kPieces);
+      const int r = rem / L::kPieces, p = rem % L::kPieces;
+      const int j = j0 + r;
+      const bool valid = j < s1;
+      const __nv_bfloat16* src = (which ? vb : kb) + (valid ? j : s0) * row_stride + p * 8;
+      cp_async16(st + which * L::kTileBytes + L::off(r, p), src, valid);
+    }
+  };
+
+  // the 16 x HD query tile (rows past G zero) with the first tile's group
+  {
+    const __nv_bfloat16* qb = q + (static_cast<long long>(b) * H + kh * G + g0) * HD;
+#pragma unroll
+    for (int i = tid; i < kRows * L::kPieces; i += kThreads) {
+      const int r = i / L::kPieces, p = i % L::kPieces;
+      cp_async16(qs + L::off(r, p), qb + (r < rows ? r : 0) * HD + p * 8, r < rows);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) load_tile(t);
+    cp_async_commit();
+  }
+
+  float o[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const int mat = lane >> 3;  // the ldmatrix matrix this lane addresses
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t landed for every thread; tile t-1's stage is free
+    if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1);
+    cp_async_commit();
+    // SPLIT tile loaded
+
+    const int key0 = s0 + t * kTile + slice * kWarpKeys;  // this warp's first key
+    if (key0 >= s1) continue;  // the whole slice is masked (uniform per warp)
+    const uint32_t kt = ring + (t % kStages) * L::kStageBytes;
+    const uint32_t vt = kt + L::kTileBytes;
+
+    // S = Q.K^T for keys key0 .. key0+15: n8 tiles 0 (sc[0..3]) and 1
+    // (sc[4..7]); even and odd k16 steps in two chains, added at the end
+    float sc[8], sd[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sc[i] = sd[i] = 0.0f;
+    {
+      const int qrow = (lane & 7) + 8 * (mat & 1);            // Q: matrix (rows +8*(mat&1), piece +(mat>>1))
+      const int kr = slice * kWarpKeys + (mat >> 1) * 8 + (lane & 7);  // K: (keys +8*(mat>>1), piece +(mat&1))
+#pragma unroll
+      for (int s = 0; s < kSteps; s += 2) {
+        uint32_t qf[2][4], kf[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          ldmatrix_x4(qf[u], qs + L::off(qrow, 2 * (s + u) + (mat >> 1)));
+          ldmatrix_x4(kf[u], kt + L::off(kr, 2 * (s + u) + (mat & 1)));
+        }
+        mma(sc, qf[0], kf[0][0], kf[0][1]);
+        mma(sc + 4, qf[0], kf[0][2], kf[0][3]);
+        mma(sd, qf[1], kf[1][0], kf[1][1]);
+        mma(sd + 4, qf[1], kf[1][2], kf[1][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sc[i] += sd[i];
+
+    // online softmax of rows qr (i = 0) and qr + 8 (i = 1); element
+    // 4*nt + 2*i + e is key key0 + 8*nt + 2*qc + e
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * nt + 2 * i + e];
+          if (key0 + 8 * nt + 2 * qc + e >= s1) x = -INFINITY;
+          mx[i] = fmaxf(mx[i], x);
+        }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      const bool empty_row = m_new == -INFINITY;  // never: key0 < s1 is valid
+      alpha[i] = empty_row ? 1.0f : ex2((m[i] - m_new) * c);
+      mc[i] = empty_row ? 0.0f : m_new * c;
+      m[i] = m_new;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * nt + 2 * i + e];
+          x = ex2(__fmaf_rn(x, c, -mc[i]));  // a masked -inf gives 0
+          ps[i] += x;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = __fmaf_rn(alpha[i], l[i], ps[i]);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {  // else o * 1 = o
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+      }
+    }
+
+    // P = hi + lo in bf16 as A fragments (see decode_tc)
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float p0 = sc[2 * r], p1 = sc[2 * r + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(h2);
+      hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[r] = pack_bf16(p0 - hf.x, p1 - hf.y);
+    }
+
+    // O += P.V over this warp's column half: V rows key0.. through
+    // ldmatrix.trans, two n8 tiles a load
+    {
+      const int r = slice * kWarpKeys + (mat & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int n = 0; n < kNt; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vt + L::off(r, half * kNt + n + (mat >> 1)));
+        mma(o[n], hi, vf[0], vf[1]);
+        mma(o[n], lo, vf[0], vf[1]);
+        mma(o[n + 1], hi, vf[2], vf[3]);
+        mma(o[n + 1], lo, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // SPLIT split loaded
+  __syncthreads();  // the ring is free: merge the slices there
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  float* mw = reinterpret_cast<float*>(smem + L::kQBytes);  // [kSlices][kRows]
+  float* lw = mw + kSlices * kRows;                           // [kSlices][kRows]
+  float* ow = lw + kSlices * kRows;                           // [kSlices][kRows][kOStride]
+  if (half == 0 && qc == 0) {  // both halves of a slice hold the same m, l
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mw[slice * kRows + qr + 8 * i] = m[i];
+      lw[slice * kRows + qr + 8 * i] = l[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (qr + 8 * i < rows)
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+        *reinterpret_cast<float2*>(ow + (slice * kRows + qr + 8 * i) * L::kOStride +
+                                   half * (HD / 2) + 8 * n + 2 * qc) =
+            make_float2(o[n][2 * i], o[n][2 * i + 1]);
+  __syncthreads();
+
+  const long long unit = static_cast<long long>(b) * K * MT + unit_in_b;
+  float* po = part_o + unit * NS * kRows * HD;
+  float* pml = part_ml + unit * NS * kRows * 2;
+  {
+    const int d = tid;  // one column a thread
+    for (int row = 0; row < rows; ++row) {
+      float M = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kSlices; ++w) M = fmaxf(M, mw[w * kRows + row]);
+      float acc = 0.0f, Lsum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kSlices; ++w) {
+        const float mw_ = mw[w * kRows + row];
+        const float f = mw_ == -INFINITY ? 0.0f : ex2((mw_ - M) * c);  // a slice with no key adds 0
+        acc = __fmaf_rn(f, ow[(w * kRows + row) * L::kOStride + d], acc);
+        Lsum = __fmaf_rn(f, lw[w * kRows + row], Lsum);
+      }
+      po[(split * kRows + row) * HD + d] = acc;
+      if (d == 0) {
+        pml[(split * kRows + row) * 2] = M;
+        pml[(split * kRows + row) * 2 + 1] = Lsum;
+      }
+    }
+  }
+  // SPLIT partial written
+
+  // the last block of this unit to finish merges the splits
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(tickets + unit, 1) == nactive - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // each split's weight exp(m_s - M) / sum_s exp(m_s - M) l_s, one warp
+  // a row, two splits a lane (nactive <= kMaxSplits = 64)
+  float* ws = reinterpret_cast<float*>(smem + L::kQBytes);  // [kRows][kMaxSplits]
+  for (int row = warp; row < rows; row += L::kWarps) {
+    float ms[2], fl[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int sp = lane + 32 * j;
+      ms[j] = sp < nactive ? __ldcg(pml + (sp * kRows + row) * 2) : -INFINITY;
+      fl[j] = sp < nactive ? __ldcg(pml + (sp * kRows + row) * 2 + 1) : 0.0f;
+    }
+    float M = fmaxf(ms[0], ms[1]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float f[2], Lsum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      f[j] = lane + 32 * j < nactive ? ex2((ms[j] - M) * c) : 0.0f;
+      Lsum = __fmaf_rn(f[j], fl[j], Lsum);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) Lsum += __shfl_xor_sync(0xffffffffu, Lsum, off);
+    const float inv = 1.0f / fmaxf(Lsum, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (lane + 32 * j < nactive) ws[row * kMaxSplits + lane + 32 * j] = f[j] * inv;
+  }
+  __syncthreads();
+  // out = sum_s weight_s O_s over the real rows, four columns a thread
+  // slot, all splits' loads of a thread in flight together
+  constexpr int kPer = kRows * HD / 4 / kThreads;
+  float4 acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+  for (int s = 0; s < nactive; ++s) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = 4 * (tid + i * kThreads);  // element row * HD + d
+      if (e / HD < rows) {
+        const float w = ws[(e / HD) * kMaxSplits + s];
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(po + s * kRows * HD + e));
+        acc[i].x = __fmaf_rn(w, x.x, acc[i].x);
+        acc[i].y = __fmaf_rn(w, x.y, acc[i].y);
+        acc[i].z = __fmaf_rn(w, x.z, acc[i].z);
+        acc[i].w = __fmaf_rn(w, x.w, acc[i].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = 4 * (tid + i * kThreads);
+    const int row = e / HD, d = e % HD;
+    if (row < rows) {
       __nv_bfloat16* dst = out + (static_cast<long long>(b) * H + kh * G + g0 + row) * HD + d;
       *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[i].x, acc[i].y);
       *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(acc[i].z, acc[i].w);

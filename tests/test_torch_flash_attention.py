@@ -169,24 +169,32 @@ def test_bad_mask_mode_raises():
 
 # --- why the bf16 CUDA kernel splits its probabilities ------------------
 # csrc/flash_attention.cu runs P.V on bf16 tensor cores. These float32
-# emulations of its online softmax (128-key tiles, causal) show what
-# rounding P to bf16 once would do against chip_smoke.py phase 3c's bf16
-# tolerance, and that the hi + lo split it uses stays inside it.
+# emulations of its online softmax (key tiles of `bk`, one tile at a time
+# per row) show what rounding P to bf16 once would do against
+# chip_smoke.py phase 3c's bf16 tolerance, and that the hi + lo split it
+# uses stays inside it. A tile wholly masked for a row changes nothing
+# (p = 0, alpha = 1), so skipping it, as attention_tc<256>'s lower
+# warpgroup does, is the same arithmetic; the 128-row blocks touch no
+# row's arithmetic either.
 
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7  # chip_smoke.py ATTN_TOL: one bf16 rounding step
 
 
-def _tiled_emulation(q, k, v, *, split, bk=128):
+def _tiled_emulation(q, k, v, *, split, bk=128, mask_mode="causal", prefix_len=0):
     B, H, S, hd = q.shape
-    K = k.shape[1]
+    K, Skv = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, K, H // K, S, hd)
     s_all = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * (1.0 / np.sqrt(hd))
-    pos = torch.arange(S)
-    s_all = torch.where(pos[None, :] <= pos[:, None], s_all, -np.inf)
+    q_pos, k_pos = torch.arange(S), torch.arange(Skv)
+    if mask_mode != "full":
+        mask = k_pos[None, :] <= q_pos[:, None]
+        if mask_mode == "prefix":
+            mask = mask | (k_pos[None, :] < prefix_len)
+        s_all = torch.where(mask, s_all, -np.inf)
     m = torch.full(s_all.shape[:-1], -np.inf)
     l = torch.zeros(s_all.shape[:-1])
     o = torch.zeros(s_all.shape[:-1] + (hd,))
-    for k0 in range(0, S, bk):
+    for k0 in range(0, Skv, bk):
         s = s_all[..., k0:k0 + bk]
         m_new = torch.maximum(m, s.amax(-1))  # key 0 is in tile 0: never -inf
         alpha = torch.exp(m - m_new)
@@ -207,9 +215,9 @@ def _misses(got, want):
     return int((diff > BF16_ATOL + BF16_RTOL * want.float().abs()).sum())
 
 
-# (K, hd, key tile): the hd 128 instance's shape, and the hd 256
-# instance's (`attention_tc<256>`: 64-key tiles) at PaliGemma's MQA heads
-SPLIT_CASES = [(2, 128, 128), (1, 256, 64)]
+# (K, hd, key tile): the hd 128 instance's shape; PaliGemma's MQA heads at
+# hd 256 over 64-key tiles and over attention_tc<256>'s 80-key tiles
+SPLIT_CASES = [(2, 128, 128), (1, 256, 64), (1, 256, 80)]
 
 
 def _split_case(K, hd):
@@ -227,5 +235,25 @@ def test_bf16_probabilities_would_miss_one_step(K, hd, bk):
 def test_split_probabilities_keep_one_step(K, hd, bk):
     tq, tk, tv, want = _split_case(K, hd)
     got = _tiled_emulation(tq, tk, tv, split=True, bk=bk)
+    assert _misses(got, want) == 0
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8
+
+
+# attention_tc<256>'s edges (80-key tiles, 128-row blocks): Sq on either
+# side of a block, the prefix edge on either side of a tile and of a
+# block, Sq against a longer Skv
+HD256_TILE_EDGES = [
+    (127, 127, "causal", 0), (128, 128, "causal", 0), (129, 129, "causal", 0),
+    (200, 200, "prefix", 79), (200, 200, "prefix", 80), (200, 200, "prefix", 81),
+    (200, 200, "prefix", 160), (300, 300, "prefix", 127), (300, 300, "prefix", 129),
+    (129, 250, "full", 0),
+]
+
+
+@pytest.mark.parametrize("Sq,Skv,mode,prefix", HD256_TILE_EDGES)
+def test_split_probabilities_keep_one_step_hd256_edges(Sq, Skv, mode, prefix):
+    (tq, tk, tv), _ = _inputs(1, 8, 1, Sq, Skv, 256, "bfloat16", seed=Sq + prefix)
+    want = flash_attention_plain(tq, tk, tv, mask_mode=mode, prefix_len=prefix)
+    got = _tiled_emulation(tq, tk, tv, split=True, bk=80, mask_mode=mode, prefix_len=prefix)
     assert _misses(got, want) == 0
     assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8

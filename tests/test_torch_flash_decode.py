@@ -122,11 +122,14 @@ def test_positions_past_pos_are_ignored():
 
 # --- the bf16 CUDA kernel's arithmetic -----------------------------------
 # csrc/flash_decode.cu's bf16 route (`decode_tc`) splits the cache into
-# `_split_len` positions per block, scores 128-key tiles (64 at hd 256)
-# with each of 8 warps (4 at hd 256) on 16 keys and its own online
-# softmax (scores q.k in float32, the scale log2(e)/sqrt(hd) inside
-# exp2), runs P.V on bf16 tensor cores with
-# P split into hi + lo, merges the warps, then the splits. This float32
+# `_split_len` positions per block and scores tiles of `_tile` keys in
+# 16-key slices, each slice with its own online softmax (scores q.k in
+# float32, the scale log2(e)/sqrt(hd) inside exp2): a warp a slice over
+# 128-key tiles (8 warps), or at hd 256 (`decode_tc<256>`) 8 warps over 64-key
+# tiles, the two warps of a slice computing the same scores and softmax
+# and each multiplying P into one half of the output columns. P.V runs on
+# bf16 tensor cores with P split into hi + lo; the slices are merged, then
+# the splits (only the rows of real queries are carried). This float32
 # emulation of that order is held to chip_smoke.py phase 3c's bf16
 # tolerance against the plain version, at 3c's decode shapes with B cut
 # to 1-2; rounding P once instead misses it.
@@ -136,7 +139,8 @@ SMS, WARP_KEYS, MIN_SPLIT, MAX_SPLITS = 132, 16, 256, 64  # as csrc/flash_decode
 
 
 def _tile(hd):
-    """Keys a tile: 8 warps x 16, or 4 warps x 16 at hd 256 (`Tc<HD>`)."""
+    """Keys a tile: 8 slices of 16 (a warp each), or 4 at hd 256 (two
+    warps each, one a column half: `Tc<256>`)."""
     return 64 if hd > 128 else 128
 
 
@@ -160,7 +164,7 @@ def _decode_emulation(q, k, v, pos, *, split=True):
     for s0 in range(0, last + 1, n):
         s1 = min(s0 + n, last + 1)
         warps = []
-        for w in range(tile // WARP_KEYS):
+        for w in range(tile // WARP_KEYS):  # the key slices
             m = torch.full((B, K, G), -np.inf)
             l = torch.zeros((B, K, G))
             o = torch.zeros((B, K, G, hd))
@@ -205,9 +209,12 @@ DECODE_CASES = [  # chip_smoke 3c's bf16 decode cases with B cut: B, H, K, S, hd
     (2, 8, 2, 777, 16, 700), (2, 8, 2, 777, 32, 776), (2, 16, 2, 1500, 64, 1499),
     (1, 32, 2, 4161, 128, 4159),   # B = 1: many splits
     (1, 32, 2, 4161, 128, 127), (1, 32, 2, 4161, 128, 128),  # a tile edge
-    # PaliGemma's decode (G 8 on K 1, hd 256: 64-key tiles of 4 warps)
+    # PaliGemma's decode (G 8 on K 1, hd 256: 64-key tiles of 4 slices x 2
+    # column halves; 8 real rows of the 16 carried)
     (2, 8, 1, 4161, 256, 4160), (2, 8, 1, 4161, 256, 63), (2, 8, 1, 4161, 256, 64),
     (1, 32, 1, 1000, 256, 999),    # G = 32 at hd 256: two row tiles
+    (2, 8, 1, 4161, 256, 127), (2, 8, 1, 4161, 256, 128),  # a tile edge
+    (2, 4, 1, 777, 256, 15), (2, 4, 1, 777, 256, 16),      # G = 4: one slice, then two
 ]
 
 
@@ -228,6 +235,16 @@ def test_split_edge_of_the_kernel():
     for pos in (527, 528):
         want = ops.flash_decode(tq, tk, tv, pos)
         assert _misses(_decode_emulation(tq, tk, tv, pos), want) == 0
+
+
+@pytest.mark.parametrize("pos", [271, 272])
+def test_split_edge_of_the_kernel_hd256(pos):
+    """pos on and past the first split's last position, for PaliGemma's
+    decode at batch 8 (16 splits of 272 positions, 5 tiles of 64)."""
+    assert _split_len(8 * 1, 4161) == 272
+    (tq, tk, tv), _ = _inputs(8, 8, 1, 4161, 256, "bfloat16", seed=pos)
+    want = ops.flash_decode(tq, tk, tv, pos)
+    assert _misses(_decode_emulation(tq, tk, tv, pos), want) == 0
 
 
 def test_single_rounded_probabilities_would_miss():
