@@ -33,11 +33,15 @@ Qwen1.5-MoE-A2.7B at full width and depth and Snowflake Arctic at full
 width and one layer, in bf16 at the same batch and lengths; VLM serving,
 `Model.prefill` and `Model.decode_step` on a batch of image patch
 embeddings and text tokens, for PaliGemma-3B at full size in bf16 at the
-same batch and lengths.
+same batch and lengths; enc-dec serving, `Model.prefill` on a batch of
+speech frame embeddings and `Model.decode_step`, for SeamlessM4T-medium at
+full size in bf16 at the same batch and generated tokens.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-4h, 4i, 5-6, 10, 11, 8, 9, 7 (phase 7 times every kernel with the launch
-counts of all paths; phases 10 and 11 free their models before phase 8
-builds GLM-4-9B, which phase 7 keeps):
+4h, 4i, 5-6, 10, 11, 12, 8, 9, 7 (phase 7 times every kernel with the
+launch counts of all paths; phases 10, 11 and 12 free their models before
+phase 8 builds GLM-4-9B, which phase 7 keeps). Each phase prints its wall
+seconds on a line of its own when it ends ("[<phase> wall]"), and the run
+ends with all of them and its total ("[wall]"):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
@@ -108,6 +112,15 @@ builds GLM-4-9B, which phase 7 keeps):
    1; the profiler naming attention_tc<256> and decode_tc<256>; and the
    LM layers' emulations of XLA:CPU (rope_angles at positions 0-32767 for every
    dense config, gelu_tanh, apply_rope) bitwise equal to the CPU's;
+   SeamlessM4T's heads (hd 64, MHA: H 16 on K 16) in bf16 and f32:
+   flash_attention at the encoder's shape (B 8, S 4096, full), the
+   decode step's cross-attention (one query row against 4,096 source
+   positions: 127 of the tensor-core block's 128 rows out of bounds),
+   1, 2, 63 and 65 query rows against 1,000 and 4,095 keys, the
+   teacher-forced decoder's cross (64 queries) and causal self-attention,
+   causal G 1 at S 1000 and at 1, the encoder's and the cross step's
+   strided [B,S,H,hd] views; flash_decode at G 1, hd 64, S 4161, pos 0,
+   1 and 63;
 3d. ssd_chunk_intra vs its plain version on the card, within
    |err| <= 2e-5 * max(1, sum|terms|) + 2e-5*|plain| (sum|terms|: the plain
    version on |x|, |B|, |C|), `total` bitwise (the prefix sums' order),
@@ -301,12 +314,15 @@ builds GLM-4-9B, which phase 7 keeps):
    bf16 weights, kernels vs plain within a relative L2 of 1e-4; in bf16,
    each path against the float32 plain one, the kernels' relative L2
    error at most 1.5 x the plain path's; and the greedy tokens'
-   agreement with the plain path;
+   agreement with the plain path; the comparisons (not the timed runs)
+   on the model's first 10 of its 40 layers (COMPARE_LAYERS: the same
+   widths and kernel shapes, a quarter of the depth);
 9. SSM serving, mamba2-1.3B (`configs/mamba2_1_3b.py`, 1.45 B parameters,
    the port's seeded init): as phase 8, with ssd_chunk_intra 48 launches
    (one per layer of the prefill; the decode step runs no kernel) and
    the plain SSD intra-chunk step swapped in for the comparison (its
-   state cache advances in place, so no prefill repeat is compared);
+   state cache advances in place, so no prefill repeat is compared), the
+   comparisons on its first 12 of 48 layers;
 10. MoE serving: first flash_attention and flash_decode at the two MoE
    configs' serving shapes (H 16 K 16: G 1; H 56 K 8: G 7; hd 128, bf16)
    held to their plain versions within phase 3c's tolerance, and the
@@ -333,13 +349,35 @@ builds GLM-4-9B, which phase 7 keeps):
    flash_decode 18 x 64 launches under sync debug mode "error", timing,
    the prefills of the two timed runs bitwise equal, profiles, the logit
    bounds against the plain attention versions, the greedy tokens'
-   agreement), the GELU's and the tied unembedding's cost, and the
-   bounds from the shapes;
+   agreement; the comparisons on its first 4 of 18 layers), the GELU's
+   and the tied unembedding's cost, and the bounds from the shapes;
+12. enc-dec serving, SeamlessM4T-medium (`configs/seamless_m4t_medium.py`,
+   877 M parameters, the port's seeded init: a 12-layer encoder and a
+   12-layer decoder with cross-attention, d 1024, H 16 on K 16, hd 64,
+   LayerNorm, GELU, vocab 256,206 untied): 4,096 frame embeddings a
+   sequence from SEED (numpy's normal in bf16, the speech frontend's
+   stub), 64 greedy tokens from the zero BOS logits, self cache 4161,
+   through `Model.prefill` and `Model.decode_step`: as phase 8
+   (flash_attention 12 + 12 x 64 = 780 launches, one a layer of the
+   encoder and one a decoder layer a step for the one-query
+   cross-attention, flash_decode 12 x 64, under sync debug mode "error";
+   the BOS logits exactly 0; the two timed runs' cross caches bitwise
+   equal; timing, profiles), the GELU's cost on one encoder layer, the
+   bounds from the shapes, and kernels vs plain attention (float32 and
+   bf16 gates as phase 8) on the encoder's output, the cross caches of
+   every layer, 4 teacher-forced decode steps' logits and
+   `decoder_forward_encdec`'s output over the 64 generated tokens, at
+   full depth; the greedy tokens' agreement;
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
    never calls it), the attention kernels also at PaliGemma's hd 256
    shapes (prefill B 8, H 8, K 1, S 4096, prefix 256; decode pos 4160)
+   and at SeamlessM4T's (the rows' "other_shapes": the encoder, B 8 H 16
+   K 16 S 4096 hd 64 full; the cross step, Sq 1 against 4,096, with
+   flash_decode over the same cross cache at pos 4095 beside it, the
+   same function; the decode step, pos 63 of 4161; each with SDPA eager
+   and replayed)
    with the hd 256 instances' ptxas registers and spills (a spill store
    in either fails the run); flash_decode
    and SDPA also in turns (A, B, B, A),
@@ -423,6 +461,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+T_START = time.perf_counter()
 
 SEED = 0
 M_MAIN, N_MAIN = 4096, 256
@@ -735,6 +775,10 @@ MOE_ARCH, MOE_WIDE_ARCH = "qwen2_moe_a2_7b", "arctic_480b"
 # and generated tokens: 256 patch embeddings (the SigLIP frontend's stub)
 # and 3,840 text tokens make the same 4,096 positions
 VLM_ARCH = "paligemma_3b"
+# phase 12 serves SeamlessM4T-medium at full size at phase 8's batch,
+# generated tokens and self cache: source_len 4,096 frame embeddings (the
+# speech frontend's stub) in
+ENCDEC_ARCH = "seamless_m4t_medium"
 LM_CACHE = LM_PROMPT + LM_GEN + 1
 # teacher-forced logits, kernels vs plain attention: with float32
 # activations (the same bf16 weights) both kernels agree with their plain
@@ -744,6 +788,14 @@ LM_CACHE = LM_PROMPT + LM_GEN + 1
 # held against the float32 plain path and the kernels' relative L2 error
 # may be at most LOGIT_ERR_RATIO times the plain path's
 LM_TEACHER_STEPS, LOGIT_F32_TOL, LOGIT_ERR_RATIO = 4, 1e-4, 1.5
+# the depth of the kernels-vs-plain comparisons of the phases that cost
+# the most (`serve_lm`'s compare_layers; the timed greedy runs stay at
+# full depth, the comparisons keep the full widths and kernel shapes):
+# GLM-4-9B 10 of 40 layers, mamba2-1.3B 12 of 48, PaliGemma 4 of 18. Not
+# Qwen1.5-MoE: at 6 of its 24 layers the bf16 routing flips between the
+# two paths dominate a decode step's error (ratio 1.86 in one run), so its
+# comparisons stay at full depth, where both paths' errors saturate alike
+COMPARE_LAYERS = {"glm4-9b": 10, "mamba2-1.3b": 12, "paligemma-3b": 4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the data sheet gives no int32 rate: Hopper's SM issues 64 int32
 # operations a clock against 128 float32 FMAs (2 operations each), so a
@@ -872,6 +924,27 @@ def say(*parts) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+class PhaseClock:
+    """Each phase's wall seconds, printed on a line of its own when the
+    next phase starts (`start`) or the run ends (`stop`)."""
+
+    def __init__(self):
+        self.tag, self.t0, self.secs = None, None, {}
+
+    def start(self, tag) -> None:
+        now = time.perf_counter()
+        if self.tag is not None:
+            self.secs[self.tag] = now - self.t0
+            say(f"[{self.tag} wall] phase {self.tag}: {self.secs[self.tag]:.1f} s")
+        self.tag, self.t0 = tag, now
+
+    def stop(self) -> None:
+        self.start(None)
+        say("[wall] phases in run order, s: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in self.secs.items())
+            + f"; total {time.perf_counter() - T_START:.1f} s since the script started")
 
 
 def smi_line() -> str:
@@ -1309,6 +1382,7 @@ def wan_instance(convert, fleet_scenarios, M, N, T_tab, dev, j=0):
 
 
 def rel_l2(a, b):
+    a, b = a.float(), b.float()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
@@ -1326,12 +1400,13 @@ def swapped(ops, plain):
             setattr(ops, name, fn)
 
 
-def vlm_generate(model, params, batch, gen_len: int, cache_len: int) -> torch.Tensor:
-    """Greedy decoding of a vlm batch (patches and tokens) through the
-    Model API, `Model.prefill` then `Model.decode_step` and argmax on the
-    device, as the port's `greedy_generate` does for token prompts (the
-    serve CLI takes decoder-only LMs, as JAX's does) -> [B, gen_len]
-    int32 tokens on the device."""
+def batch_generate(model, params, batch, gen_len: int, cache_len: int) -> torch.Tensor:
+    """Greedy decoding of a prefill batch (a vlm's patches and tokens, an
+    enc-dec model's frames) through the Model API, `Model.prefill` then
+    `Model.decode_step` and argmax on the device, as the port's
+    `greedy_generate` does for token prompts (the serve CLI takes
+    decoder-only LMs, as JAX's does) -> [B, gen_len] int32 tokens on the
+    device."""
     logits, cache = model.prefill(params, batch, cache_len=cache_len)
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     out = []
@@ -1342,53 +1417,91 @@ def vlm_generate(model, params, batch, gen_len: int, cache_len: int) -> torch.Te
     return torch.cat(out, dim=1)
 
 
+def cut_depth(cfg, params, n: int):
+    """(cfg, params) of the first n decoder layers: the config with
+    n_layers = n, the stacked "layers" leaves (and an enc-dec model's
+    "cross" leaves) as views of their first n rows."""
+    def first(tree):
+        return {k: first(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:n]
+
+    cut = dict(params, **{k: first(params[k]) for k in ("layers", "cross") if k in params})
+    return dataclasses.replace(cfg, n_layers=n), cut
+
+
+def lm_outputs(m, params, batch, toks):
+    """The outputs held kernels vs plain in a serving phase, [(label,
+    tensor)]: the prefill's logits and LM_TEACHER_STEPS decode steps'
+    logits, each step fed the kernel run's greedy tokens `toks`."""
+    logits, cache = m.prefill(params, batch, cache_len=LM_CACHE)
+    out = [("prefill logits", logits)]
+    for t in range(LM_TEACHER_STEPS):
+        logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
+        out.append((f"decode step {t + 1} logits", logits))
+    return out
+
+
 def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_generate,
-             before_checks=None):
-    """One LM serving phase (8 dense, 9 ssm, 10 moe, 11 vlm) at `cfg`'s
-    full size with the port's seeded init: batch LM_BATCH, prompts of
-    LM_PROMPT positions from SEED (for a vlm, prefix_len patch embeddings
-    drawn with numpy's normal in the compute dtype, the frontend stub's
-    output, then LM_PROMPT - prefix_len tokens, generated by
-    `vlm_generate`), LM_GEN greedy tokens. `greedy_generate` once under sync
-    debug mode "error" with the launch counters set to 0 just before and
-    checked against `expected` just after (every other kernel 0); timed
-    with CUDA events (prefill ms, decode ms/step, tokens/s, peak memory);
-    one decode step profiled; then against the plain versions `plain`
-    ({ops name: function}, swapped in for this comparison only), prefill
-    logits and LM_TEACHER_STEPS teacher-forced decode steps: with float32
+             before_checks=None, outputs=lm_outputs, compare_layers=None):
+    """One LM serving phase (8 dense, 9 ssm, 10 moe, 11 vlm, 12 enc-dec)
+    at `cfg`'s full size with the port's seeded init: batch LM_BATCH,
+    prompts of LM_PROMPT positions from SEED (for a vlm, prefix_len patch
+    embeddings drawn with numpy's normal in the compute dtype, the
+    frontend stub's output, then LM_PROMPT - prefix_len tokens; for an
+    enc-dec model, source_len frame embeddings drawn so and no tokens;
+    both generated by `batch_generate`), LM_GEN greedy tokens.
+    `greedy_generate` once under sync debug mode "error" with the launch
+    counters set to 0 just before and checked against `expected` just
+    after (every other kernel 0); timed with CUDA events (prefill ms,
+    decode ms/step, tokens/s, peak memory); one prefill and one decode
+    step profiled; then against the plain versions `plain` ({ops name:
+    function}, swapped in for this comparison only), `outputs(model,
+    params, batch, toks)` (default: prefill logits and
+    LM_TEACHER_STEPS teacher-forced decode steps' logits): with float32
     activations over the same bf16 weights, kernels vs plain within a
     relative L2 of LOGIT_F32_TOL; in bf16, each path against the float32
     plain one, the kernels' relative L2 error at most LOGIT_ERR_RATIO x
-    the plain path's; and the greedy tokens' agreement. With a KV cache,
-    the two timed runs' prefills must give bitwise equal logits and
-    caches at the prompt's positions (which no decode step writes; an
-    SSM's states advance in place). `before_checks`, if given, is called
-    as before_checks(model, params, batch) after the profiles and before
-    the comparisons. Returns (the launch counts of the greedy run, model,
-    params, prompts)."""
+    the plain path's; and the greedy tokens' agreement. With
+    `compare_layers`, those comparisons run on the model cut to its first
+    compare_layers decoder layers (`cut_depth`: the same widths, weights
+    and kernel shapes), its greedy tokens generated through the kernels
+    too. With a KV cache, the two timed runs' prefills must give bitwise
+    equal logits and caches at the prompt's positions (which no decode
+    step writes; an enc-dec model's cross caches whole, its BOS logits
+    exactly 0; an SSM's states advance in place). `before_checks`, if
+    given, is called as before_checks(model, params, batch) after the
+    profiles and before the comparisons. Returns (the launch counts of
+    the greedy run, model, params, prompts)."""
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     P = cfg.prefix_len  # image patches before the text (vlm), else 0
+    encdec = cfg.is_encoder_decoder
     say(f"[{tag}] {cfg.name}: {n_params:,} parameters ({cfg.param_dtype}) made on the card in "
-        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, prompts of {LM_PROMPT} "
-        + (f"positions ({P} patches, {LM_PROMPT - P} tokens)" if P else "tokens")
+        f"{time.perf_counter() - t0:.1f} s; batch {LM_BATCH}, "
+        + (f"sources of {cfg.source_len} frame embeddings" if encdec else
+           f"prompts of {LM_PROMPT} " + (f"positions ({P} patches, {LM_PROMPT - P} tokens)"
+                                        if P else "tokens"))
         + f", {LM_GEN} generated, cache {LM_CACHE}")
     rng = np.random.default_rng(SEED)
-    prompts = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT - P)).astype(np.int32), device=dev)
-    batch = {"tokens": prompts}
+    cd = getattr(torch, cfg.compute_dtype)
+    if encdec:
+        prompts = None
+        batch = {"frames": torch.as_tensor(rng.standard_normal(
+            (LM_BATCH, cfg.source_len, cfg.d_model), dtype=np.float32), device=dev).to(cd)}
+    else:
+        prompts = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT - P)).astype(np.int32), device=dev)
+        batch = {"tokens": prompts}
     if cfg.family == "vlm":
         batch["patches"] = torch.as_tensor(rng.standard_normal(
-            (LM_BATCH, P, cfg.d_model), dtype=np.float32), device=dev).to(
-            getattr(torch, cfg.compute_dtype))
+            (LM_BATCH, P, cfg.d_model), dtype=np.float32), device=dev).to(cd)
 
-    def generate():
-        if cfg.family == "vlm":
-            return vlm_generate(model, params, batch, LM_GEN, LM_CACHE)
-        return greedy_generate(model, params, prompts, LM_GEN, LM_CACHE)
+    def generate(m=model, p=params):
+        if cfg.family == "vlm" or encdec:
+            return batch_generate(m, p, batch, LM_GEN, LM_CACHE)
+        return greedy_generate(m, p, prompts, LM_GEN, LM_CACHE)
 
     torch.cuda.synchronize()
     held_gib = torch.cuda.memory_allocated() / 2**30  # weights and what earlier phases hold
@@ -1436,7 +1549,17 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
     runs = [timed_generate() for _ in range(2)]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     prefill_ms, decode_ms, cache, tok, _ = runs[-1]
-    if "k" in cache:
+    if encdec:
+        (_, _, c1, _, l1), (_, _, c2, _, l2) = runs
+        if bool(l1.any()) or bool(l2.any()):
+            fail(f"{tag}: the prefill's BOS logits are not all 0")
+        if not all(torch.equal(c1[n].view(torch.int16), c2[n].view(torch.int16))
+                   for n in ("ck", "cv")):
+            fail(f"{tag}: the two timed runs' cross caches differ")
+        say(f"[{tag}] the two timed runs' prefills: BOS logits exactly 0 (a zero hidden state); "
+            f"the cross caches ck, cv {tuple(c1['ck'].shape)} bitwise equal")
+        del c1, c2, l1, l2
+    elif "k" in cache:
         (_, _, c1, _, l1), (_, _, c2, _, l2) = runs
         if not (same_bits(l1, l2) and all(
                 torch.equal(c1[n][:, :, :LM_PROMPT].view(torch.int16),
@@ -1445,9 +1568,11 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
         say(f"[{tag}] the two timed runs' prefills: logits and the KV caches' {LM_PROMPT} prompt "
             "positions bitwise equal")
         del c1, c2, l1, l2
+    n_in = cfg.source_len if encdec else LM_PROMPT
     say(f"[{tag}] timed (CUDA events, 2 runs): prefill "
         + " / ".join(f"{r[0]:.1f}" for r in runs) + " ms for "
-        f"{LM_BATCH}x{LM_PROMPT} tokens; decode " + " / ".join(f"{r[1]:.3f}" for r in runs)
+        f"{LM_BATCH}x{n_in} {'frames' if encdec else 'tokens'}; decode "
+        + " / ".join(f"{r[1]:.3f}" for r in runs)
         + f" ms/step ({LM_BATCH * 1e3 / decode_ms:,.1f} tokens/s at batch {LM_BATCH}); "
         f"whole request {prefill_ms + LM_GEN * decode_ms:.1f} ms "
         f"({LM_BATCH * LM_GEN * 1e3 / (prefill_ms + LM_GEN * decode_ms):,.1f} generated tokens/s); "
@@ -1479,65 +1604,69 @@ def serve_lm(tag, cfg, expected, plain, what, dev, ops, build_model, greedy_gene
     if before_checks is not None:
         before_checks(model, params, batch)
 
+    ccfg, cparams, depth = cfg, params, ""
+    if compare_layers is not None:
+        ccfg, cparams = cut_depth(cfg, params, compare_layers)
+        depth = f" (the first {compare_layers} of {cfg.n_layers} layers)"
+
     def plain_ctx():
         return swapped(ops, plain)
 
     def teacher_forced(m, ctx):
-        """Prefill logits and LM_TEACHER_STEPS decode-step logits, every
-        step fed the kernel run's greedy tokens; through the plain
-        versions, none of the swapped kernels may launch."""
+        """`outputs` of model m under ctx; through the plain versions,
+        none of the swapped kernels may launch."""
         ops.reset_launch_counts()
         with ctx():
-            logits, cache = m.prefill(params, batch, cache_len=LM_CACHE)
-            out = [logits]
-            for t in range(LM_TEACHER_STEPS):
-                logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
-                out.append(logits)
+            out = outputs(m, cparams, batch, toks)
         counts = ops.launch_counts()
         if ctx is plain_ctx and any(counts[name] for name in plain):
             fail(f"{tag}: the plain path launched kernels {counts}")
         return out
 
-    steps = {"kernels": teacher_forced(model, contextlib.nullcontext),
-             "plain": teacher_forced(model, plain_ctx)}
+    cmodel = build_model(ccfg, dev)
+    steps = {"kernels": teacher_forced(cmodel, contextlib.nullcontext),
+             "plain": teacher_forced(cmodel, plain_ctx)}
     # float32 activations over the same bf16 weights (cast per use)
-    ref_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"), dev)
+    ref_model = build_model(dataclasses.replace(ccfg, compute_dtype="float32"), dev)
     t0 = time.perf_counter()
     steps["f32"] = teacher_forced(ref_model, plain_ctx)
     steps["f32 kernels"] = teacher_forced(ref_model, contextlib.nullcontext)
-    say(f"[{tag}] float32 activations (bf16 weights cast per use), {what} and kernels: "
+    say(f"[{tag}] float32 activations (bf16 weights cast per use), {what} and kernels{depth}: "
         f"{time.perf_counter() - t0:.1f} s")
-    for i, (a, r) in enumerate(zip(steps["f32 kernels"], steps["f32"])):
-        step = "prefill" if i == 0 else f"decode step {i}"
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    for (step, a), (_, r) in zip(steps["f32 kernels"], steps["f32"]):
         gap = rel_l2(a, r)
-        say(f"[{tag}] {step} logits in float32: kernels vs {what} relative L2 {gap:.3e} "
-            f"(limit {LOGIT_F32_TOL:g}), max abs {float((a - r).abs().max()):.3e} (max |logit| "
-            f"{float(r.abs().max()):.3f}); argmax agreement "
-            f"{float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
+        say(f"[{tag}] {step} in float32{depth}: kernels vs {what} relative L2 {gap:.3e} "
+            f"(limit {LOGIT_F32_TOL:g}), max abs {float((a - r).abs().max()):.3e} (max |value| "
+            f"{float(r.abs().max()):.3f})"
+            + (f"; argmax agreement {agree(a, r):.3f}" if "logits" in step else ""))
         if not (torch.isfinite(a).all() and gap <= LOGIT_F32_TOL):
-            fail(f"{tag} {step}: float32 logits through the kernels are {gap:.3e} from the "
+            fail(f"{tag} {step}: float32 values through the kernels are {gap:.3e} from the "
                  f"{what} path's, beyond {LOGIT_F32_TOL:g}")
-    for i, (a, b, r) in enumerate(zip(steps["kernels"], steps["plain"], steps["f32"])):
-        step = "prefill" if i == 0 else f"decode step {i}"
+    for (step, a), (_, b), (_, r) in zip(steps["kernels"], steps["plain"], steps["f32"]):
         err_k, err_p = rel_l2(a, r), rel_l2(b, r)
-        say(f"[{tag}] {step} logits: relative L2 error vs the float32 reference, kernels "
+        say(f"[{tag}] {step}{depth}: relative L2 error vs the float32 reference, kernels "
             f"{err_k:.3e}, {what} {err_p:.3e} (ratio {err_k / err_p:.3f}, limit "
             f"{LOGIT_ERR_RATIO:g}); kernels vs plain {rel_l2(a, b):.3e}, max abs "
-            f"{float((a - b).abs().max()):.3e} (max |logit| {float(b.abs().max()):.3f}); argmax "
-            f"agreement kernels/plain {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}, "
-            f"kernels/f32 {float((a.argmax(-1) == r.argmax(-1)).float().mean()):.3f}")
+            f"{float((a.float() - b.float()).abs().max()):.3e} (max |value| "
+            f"{float(b.abs().max()):.3f})"
+            + (f"; argmax agreement kernels/plain {agree(a, b):.3f}, kernels/f32 {agree(a, r):.3f}"
+               if "logits" in step else ""))
         if not (torch.isfinite(a).all() and err_k <= LOGIT_ERR_RATIO * err_p):
-            fail(f"{tag} {step}: the kernels' logits are {err_k:.3e} from the float32 reference, "
+            fail(f"{tag} {step}: the kernels' values are {err_k:.3e} from the float32 reference, "
                  f"beyond {LOGIT_ERR_RATIO:g} x the {what} path's {err_p:.3e}")
     del steps, ref_model
+    toks_k = toks_h if compare_layers is None else generate(cmodel, cparams).cpu()
     with plain_ctx():
-        toks_plain = generate().cpu()
-    same = toks_plain == toks_h
+        toks_plain = generate(cmodel, cparams).cpu()
+    same = toks_plain == toks_k
     first = [int(row.logical_not().nonzero()[0]) if not bool(row.all()) else LM_GEN for row in same]
-    say(f"[{tag}] greedy tokens, kernels vs {what}: {float(same.float().mean()):.4f} equal; "
+    say(f"[{tag}] greedy tokens{depth}, kernels vs {what}: {float(same.float().mean()):.4f} equal; "
         f"first divergence per sequence {first} (of {LM_GEN})")
+    del cmodel, cparams
     return launches, model, params, prompts
-
 
 @contextlib.contextmanager
 def recording_plans(moe):
@@ -1608,6 +1737,190 @@ def vlm_bounds(cfg) -> dict:
                 attn_ops=attn_ops, logits_ops=logits_ops,
                 step_bytes=layer_w + unembed + cache + 2 * LM_BATCH * D, layer_bytes=layer_w,
                 unembed_bytes=unembed, cache_bytes=cache, weight_bytes=layer_w + unembed + 2 * D)
+
+
+def encdec_outputs(m, params, batch, toks):
+    """Phase 12's outputs held kernels vs plain, [(label, tensor)]: the
+    encoder's output, the prefill's cross caches ck and cv of every layer,
+    LM_TEACHER_STEPS teacher-forced decode steps' logits (fed the kernel
+    run's greedy tokens `toks`), and `decoder_forward_encdec`'s
+    final-normed hidden state over all LM_GEN of them (the prefill's BOS
+    logits are 0 by construction and say nothing)."""
+    from repro_torch.models import transformer
+
+    enc = transformer.encoder_forward(params, batch["frames"], m.cfg)
+    logits, cache = m.prefill(params, batch, cache_len=LM_CACHE)
+    out = [("encoder output", enc), ("cross keys ck", cache["ck"]),
+           ("cross values cv", cache["cv"])]
+    for t in range(LM_TEACHER_STEPS):
+        logits, cache = m.decode_step(params, toks[:, t:t + 1], cache)
+        out.append((f"decode step {t + 1} logits", logits))
+    del cache
+    out.append((f"decoder_forward_encdec output over {toks.shape[1]} tokens",
+                transformer.decoder_forward_encdec(params, toks, enc, m.cfg)))
+    return out
+
+
+def encdec_bounds(cfg) -> dict:
+    """Phase 12's bounds from the shapes of an enc-dec config (MHA, an
+    ungated MLP, untied embeddings): the prefill's operations (the
+    encoder's projections and MLP, q.k and p.v over every (query, key)
+    pair of the full mask, every decoder layer's cross wk and wv over
+    the encoder's output, the zero BOS state's logits), 2 a multiply-add;
+    a decode step's bytes at its last step (every decoder layer's weights
+    but the cross wk and wv, the unembedding, the cross caches, the self
+    caches' LM_GEN valid positions, one embedding row a token)."""
+    D, H, K, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff
+    Le, Ld, S = cfg.n_encoder_layers, cfg.n_layers, cfg.source_len
+    T = LM_BATCH * S
+    enc_ops = Le * (2 * T * D * (H + 2 * K) * hd + 2 * T * H * hd * D + 4 * T * D * ff)
+    attn_ops = Le * 4 * LM_BATCH * H * hd * S * S
+    cross_ops = Ld * 4 * T * D * K * hd
+    logits_ops = 2 * LM_BATCH * D * cfg.vocab_size
+    layer_w = 2 * Ld * (D * (H + 2 * K) * hd + H * hd * D  # self-attention
+                        + 2 * D * H * hd                     # cross wq, wo
+                        + 2 * D * ff + 6 * D)                # MLP, three norms
+    unembed = 2 * D * cfg.vocab_size
+    cross = 2 * Ld * LM_BATCH * S * K * hd * 2
+    self_kv = 2 * Ld * LM_BATCH * LM_GEN * K * hd * 2
+    return dict(prefill_ops=enc_ops + attn_ops + cross_ops + logits_ops, enc_ops=enc_ops,
+                attn_ops=attn_ops, cross_ops=cross_ops, logits_ops=logits_ops,
+                step_bytes=layer_w + unembed + cross + self_kv + 2 * LM_BATCH * D,
+                layer_bytes=layer_w, unembed_bytes=unembed, cross_bytes=cross,
+                self_bytes=self_kv)
+
+
+def encdec_serve(tag, cfg, dev, ops, build_model, greedy_generate, plain, randn, gelu_tanh):
+    """Phase 12: `serve_lm` for an enc-dec config at full size (frame
+    embeddings in, LM_GEN greedy tokens out through Model.prefill and
+    Model.decode_step; flash_attention once a layer of the encoder and
+    once a decoder layer a step for the one-query cross-attention,
+    flash_decode once a decoder layer a step), its outputs those of
+    `encdec_outputs`, with the GELU's cost on one encoder layer and the
+    bounds of `encdec_bounds` printed before the comparisons. Returns the
+    greedy run's launch counts."""
+    eb = encdec_bounds(cfg)
+    bf16 = torch.bfloat16
+
+    def checks(model, params, batch):
+        h = randn((LM_BATCH, cfg.source_len, cfg.d_ff), bf16)
+        gelu_ms = cuda_ms(lambda: gelu_tanh(h), reps=2, inner=1)
+        del h
+        say(f"[{tag}] gelu_tanh on one encoder layer's hidden [{LM_BATCH}, {cfg.source_len}, "
+            f"{cfg.d_ff}] bf16 (tanh_xla's nine FMAs, each emulated in float64): {gelu_ms:.1f} ms "
+            f"(CUDA events, eager), x {cfg.n_encoder_layers} layers = "
+            f"{gelu_ms * cfg.n_encoder_layers:.0f} ms of the prefill")
+        say(f"[{tag}] bounds from the shapes: prefill {eb['prefill_ops'] / 1e12:.2f} TFLOP "
+            f"({eb['enc_ops'] / 1e12:.2f} in the encoder's products, "
+            f"{eb['attn_ops'] / 1e12:.2f} in its attention over {cfg.source_len ** 2:,} pairs a "
+            f"head, {eb['cross_ops'] / 1e12:.2f} in the cross K/V projections, "
+            f"{eb['logits_ops'] / 1e9:.2f} G in the BOS logits), "
+            f"{eb['prefill_ops'] / BF16_OPS_PER_S * 1e3:.1f} ms at {BF16_OPS_PER_S / 1e12:.0f} "
+            f"TFLOP/s bf16; a decode step {eb['step_bytes'] / 1e9:.2f} GB "
+            f"({eb['layer_bytes'] / 1e9:.2f} of decoder weights, {eb['unembed_bytes'] / 1e9:.2f} "
+            f"of unembedding, {eb['cross_bytes'] / 1e9:.2f} of cross caches, "
+            f"{eb['self_bytes'] / 1e9:.3f} of self caches), "
+            f"{eb['step_bytes'] / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    launches, *_ = serve_lm(
+        tag, cfg, dict(flash_attention=cfg.n_encoder_layers + cfg.n_layers * LM_GEN,
+                       flash_decode=cfg.n_layers * LM_GEN),
+        plain, "plain attention", dev, ops, build_model, greedy_generate, before_checks=checks,
+        outputs=encdec_outputs)
+    torch.cuda.empty_cache()  # the model's weights go before the next phase's
+    return launches
+
+
+def attn_shape_entry(kname, shape, launches, phase, run, plain, lib, nbytes, nops, reps, inner,
+                     smi):
+    """An entry of an attention row at a serving phase's shape (phase 7):
+    the kernel's ms from CUDA-graph replay (cold and warm) and per eager
+    call, its plain version's and the library call's (per eager call, and
+    replayed as the kernel is), its bound (bf16 tensor cores), and its
+    `launches` on that phase's path."""
+    times, call_ms = graph_ms(run, reps=reps, inner=inner), cuda_ms(run, reps=reps, inner=inner)
+    plain_ms = cuda_ms(plain, reps=2, inner=1)
+    lib_ms, lib_times = cuda_ms(lib, reps=reps, inner=inner), graph_ms(lib, reps=reps, inner=inner)
+    bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+    out = {"shape": shape, "launches": launches, "ms": times[1], "warm_ms": times[0],
+           "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations",
+           "library_ms": lib_ms, "library_replay_ms": lib_times[1],
+           "library_replay_warm_ms": lib_times[0]}
+    say(f"[7 time] {kname} at {shape}: {times[1]:.5f} ms from a cold L2, {times[0]:.5f} ms "
+        f"warm (CUDA graph replay) vs bound {out['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e9:.3f} G ops, {out['bound_by']}); {call_ms:.5f} ms per eager call; plain "
+        f"version {plain_ms:.3f} ms; SDPA {lib_ms:.5f} ms per eager call, "
+        f"{lib_times[1]:.5f} ms cold, {lib_times[0]:.5f} ms warm (CUDA graph replay); "
+        f"{launches} launches on phase {phase}'s path ({smi})")
+    return out
+
+
+def encdec_attention_times(cfg, launches, dev, fa, fd, held, randn, smi):
+    """Phase 7's entries at an enc-dec config's shapes (bf16, MHA):
+    flash_attention at the encoder's (S source_len, full mask) and at the
+    decode step's cross-attention (one query row a (sequence, head)
+    against the source positions), beside the cross step flash_decode
+    over the same cross cache at pos Ssrc - 1 (the same function, held to
+    the plain attention by `held`); flash_decode at the decode step's
+    self-attention (LM_CACHE positions, the last step's pos LM_GEN - 1);
+    SDPA at each shape (timed only). `launches` are phase 12's. Returns
+    (flash_attention's entries, flash_decode's)."""
+    bf16 = torch.bfloat16
+    H, K, hd, S = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.source_len
+    q = randn((LM_BATCH, S, H, hd), bf16).transpose(1, 2)
+    k, v = (randn((LM_BATCH, S, K, hd), bf16).transpose(1, 2) for _ in range(2))
+    enc = attn_shape_entry(
+        "flash_attention", f"{cfg.name} encoder B{LM_BATCH} H{H} K{K} S{S} hd{hd} full",
+        cfg.n_encoder_layers, "12", lambda: fa.flash_attention_cuda(q, k, v, mask_mode="full"),
+        lambda: fa.flash_attention_plain(q, k, v, mask_mode="full"),
+        lambda: F.scaled_dot_product_attention(q, k, v), reps=3, inner=2, smi=smi,
+        nbytes=2 * (2 * LM_BATCH * H * S * hd + 2 * LM_BATCH * K * S * hd),
+        nops=4 * LM_BATCH * H * hd * S * S)
+    issued = 4 * LM_BATCH * H * hd * S * S * 3 // 2  # q.k, p_hi.v, p_lo.v: the split of P
+    enc.update(issued_ops=issued, issued_bound_ms=issued / BF16_OPS_PER_S * 1e3)
+    say(f"[7 time] flash_attention at {cfg.name}'s encoder: the bf16 kernel issues "
+        f"{issued / 1e12:.3f} TFLOP (the split of P), {enc['issued_bound_ms']:.3f} ms at the peak; "
+        f"x {cfg.n_encoder_layers} layers = {enc['ms'] * cfg.n_encoder_layers:.1f} ms of the "
+        "prefill")
+    del q, k, v
+    ck, cv = (randn((LM_BATCH, S, K, hd), bf16) for _ in range(2))
+    qx = randn((LM_BATCH, 1, H, hd), bf16)
+    qt, kt, vt = qx.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
+    cross = attn_shape_entry(
+        "flash_attention", f"{cfg.name} cross-attention step B{LM_BATCH} H{H} K{K} Sq1 Skv{S} "
+        f"hd{hd} full", launches["flash_attention"] - cfg.n_encoder_layers, "12",
+        lambda: fa.flash_attention_cuda(qt, kt, vt, mask_mode="full"),
+        lambda: fa.flash_attention_plain(qt, kt, vt, mask_mode="full"),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=20, inner=50, smi=smi,
+        nbytes=2 * (2 * LM_BATCH * H * hd + 2 * LM_BATCH * K * S * hd),
+        nops=4 * LM_BATCH * H * hd * S)
+    qd = qx[:, 0]
+    pos_src = torch.full((1,), S - 1, dtype=torch.int32, device=dev)
+    held("flash_decode", fd.flash_decode_cuda(qd, ck, cv, pos_src),
+         fa.flash_attention_plain(qt, kt, vt, mask_mode="full")[:, :, 0],
+         f"over {cfg.name}'s cross cache at pos {S - 1}: the cross step's function")
+    dwarm, dcold = graph_ms(lambda: fd.flash_decode_cuda(qd, ck, cv, pos_src), reps=20, inner=50)
+    cross.update(decode_ms=dcold, decode_warm_ms=dwarm)
+    say(f"[7 time] the same cross step through flash_decode (over ck/cv at pos {S - 1}): "
+        f"{dcold:.5f} ms cold, {dwarm:.5f} ms warm (CUDA graph replay) against flash_attention's "
+        f"{cross['ms']:.5f} / {cross['warm_ms']:.5f} and SDPA's {cross['library_replay_ms']:.5f} / "
+        f"{cross['library_replay_warm_ms']:.5f}")
+    del ck, cv, qx, qt, kt, vt, qd
+    qd = randn((LM_BATCH, H, hd), bf16)
+    kd, vd = (randn((LM_BATCH, LM_CACHE, K, hd), bf16) for _ in range(2))
+    pos_d = torch.full((1,), LM_GEN - 1, dtype=torch.int32, device=dev)
+    kv_t, vv_t = kd[:, :LM_GEN].transpose(1, 2), vd[:, :LM_GEN].transpose(1, 2)
+    dec = attn_shape_entry(
+        "flash_decode", f"{cfg.name} decode B{LM_BATCH} H{H} K{K} S{LM_CACHE} hd{hd} "
+        f"pos {LM_GEN - 1}", launches["flash_decode"], "12",
+        lambda: fd.flash_decode_cuda(qd, kd, vd, pos_d),
+        lambda: fd.flash_decode_plain(qd, kd, vd, pos_d),
+        lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t), reps=20, inner=50,
+        smi=smi, nbytes=2 * (2 * LM_BATCH * H * hd + 2 * LM_BATCH * LM_GEN * K * hd),
+        nops=4 * LM_BATCH * H * LM_GEN * hd)
+    return [enc, cross], [dec]
 
 
 def moe_attention_routes(cfgs, dev, fa, fd, held, randn):
@@ -1738,6 +2051,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # ---- 1. device -------------------------------------------------
+    clock = PhaseClock()
+    clock.start("1")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = smi_line()
@@ -1748,6 +2063,7 @@ def main() -> int:
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
 
     # ---- 2. build --------------------------------------------------
+    clock.start("2")
     t0 = time.perf_counter()
     built = build.build_all()
     say(f"[2 build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
@@ -1756,6 +2072,7 @@ def main() -> int:
         say(f"[2 build] {kname}: {secs:.2f} s; " + " | ".join(regs))
 
     # ---- 3. kernels vs plain versions on the card -------------------
+    clock.start("3")
     max_err = {"carbon_scores": 0.0, "route_scores": 0.0, "greedy_fill": 0.0,
                "threefry_draw": 0.0, "tap_scan": 0.0, "tap_probe": 0.0}
     g = torch.Generator(device=dev)
@@ -2001,6 +2318,7 @@ def main() -> int:
         "bitwise equal on the card and the CPU")
 
     # ---- 3e. threefry_draw vs its plain version, and JAX's answers --------
+    clock.start("3e")
     t0 = time.perf_counter()
     draw_keys = {
         "PRNGKey(0)": jr.PRNGKey(0, device=dev),
@@ -2124,6 +2442,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3f. knapsack_dp vs its plain version on the card --------------
+    clock.start("3f")
     # ExactDPPPolicy's DP (src/repro/core/knapsack.py:75, a jnp scan):
     # random instances at grids 16 to 1024 (scores rounded to integers in
     # every third: ties in the best row), the edges and the crafted cases
@@ -2308,6 +2627,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3c. attention kernels vs plain versions on the card ---------
+    clock.start("3c")
     max_err["flash_attention"] = max_err["flash_decode"] = 0.0
 
     def randn(shape, dt):
@@ -2365,6 +2685,37 @@ def main() -> int:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     attn_held("flash_attention", fa.flash_attention_cuda(qt, kt, vt), fa.flash_attention_plain(qt, kt, vt),
          "B2 H16 K4 S437 hd64 bf16 causal, strided [B,S,H,hd] views")
+    # SeamlessM4T's heads (phase 12), hd 64 MHA (H 16 on K 16), in bf16
+    # and f32: the encoder (S 4096, full mask), the decode step's
+    # cross-attention (ONE query row against the 4,096 source positions:
+    # 127 of the tensor-core block's 128 rows out of bounds), one-block
+    # cases of 1, 2, 63 and 65 query rows against 1,000 and 4,095 keys,
+    # the teacher-forced decoder's cross-attention (64 queries) and its
+    # causal self-attention, causal at G 1 off the 128-row tiles, and the
+    # model's strided [B,S,H,hd] layouts of the encoder and the cross step
+    Ec = registry.get_config(ENCDEC_ARCH)
+    He, Ke, hde, Se = Ec.n_heads, Ec.n_kv_heads, Ec.resolved_head_dim, Ec.source_len
+    encdec_cases = [(B, He, Ke, Sq, Skv, hde, dt, mode, 0) for dt in (bf16, f32)
+                    for B, Sq, Skv, mode in (
+                        (LM_BATCH, Se, Se, "full"), (LM_BATCH, 1, Se, "full"),
+                        (2, 1, 1000, "full"), (2, 2, 1000, "full"), (2, 63, 1000, "full"),
+                        (2, 65, 1000, "full"), (2, 1, Se - 1, "full"), (2, 2, Se - 1, "full"),
+                        (2, 63, Se - 1, "full"), (2, 65, Se - 1, "full"),
+                        (LM_BATCH, LM_GEN, Se, "full"), (LM_BATCH, LM_GEN, LM_GEN, "causal"),
+                        (2, 1000, 1000, "causal"), (2, 1, 1, "causal"))]
+    for B, H, K, Sq, Skv, hd, dt, mode, pl in encdec_cases:
+        q, k, v = randn((B, H, Sq, hd), dt), randn((B, K, Skv, hd), dt), randn((B, K, Skv, hd), dt)
+        attn_held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode=mode),
+                  fa.flash_attention_plain(q, k, v, mask_mode=mode),
+                  f"B{B} H{H} K{K} Sq{Sq} Skv{Skv} hd{hd} {str(dt)[6:]} {mode} (SeamlessM4T)")
+    for Sq in (Se, 1):
+        for dt in (bf16, f32):
+            q = randn((LM_BATCH, Sq, He, hde), dt).transpose(1, 2)
+            k, v = (randn((LM_BATCH, Se, Ke, hde), dt).transpose(1, 2) for _ in range(2))
+            attn_held("flash_attention", fa.flash_attention_cuda(q, k, v, mask_mode="full"),
+                      fa.flash_attention_plain(q, k, v, mask_mode="full"),
+                      f"B{LM_BATCH} H{He} K{Ke} Sq{Sq} Skv{Se} hd{hde} {str(dt)[6:]} full, strided "
+                      "[B,S,H,hd] views (SeamlessM4T)")
     # PaliGemma's heads, hd 256 (attention_tc<256>: two consumer
     # warpgroups over 128-row blocks and 80-key tiles; attention_f32<256>),
     # MQA H 8 on K 1: every mask, the prefix edge far past a tile, Sq
@@ -2432,6 +2783,10 @@ def main() -> int:
                      (1, 8, 1, LM_CACHE, 256, bf16, LM_CACHE - 1), (1, 8, 1, LM_CACHE, 256, bf16, 300),
                      (LM_BATCH, 8, 1, LM_CACHE, 256, f32, LM_CACHE - 1),
                      (LM_BATCH, 8, 1, LM_CACHE, 256, f32, 63), (2, 32, 1, 1000, 256, f32, 999)]
+    # SeamlessM4T's decode step (phase 12): hd 64, G 1 (H 16 on K 16) over
+    # the self cache of LM_CACHE positions at its first steps' pos
+    decode_cases += [(LM_BATCH, He, Ke, LM_CACHE, hde, dt, pos) for dt in (bf16, f32)
+                     for pos in (0, 1, LM_GEN - 1)]
     for B, H, K, S, hd, dt, pos in decode_cases:
         q, k, v = randn((B, H, hd), dt), randn((B, S, K, hd), dt), randn((B, S, K, hd), dt)
         p = torch.full((1,), pos, dtype=torch.int32, device=dev)
@@ -2456,6 +2811,7 @@ def main() -> int:
     del q, k, v, qd, kd, vd
 
     # ---- 3d. ssd_chunk_intra vs its plain version on the card -----------
+    clock.start("3d")
     max_err["ssd_chunk_intra"] = 0.0
 
     def ssd_inputs(B, nc, l, H, P, N, decays):
@@ -2566,6 +2922,7 @@ def main() -> int:
         del args, got, want, sum_abs, a, x, Bm, Cm
 
     # ---- 4. main path at M4096xN256 --------------------------------
+    clock.start("4")
     inst = main_instance(convert, carbon, core.UniformArrivals, dev)
     spec_d, state0_d = inst["spec"](dev), inst["state0"](dev)
     spec_h, state0_h = inst["spec"]("cpu"), inst["state0"]("cpu")
@@ -2595,6 +2952,7 @@ def main() -> int:
     card_vs_cpu("4 main", policies, sim, T_CPU, ("Qe", "Qc"), dev)
 
     # ---- 4b. WAN path at M4096xN256xL512 ----------------------------
+    clock.start("4b")
     wan = wan_instance(convert, fleet_scenarios, M_MAIN, N_MAIN, T_MAIN, dev)
     wspec_d, wstate0_d = wan["spec"](dev), wan["state0"](dev)
     wspec_h, wstate0_h = wan["spec"]("cpu"), wan["state0"]("cpu")
@@ -2626,6 +2984,7 @@ def main() -> int:
     card_vs_cpu("4b wan", wan_policies, wan_sim, T_WAN_CPU, ("Qe", "Qc", "Qt"), dev)
 
     # ---- 4c. the scenario fleet -------------------------------------
+    clock.start("4c")
     t0 = time.perf_counter()
     fleet_a = fleet_scenarios.build_fleet(["diurnal"], per_kind=FLEET_A_LANES, Tc=96,
                                           seed=SEED, device=dev).to(dev)
@@ -2762,6 +3121,7 @@ def main() -> int:
     del reg
 
     # ---- 4d. the WAN fleet ------------------------------------------
+    clock.start("4d")
     aware = wan_policies["NetworkAwareDPP"]
     blind = wan_policies["StaticRoute(CarbonIntensity)"]
     per_aware = {"carbon_scores": 1, "route_scores": 1, "greedy_fill": 1,
@@ -2874,6 +3234,7 @@ def main() -> int:
         del rargs, got, want
 
     # ---- 4e. forecasts ----------------------------------------------
+    clock.start("4e")
     mods = {"core": core, "forecast": fcst}
     for d in (0.98, 1.0):
         for H in (1, 4, 8, 16):
@@ -2987,6 +3348,7 @@ def main() -> int:
     del fl_r
 
     # ---- 4f. the fault layer ------------------------------------------
+    clock.start("4f")
     # threefry_draw(paths=...) vs its plain version, bitwise: the fault
     # slot's layout at the bench rows' shape (with and without links) and
     # at W2's, for lanes of keys and one key, and a path deeper than two, a
@@ -3235,6 +3597,7 @@ def main() -> int:
     del fault_b, w2_flappy, w2_flappy_h
 
     # ---- 4g. the deadline layer ---------------------------------------
+    clock.start("4g")
     # the rows of bench_deadline_pareto, held to jax 0.9.0's (DEADLINE_JAX):
     # each run under sync debug mode "error", its launches counted (the
     # score pass, the fill and the arrivals' draw a slot; EDD runs no score
@@ -3403,6 +3766,7 @@ def main() -> int:
     del dw_res, fleet_b_dl, dl_base, dl_over, two_b
 
     # ---- 4h. the telemetry layer --------------------------------------
+    clock.start("4h")
     # the taps ride every loop: each slot writes the probe's raw fields,
     # and one tap_scan launch a run (one a flush chunk when streaming)
     # builds the frame; every run below is held to its taps-off twin
@@ -4030,13 +4394,13 @@ def main() -> int:
     del tap_cases, a_res, tel_fleet
 
     # ---- 4i. the scheduler's extensions --------------------------------
+    clock.start("4i")
     # ExactDPPPolicy (one score pass and one knapsack_dp launch a slot) on
     # the Fig. 2 setup, held to JAX's reduction (EXACT_JAX) and card vs
     # CPU; on fleet A's shape, lanes vs alone and card vs CPU; with the
     # plain DP swapped in, what the kernel replaces; ThresholdPolicy at the
     # main width; the AdaptiveVController loop card vs CPU; the oracles'
     # bounds under every policy's emissions; conservation on every lane
-    t4i = time.perf_counter()
     p5 = paper_spec().to(dev)
     rand5, arrive5 = core.RandomCarbonSource(N=5), core.UniformArrivals(M=5, amax=A_MAX)
     exact = core.ExactDPPPolicy(V=V_PAPER, grid=KP_GRID)
@@ -4299,9 +4663,9 @@ def main() -> int:
     say(f"[4i extensions] AdaptiveVController T={T_ADAPTIVE} target {ADAPTIVE_TARGET:g}: V and "
         f"the backlog bitwise equal card vs CPU every slot, final queues equal; tail backlog "
         f"{tail:.1f}, final V {Vg[-1]:.6g}; launches {dict((k, v) for k, v in ad_counts.items() if v)}")
-    say(f"[4i extensions] phase 4i: {time.perf_counter() - t4i:.1f} s")
 
     # ---- 5. paper headline -----------------------------------------
+    clock.start("5")
     pspec = paper_spec().to(dev)
     uk = core.UKRegionalTraceSource(N=5).to(dev)
     arrive = core.UniformArrivals(M=5, amax=400)
@@ -4365,6 +4729,7 @@ def main() -> int:
     del sweep, sweep_h, single
 
     # ---- 5b. WAN headline -------------------------------------------
+    clock.start("5b")
     # the JAX bench's network/congested-uplink rows (phase 4d's W1 fleet):
     # its first WAN_INSTANCES lanes, each run alone through simulate(graph=)
     # with the lane's key, table and arrivals, from empty queues and links;
@@ -4398,6 +4763,7 @@ def main() -> int:
         fail(f"WAN headline reduction {wan_reduction:.2f}% is not above 5%")
 
     # ---- 6. serve_loop ---------------------------------------------
+    clock.start("6")
     pol = policies["CarbonIntensity"]
     rep = serve_loop(pol, spec_d, inst["carbon"], inst["arrivals"], T_SERVE, SEED, device=dev)
     ref = core.simulate(pol, spec_d, inst["carbon"], inst["arrivals"], T_SERVE, SEED,
@@ -4435,8 +4801,8 @@ def main() -> int:
         "trajectory (queues, rings, counts) bitwise equal to simulate(deadlines=)")
 
     # ---- 10. MoE serving: Qwen1.5-MoE-A2.7B, Arctic at one layer ------
+    clock.start("10")
     # (before phase 8, whose model phase 7 keeps: no two models are held)
-    t10 = time.perf_counter()
     moe_cfgs = [registry.get_config(MOE_ARCH),
                 dataclasses.replace(registry.get_config(MOE_WIDE_ARCH), n_layers=1)]
     moe_attention_routes(moe_cfgs, dev, fa, fd, attn_held, randn)
@@ -4447,11 +4813,10 @@ def main() -> int:
         name_m = mcfg.name + ("" if mcfg is moe_cfgs[0] else f" ({mcfg.n_layers} layer)")
         moe_launches[name_m] = moe_serve(mtag, mcfg, dev, ops, moe_lib, build_model,
                                          greedy_generate, attn_plain)
-    say(f"[10 moe] phase 10: {time.perf_counter() - t10:.1f} s")
 
     # ---- 11. VLM serving: PaliGemma-3B at full size ------------------
+    clock.start("11")
     # (after phase 10; its model is freed before phase 8 builds GLM-4-9B)
-    t11 = time.perf_counter()
     vlm_cfg = registry.get_config(VLM_ARCH)
     vb = vlm_bounds(vlm_cfg)
 
@@ -4493,25 +4858,35 @@ def main() -> int:
         "11 vlm", vlm_cfg, dict(flash_attention=vlm_cfg.n_layers,
                                 flash_decode=vlm_cfg.n_layers * LM_GEN),
         attn_plain, "plain attention", dev, ops, build_model, greedy_generate,
-        before_checks=vlm_checks)[0]
-    torch.cuda.empty_cache()  # the model's weights go before phase 8's
-    say(f"[11 vlm] phase 11: {time.perf_counter() - t11:.1f} s")
+        before_checks=vlm_checks, compare_layers=COMPARE_LAYERS[vlm_cfg.name])[0]
+    torch.cuda.empty_cache()  # the model's weights go before phase 12's
+
+    # ---- 12. enc-dec serving: SeamlessM4T-medium at full size --------
+    # (after phase 11; its model is freed before phase 8 builds GLM-4-9B)
+    clock.start("12")
+    encdec_cfg = registry.get_config(ENCDEC_ARCH)
+    encdec_launches = encdec_serve("12 encdec", encdec_cfg, dev, ops, build_model, greedy_generate,
+                                   attn_plain, randn, lm_layers.gelu_tanh)
 
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
+    clock.start("8")
     lm_cfg = registry.get_config(LM_ARCH)
     lm_launches, model, params, prompts = serve_lm(
         "8 lm", lm_cfg, dict(flash_attention=lm_cfg.n_layers, flash_decode=lm_cfg.n_layers * LM_GEN),
         dict(flash_attention=fa.flash_attention_plain, flash_decode=fd.flash_decode_plain),
-        "plain attention", dev, ops, build_model, greedy_generate)
+        "plain attention", dev, ops, build_model, greedy_generate,
+        compare_layers=COMPARE_LAYERS[lm_cfg.name])
 
     # ---- 9. SSM serving: mamba2-1.3B, prefill + state decode --------
+    clock.start("9")
     ssm_cfg = registry.get_config(SSM_ARCH)
     ssm_launches, *_ = serve_lm(
         "9 ssm", ssm_cfg, dict(ssd_chunk_intra=ssm_cfg.n_layers),
         dict(ssd_chunk_intra=sdc.ssd_chunk_intra_plain), "plain SSD", dev, ops, build_model,
-        greedy_generate)
+        greedy_generate, compare_layers=COMPARE_LAYERS[ssm_cfg.name])
 
     # ---- 7. kernel times at the main path's shapes -------------------
+    clock.start("7")
     # inputs as the main path's last slot hands them to each kernel
     st, st_ql = finals["CarbonIntensity"], finals["QueueLength"]
     pe, pc, Pe, Pc = spec_d.as_arrays(dev)
@@ -4692,30 +5067,19 @@ def main() -> int:
         f"x {lm_cfg.n_layers} layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
     del q, k, v, attn_main
 
-    def hd256_entry(shape, launches, times, call_ms, plain_ms, lib_ms, lib_times, nbytes, nops,
-                    entry, log):
-        """A hd 256 entry of the attention rows (PaliGemma's shapes);
-        `lib_times` the library call's (warm, cold) from CUDA-graph replay,
-        as the kernel's `times`."""
-        bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
-        ptx = ptxas_lines(log, entry)
-        out = {"shape": shape, "launches": launches, "ms": times[1], "warm_ms": times[0],
-               "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
-               "bound_by": "bytes" if bound_b >= bound_o else "operations",
-               "library_ms": lib_ms, "library_replay_ms": lib_times[1],
-               "library_replay_warm_ms": lib_times[0],
-               "ptxas": [ln for ln in ptx if "<256>" in ln]}
+    def hd256_entry(entry, shape, launches, run, plain, lib, nbytes, nops, reps, inner):
+        """A hd 256 entry of the attention rows (PaliGemma's shapes):
+        `attn_shape_entry`'s times and bound beside the hd 256 instance's
+        ptxas registers and spills (a spill store fails the run)."""
+        kname = "flash_attention" if entry == "attention_tc" else "flash_decode"
+        out = attn_shape_entry(kname, shape, launches, "11", run, plain, lib, nbytes, nops, reps,
+                               inner, smi)
+        out["ptxas"] = [ln for ln in ptxas_lines(built[kname][1], entry) if "<256>" in ln]
         spills = [int(n) for ln in out["ptxas"]
                   for n in re.findall(r"(\d+) bytes spill stores", ln)]
         if not spills or any(spills):
             fail(f"7: {entry}<256> spills (ptxas: {' | '.join(out['ptxas'])})")
-        say(f"[7 time] {entry}<256> at {shape}: {times[1]:.5f} ms from a cold L2, {times[0]:.5f} "
-            f"ms warm (CUDA graph replay) vs bound {max(bound_b, bound_o):.5f} ms "
-            f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.1f} G ops, {out['bound_by']}); {call_ms:.5f} "
-            f"ms per eager call; plain version {plain_ms:.3f} ms; library call {lib_ms:.5f} ms "
-            f"per eager call, {lib_times[1]:.5f} ms cold, {lib_times[0]:.5f} ms warm (CUDA graph "
-            f"replay); "
-            f"{launches} launches on phase 11's path; " + " | ".join(out["ptxas"]))
+        say(f"[7 time] {entry}<256>: " + " | ".join(out["ptxas"]))
         return out
 
     # flash_attention at PaliGemma's prefill (hd 256, MQA H 8 on K 1,
@@ -4728,19 +5092,22 @@ def main() -> int:
     run = lambda: fa.flash_attention_cuda(q, k, v, mask_mode="prefix", prefix_len=Pv)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
     rows[-1]["hd256"] = hd256_entry(
+        "attention_tc",
         f"PaliGemma-3B prefill B{LM_BATCH} H{Hv} K{Kv} S{LM_PROMPT} hd{hdv} prefix {Pv}",
-        vlm_launches["flash_attention"], graph_ms(run, reps=3, inner=2),
-        cuda_ms(run, reps=3, inner=2),
-        cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask_mode="prefix", prefix_len=Pv),
-                reps=2, inner=1),
-        cuda_ms(lib, reps=3, inner=5), graph_ms(lib, reps=3, inner=2),
+        vlm_launches["flash_attention"], run,
+        lambda: fa.flash_attention_plain(q, k, v, mask_mode="prefix", prefix_len=Pv), lib,
         nbytes=2 * (2 * LM_BATCH * Hv * LM_PROMPT * hdv + 2 * LM_BATCH * Kv * LM_PROMPT * hdv),
-        nops=4 * LM_BATCH * Hv * hdv * prefix_pairs(LM_PROMPT, Pv), entry="attention_tc",
-        log=built["flash_attention"][1])
+        nops=4 * LM_BATCH * Hv * hdv * prefix_pairs(LM_PROMPT, Pv), reps=3, inner=2)
     rows[-1]["hd256"]["f32_ptxas"] = [ln for ln in ptxas_lines(built["flash_attention"][1],
                                                                "attention_f32") if "<256>" in ln]
     say("[7 time] attention_f32<256> (float32 inputs): " + " | ".join(rows[-1]["hd256"]["f32_ptxas"]))
     del q, k, v, run, lib
+
+    # SeamlessM4T's shapes (phase 12): encoder, cross step (beside it
+    # flash_decode over the same cross cache), decode step
+    fa_encdec, fd_encdec = encdec_attention_times(encdec_cfg, encdec_launches, dev, fa, fd,
+                                                  attn_held, randn, smi)
+    rows[-1].update(encdec_launches=encdec_launches["flash_attention"], other_shapes=fa_encdec)
 
     # flash_decode: layer 0's cache after the serving prefill (4096
     # positions written, the rest zero), read up to pos 4160 as the last
@@ -4786,15 +5153,14 @@ def main() -> int:
     lib = lambda: F.scaled_dot_product_attention(qd[:, :, None], kv_t, vv_t,  # noqa: E731
                                                  enable_gqa=True)
     rows[-1]["hd256"] = hd256_entry(
+        "decode_tc",
         f"PaliGemma-3B decode B{LM_BATCH} H{Hv} K{Kv} S{LM_CACHE} hd{hdv} pos {LM_CACHE - 1}",
-        vlm_launches["flash_decode"], graph_ms(run, reps=20, inner=50),
-        cuda_ms(run, reps=20, inner=50),
-        cuda_ms(lambda: fd.flash_decode_plain(qd, kd, vd, posd), reps=5, inner=3),
-        cuda_ms(lib, reps=20, inner=50), graph_ms(lib, reps=20, inner=50),
+        vlm_launches["flash_decode"], run, lambda: fd.flash_decode_plain(qd, kd, vd, posd), lib,
         nbytes=2 * (2 * LM_BATCH * Hv * hdv + 2 * LM_BATCH * LM_CACHE * Kv * hdv),
-        nops=4 * LM_BATCH * Hv * LM_CACHE * hdv, entry="decode_tc",
-        log=built["flash_decode"][1])
+        nops=4 * LM_BATCH * Hv * LM_CACHE * hdv, reps=20, inner=50)
     del qd, kd, vd, kv_t, vv_t, run, lib
+
+    rows[-1].update(encdec_launches=encdec_launches["flash_decode"], other_shapes=fd_encdec)
 
     # ssd_chunk_intra: the prefill shape of phase 9 (phase 3d's first
     # case); y counts the causal (i, j) pairs, S_c every (j, n) pair, the
@@ -5016,6 +5382,7 @@ def main() -> int:
          else "operations"}
         for x in kp_rows[1:]]
 
+    clock.stop()
     say(json.dumps({"kernels": rows}))
     say(smi)  # the nvidia-smi name, power limit line as it prints it
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

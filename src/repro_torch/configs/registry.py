@@ -6,10 +6,12 @@ Every ported architecture has a module `repro_torch/configs/<id>.py`
 exporting `CONFIG` (full size) and `SMOKE` (a reduced config of the same
 family, used by the CPU tests), copied from the JAX package as they are.
 The dense family (GLM-4-9B, Qwen1.5-0.5B, InternLM2-20B, StarCoder2-15B),
-the MoE family (Qwen1.5-MoE-A2.7B, Arctic), the SSM family (Mamba2-1.3B)
-and the VLM prefix-LM family (PaliGemma-3B, its SigLIP frontend a stub
-that hands over patch embeddings) are ported; the other families raise
-NotImplementedError naming the ROADMAP item that ports them.
+the MoE family (Qwen1.5-MoE-A2.7B, Arctic), the SSM family (Mamba2-1.3B),
+the VLM prefix-LM family (PaliGemma-3B, its SigLIP frontend a stub that
+hands over patch embeddings) and the enc-dec family (SeamlessM4T-medium,
+its speech frontend a stub that hands over frame embeddings) are ported;
+the hybrid family (Jamba) raises NotImplementedError naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -190,9 +192,9 @@ DENSE_ARCHS = ("starcoder2_15b", "internlm2_20b", "glm4_9b", "qwen1_5_0_5b")
 MOE_ARCHS = ("arctic_480b", "qwen2_moe_a2_7b")
 SSM_ARCHS = ("mamba2_1_3b",)
 VLM_ARCHS = ("paligemma_3b",)
+ENCDEC_ARCHS = ("seamless_m4t_medium",)
 NOT_PORTED = {  # items of ROADMAP Queue 1's list of next slices
     "jamba_1_5_large_398b": "hybrid attention + SSM + MoE (ROADMAP Queue 1, next slices 3.3)",
-    "seamless_m4t_medium": "enc-dec (ROADMAP Queue 1, next slices 3.5)",
 }
 
 

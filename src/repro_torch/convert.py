@@ -11,9 +11,10 @@ parity tests use them to feed both packages the same numbers, and
 `faults_from_reference` a JAX `FaultParams` and `deadlines_from_reference`
 a JAX `DeadlineParams` (stacked or not).
 `params_from_reference` and `cache_from_reference` carry an LM's
-parameter and cache pytrees (nested dicts of arrays; a dense KV cache or
-an SSM state cache) over, leaf for leaf and bit for bit, bf16 included;
-`cache_to_numpy` reads a cache back.
+parameter and cache pytrees (nested dicts of arrays; a dense KV cache,
+an enc-dec cache with its cross keys and values, or an SSM state cache)
+over, leaf for leaf and bit for bit, bf16 included; `cache_to_numpy`
+reads a cache back.
 """
 from __future__ import annotations
 
@@ -147,8 +148,10 @@ def _tree(tree, device):
 
 def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
     """The port's parameters from the JAX package's pytree of a dense, moe,
-    ssm or vlm model (`Model(cfg).init(key)`), given as nested dicts of
-    arrays: the same names, shapes (the stacked layer axis included, a
+    ssm, vlm or enc-dec model (`Model(cfg).init(key)`), given as nested
+    dicts of arrays: the same names, shapes (the stacked layer axis
+    included; an enc-dec tree's "encoder" and "cross" stacks too, which
+    must be there for an enc-dec config and only for one; a
     MoE layer's experts padded to a multiple of `ep_axis`), dtypes and
     bits (an SSM layer's A_log, D and dt_bias, and a MoE router, stay
     float32 in a bf16 model). A tied tree (tie_embeddings: PaliGemma,
@@ -165,6 +168,11 @@ def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
         raise ValueError(f"params_from_reference: {cfg.name} has tie_embeddings="
                          f"{cfg.tie_embeddings}, but the tree "
                          f"{'has' if 'unembed' in out else 'lacks'} an 'unembed' leaf")
+    if ("encoder" in out or "cross" in out or cfg.is_encoder_decoder) and not (
+            "encoder" in out and "cross" in out and cfg.is_encoder_decoder):
+        raise ValueError(f"params_from_reference: {cfg.name} has is_encoder_decoder="
+                         f"{cfg.is_encoder_decoder}, but the tree's stacks are "
+                         f"{sorted(k for k in out if isinstance(out[k], dict))}")
     if cfg.n_experts:
         E = padded_expert_count(cfg.n_experts, cfg.ep_axis)
         router = out["layers"]["moe"]["router"]
@@ -178,17 +186,19 @@ def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
 
 def cache_from_reference(cache, device=DEFAULT_DEVICE) -> dict:
     """A cache from the JAX package's: a dense KV cache {"k", "v", "pos"}
-    with pos as a 0-d int32 tensor, or an SSM cache {"ssm", "conv"}."""
+    (an enc-dec one also "ck", "cv") with pos as a 0-d int32 tensor, or an
+    SSM cache {"ssm", "conv"}."""
     dev = resolve_device(device)
     if "ssm" in cache:
         return {"ssm": _leaf(cache["ssm"], dev), "conv": _leaf(cache["conv"], dev)}
-    return {"k": _leaf(cache["k"], dev), "v": _leaf(cache["v"], dev),
-            "pos": torch.full((), int(np.asarray(cache["pos"])), dtype=torch.int32, device=dev)}
+    out = {name: _leaf(cache[name], dev) for name in ("k", "v", "ck", "cv") if name in cache}
+    out["pos"] = torch.full((), int(np.asarray(cache["pos"])), dtype=torch.int32, device=dev)
+    return out
 
 
 def cache_to_numpy(cache) -> dict:
-    """A cache of either package as numpy: k, v (or ssm, conv) as
-    float32, pos (for a KV cache) an int."""
+    """A cache of either package as numpy: k, v (an enc-dec cache's ck,
+    cv too; or ssm, conv) as float32, pos (for a KV cache) an int."""
     def host(x):
         if torch.is_tensor(x):
             return x.detach().float().cpu().numpy()
@@ -196,5 +206,7 @@ def cache_to_numpy(cache) -> dict:
 
     if "ssm" in cache:
         return {"ssm": host(cache["ssm"]), "conv": host(cache["conv"])}
-    return {"k": host(cache["k"]), "v": host(cache["v"]), "pos": int(np.asarray(
-        cache["pos"].cpu() if torch.is_tensor(cache["pos"]) else cache["pos"]))}
+    out = {name: host(cache[name]) for name in ("k", "v", "ck", "cv") if name in cache}
+    out["pos"] = int(np.asarray(cache["pos"].cpu() if torch.is_tensor(cache["pos"])
+                                else cache["pos"]))
+    return out

@@ -2,7 +2,10 @@
 and greedy decode, for the dense and moe families (KV caches) and the
 ssm family (state caches). As the JAX package's CLI does, it refuses
 the vlm and enc-dec families (decoder-only LMs only): a VLM is served through
-`build_model(cfg).prefill` / `.decode_step` with a "patches" batch.
+`build_model(cfg).prefill` / `.decode_step` with a "patches" batch, and an
+enc-dec model (SeamlessM4T) through the same two calls with a "frames"
+batch [B, source_len, d_model] (the speech frontend stub's output; the
+prefill's logits are 0, so the first greedy token is 0).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2_7b --smoke --device cpu

@@ -1,8 +1,9 @@
 """Transformer building blocks (counterpart of `repro.models.layers`):
-norms, rotary embeddings, GQA attention for prefill and for one decode
-step, gated and plain MLPs. Plain functions on tensors; parameters are
-dicts with the JAX package's names and layouts (wq [d,H,hd], wo
-[H,hd,d], w_in [d,f], ...).
+norms, rotary embeddings, the sinusoidal position table, GQA attention
+for prefill and for one decode step, cross-attention over precomputed
+keys and values, gated and plain MLPs. Plain functions on tensors;
+parameters are dicts with the JAX package's names and layouts (wq
+[d,H,hd], wo [H,hd,d], w_in [d,f], ...).
 
 Attention goes through the port's kernels: prefill through
 `ops.flash_attention` (where the JAX model runs its query-chunked
@@ -18,6 +19,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -120,6 +122,28 @@ def rope_tables(cfg, positions: torch.Tensor, n: int):
     return cos.index_select(0, positions), sin.index_select(0, positions)
 
 
+@functools.lru_cache(maxsize=8)
+def sinusoidal_positions(S: int, d: int, device: torch.device) -> torch.Tensor:
+    """[S, d] float32 table of `repro.models.layers.sinusoidal_positions`
+    bitwise as the JAX model reads it, inside its jitted prefill and
+    decode: there every input is a constant and XLA folds the whole
+    table, so the frequencies are the correctly rounded exp of the
+    float32 arguments (a float64 exp rounded once agrees at every d the
+    configs use; XLA's own float32 exp, which an eager JAX call takes,
+    differs at some), the angles one float32 product pos * div, and sin
+    and cos glibc's sinf / cosf (`numerics.sincos_glibc`); sin in the
+    even columns, cos in the odd. Computed once per (S, d, device) and
+    kept, so a decode step only gathers its row."""
+    # JAX's weakly typed constant is rounded to float32 before the float32
+    # product (a Python scalar: no host-to-device copy, so no sync)
+    arg = torch.arange(0, d, 2, dtype=torch.float32, device=device) * float(
+        np.float32(-math.log(10000.0) / d))
+    div = torch.exp(arg.double()).float()
+    ang = torch.arange(S, dtype=torch.float32, device=device)[:, None] * div
+    sin, cos = sincos_glibc(ang)
+    return torch.stack([sin, cos], dim=-1).reshape(S, d)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, fraction: float):
     """x [B,S,H,hd]; cos/sin [S, rot/2]. Rotates the first int(hd *
     fraction) dims as two halves and passes the rest through; the
@@ -215,6 +239,28 @@ def decode_attention(p, x: torch.Tensor, cfg, rope, cache_k: torch.Tensor,
     cache_v.index_copy_(1, index, v.to(cache_v.dtype))
     y = ops.flash_decode(q[:, 0], cache_k, cache_v, pos.reshape(1))  # [B,H,hd]
     return _out_proj(y[:, None].to(x.dtype), p["wo"], cd)
+
+
+def cross_attention(p, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x [B,S,D] over keys and values projected from
+    the encoder's output, ck / cv [B,Ssrc,K,hd] (`gqa_attention` with
+    `kv_override` in the JAX package): q projected (its bias added, if
+    any) and not rotated, every source position visible (the "full"
+    mask), then the output projection -> [B,S,D]. The decode step calls
+    it at S 1, the teacher-forced decoder at the target's length."""
+    cd = dtype_of(cfg.compute_dtype)
+    q = _project(x, p["wq"], p.get("bq"), cd)
+    y = ops.flash_attention(q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+                            mask_mode="full").transpose(1, 2)
+    return _out_proj(y, p["wo"], cd)
+
+
+def cross_kv(p, enc: torch.Tensor, cfg):
+    """(ck, cv) [B,Ssrc,K,hd] of the encoder's output enc [B,Ssrc,D] in
+    the compute dtype: the cross-attention's wk and wv projections,
+    without a bias and unrotated, as the JAX package computes them."""
+    cd = dtype_of(cfg.compute_dtype)
+    return _project(enc, p["wk"], None, cd), _project(enc, p["wv"], None, cd)
 
 
 # --------------------------------------------------------------------------

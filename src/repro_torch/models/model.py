@@ -1,6 +1,8 @@
 """The Model API of the port (counterpart of `repro.models.model`), for
-the dense, moe, ssm and vlm families (a vlm's cache is the dense KV
-cache; its prefill batch holds "patches" beside "tokens").
+the dense, moe, ssm, vlm and enc-dec families (a vlm's cache is the
+dense KV cache; its prefill batch holds "patches" beside "tokens"; an
+enc-dec prefill batch is {"frames"}, and its cache adds the cross keys
+and values "ck", "cv" of source_len positions to the self cache).
 
 `build_model(cfg, device)` gives a `Model` with
   init(generator) -> params
@@ -54,6 +56,10 @@ class Model:
                           cfg.d_inner + 2 * cfg.ssm_state), cd),
             }
         kv = ((cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim), cd)
+        if cfg.is_encoder_decoder:
+            ckv = ((cfg.n_layers, batch, cfg.source_len, cfg.n_kv_heads, cfg.resolved_head_dim),
+                   cd)
+            return {"k": kv, "v": kv, "ck": ckv, "cv": ckv, "pos": ((), torch.int32)}
         return {"k": kv, "v": kv, "pos": ((), torch.int32)}
 
     def init_cache(self, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:

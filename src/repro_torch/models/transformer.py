@@ -1,5 +1,5 @@
-"""Dense, MoE, SSM and VLM decoder stacks (counterpart of the dense,
-moe, ssm and vlm parts of `repro.models.transformer`).
+"""Dense, MoE, SSM, VLM and enc-dec stacks (counterpart of the dense,
+moe, ssm, vlm and enc-dec parts of `repro.models.transformer`).
 
 Parameters are nested dicts with the JAX package's names, and the layer
 stack keeps its leading layer axis ([L, ...] per leaf), so
@@ -9,17 +9,23 @@ over it in Python. There is no rematerialisation: this is the inference
 path. A MoE layer's FFN is `moe.apply_moe` plus the always-on shared
 MLP and Arctic's parallel dense residual MLP (`_apply_ffn`). A VLM's
 stack is the dense one (PaliGemma: MQA, GeGLU, tied embeddings, so no
-`unembed` leaf); its image prefix enters in `serving.prefill`. Hybrid
-and enc-dec stacks, MoE on every other layer (`moe_every` 2, which only
-the hybrid Jamba uses), and the training loss are later slices (ROADMAP
-Queue 1, next slices 3.3, 3.5 and 3.6).
+`unembed` leaf); its image prefix enters in `serving.prefill`. An
+enc-dec model (SeamlessM4T) holds three stacks: "encoder" (dense layers
+under the full mask, `encoder_forward`), the decoder's "layers" and
+"cross" ({"ln", "attn"} a decoder layer: the cross-attention over the
+encoder's output, `decoder_forward_encdec`). Hybrid stacks, MoE on
+every other layer (`moe_every` 2, which only the hybrid Jamba uses), and
+the training loss are later slices (ROADMAP Queue 1, next slices 3.3
+and 3.6).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe
@@ -27,18 +33,20 @@ from repro_torch.models import mamba2, moe
 
 def require_ported(cfg) -> None:
     """Admits the families the port serves, dense, moe (MoE on every
-    layer), ssm and vlm; raises NotImplementedError for the rest."""
+    layer), ssm, vlm and enc-dec (`is_encoder_decoder`, the "audio"
+    family); raises NotImplementedError for the rest."""
     if cfg.n_experts and cfg.moe_every > 1 and cfg.family in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: MoE every {cfg.moe_every} layers is not ported to repro_torch yet; the "
             "JAX package stacks such layers in pairs, which only the hybrid family uses "
             "(ROADMAP Queue 1, next slices 3.3)")
-    ported = cfg.family in ("dense", "moe", "ssm", "vlm")
-    if not ported or cfg.is_encoder_decoder:
+    ported = cfg.family in ("dense", "moe", "ssm", "vlm") or (
+        cfg.is_encoder_decoder and cfg.family == "audio")
+    if not ported:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, next slices 3.3 hybrid, 3.5 enc-dec); the port serves the dense, "
-            "moe, ssm and vlm families")
+            "(ROADMAP Queue 1, next slices 3.3 hybrid); the port serves the dense, moe, ssm, "
+            "vlm and enc-dec families")
 
 
 def tree_map(fn, tree):
@@ -125,6 +133,12 @@ def init_params(gen: torch.Generator, cfg) -> Dict[str, Any]:
                                     scale=1.0 / math.sqrt(cfg.d_model), dtype=dtype)
     init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
     p["layers"] = _stack(lambda: init_layer(gen, cfg, dtype), cfg.n_layers)
+    if cfg.is_encoder_decoder:
+        enc_cfg = dataclasses.replace(cfg, n_experts=0)
+        p["encoder"] = _stack(lambda: _init_dense_layer(gen, enc_cfg, dtype),
+                              cfg.n_encoder_layers)
+        p["cross"] = _stack(lambda: {"ln": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
+                                     "attn": L.init_attention(gen, cfg, dtype)}, cfg.n_layers)
     return p
 
 
@@ -169,6 +183,54 @@ def backbone(params, x: torch.Tensor, cfg, *, mask_mode="causal", prefix_len=0):
             x = _ssm_block(x, lp, cfg)
         else:
             x = _dense_block(x, lp, cfg, rope, mask_mode, prefix_len)
+    return L.apply_norm(params["final_norm"], x, cfg.norm)
+
+
+def embed_positions(emb: torch.Tensor, table: torch.Tensor, cd) -> torch.Tensor:
+    """emb + table, both rounded to the compute dtype and added in it,
+    as the JAX package's `x + table.astype(cd)` does (emb [B,S,D] in any
+    float dtype, table [S,D] float32)."""
+    return emb.to(cd) + table.to(cd)
+
+
+def encoder_forward(params, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """The enc-dec encoder over frame embeddings [B,Ssrc,D] (the
+    frontend stub's output) -> [B,Ssrc,D] in the compute dtype: the
+    frames plus the sinusoidal table, then the "encoder" stack of dense
+    blocks, rotated at positions 0..Ssrc-1, under the full mask. As in
+    the JAX package, no final norm."""
+    cd = L.dtype_of(cfg.compute_dtype)
+    S = frames.shape[1]
+    x = embed_positions(frames, L.sinusoidal_positions(S, cfg.d_model, frames.device), cd)
+    rope = L.rope_tables(cfg, torch.arange(S, device=x.device), S)
+    for i in range(cfg.n_encoder_layers):
+        x = _dense_block(x, layer(params["encoder"], i), cfg, rope, "full", 0)
+    return x
+
+
+def decoder_forward_encdec(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg
+                           ) -> torch.Tensor:
+    """The enc-dec decoder, teacher-forced over tokens [B,S] against the
+    encoder's output enc_out [B,Ssrc,D] -> the final-normed hidden state
+    [B,S,D] (no logits, as the JAX function returns none): the embedding
+    plus the sinusoidal table, then per layer causal self-attention
+    (rotated), the cross-attention over ck / cv projected from enc_out,
+    and the FFN, each a pre-norm residual (the two norms after a residual
+    add read its float32 sum, as XLA:CPU fuses them: `residual_norm`);
+    `final_norm` at the end."""
+    cd = L.dtype_of(cfg.compute_dtype)
+    S = tokens.shape[1]
+    x = embed_positions(F.embedding(tokens, params["embed"]),
+                        L.sinusoidal_positions(S, cfg.d_model, tokens.device), cd)
+    rope = L.rope_tables(cfg, torch.arange(S, device=x.device), S)
+    for i in range(cfg.n_layers):
+        lp, cp = layer(params["layers"], i), layer(params["cross"], i)
+        h = L.apply_norm(lp["ln1"], x, cfg.norm)
+        y = L.gqa_attention(lp["attn"], h, cfg, rope, mask_mode="causal")
+        x, h = L.residual_norm(cp["ln"], x, y, cfg.norm)
+        y = L.cross_attention(cp["attn"], h, cfg, *L.cross_kv(cp["attn"], enc_out, cfg))
+        x, h = L.residual_norm(lp["ln2"], x, y, cfg.norm)
+        x = x + _apply_ffn(lp, h, cfg)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 

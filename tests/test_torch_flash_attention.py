@@ -71,6 +71,11 @@ def test_plain_matches_reference_sweep(B, H, K, Sq, Skv, hd, mode, dtype):
     (2, 6, 3, 77, 130, 32, "causal"),
     (1, 4, 2, 300, 100, 64, "causal"),   # Sq > Skv: late rows see every key
     (1, 2, 1, 1, 1, 16, "causal"),
+    # SeamlessM4T's cross-attention: one query row (and a few) against
+    # the source under the full mask, MHA at hd 64
+    (2, 4, 4, 1, 1000, 64, "full"),
+    (1, 4, 4, 2, 4095, 64, "full"),
+    (1, 4, 4, 65, 1000, 64, "full"),
 ])
 def test_plain_matches_reference_ragged(B, H, K, Sq, Skv, hd, mode):
     (tq, tk, tv), (jq, jk, jv) = _inputs(B, H, K, Sq, Skv, hd, "float32", seed=Sq * Skv)
@@ -255,5 +260,20 @@ def test_split_probabilities_keep_one_step_hd256_edges(Sq, Skv, mode, prefix):
     (tq, tk, tv), _ = _inputs(1, 8, 1, Sq, Skv, 256, "bfloat16", seed=Sq + prefix)
     want = flash_attention_plain(tq, tk, tv, mask_mode=mode, prefix_len=prefix)
     got = _tiled_emulation(tq, tk, tv, split=True, bk=80, mask_mode=mode, prefix_len=prefix)
+    assert _misses(got, want) == 0
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8
+
+
+# SeamlessM4T's shapes on the hd 64 instance (96-key tiles, 128-row
+# blocks): the cross step's one query row and a few rows against the
+# source, MHA, under the full mask; the split keeps them inside one step
+ENCDEC_EDGES = [(1, 1000), (1, 4095), (2, 1000), (63, 1000), (65, 4095), (64, 4096)]
+
+
+@pytest.mark.parametrize("Sq,Skv", ENCDEC_EDGES)
+def test_split_probabilities_keep_one_step_encdec(Sq, Skv):
+    (tq, tk, tv), _ = _inputs(1, 4, 4, Sq, Skv, 64, "bfloat16", seed=Sq + Skv)
+    want = flash_attention_plain(tq, tk, tv, mask_mode="full")
+    got = _tiled_emulation(tq, tk, tv, split=True, bk=96, mask_mode="full")
     assert _misses(got, want) == 0
     assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8

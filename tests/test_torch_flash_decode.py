@@ -215,6 +215,9 @@ DECODE_CASES = [  # chip_smoke 3c's bf16 decode cases with B cut: B, H, K, S, hd
     (1, 32, 1, 1000, 256, 999),    # G = 32 at hd 256: two row tiles
     (2, 8, 1, 4161, 256, 127), (2, 8, 1, 4161, 256, 128),  # a tile edge
     (2, 4, 1, 777, 256, 15), (2, 4, 1, 777, 256, 16),      # G = 4: one slice, then two
+    # SeamlessM4T's decode step: G 1 on 16 kv heads at hd 64, its first
+    # and last steps' pos
+    (2, 16, 16, 4161, 64, 0), (2, 16, 16, 4161, 64, 1), (2, 16, 16, 4161, 64, 63),
 ]
 
 
