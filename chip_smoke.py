@@ -37,9 +37,9 @@ same batch and lengths; enc-dec serving, `Model.prefill` on a batch of
 speech frame embeddings and `Model.decode_step`, for SeamlessM4T-medium at
 full size in bf16 at the same batch and generated tokens.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-4h, 4i, 5-6, 10, 11, 12, 8, 9, 7 (phase 7 times every kernel with the
-launch counts of all paths; phases 10, 11 and 12 free their models before
-phase 8 builds GLM-4-9B, which phase 7 keeps). Each phase prints its wall
+4h, 4i, 5-6, 10, 11, 12, 13, 8, 9, 7 (phase 7 times every kernel with the
+launch counts of all paths; phases 10, 11, 12 and 13 free their models
+before phase 8 builds GLM-4-9B, which phase 7 keeps). Each phase prints its wall
 seconds on a line of its own when it ends ("[<phase> wall]"), and the run
 ends with all of them and its total ("[wall]"):
 
@@ -121,6 +121,15 @@ ends with all of them and its total ("[wall]"):
    causal G 1 at S 1000 and at 1, the encoder's and the cross step's
    strided [B,S,H,hd] views; flash_decode at G 1, hd 64, S 4161, pos 0,
    1 and 63;
+   and the attention backward, flash_attention_bwd (`attention_bwd_cases`),
+   against its plain version: Qwen1.5-0.5B's training shape (B 8, H 16 on
+   K 16, S 4096, hd 64, causal) and GLM-4-9B's heads (B 8, H 32 on K 2,
+   hd 128, S 1024), hd 16 and 32, the full mask with Sq < Skv, 63 and 65
+   query rows against 1,000 and 4,095 keys, prefix_len 1, 255, 256, 257
+   and 1000, B 1; float32 within 2e-5 x (sum|terms| + |plain|), bf16 each
+   gradient's error from the float32 plain gradient at most 1.5 x the
+   plain bf16 path's; every case twice, bitwise equal; the model's
+   strided [B,S,H,hd] views bitwise the call on contiguous copies;
 3d. ssd_chunk_intra vs its plain version on the card, within
    |err| <= 2e-5 * max(1, sum|terms|) + 2e-5*|plain| (sum|terms|: the plain
    version on |x|, |B|, |C|), `total` bitwise (the prefix sums' order),
@@ -368,6 +377,23 @@ ends with all of them and its total ("[wall]"):
    every layer, 4 teacher-forced decode steps' logits and
    `decoder_forward_encdec`'s output over the 64 generated tokens, at
    full depth; the greedy tokens' agreement;
+13. training, Qwen1.5-0.5B (`configs/qwen1_5_0_5b.py`, 463,987,712
+   parameters, the port's seeded bf16 init; remat "block", logit_chunk
+   2048) at batch 8 x 4096 tokens from the synthetic stream
+   (`train_phase`): (a) one step's loss and every leaf's gradient through
+   the kernels and with the plain attention swapped in, float32 within a
+   relative L2 of 1e-4 a leaf, bf16 each leaf's error from the float32
+   plain gradient at most 1.5 x the plain path's, every gradient nonzero;
+   (b) 4 steps of `launch.train.train_loop` with AdamW and the cosine
+   schedule after a warm step, 48 flash_attention and 24
+   flash_attention_bwd launches a step, step ms (CUDA events), tokens/s,
+   peak memory, MFU, one step profiled (idle share, top kernels) beside
+   the step's bound (`train_bounds`); (c) two steps from one state
+   bitwise equal; (d) the GreenOrchestrator on the card: the SMOKE
+   restart bit-exact, then 4 slots with two full-size jobs (8 x 1024
+   tokens, one step a task, one task a cloud a slot) with carbon_scores
+   and greedy_fill once a slot; (e) kWh a task from the step time and
+   the power limit beside `lm_task_energy_kwh`;
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
@@ -780,6 +806,11 @@ VLM_ARCH = "paligemma_3b"
 # speech frontend's stub) in
 ENCDEC_ARCH = "seamless_m4t_medium"
 LM_CACHE = LM_PROMPT + LM_GEN + 1
+# phase 13 trains Qwen1.5-0.5B at full size on the train_4k micro-bundle
+# `paper_workloads.lm_workloads` costs a task by (8 x 4096 tokens a step),
+# and runs the GreenOrchestrator with two such jobs at 8 x 1024
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1_5_0_5b", 8, 4096, 4
+ORCH_SEQ, ORCH_SLOTS = 1024, 4
 # teacher-forced logits, kernels vs plain attention: with float32
 # activations (the same bf16 weights) both kernels agree with their plain
 # versions to float32 summation order, so the relative L2 gap stays far
@@ -815,6 +846,15 @@ TF32_OPS_PER_S = 495e12    # H100 SXM data sheet, dense tf32 tensor cores
 # rounding can fall either side, one bf16 step, at most 2**-7 * |plain|,
 # plus an absolute floor for outputs near 0
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0**-7)}
+# the attention backward vs its plain version. float32: |err| <= ATTN_BWD_F32
+# x (sum|terms| + |plain|), sum|terms| each gradient's last sum taken over
+# absolute values (`bwd_term_sums`: dq and dk over P (|dP| + |D|), where
+# dS = P (dP - D) cancels), 2e-5 = 336 x 2**-24: the summation orders
+# differ over sums of up to 16 x 4096 terms. bf16: each gradient's max abs
+# error from the float32 plain gradient at most ATTN_BWD_RATIO x the plain
+# bf16 path's (both round once at the end; the kernel takes D as the plain
+# path does, tests/test_torch_attention_grad.py)
+ATTN_BWD_F32, ATTN_BWD_RATIO = 2e-5, 1.5
 # ssd_chunk_intra vs its plain version, |err| <= SSD_TOL * max(1, sum|terms|)
 # + SSD_TOL * |plain| (tests/test_kernels.py's f32, with the absolute part
 # scaled by the plain version's sum of |terms|): y sums up to 256 terms
@@ -1080,6 +1120,42 @@ def ptxas_lines(log: str, entry: str) -> list:
         elif keep and ("registers" in ln or "spill" in ln):
             out.append(f"{entry}{tag} " + ln.split(":", 1)[-1].strip())
     return out
+
+
+def bwd_term_sums(q, k, v, g, mode, prefix_len):
+    """Per element of (dq, dk, dv), the sum of the absolute values of the
+    terms of its last sum, float32: dq_i: scale sum_j P_ij (|dP_ij| + |D_i|)
+    |k_j|; dk_j: sum_i P_ij (|dP_ij| + |D_i|) |qs_i|; dv_j: sum_i P_ij
+    |dO_i| (over the G query heads of a kv head), in query chunks as the
+    plain version runs."""
+    from repro_torch.kernels.flash_attention import NEG_INF, QUERY_CHUNK
+
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    G, scale = H // K, 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(Skv, device=q.device)
+    tq = torch.empty((B, H, Sq, hd), device=q.device)
+    tk, tv = torch.zeros((B, K, Skv, hd), device=q.device), torch.zeros((B, K, Skv, hd), device=q.device)
+    for s0 in range(0, Sq, QUERY_CHUNK):
+        c = min(QUERY_CHUNK, Sq - s0)
+        qg = (q[:, :, s0:s0 + c].float() * scale).reshape(B, K, G, c, hd)
+        gg = g[:, :, s0:s0 + c].float().reshape(B, K, G, c, hd)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf)
+        if mode != "full":
+            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if mode == "prefix":
+                mask = mask | (k_pos[None, :] < prefix_len)
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dp = torch.einsum("bkgqd,bksd->bkgqs", gg, vf)
+        w = p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())
+        tq[:, :, s0:s0 + c] = (torch.einsum("bkgqs,bksd->bkgqd", w, kf.abs()) * scale).reshape(
+            B, H, c, hd)
+        tk += torch.einsum("bkgqs,bkgqd->bksd", w, qg.abs())
+        tv += torch.einsum("bkgqs,bkgqd->bksd", p, gg.abs())
+    return tq, tk, tv
 
 
 def same_bits(a, b) -> bool:
@@ -2007,6 +2083,400 @@ def moe_serve(tag, cfg, dev, ops, moe, build_model, greedy_generate, plain):
     return launches
 
 
+def attention_bwd_cases(fa, randn, max_err):
+    """Phase 3c's backward cases: flash_attention_bwd_cuda vs its plain
+    version on the card (the shapes below; tolerances ATTN_BWD_F32 and
+    ATTN_BWD_RATIO), each case run twice and the two bitwise equal;
+    max_err["flash_attention_bwd"] collects the largest error against the
+    float32 plain gradient."""
+    # the backward kernel (csrc/flash_attention_bwd.cu) vs its plain
+    # version: float32 within ATTN_BWD_F32 of each gradient's sum of
+    # |terms| (`bwd_term_sums`); bf16 each gradient's max abs error from
+    # the float32 plain gradient at most ATTN_BWD_RATIO x the plain bf16
+    # path's; every case run twice and the two bitwise equal (no atomics)
+    bf16, f32 = torch.bfloat16, torch.float32
+    max_err["flash_attention_bwd"] = 0.0
+    bwd_cases = [  # B, H, K, Sq, Skv, hd, mask, prefix_len, dtypes
+        (LM_BATCH, 16, 16, 4096, 4096, 64, "causal", 0, (bf16, f32)),  # Qwen1.5-0.5B's training
+        (LM_BATCH, 32, 2, 1024, 1024, 128, "causal", 0, (bf16, f32)),  # GLM-4-9B's heads
+        (2, 8, 2, 333, 333, 16, "causal", 0, (bf16, f32)),
+        (2, 8, 4, 300, 500, 32, "full", 0, (bf16, f32)),
+        (1, 4, 4, 63, 1000, 64, "full", 0, (bf16, f32)),
+        (1, 4, 4, 65, 4095, 64, "causal", 0, (bf16, f32)),
+        (1, 4, 4, 65, 1000, 64, "causal", 0, (bf16,)),
+        (1, 4, 2, 63, 4095, 128, "prefix", 1000, (bf16,)),
+        (1, 16, 16, 1000, 1000, 64, "causal", 0, (bf16,)),
+    ] + [(2, 8, 2, 512, 512, 64, "prefix", pl, (bf16, f32)) for pl in (1, 255, 256, 257)]
+    for B, H, K, Sq, Skv, hd, mode, pl, dts in bwd_cases:
+        for dt in dts:
+            q, k, v, g = (randn((B, n, S, hd), dt) for n, S in ((H, Sq), (K, Skv), (K, Skv), (H, Sq)))
+            got = fa.flash_attention_bwd_cuda(q, k, v, g, mask_mode=mode, prefix_len=pl)
+            again = fa.flash_attention_bwd_cuda(q, k, v, g, mask_mode=mode, prefix_len=pl)
+            torch.cuda.synchronize()
+            label = (f"B{B} H{H} K{K} Sq{Sq} Skv{Skv} hd{hd} {str(dt)[6:]} {mode}"
+                     + (f" prefix_len {pl}" if mode == "prefix" else ""))
+            if not all(same_bits(a.float(), b.float()) for a, b in zip(got, again)):
+                fail(f"flash_attention_bwd {label}: two runs differ")
+            exact = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float(),
+                                                 mask_mode=mode, prefix_len=pl)
+            errs = [float((a.float() - b).abs().max()) for a, b in zip(got, exact)]
+            if dt == f32:
+                terms = bwd_term_sums(q, k, v, g, mode, pl)
+                ratio = max(float(((a - b).abs() / (ATTN_BWD_F32 * t + ATTN_BWD_F32 * b.abs()
+                                                    + 1e-30)).max())
+                            for a, b, t in zip(got, exact, terms))
+                if not ratio <= 1.0:
+                    fail(f"flash_attention_bwd {label}: error {errs} beyond {ATTN_BWD_F32:g} x "
+                         f"sum|terms| + {ATTN_BWD_F32:g} x |plain| (ratio {ratio:.3f})")
+                detail = f"{ratio:.3f} of the tolerance {ATTN_BWD_F32:g} x (sum|terms| + |plain|)"
+                del terms
+            else:
+                plain_b = fa.flash_attention_bwd_plain(q, k, v, g, mask_mode=mode, prefix_len=pl)
+                errs_p = [float((a.float() - b).abs().max()) for a, b in zip(plain_b, exact)]
+                ratios = [e / max(p_, 1e-30) for e, p_ in zip(errs, errs_p)]
+                if not max(ratios) <= ATTN_BWD_RATIO:
+                    fail(f"flash_attention_bwd {label}: errors {errs} vs the plain bf16 path's "
+                         f"{errs_p} (ratios {ratios}, limit {ATTN_BWD_RATIO:g})")
+                detail = (f"the plain bf16 path's {', '.join(f'{e:.3e}' for e in errs_p)}, ratios "
+                          f"{', '.join(f'{r:.3f}' for r in ratios)} (limit {ATTN_BWD_RATIO:g})")
+                del plain_b
+            max_err["flash_attention_bwd"] = max(max_err["flash_attention_bwd"], *errs)
+            say(f"[3c kernels] flash_attention_bwd {label}: dq, dk, dv max abs err "
+                f"{', '.join(f'{e:.3e}' for e in errs)} vs the float32 plain gradient; {detail}; "
+                "two runs bitwise equal")
+            del q, k, v, g, got, again, exact
+    # the training path's layout: the model's [B,S,H,hd] projections and
+    # the output's gradient, passed transposed (strided views): the same
+    # bits as the kernel on contiguous copies, gradients in q, k, v's layouts
+    for dt in (bf16, f32):
+        q, g = randn((2, 300, 16, 64), dt), randn((2, 300, 16, 64), dt)
+        k, v = randn((2, 300, 4, 64), dt), randn((2, 300, 4, 64), dt)
+        views = [x.transpose(1, 2) for x in (q, k, v, g)]
+        got = fa.flash_attention_bwd_cuda(*views)
+        want = fa.flash_attention_bwd_cuda(*(x.contiguous() for x in views))
+        torch.cuda.synchronize()
+        if not (all(same_bits(a.float(), b.float()) for a, b in zip(got, want))
+                and all(a.stride() == x.stride() for a, x in zip(got, views[:3]))):
+            fail(f"flash_attention_bwd strided {str(dt)[6:]}: the gradients differ from the "
+                 "contiguous inputs', or are not in q, k, v's layouts")
+        say(f"[3c kernels] flash_attention_bwd B2 H16 K4 S300 hd64 {str(dt)[6:]} causal, strided "
+            "[B,S,H,hd] views: bitwise the kernel on contiguous copies; dq, dk, dv in q, k, v's "
+            "layouts")
+        del q, k, v, g, views, got, want
+    torch.cuda.empty_cache()
+
+
+def train_bounds(cfg, batch: int, seq: int) -> dict:
+    """The least time one training step of a dense config could take on
+    the card, from the shapes: the bf16 products (the forward, remat's
+    recompute of it and the backward's two products a weight; attention's
+    q.k and p.v over the causal pairs in the forward and the recompute,
+    and its backward's five: S, dP, dv, dq, dk) at BF16_OPS_PER_S, plus the
+    float32 unembed (its forward, the backward's recompute and its two
+    gradient products) at FP32_OPS_PER_S, as chunked_ce_loss computes it."""
+    tokens = batch * seq
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    layer_w = d * (H + 2 * K) * hd + H * hd * d + 3 * d * cfg.d_ff  # projections + SwiGLU
+    matmul = 2 * layer_w * tokens * cfg.n_layers * (1 + 1 + 2)
+    pairs = batch * H * seq * (seq + 1) // 2
+    attn = 2 * hd * pairs * cfg.n_layers * (2 + 2 + 5)
+    unembed = 2 * d * cfg.vocab_size * tokens * 4
+    bf16_s, f32_s = (matmul + attn) / BF16_OPS_PER_S, unembed / FP32_OPS_PER_S
+    return dict(matmul=matmul, attn=attn, unembed=unembed, bf16_s=bf16_s, f32_s=f32_s,
+                total_s=bf16_s + f32_s)
+
+
+def train_phase(dev, ops, fa, smi):
+    """Phase 13: the training path for TRAIN_ARCH (Qwen1.5-0.5B) at full
+    size, batch TRAIN_BATCH x TRAIN_SEQ tokens from the synthetic stream
+    (`data.make_batch_fn`), the port's seeded bf16 init:
+    (a) one step's loss and every leaf's gradient through the kernels and
+        with the plain attention swapped in (`swapped`), float32 (params
+        and activations) within LOGIT_F32_TOL relative L2 a leaf, bf16 each
+        leaf's error from the float32 plain gradient at most LOGIT_ERR_RATIO
+        x the plain path's; every leaf's gradient nonzero through the
+        kernels (the autograd path reaches wq, wk, wv and their biases);
+    (b) TRAIN_STEPS steps of `launch.train.train_loop` (AdamW, cosine
+        schedule) after one warm step, launches held to 48 forward (24 + 24
+        remat recomputes) and 24 backward a step, each step timed with
+        CUDA events; tokens/s, peak memory, MFU, one step profiled (idle
+        share, top kernels) beside `train_bounds`;
+    (c) two steps from the same state bitwise equal;
+    (d) the GreenOrchestrator on the card: restart bit-exact on the SMOKE
+        setup of tests/test_orchestrator.py, then ORCH_SLOTS slots with two
+        full-size jobs (seeds 0 and 1, ORCH_SEQ x TRAIN_BATCH, one step a
+        task, one task a cloud a slot);
+    (e) the card's kWh a task from the measured step time and power limit,
+        beside `lm_task_energy_kwh` given the card's peak and that MFU.
+    Returns {"per_step": launches a step, "launches": the timed run's,
+    "step_ms": the median}."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.paper_workloads import lm_task_energy_kwh
+    from repro_torch.core.carbon import ConstantCarbonSource, UKRegionalTraceSource
+    from repro_torch.core.policies import CarbonIntensityPolicy
+    from repro_torch.core.queueing import NetworkSpec
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule, make_train_step
+    from repro_torch.orchestrator import Cloud, GreenOrchestrator, TrainJob
+    from repro_torch.pytree import flatten_with_path, tree_leaves, tree_map, tree_unflatten
+
+    tag = "13 train"
+    cfg = registry.get_config(TRAIN_ARCH)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    names = [n for n, _ in flatten_with_path(params)]
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch_fn = make_batch_fn(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=SEED, device=dev)
+    say(f"[{tag}] {cfg.name}: {n_params:,} parameters ({cfg.param_dtype}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({tokens:,} a "
+        f"step), remat {cfg.remat}, logit_chunk {cfg.logit_chunk}")
+    per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+
+    def expect(counts, want, what):
+        full = {k: 0 for k in counts}
+        full.update(want)
+        if counts != full:
+            fail(f"{tag} {what}: kernel launches {counts}, expected {full}")
+
+    # ---- (a) kernels vs plain attention: loss and every leaf's gradient
+    def loss_grads(m, p, batch):
+        lv = [x.detach().requires_grad_(True) for x in tree_leaves(p)]
+        loss, _ = m.loss(tree_unflatten(p, lv), batch)
+        return loss.detach(), torch.autograd.grad(loss, lv)
+
+    batch = batch_fn(0)
+    plain = {"flash_attention": fa.flash_attention_plain}
+    f32_model = build_model(dataclasses.replace(cfg, param_dtype="float32",
+                                                compute_dtype="float32"), dev)
+    p32 = tree_map(lambda x: x.float(), params)
+    res = {}
+    for key, m, p in (("bf16 kernels", model, params), ("bf16 plain", model, params),
+                      ("f32 kernels", f32_model, p32), ("f32 plain", f32_model, p32)):
+        ctx = (lambda: swapped(ops, plain)) if "plain" in key else contextlib.nullcontext
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ctx():
+            res[key] = loss_grads(m, p, batch)
+        torch.cuda.synchronize()
+        expect(ops.launch_counts(), {} if "plain" in key else per_step, key)
+        say(f"[{tag}] (a) {key}: loss {float(res[key][0]):.6f}, one step's loss and gradients "
+            f"{time.perf_counter() - t0:.2f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    for key in ("bf16 kernels", "f32 kernels"):
+        zero = [n for n, g, r in zip(names, res[key][1], res["f32 plain"][1])
+                if not bool(g.any()) and bool(r.any())]
+        if zero:
+            fail(f"{tag} (a) {key}: no gradient reached {zero}")
+    ref = res["f32 plain"][1]
+    loss_gap = abs(float(res["f32 kernels"][0]) - float(res["f32 plain"][0])) / abs(
+        float(res["f32 plain"][0]))
+    if loss_gap > LOGIT_F32_TOL:
+        fail(f"{tag} (a): float32 loss kernels vs plain {loss_gap:.3e} beyond {LOGIT_F32_TOL:g}")
+    lines = []
+    for i, n in enumerate(names):
+        gap = rel_l2(res["f32 kernels"][1][i], ref[i])
+        err_k, err_p = rel_l2(res["bf16 kernels"][1][i], ref[i]), rel_l2(res["bf16 plain"][1][i],
+                                                                           ref[i])
+        lines.append(f"{n} f32 {gap:.2e} bf16 {err_k:.3e}/{err_p:.3e} ({err_k / err_p:.3f})")
+        if not gap <= LOGIT_F32_TOL:
+            fail(f"{tag} (a) {n}: float32 gradient kernels vs plain {gap:.3e} beyond "
+                 f"{LOGIT_F32_TOL:g}")
+        if not err_k <= LOGIT_ERR_RATIO * err_p:
+            fail(f"{tag} (a) {n}: bf16 gradient error {err_k:.3e} beyond {LOGIT_ERR_RATIO:g} x "
+                 f"the plain path's {err_p:.3e}")
+    say(f"[{tag}] (a) every leaf's gradient nonzero through the kernels; float32 loss kernels vs "
+        f"plain {loss_gap:.3e}; per leaf: float32 kernels vs plain relative L2 (limit "
+        f"{LOGIT_F32_TOL:g}), bf16 kernels / plain relative L2 error vs the float32 plain "
+        f"gradient (ratio, limit {LOGIT_ERR_RATIO:g}): " + "; ".join(lines))
+    say(f"[{tag}] (a) bf16 loss kernels {float(res['bf16 kernels'][0]):.6f}, plain "
+        f"{float(res['bf16 plain'][0]):.6f}, float32 plain {float(res['f32 plain'][0]):.6f}")
+    del res, ref, p32, f32_model
+    torch.cuda.empty_cache()
+
+    # ---- (b) TRAIN_STEPS timed steps of launch.train's loop
+    opt = AdamW(lr=cosine_schedule(3e-4, 2, TRAIN_STEPS + 1))
+    state = opt.init(params)
+    train_step = make_train_step(model, opt)
+    params, state, _ = train_step(params, state, batch_fn(0))  # warm: allocator, library init
+    torch.cuda.synchronize()
+    events, metrics_seen = [], []
+
+    def timed_step(p, st, b):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = train_step(p, st, b)
+        ev[1].record()
+        events.append(ev)
+        metrics_seen.append(out[2])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, metrics = train_loop(timed_step, batch_fn, params, state, 1, 1 + TRAIN_STEPS,
+                                        log=None)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    expect(launches, {k: v * TRAIN_STEPS for k, v in per_step.items()}, "(b) timed steps")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    med = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m_["loss"]) for m_ in metrics_seen]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{tag} (b): non-finite losses {losses}")
+    mfu = 6.0 * cfg.active_params() * tokens / (med / 1e3) / BF16_OPS_PER_S
+    tb = train_bounds(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    say(f"[{tag}] (b) {TRAIN_STEPS} steps of launch.train.train_loop (AdamW, cosine schedule): "
+        f"launches {launches} ({per_step} a step); step ms (CUDA events) "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f", median {med:.1f} ms; host "
+        f"{host_s / TRAIN_STEPS * 1e3:.1f} ms a step; {tokens / (med / 1e3):,.0f} tokens/s; "
+        f"peak memory {peak:.2f} GiB; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f", grad_norm {float(metrics['grad_norm']):.3f}, lr {float(metrics['lr']):.3e}; "
+        f"MFU {mfu:.4f} (6 x {cfg.active_params():,} x {tokens:,} FLOP a step at "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s); {smi}")
+    say(f"[{tag}] (b) the step's bound: bf16 products {(tb['matmul'] + tb['attn']) / 1e12:.2f} TFLOP "
+        f"(matmuls {tb['matmul'] / 1e12:.2f}, attention {tb['attn'] / 1e12:.2f}) at "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s = {tb['bf16_s'] * 1e3:.1f} ms, plus the float32 "
+        f"unembed {tb['unembed'] / 1e12:.2f} TFLOP at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+        f"{tb['f32_s'] * 1e3:.1f} ms (the step's floor); {tb['total_s'] * 1e3:.1f} ms in all, "
+        f"{tb['total_s'] * 1e3 / med:.3f} of the measured step")
+    prof, host = profile_slots(lambda: train_step(params, state, batch_fn(1 + TRAIN_STEPS)), slots=1)
+    if prof is None:
+        say(f"[{tag}] (b) one step's device time not measured (the profiler recorded no device "
+            "time)")
+    else:
+        busy = prof.pop("total")
+        top = sorted(((v, k) for k, v in prof.items()), reverse=True)
+        say(f"[{tag}] (b) one step under the profiler: device busy {busy:.1f} ms of {med:.1f} ms "
+            f"(idle share {1.0 - busy / med:.3f}); "
+            f"{sum(v[1] for k, v in host.items() if k.startswith('aten::')):.0f} aten op calls; "
+            "top kernels " + ", ".join(f"{k[:60]} {v:.1f} ms" for v, k in top[:10]))
+    torch.cuda.empty_cache()
+
+    # ---- (c) two steps from the same state: bitwise equal
+    b6 = batch_fn(2 + TRAIN_STEPS)
+    pa, sa, ma = train_step(params, state, b6)
+    pb, sb, mb = train_step(params, state, b6)
+    same = [n for (n, x), y in zip(flatten_with_path((pa, sa)), tree_leaves((pb, sb)))
+            if not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                               y.view(torch.int16) if y.dtype == torch.bfloat16 else y)]
+    if same or float(ma["loss"]) != float(mb["loss"]):
+        fail(f"{tag} (c): two steps from one state differ in {same[:5]} (losses "
+             f"{float(ma['loss'])}, {float(mb['loss'])})")
+    say(f"[{tag}] (c) two steps from the same parameters and AdamW state: every parameter and "
+        f"moment bitwise equal, loss {float(ma['loss']):.6f} both")
+    del pa, sa, pb, sb, model, params, state, train_step
+    torch.cuda.empty_cache()
+
+    # ---- (d) the GreenOrchestrator on the card
+    spec = NetworkSpec(pe=np.full(2, 1.0, np.float32), pc=np.full((2, 2), 5.0, np.float32),
+                       Pe=8.0, Pc=np.full(2, 20.0, np.float32))
+
+    def arrivals(t):  # tests/test_orchestrator.py's
+        return np.random.default_rng((7, t)).integers(0, 3, 2).astype(np.float32)
+
+    def jobs(arch_seeds, seq, batch, smoke):
+        out = []
+        for aid, seed in arch_seeds:
+            c = registry.get_smoke_config(aid) if smoke else registry.get_config(aid)
+            m = build_model(c, dev)
+            o = AdamW(lr=1e-3)
+            p = m.init(torch.Generator(device=dev).manual_seed(seed))
+            out.append(TrainJob(name=f"{aid}-{seed}", model=m, train_step=make_train_step(m, o),
+                                batch_fn=make_batch_fn(c, seq, batch, seed=seed, device=dev),
+                                params=p, opt_state=o.init(p), steps_per_task=1))
+        return out
+
+    smoke_jobs = (("qwen1_5_0_5b", 0), ("internlm2_20b", 1))
+    with tempfile.TemporaryDirectory() as ck:
+        def fresh(d):
+            return GreenOrchestrator(jobs(smoke_jobs, 32, 2, True), [Cloud("c0"), Cloud("c1")], spec,
+                                     ConstantCarbonSource(N=2, Ce=10.0, Cc=10.0), arrivals,
+                                     policy=CarbonIntensityPolicy(V=0.01), ckpt_dir=f"{ck}/{d}",
+                                     ckpt_every=2, max_tasks_per_slot=3, device=dev)
+        a = fresh("a")
+        a.run(6)
+        b1 = fresh("b")
+        b1.run(4)
+        b1.ckpt.wait()
+        b2 = fresh("b")
+        if not (b2.resume() and b2.t == 4):
+            fail(f"{tag} (d): the SMOKE orchestrator did not resume at slot 4")
+        b2.run(2)
+        bad = [n for (n, x), y in zip(
+            flatten_with_path([(j.params, j.opt_state) for j in a.jobs] + [a.state]),
+            tree_leaves([(j.params, j.opt_state) for j in b2.jobs] + [b2.state]))
+            if not torch.equal(x, y)]
+        if bad or a.executed_tasks != b2.executed_tasks or a.cum_emissions != b2.cum_emissions:
+            fail(f"{tag} (d): the resumed SMOKE run differs in {bad[:5]}, executed "
+                 f"{a.executed_tasks} vs {b2.executed_tasks}, emissions {a.cum_emissions} vs "
+                 f"{b2.cum_emissions}")
+        say(f"[{tag}] (d) SMOKE orchestrator on the card (tests/test_orchestrator.py's setup): 6 "
+            f"slots straight vs 4, a checkpoint, a new orchestrator resumed and 2 more: queues, "
+            f"every parameter and AdamW moment bitwise equal; executed {a.executed_tasks}, "
+            f"emissions {a.cum_emissions:.1f} both")
+        del a, b1, b2
+    actions = []
+    pol = CarbonIntensityPolicy(V=0.01)
+
+    def recording(*args):
+        act = pol(*args)
+        actions.append((act.d.cpu().numpy(), act.w.cpu().numpy()))
+        return act
+
+    orch = GreenOrchestrator(jobs(((TRAIN_ARCH, 0), (TRAIN_ARCH, 1)), ORCH_SEQ, TRAIN_BATCH, False),
+                             [Cloud("c0"), Cloud("c1")], spec, UKRegionalTraceSource(N=2), arrivals,
+                             policy=recording, max_tasks_per_slot=1, device=dev)
+    orch.jobs[0].run_task()  # warm the allocator and libraries at this shape (not a slot)
+    orch.jobs[0].losses.clear()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    slot_s = []
+    for _ in range(ORCH_SLOTS):
+        t0 = time.perf_counter()
+        orch.run_slot()
+        slot_s.append(time.perf_counter() - t0)
+    launches_d = ops.launch_counts()
+    n_exec = orch.executed_tasks
+    # the UK source draws its noise for 256 slots in one threefry_draw
+    expect(launches_d, {"carbon_scores": ORCH_SLOTS, "greedy_fill": ORCH_SLOTS, "threefry_draw": 1,
+                        "flash_attention": per_step["flash_attention"] * n_exec,
+                        "flash_attention_bwd": per_step["flash_attention_bwd"] * n_exec}, "(d)")
+    if n_exec == 0:
+        fail(f"{tag} (d): the orchestrator executed no task in {ORCH_SLOTS} slots")
+    say(f"[{tag}] (d) GreenOrchestrator, two full-size {cfg.name} jobs (seeds 0, 1; {TRAIN_BATCH} x "
+        f"{ORCH_SEQ} tokens, one step a task, one task a cloud a slot), UK regional carbon, "
+        f"{ORCH_SLOTS} slots: d " + " ".join(str(d.astype(int).tolist()) for d, _ in actions)
+        + "; w " + " ".join(str(w.astype(int).tolist()) for _, w in actions)
+        + f"; executed {n_exec}; emissions {orch.cum_emissions:.3f} (trace "
+        + ", ".join(f"{x:.3f}" for x in orch.cum_emissions_trace) + "); losses "
+        + "; ".join(f"{j.name} " + ", ".join(f"{x:.4f}" for x in j.losses) for j in orch.jobs)
+        + "; seconds a slot " + ", ".join(f"{x:.2f}" for x in slot_s)
+        + f"; launches {launches_d}")
+    del orch, actions
+    torch.cuda.empty_cache()
+
+    # ---- (e) the card's kWh a task
+    watts = float(re.search(r"([\d.]+)\s*W", smi).group(1))
+    kwh = med / 1e3 * watts / 3.6e6
+    model_kwh = lm_task_energy_kwh(cfg.active_params(), tokens, 1, peak_flops=BF16_OPS_PER_S,
+                                   chip_kw=watts / 1e3, mfu=mfu)
+    say(f"[{tag}] (e) kWh a task (one step of {tokens:,} tokens): measured {med:.1f} ms x "
+        f"{watts:.0f} W (the power limit) = {kwh:.4e} kWh; lm_task_energy_kwh(peak "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {watts / 1e3:.3f} kW, MFU {mfu:.4f}) = "
+        f"{model_kwh:.4e} kWh (equal by construction: the MFU is this step's)")
+    return {"per_step": per_step, "launches": launches, "step_ms": med}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -2809,6 +3279,8 @@ def main() -> int:
     say("[3c kernels] hd 256 bf16: the profiler's kernels "
         + (", ".join(n[:60] for n in names) if prof is not None else "not measured"))
     del q, k, v, qd, kd, vd
+
+    attention_bwd_cases(fa, randn, max_err)
 
     # ---- 3d. ssd_chunk_intra vs its plain version on the card -----------
     clock.start("3d")
@@ -4868,6 +5340,12 @@ def main() -> int:
     encdec_launches = encdec_serve("12 encdec", encdec_cfg, dev, ops, build_model, greedy_generate,
                                    attn_plain, randn, lm_layers.gelu_tanh)
 
+    # ---- 13. training: Qwen1.5-0.5B at full size, the orchestrator --------
+    # (after phase 12; its models are freed before phase 8 builds GLM-4-9B)
+    clock.start("13")
+    train_info = train_phase(dev, ops, fa, smi)
+    torch.cuda.empty_cache()
+
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
     clock.start("8")
     lm_cfg = registry.get_config(LM_ARCH)
@@ -5067,6 +5545,8 @@ def main() -> int:
         f"x {lm_cfg.n_layers} layers = {ms[1] * lm_cfg.n_layers:.1f} ms of the prefill")
     del q, k, v, attn_main
 
+    rows[-1]["train_launches_per_step"] = train_info["per_step"]["flash_attention"]
+
     def hd256_entry(entry, shape, launches, run, plain, lib, nbytes, nops, reps, inner):
         """A hd 256 entry of the attention rows (PaliGemma's shapes):
         `attn_shape_entry`'s times and bound beside the hd 256 instance's
@@ -5108,6 +5588,39 @@ def main() -> int:
     fa_encdec, fd_encdec = encdec_attention_times(encdec_cfg, encdec_launches, dev, fa, fd,
                                                   attn_held, randn, smi)
     rows[-1].update(encdec_launches=encdec_launches["flash_attention"], other_shapes=fa_encdec)
+
+    # flash_attention_bwd: phase 13's training shape (Qwen1.5-0.5B, B 8, H 16
+    # on K 16, S 4096, hd 64, causal, bf16); the library yardstick is the
+    # backward of PyTorch's fused attention on the same inputs (timed only)
+    tq, tk, tv, tg = (randn((TRAIN_BATCH, 16, TRAIN_SEQ, 64), bf16) for _ in range(4))
+    ms = graph_ms(lambda: fa.flash_attention_bwd_cuda(tq, tk, tv, tg), reps=3, inner=1)
+    call_ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(tq, tk, tv, tg), reps=3, inner=1)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(tq, tk, tv, tg), reps=2, inner=1)
+    lq, lk, lv = (x.detach().requires_grad_(True) for x in (tq, tk, tv))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), tg, retain_graph=True),
+                     reps=3, inner=2)
+    B, H, S, hd = tq.shape
+    pairs = B * H * S * (S + 1) // 2
+    # the function's work: S = q.k again (no statistics come from the
+    # forward), dP, dv, dq and dk, 2 hd FLOP a causal pair each; q, k, v,
+    # dO read and dq, dk, dv written once, bf16
+    row("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:132",  # attention_scores_chunked: its XLA autodiff
+        train_info["launches"]["flash_attention_bwd"], ms, call_ms, plain_ms,
+        nbytes=2 * 7 * B * H * S * hd, nops=5 * 2 * hd * pairs, ops_per_s=BF16_OPS_PER_S,
+        library_ms=lib_ms)
+    rows[-1]["launches_per_step"] = train_info["per_step"]["flash_attention_bwd"]
+    say(f"[7 time] flash_attention_bwd: three passes on the CUDA cores in float32 (row "
+        f"statistics, dk/dv by key blocks, dq by query blocks), nine products of 2 hd FLOP a pair "
+        f"issued ({9 * 2 * hd * pairs / 1e12:.3f} TFLOP, "
+        f"{9 * 2 * hd * pairs / FP32_OPS_PER_S * 1e3:.1f} ms at {FP32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s float32); x {train_info['per_step']['flash_attention_bwd']} layers = "
+        f"{ms[1] * train_info['per_step']['flash_attention_bwd']:.0f} ms of a "
+        f"{train_info['step_ms']:.0f} ms step; SDPA's backward {lib_ms:.3f} ms per eager call; "
+        + " | ".join(ln for e in ("bwd_stats", "bwd_dkdv", "bwd_dq")
+                     for ln in ptxas_lines(built["flash_attention_bwd"][1], e)))
+    del tq, tk, tv, tg, lq, lk, lv, lout
 
     # flash_decode: layer 0's cache after the serving prefill (4096
     # positions written, the rest zero), read up to pos 4160 as the last

@@ -7,11 +7,13 @@ sweep and the scenario fleet (`simulate_vsweep`, `simulate_fleet`,
 `configs.fleet_scenarios.build_fleet`), the WAN route-aware loop
 (`network`, `simulate(graph=)`), the forecast layer (`forecast`), the
 fault layer (`faults`, `simulate(faults=)`, fault lanes in a fleet) and
-LM serving for the dense and SSM families (`models`, `launch.serve`),
-with seven hand-written Hopper
-kernels under `kernels/csrc/`: the DPP score pass, the WAN route-score
-pass, the greedy budget fill, the threefry draw, GQA flash attention
-(prefill), split-S flash decoding (decode) and the Mamba-2 SSD
+LM serving (`models`, `launch.serve`), and training for the dense
+family (`data`, `optim`, `checkpoint`, `launch.train`, and the
+`orchestrator` that schedules training jobs by Algorithm 1), with
+hand-written Hopper kernels under `kernels/csrc/`: among them the DPP
+score pass, the WAN route-score pass, the greedy budget fill, the
+threefry draw, GQA flash attention (prefill) and its backward
+(training), split-S flash decoding (decode) and the Mamba-2 SSD
 intra-chunk step (SSM prefill).
 
 It imports torch and numpy only. Every entry point runs on the CUDA

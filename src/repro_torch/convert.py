@@ -14,7 +14,9 @@ a JAX `DeadlineParams` (stacked or not).
 parameter and cache pytrees (nested dicts of arrays; a dense KV cache,
 an enc-dec cache with its cross keys and values, or an SSM state cache)
 over, leaf for leaf and bit for bit, bf16 included; `cache_to_numpy`
-reads a cache back.
+reads a cache back. `opt_state_from_reference` carries a JAX `AdamWState`
+(m, v, step) over, so both packages can train from the same parameters
+and optimizer state.
 """
 from __future__ import annotations
 
@@ -182,6 +184,18 @@ def params_from_reference(params, cfg, device=DEFAULT_DEVICE) -> dict:
                              f"{(cfg.n_layers, cfg.d_model, E)}: {cfg.n_experts} experts padded "
                              f"to {E})")
     return out
+
+
+def opt_state_from_reference(state, device=DEFAULT_DEVICE):
+    """The port's `optim.AdamWState` from a JAX `AdamWState` (fields m, v:
+    trees of float32 arrays shaped like the parameters; step: an int32
+    scalar), leaf for leaf and bit for bit."""
+    from repro_torch.optim import AdamWState
+
+    dev = resolve_device(device)
+    return AdamWState(m=_tree(state.m, dev), v=_tree(state.v, dev),
+                      step=torch.full((), int(np.asarray(state.step)), dtype=torch.int32,
+                                      device=dev))
 
 
 def cache_from_reference(cache, device=DEFAULT_DEVICE) -> dict:

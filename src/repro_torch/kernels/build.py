@@ -26,8 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("carbon_score", "route_score", "greedy_fill", "flash_attention", "flash_decode",
-           "ssd_chunk", "threefry", "tap_scan", "tap_probe", "knapsack")
+SOURCES = ("carbon_score", "route_score", "greedy_fill", "flash_attention", "flash_attention_bwd",
+           "flash_decode", "ssd_chunk", "threefry", "tap_scan", "tap_probe", "knapsack")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",

@@ -12,6 +12,20 @@ and both give weight exactly 0 beside one valid key). The kernels live in
 TMA), float32 inputs on the CUDA cores, at hd 16, 32, 64, 128 and 256
 (any other hd raises ValueError before a build); its source note gives
 the bound and the design.
+
+The backward, `flash_attention_bwd_plain` and `flash_attention_bwd_cuda`
+(`csrc/flash_attention_bwd.cu`), is the gradient of exactly the function
+`flash_attention_plain` computes, as XLA differentiates the JAX model's
+`attention_scores_chunked` (the JAX package has no backward kernel): from
+q, k, v and the output's gradient dO it recomputes P, then dP = dO.V^T,
+D = rowsum(P*dP), dS = P*(dP - D), dq = scale*dS.K, dk = dS^T.(scale*q)
+(summed over the G query heads of a kv head), dv = P^T.dO, all float32,
+each gradient rounded once to its input's dtype. D is taken from P and
+dP, as the plain path's autograd takes it, and not from the rounded
+output (FA2's rowsum(dO*O)): in bf16 that form adds O's rounding to dS
+(tests/test_torch_attention_grad.py emulates both), so the backward does
+not read the forward's output. hd 16-128; hd 256 raises ValueError.
+`ops.flash_attention` wraps forward and backward in one autograd Function.
 """
 from __future__ import annotations
 
@@ -27,8 +41,12 @@ MODES = {"causal": 0, "prefix": 1, "full": 2}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # both routes; hd 256 has its own instances
 QUERY_CHUNK = 512  # rows per score block of the plain version
 
-# Launches of the CUDA kernel in this process (read by chip_smoke.py).
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # the backward kernel's instances
+
+# Launches of the CUDA kernels in this process (read by chip_smoke.py):
+# the forward, and the backward (one a call: its three passes).
 launches = 0
+bwd_launches = 0
 
 
 def _check_mode(mask_mode):
@@ -64,6 +82,45 @@ def flash_attention_plain(q, k, v, *, mask_mode="causal", prefix_len=0):
         y = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
         out[:, :, s0:s0 + c] = y.reshape(B, H, c, hd).to(q.dtype)
     return out
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, mask_mode="causal", prefix_len=0):
+    """-> (dq, dk, dv) in the dtypes of q, k, v: the gradient of
+    `flash_attention_plain(q, k, v)` against dout [B,H,Sq,hd], in query
+    chunks of QUERY_CHUNK rows (dk and dv summed chunk after chunk in
+    float32). The scores, softmax and masks are the forward's, so P is
+    the forward's P bit for bit."""
+    _check_mode(mask_mode)
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"flash_attention_bwd: H={H} is not a multiple of K={K}")
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(Skv, device=q.device)
+    dq = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((B, K, Skv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for s0 in range(0, Sq, QUERY_CHUNK):
+        c = min(QUERY_CHUNK, Sq - s0)
+        qg = (q[:, :, s0:s0 + c].float() * scale).reshape(B, K, G, c, hd)
+        g = dout[:, :, s0:s0 + c].float().reshape(B, K, G, c, hd)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf)
+        if mask_mode != "full":
+            q_pos = torch.arange(s0, s0 + c, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if mask_mode == "prefix":
+                mask = mask | (k_pos[None, :] < prefix_len)
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dp = torch.einsum("bkgqd,bksd->bkgqs", g, vf)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        dq[:, :, s0:s0 + c] = (torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale).reshape(
+            B, H, c, hd).to(q.dtype)
+        dk += torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
+        dv += torch.einsum("bkgqs,bkgqd->bksd", p, g)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _lib():
@@ -136,3 +193,55 @@ def flash_attention_cuda(q, k, v, *, mask_mode="causal", prefix_len=0):
     build.check(lib, status, "flash_attention")
     launches += 1
     return out
+
+
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    if lib.flash_attention_bwd_launch.argtypes is None:
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_void_p])
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd_cuda(q, k, v, dout, *, mask_mode="causal", prefix_len=0):
+    """Launches csrc/flash_attention_bwd.cu on PyTorch's current stream:
+    its three passes (row statistics, dk/dv by key blocks, dq by query
+    blocks) on the CUDA cores in float32, for float32 and bf16 inputs at
+    hd 16-128. q, k, v and dout may be strided views with the head
+    dimension contiguous (another layout is copied with .contiguous());
+    dq, dk, dv take the layouts of q, k, v. No atomics: two calls give
+    the same bits."""
+    global bwd_launches
+    _check_mode(mask_mode)
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd: dtype {q.dtype}; the kernel takes float32 or "
+                         "bfloat16")
+    for name, x, shape in (("k", k, (B, K, Skv, hd)), ("v", v, (B, K, Skv, hd)),
+                           ("dout", dout, (B, H, Sq, hd))):
+        if x.dtype != q.dtype or x.device != dev or tuple(x.shape) != shape:
+            raise ValueError(f"flash_attention_bwd: {name} must be {q.dtype} {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if hd not in BWD_HEAD_DIMS or H % K or Sq < 1 or Skv < 1:
+        raise ValueError(f"flash_attention_bwd: unsupported shape H={H} K={K} Sq={Sq} Skv={Skv} "
+                         f"hd={hd} (hd one of {BWD_HEAD_DIMS}, H a multiple of K)")
+    q, k, v, dout = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((3, B, H, Sq), dtype=torch.float32, device=dev)  # max, 1/sum, D
+    strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, dout, dq, dk, dv)
+                                         for s in _kernel_strides(x)))
+    lib = _bwd_lib()
+    status = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), 0 if q.dtype == torch.float32 else 1, B, H, K, Sq, Skv,
+        hd, strides, MODES[mask_mode], int(prefix_len), 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, status, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -54,6 +54,51 @@ _F32_MID_MASK = (1 << 29) - 1  # the float64 fraction bits below float32's 23
 _F32_MID = 1 << 28  # ... as they stand in a float32 midpoint: 1 then zeros
 
 
+def _fma_f32(a, b, c) -> torch.Tensor:
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else float(x)
+
+    p = f64(a) * f64(b)
+    q = f64(c)
+    s = p + q
+    bb = s - p
+    err = (p - (s - bb)) + (q - bb)  # TwoSum: s + err == p + q exactly
+    mid = (s.view(torch.int64) & _F32_MID_MASK) == _F32_MID
+    return torch.where(mid, torch.nextafter(s, s + err * 1e300), s).float()
+
+
+def _grad_to(g, like):
+    """g summed over the broadcast dimensions of an input of `like` =
+    (shape, dtype), in that dtype (None for a Python float's)."""
+    if like is None:
+        return None
+    shape, dtype = like
+    return g.sum_to_size(shape).to(dtype)
+
+
+class _FmaF32(torch.autograd.Function):
+    """`fma_f32` under autograd: the derivative of a*b + c (g*b, g*a, g,
+    each a float32 product rounded to its input's dtype, as JAX's
+    derivative of the unfused float32 expression is). Autograd through
+    the emulation itself would be wrong where its float64 sum lands on a
+    float32 midpoint (torch.nextafter's derivative is not the identity),
+    which bf16 inputs hit on many elements, and it would keep every
+    float64 intermediate for the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(*(x if torch.is_tensor(x) else None for x in (a, b)))
+        ctx.floats = tuple(None if torch.is_tensor(x) else float(x) for x in (a, b))
+        ctx.likes = tuple((x.shape, x.dtype) if torch.is_tensor(x) else None for x in (a, b, c))
+        return _fma_f32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = (t if t is not None else f for t, f in zip(ctx.saved_tensors, ctx.floats))
+        la, lb, lc = ctx.likes
+        return _grad_to(g * b, la), _grad_to(g * a, lb), _grad_to(g, lc)
+
+
 @one_op
 def fma_f32(a, b, c) -> torch.Tensor:
     """Single-rounded float32 `a*b + c`, elementwise with broadcasting
@@ -68,17 +113,11 @@ def fma_f32(a, b, c) -> torch.Tensor:
     rounds to the float32 on the side of the exact sum (err = 0 leaves
     the tie to ties-to-even). The midpoint test reads the float64 bits,
     which holds for results in float32's normal range and for zero.
+    Differentiable (`_FmaF32`) where autograd records.
     """
-    def f64(x):
-        return x.double() if torch.is_tensor(x) else float(x)
-
-    p = f64(a) * f64(b)
-    q = f64(c)
-    s = p + q
-    bb = s - p
-    err = (p - (s - bb)) + (q - bb)  # TwoSum: s + err == p + q exactly
-    mid = (s.view(torch.int64) & _F32_MID_MASK) == _F32_MID
-    return torch.where(mid, torch.nextafter(s, s + err * 1e300), s).float()
+    if torch.is_grad_enabled() and any(torch.is_tensor(x) and x.requires_grad for x in (a, b, c)):
+        return _FmaF32.apply(a, b, c)
+    return _fma_f32(a, b, c)
 
 
 def _two_sum(a, b):

@@ -4,8 +4,12 @@
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, and a failed build or launch raises.
 There is no fallback from the card to the plain version.
+`flash_attention` is differentiable: an autograd Function whose forward
+and backward are each picked this way.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import carbon_score as _cs
 from repro_torch.kernels import flash_attention as _fa
@@ -60,11 +64,33 @@ def knapsack_dp(scores, weights, caps, budget, grid):
     return fn(scores, weights, caps, budget, grid)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward: `flash_attention_plain` / `flash_attention_cuda`; backward:
+    `flash_attention_bwd_plain` / `flash_attention_bwd_cuda`, both by
+    `_pick`. q, k, v are saved only when one of them needs a gradient, so
+    a call without autograd (serving) saves nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_mode, prefix_len):
+        fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda, "flash_attention")
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+        ctx.mask_mode, ctx.prefix_len = mask_mode, prefix_len
+        return fn(q, k, v, mask_mode=mask_mode, prefix_len=prefix_len)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        fn = _pick(q, _fa.flash_attention_bwd_plain, _fa.flash_attention_bwd_cuda,
+                   "flash_attention_bwd")
+        dq, dk, dv = fn(q, k, v, dout, mask_mode=ctx.mask_mode, prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, mask_mode="causal", prefix_len=0):
-    """GQA attention forward: q [B,H,Sq,hd], k/v [B,K,Skv,hd] ->
-    [B,H,Sq,hd]; mask_mode causal | prefix | full."""
-    fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda, "flash_attention")
-    return fn(q, k, v, mask_mode=mask_mode, prefix_len=prefix_len)
+    """GQA attention: q [B,H,Sq,hd], k/v [B,K,Skv,hd] -> [B,H,Sq,hd];
+    mask_mode causal | prefix | full. Differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, mask_mode, prefix_len)
 
 
 def flash_decode(q, k, v, pos):
@@ -114,6 +140,7 @@ def tap_probe(plan, t, inputs):
 # kernel name -> (module, its launch counter)
 _COUNTERS = {"carbon_scores": (_cs, "launches"), "route_scores": (_rs, "launches"),
              "greedy_fill": (_gf, "launches"), "flash_attention": (_fa, "launches"),
+             "flash_attention_bwd": (_fa, "bwd_launches"),
              "flash_decode": (_fd, "launches"), "ssd_chunk_intra": (_ssd, "launches"),
              "threefry_draw": (_tf, "launches"), "tap_scan": (_taps, "launches"),
              "tap_probe": (_taps, "probe_launches"), "knapsack_dp": (_kp, "launches")}

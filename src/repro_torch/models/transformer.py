@@ -1,31 +1,38 @@
-"""Dense, MoE, SSM, VLM and enc-dec stacks (counterpart of the dense,
-moe, ssm, vlm and enc-dec parts of `repro.models.transformer`).
+"""Dense, MoE, SSM, VLM and enc-dec stacks, and the dense family's
+training loss (counterpart of the dense, moe, ssm, vlm and enc-dec parts
+of `repro.models.transformer`).
 
 Parameters are nested dicts with the JAX package's names, and the layer
 stack keeps its leading layer axis ([L, ...] per leaf), so
 `convert.params_from_reference` maps a JAX pytree onto them leaf for
 leaf. Where the JAX package scans over the layer axis, the port loops
-over it in Python. There is no rematerialisation: this is the inference
-path. A MoE layer's FFN is `moe.apply_moe` plus the always-on shared
-MLP and Arctic's parallel dense residual MLP (`_apply_ffn`). A VLM's
-stack is the dense one (PaliGemma: MQA, GeGLU, tied embeddings, so no
-`unembed` leaf); its image prefix enters in `serving.prefill`. An
-enc-dec model (SeamlessM4T) holds three stacks: "encoder" (dense layers
-under the full mask, `encoder_forward`), the decoder's "layers" and
-"cross" ({"ln", "attn"} a decoder layer: the cross-attention over the
-encoder's output, `decoder_forward_encdec`). Hybrid stacks, MoE on
-every other layer (`moe_every` 2, which only the hybrid Jamba uses), and
-the training loss are later slices (ROADMAP Queue 1, next slices 3.3
-and 3.6).
+over it in Python. A MoE layer's FFN is `moe.apply_moe` plus the
+always-on shared MLP and Arctic's parallel dense residual MLP
+(`_apply_ffn`). A VLM's stack is the dense one (PaliGemma: MQA, GeGLU,
+tied embeddings, so no `unembed` leaf); its image prefix enters in
+`serving.prefill`. An enc-dec model (SeamlessM4T) holds three stacks:
+"encoder" (dense layers under the full mask, `encoder_forward`), the
+decoder's "layers" and "cross" ({"ln", "attn"} a decoder layer: the
+cross-attention over the encoder's output, `decoder_forward_encdec`).
+
+Training (`lm_loss`, the dense family): `backbone` runs each layer under
+`torch.utils.checkpoint` when autograd records and `cfg.remat` is
+"block", as the JAX package's `jax.checkpoint` saves only each block's
+input; `chunked_ce_loss` recomputes each chunk's float32 logits in the
+backward, as its `@jax.checkpoint` chunk does (`_ChunkCE`), so no
+[B, chunk, V] logits outlive their chunk. The other families' losses, hybrid stacks,
+and MoE on every other layer (`moe_every` 2, which only the hybrid Jamba
+uses) are later slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe
@@ -39,14 +46,37 @@ def require_ported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE every {cfg.moe_every} layers is not ported to repro_torch yet; the "
             "JAX package stacks such layers in pairs, which only the hybrid family uses "
-            "(ROADMAP Queue 1, next slices 3.3)")
+            "(ROADMAP Queue 1, item 3.3 hybrid)")
     ported = cfg.family in ("dense", "moe", "ssm", "vlm") or (
         cfg.is_encoder_decoder and cfg.family == "audio")
     if not ported:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, next slices 3.3 hybrid); the port serves the dense, moe, ssm, "
+            "(ROADMAP Queue 1, item 3.3 hybrid); the port serves the dense, moe, ssm, "
             "vlm and enc-dec families")
+
+
+# the families the port serves but cannot train yet -> the ROADMAP item
+_NOT_TRAINABLE = {
+    "moe": "moe training (ROADMAP Queue 1, item 3.7)",
+    "vlm": "vlm training, which needs the attention backward at hd 256 (ROADMAP Queue 1, "
+           "item 3.8)",
+    "audio": "enc-dec training (ROADMAP Queue 1, item 3.9)",
+    "ssm": "ssm training, which needs an ssd_chunk_intra backward kernel (ROADMAP Queue 1, "
+           "item 3.10)",
+}
+
+
+def require_trainable(cfg) -> None:
+    """Admits the family the port trains, dense (`lm_loss`); raises
+    NotImplementedError naming the ROADMAP item of any other."""
+    require_ported(cfg)
+    family = "moe" if cfg.n_experts else cfg.family
+    if family != "dense" or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's training loss is not ported to repro_torch "
+            f"yet: {_NOT_TRAINABLE['audio' if cfg.is_encoder_decoder else family]}; the port "
+            "trains the dense family")
 
 
 def tree_map(fn, tree):
@@ -173,16 +203,22 @@ def _ssm_block(x, lp, cfg):
 
 
 def backbone(params, x: torch.Tensor, cfg, *, mask_mode="causal", prefix_len=0):
-    """Runs the decoder stack on embedded inputs x [B,S,D]."""
+    """Runs the decoder stack on embedded inputs x [B,S,D]. While autograd
+    records, with cfg.remat "block", each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): only its input is kept, and
+    its forward runs again in the backward, as the JAX package's
+    `jax.checkpoint` with `save_only_these_names("block_in")` does."""
     require_ported(cfg)
     S = x.shape[1]
     rope = None if cfg.family == "ssm" else L.rope_tables(cfg, torch.arange(S, device=x.device), S)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         if cfg.family == "ssm":
-            x = _ssm_block(x, lp, cfg)
+            args, block = (x, lp, cfg), _ssm_block
         else:
-            x = _dense_block(x, lp, cfg, rope, mask_mode, prefix_len)
+            args, block = (x, lp, cfg, rope, mask_mode, prefix_len), _dense_block
+        x = checkpoint(block, *args, use_reentrant=False) if remat else block(*args)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 
@@ -236,3 +272,76 @@ def decoder_forward_encdec(params, tokens: torch.Tensor, enc_out: torch.Tensor, 
 
 def _unembed_weight(params, cfg) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]  # [D, V]
+
+
+# --------------------------------------------------------------------------
+# losses (sequence-chunked unembed + CE)
+# --------------------------------------------------------------------------
+
+class _ChunkCE(torch.autograd.Function):
+    """One chunk's (sum of token losses, count of valid labels): float32
+    logits xb [B,c,D] @ w [D,V], logsumexp minus the label's logit, labels
+    -1 ignored. The backward recomputes the logits from xb and w, as the
+    JAX chunk's `@jax.checkpoint` does, and turns them in place into the
+    gradient (softmax - onehot) * g: one [B,c,V] float32 tensor alive, where
+    autograd through the recompute would hold four (at Qwen1.5-0.5B's
+    training shape each is 9.96 GB)."""
+
+    @staticmethod
+    def forward(ctx, xb, lb, w):
+        logits = xb.float() @ w
+        idx = lb.clamp_min(0).long()[..., None]
+        ll = torch.gather(logits, -1, idx)[..., 0]
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = torch.log(logits.sub_(m).exp_().sum(dim=-1)) + m[..., 0]
+        valid = (lb >= 0).float()
+        ctx.save_for_backward(xb, idx, w, lse, valid)
+        return torch.sum((lse - ll) * valid), torch.sum(valid)
+
+    @staticmethod
+    def backward(ctx, g_loss, g_count):
+        del g_count  # the count is an integer's float
+        xb, idx, w, lse, valid = ctx.saved_tensors
+        xf = xb.float()
+        dlogits = (xf @ w).sub_(lse[..., None]).exp_()  # softmax
+        dlogits.scatter_(-1, idx, torch.gather(dlogits, -1, idx) - 1.0)  # one label a row
+        dlogits.mul_((valid * g_loss)[..., None])
+        dx = (dlogits @ w.T).to(xb.dtype)
+        dw = xf.reshape(-1, xf.shape[-1]).T @ dlogits.reshape(-1, dlogits.shape[-1])
+        return dx, None, dw
+
+
+def chunked_ce_loss(params, x: torch.Tensor, labels: torch.Tensor, cfg
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x [B,S,D], labels [B,S] int (-1 = ignore) -> (mean loss over the
+    valid labels, {"loss", "tokens"}), as `repro.models.transformer.
+    chunked_ce_loss`: the unembed and cross-entropy in float32 over
+    sequence chunks of cfg.logit_chunk positions (`_ChunkCE`), never the
+    whole [B,S,V] logits, and no chunk's logits kept for the backward. A
+    ragged last chunk is cut short where JAX pads it with ignored labels,
+    which add exact zeros."""
+    S = x.shape[1]
+    w = _unembed_weight(params, cfg).float()  # [D, V], one float32 copy for every chunk
+    chunk = min(cfg.logit_chunk, S)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        part, count = _ChunkCE.apply(x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk], w)
+        loss_sum = loss_sum + part
+        n = n + count
+    loss = loss_sum / torch.clamp_min(n, 1.0)
+    return loss, {"loss": loss, "tokens": n}
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The causal LM training loss of a dense model on batch {"tokens",
+    "labels"} [B,S] (`repro.models.transformer.lm_loss`, its decoder-only
+    branch): the embedding in the compute dtype, the backbone under the
+    causal mask, `chunked_ce_loss`. The other families raise
+    NotImplementedError (`require_trainable`)."""
+    require_trainable(cfg)
+    cd = L.dtype_of(cfg.compute_dtype)
+    x = F.embedding(batch["tokens"].long(), params["embed"].to(cd))
+    x = backbone(params, x, cfg, mask_mode="causal")
+    return chunked_ce_loss(params, x, batch["labels"], cfg)

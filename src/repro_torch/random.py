@@ -14,6 +14,8 @@ bits as `jax.random` under that configuration:
                            (`iota_2x32_shape`), bits = y0 ^ y1
   uniform / randint        `random.py:401-470`, `random.py:516-620`
   normal                   sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))
+  bernoulli                uniform(key, shape) < p in p's float32 ('low'
+                           mode, `random.py::_bernoulli`)
 
 A key is a `[..., 2]` int64 tensor holding two uint32 values; leading
 dimensions are lanes (F keys are one [F, 2] tensor), and every function
@@ -202,6 +204,13 @@ def normal(key, shape=()) -> torch.Tensor:
 def normal_of_bits(bits) -> torch.Tensor:
     """`normal`'s finish of 32-bit draws."""
     return SQRT2 * erfinv_xla(uniform_of_bits(bits, NORMAL_LO, 1.0))
+
+
+def bernoulli(key, p, shape=()) -> torch.Tensor:
+    """bool draws of probability p (a Python float, float32 in JAX with
+    x64 off): `uniform(key, shape) < float32(p)`, as jax.random.bernoulli's
+    default 'low' mode computes it (p 0 gives no True, p 1 all True)."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 # Iteration caps of the fixed-length samplers: P(Poisson(10) >= 64) and
