@@ -126,9 +126,11 @@ ends with all of them and its total ("[wall]"):
    K 16, S 4096, hd 64, causal) and GLM-4-9B's heads (B 8, H 32 on K 2,
    hd 128, S 1024), hd 16 and 32, the full mask with Sq < Skv, 63 and 65
    query rows against 1,000 and 4,095 keys, prefix_len 1, 255, 256, 257
-   and 1000, B 1; float32 within 2e-5 x (sum|terms| + |plain|), bf16 each
+   and 1000, B 1; float32 within 2e-5 x (sum|terms| + |plain|), bf16 (the
+   tensor cores, from the forward kernel's lse and float32 output) each
    gradient's error from the float32 plain gradient at most 1.5 x the
-   plain bf16 path's; every case twice, bitwise equal; the model's
+   plain bf16 path's; every case twice, bitwise equal; the forward's
+   output with those statistics bitwise its output without; the model's
    strided [B,S,H,hd] views bitwise the call on contiguous copies;
 3d. ssd_chunk_intra vs its plain version on the card, within
    |err| <= 2e-5 * max(1, sum|terms|) + 2e-5*|plain| (sum|terms|: the plain
@@ -414,6 +416,10 @@ ends with all of them and its total ("[wall]"):
    same work as 3xTF32 on the tensor cores, ptxas registers and spills,
    and the count of its SASS's FFMA
    and tf32 tensor-core (HGMMA/HMMA ...TF32) instructions (cuobjdump);
+   flash_attention_bwd at the training shape from the forward's
+   statistics (SDPA's backward beside it, the forward with and without
+   the statistics), its issued tensor-core work and the ptxas registers
+   and spills of its three bf16 entries (a spill store fails the run);
    greedy_fill with the QueueLength inputs too, its parts (every budget
    0: no walk; every score non-negative: keys only), each input's longest
    uncertified walk and its exact steps from `fill_walk_profile`, with
@@ -2088,11 +2094,14 @@ def attention_bwd_cases(fa, randn, max_err):
     version on the card (the shapes below; tolerances ATTN_BWD_F32 and
     ATTN_BWD_RATIO), each case run twice and the two bitwise equal;
     max_err["flash_attention_bwd"] collects the largest error against the
-    float32 plain gradient."""
+    float32 plain gradient. The bf16 route reads the forward kernel's
+    statistics (`stats=True`); the forward's output with them is held
+    bitwise to its output without."""
     # the backward kernel (csrc/flash_attention_bwd.cu) vs its plain
     # version: float32 within ATTN_BWD_F32 of each gradient's sum of
-    # |terms| (`bwd_term_sums`); bf16 each gradient's max abs error from
-    # the float32 plain gradient at most ATTN_BWD_RATIO x the plain bf16
+    # |terms| (`bwd_term_sums`); bf16 (the tensor cores, fed by the
+    # forward's lse and O32) each gradient's max abs error from the
+    # float32 plain gradient at most ATTN_BWD_RATIO x the plain bf16
     # path's; every case run twice and the two bitwise equal (no atomics)
     bf16, f32 = torch.bfloat16, torch.float32
     max_err["flash_attention_bwd"] = 0.0
@@ -2110,11 +2119,21 @@ def attention_bwd_cases(fa, randn, max_err):
     for B, H, K, Sq, Skv, hd, mode, pl, dts in bwd_cases:
         for dt in dts:
             q, k, v, g = (randn((B, n, S, hd), dt) for n, S in ((H, Sq), (K, Skv), (K, Skv), (H, Sq)))
-            got = fa.flash_attention_bwd_cuda(q, k, v, g, mask_mode=mode, prefix_len=pl)
-            again = fa.flash_attention_bwd_cuda(q, k, v, g, mask_mode=mode, prefix_len=pl)
-            torch.cuda.synchronize()
             label = (f"B{B} H{H} K{K} Sq{Sq} Skv{Skv} hd{hd} {str(dt)[6:]} {mode}"
                      + (f" prefix_len {pl}" if mode == "prefix" else ""))
+            stats = {}
+            if dt == bf16:
+                out, lse, o32 = fa.flash_attention_cuda(q, k, v, mask_mode=mode, prefix_len=pl,
+                                                        stats=True)
+                if not torch.equal(out, fa.flash_attention_cuda(q, k, v, mask_mode=mode,
+                                                                prefix_len=pl)):
+                    fail(f"flash_attention {label}: the output with stats differs from the "
+                         "output without")
+                stats = dict(lse=lse, o32=o32)
+                del out
+            got = fa.flash_attention_bwd_cuda(q, k, v, g, mask_mode=mode, prefix_len=pl, **stats)
+            again = fa.flash_attention_bwd_cuda(q, k, v, g, mask_mode=mode, prefix_len=pl, **stats)
+            torch.cuda.synchronize()
             if not all(same_bits(a.float(), b.float()) for a, b in zip(got, again)):
                 fail(f"flash_attention_bwd {label}: two runs differ")
             exact = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float(),
@@ -2143,8 +2162,9 @@ def attention_bwd_cases(fa, randn, max_err):
             max_err["flash_attention_bwd"] = max(max_err["flash_attention_bwd"], *errs)
             say(f"[3c kernels] flash_attention_bwd {label}: dq, dk, dv max abs err "
                 f"{', '.join(f'{e:.3e}' for e in errs)} vs the float32 plain gradient; {detail}; "
-                "two runs bitwise equal")
-            del q, k, v, g, got, again, exact
+                "two runs bitwise equal"
+                + ("; the forward's output with stats bitwise its output without" if stats else ""))
+            del q, k, v, g, got, again, exact, stats
     # the training path's layout: the model's [B,S,H,hd] projections and
     # the output's gradient, passed transposed (strided views): the same
     # bits as the kernel on contiguous copies, gradients in q, k, v's layouts
@@ -2152,8 +2172,10 @@ def attention_bwd_cases(fa, randn, max_err):
         q, g = randn((2, 300, 16, 64), dt), randn((2, 300, 16, 64), dt)
         k, v = randn((2, 300, 4, 64), dt), randn((2, 300, 4, 64), dt)
         views = [x.transpose(1, 2) for x in (q, k, v, g)]
-        got = fa.flash_attention_bwd_cuda(*views)
-        want = fa.flash_attention_bwd_cuda(*(x.contiguous() for x in views))
+        stats = (dict(zip(("lse", "o32"), fa.flash_attention_cuda(*views[:3], stats=True)[1:]))
+                 if dt == bf16 else {})
+        got = fa.flash_attention_bwd_cuda(*views, **stats)
+        want = fa.flash_attention_bwd_cuda(*(x.contiguous() for x in views), **stats)
         torch.cuda.synchronize()
         if not (all(same_bits(a.float(), b.float()) for a, b in zip(got, want))
                 and all(a.stride() == x.stride() for a, x in zip(got, views[:3]))):
@@ -2162,7 +2184,7 @@ def attention_bwd_cases(fa, randn, max_err):
         say(f"[3c kernels] flash_attention_bwd B2 H16 K4 S300 hd64 {str(dt)[6:]} causal, strided "
             "[B,S,H,hd] views: bitwise the kernel on contiguous copies; dq, dk, dv in q, k, v's "
             "layouts")
-        del q, k, v, g, views, got, want
+        del q, k, v, g, views, got, want, stats
     torch.cuda.empty_cache()
 
 
@@ -5590,37 +5612,51 @@ def main() -> int:
     rows[-1].update(encdec_launches=encdec_launches["flash_attention"], other_shapes=fa_encdec)
 
     # flash_attention_bwd: phase 13's training shape (Qwen1.5-0.5B, B 8, H 16
-    # on K 16, S 4096, hd 64, causal, bf16); the library yardstick is the
-    # backward of PyTorch's fused attention on the same inputs (timed only)
+    # on K 16, S 4096, hd 64, causal, bf16) from the forward kernel's
+    # statistics; the library yardstick is the backward of PyTorch's fused
+    # attention on the same inputs (timed only)
     tq, tk, tv, tg = (randn((TRAIN_BATCH, 16, TRAIN_SEQ, 64), bf16) for _ in range(4))
-    ms = graph_ms(lambda: fa.flash_attention_bwd_cuda(tq, tk, tv, tg), reps=3, inner=1)
-    call_ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(tq, tk, tv, tg), reps=3, inner=1)
+    _, lse, o32 = fa.flash_attention_cuda(tq, tk, tv, stats=True)
+    bwd = lambda: fa.flash_attention_bwd_cuda(tq, tk, tv, tg, lse=lse, o32=o32)  # noqa: E731
+    ms = graph_ms(bwd, reps=5, inner=2)
+    call_ms = cuda_ms(bwd, reps=5, inner=2)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(tq, tk, tv, tg), reps=2, inner=1)
+    fwd_ms = graph_ms(lambda: fa.flash_attention_cuda(tq, tk, tv), reps=5, inner=2)
+    fwd_stats_ms = graph_ms(lambda: fa.flash_attention_cuda(tq, tk, tv, stats=True), reps=5,
+                            inner=2)
     lq, lk, lv = (x.detach().requires_grad_(True) for x in (tq, tk, tv))
     lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), tg, retain_graph=True),
                      reps=3, inner=2)
     B, H, S, hd = tq.shape
     pairs = B * H * S * (S + 1) // 2
-    # the function's work: S = q.k again (no statistics come from the
-    # forward), dP, dv, dq and dk, 2 hd FLOP a causal pair each; q, k, v,
-    # dO read and dq, dk, dv written once, bf16
+    # the function's work: S = q.k again, dP, dv, dq and dk, 2 hd FLOP a
+    # causal pair each; q, k, v, dO read and dq, dk, dv written once, bf16
     row("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/models/layers.py:132",  # attention_scores_chunked: its XLA autodiff
         train_info["launches"]["flash_attention_bwd"], ms, call_ms, plain_ms,
         nbytes=2 * 7 * B * H * S * hd, nops=5 * 2 * hd * pairs, ops_per_s=BF16_OPS_PER_S,
         library_ms=lib_ms)
     rows[-1]["launches_per_step"] = train_info["per_step"]["flash_attention_bwd"]
-    say(f"[7 time] flash_attention_bwd: three passes on the CUDA cores in float32 (row "
-        f"statistics, dk/dv by key blocks, dq by query blocks), nine products of 2 hd FLOP a pair "
-        f"issued ({9 * 2 * hd * pairs / 1e12:.3f} TFLOP, "
-        f"{9 * 2 * hd * pairs / FP32_OPS_PER_S * 1e3:.1f} ms at {FP32_OPS_PER_S / 1e12:.0f} "
-        f"TFLOP/s float32); x {train_info['per_step']['flash_attention_bwd']} layers = "
-        f"{ms[1] * train_info['per_step']['flash_attention_bwd']:.0f} ms of a "
-        f"{train_info['step_ms']:.0f} ms step; SDPA's backward {lib_ms:.3f} ms per eager call; "
-        + " | ".join(ln for e in ("bwd_stats", "bwd_dkdv", "bwd_dq")
-                     for ln in ptxas_lines(built["flash_attention_bwd"][1], e)))
-    del tq, tk, tv, tg, lq, lk, lv, lout
+    rows[-1]["forward_ms"] = {"plain_call": fwd_ms[1], "with_stats": fwd_stats_ms[1]}
+    bwd_log = built["flash_attention_bwd"][1]
+    rows[-1]["ptxas"] = [ln for e in ("bwd_delta", "bwd_dkdv_tc", "bwd_dq_tc")
+                         for ln in ptxas_lines(bwd_log, e)]
+    issued = 10 * 2 * hd * pairs  # key pass S, dP, dv x2, dk x2; query pass S, dP, dq x2
+    say(f"[7 time] flash_attention_bwd: bf16 on the tensor cores (wgmma, TMA) from the "
+        f"forward's lse and O32: D = rowsum(dO O32), a key pass (dk, dv), a query pass (dq); "
+        f"ten products of 2 hd FLOP a pair issued (P^T, dS^T and dS split into bf16 hi + lo): "
+        f"{issued / 1e12:.3f} TFLOP, {issued / BF16_OPS_PER_S * 1e3:.3f} ms at "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; x {rows[-1]['launches_per_step']} layers = "
+        f"{ms[1] * rows[-1]['launches_per_step']:.0f} ms of a {train_info['step_ms']:.0f} ms "
+        f"step; SDPA's backward {lib_ms:.3f} ms per eager call ({ms[1] / lib_ms:.2f}x); the "
+        f"forward at this shape {fwd_ms[1]:.5f} ms, with the statistics {fwd_stats_ms[1]:.5f} "
+        f"ms (cold L2); " + " | ".join(rows[-1]["ptxas"]))
+    spills = [int(n) for ln in rows[-1]["ptxas"]
+              for n in re.findall(r"(\d+) bytes spill stores", ln)]
+    if not spills or any(spills):
+        fail(f"7: flash_attention_bwd's tensor-core entries spill ({' | '.join(rows[-1]['ptxas'])})")
+    del tq, tk, tv, tg, lq, lk, lv, lout, lse, o32, bwd
 
     # flash_decode: layer 0's cache after the serving prefill (4096
     # positions written, the rest zero), read up to pos 4160 as the last

@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` compiles, on its own, into a shared library with a
 plain C interface (`build/repro_torch/<name>-<hash>.so`) that ctypes
 loads; no PyTorch headers are involved, so a build takes seconds. The
-file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.
+file name carries a hash of the source, the csrc/ headers it includes
+(`hopper.cuh`, the attention kernels' Hopper building blocks) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 Flags: `sm_90a`, `-O3`, and `-fmad=false`, with no fast math. The only
 fused multiply-adds are the explicit `__fmaf_rn` calls: in the scheduler's
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,9 +57,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def _headers(src: bytes) -> list:
+    """The csrc/ headers a source includes (`#include "x.cuh"`)."""
+    return sorted(set(re.findall(rb'^#include "([\w.]+\.cuh)"', src, re.MULTILINE)))
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [src] + [(CSRC / h.decode()).read_bytes() for h in _headers(src)]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 

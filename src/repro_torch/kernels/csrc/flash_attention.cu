@@ -69,6 +69,15 @@
 //   form (MN-major descriptor). While one warpgroup is in its softmax,
 //   the other's products keep the tensor cores busy. The epilogue divides
 //   by max(l, 1e-30) and stores bf16 pairs through the output strides.
+// - The backward's statistics (`attention_tc_stats`, hd <= 128: the same
+//   body with two more stores in its epilogue, launched only when the
+//   caller passes their pointers, as autograd does; a serving call runs
+//   attention_tc, whose code is unchanged): each row's log-sum-exp in the
+//   exponent's log2 domain, m c + log2 l (+inf for a row without a key),
+//   and the float32 output before its rounding (`RowStats`). The bf16
+//   output's bits are the same with or without them (chip_smoke.py 3c
+//   holds them equal). flash_attention_bwd.cu reads both: P = 2^(S c -
+//   lse) without a row pass, and D = rowsum(dO * O32).
 // - What holds it back (chip_smoke phase 7, PERF.md): per 96-key tile a
 //   consumer spends about as long in the softmax and the split on the
 //   CUDA cores (one warp per scheduler, latency-bound) as in its two
@@ -123,33 +132,14 @@
 // Both routes take strided q, k, v (last dimension contiguous), so the
 // model passes its [B,S,H,hd] projections without a transpose; the bf16
 // route needs 16-byte aligned bases and strides (the wrapper checks).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, the P split, the tensor-map encoder
+
 namespace {
-
-constexpr int kMaxDevices = 64;  // shared-memory opt-ins are kept per device
-
-struct Strides {
-  long long b, h, s;
-};
-
-// Raises the dynamic shared-memory limit of `kern` to `bytes` on the
-// current device, once per device and instantiation, at the first launch
-// there (before any graph capture).
-template <typename Kernel>
-cudaError_t opt_in(Kernel kern, int bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
 
 // ===================== float32: CUDA cores =====================
 namespace f32 {
@@ -338,8 +328,6 @@ namespace tc {
 constexpr int kStages = 2;         // depth of the K ring and of the V ring
 constexpr int kProducerRegs = 40;  // setmaxnreg targets (multiples of 8)
 constexpr int kConsumerRegs = 232;
-constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16 head-dim values
-constexpr long long kSpinLimit = 1ll << 26;  // a deadlocked wait traps instead of hanging
 
 // Tiles and threads of the instance for head dims up to HDP. hd 16-128:
 // two consumer warpgroups of 64 query rows (setmaxnreg 232) and a
@@ -366,199 +354,6 @@ struct Cfg<256> {
   static constexpr int kThreads = kConsumers;  // no producer role
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > kSpinLimit) __trap();
-  }
-}
-
-// One TMA box of the 4-D map (hd, S, heads, B) into shared memory,
-// completing its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d,
-                                         int s, int head, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s), "r"(head), "r"(b), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma operands
-// across the asynchronous issue / wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// m64nNk16, f32 += bf16 * bf16. ss: A and B from shared memory (both
-// K-major); rs: A from registers, B from shared memory transposed
-// (MN-major). scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
 
 // S tile: m64 x BK keys, both operands from shared memory
 template <int BK>
@@ -568,17 +363,6 @@ __device__ __forceinline__ void mma_ss(float (&d)[BK / 2], uint64_t da, uint64_t
   else wgmma_ss_n80(d, da, db, scale_d);
 }
 
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 256) wgmma_rs_n256(d, a, db, 1);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
-  else wgmma_rs_n64(d, a, db, 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Shared memory: Q [HDP/64][kBQ][64], then kStages K tiles and kStages V
 // tiles, each [HDP/64][kBK][64] (128-byte swizzled rows, every box
@@ -594,13 +378,6 @@ struct Layout {
   static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
 };
 
-// 2^x, flushed to 0 below 2^-126 (x <= 0 here: a weight that small
-// is 0 to the float32 sum it enters), ex2(-inf) = 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Per-thread state of one consumer warpgroup's 64 query rows. The m64nN
 // accumulator fragment puts register 4j + 2i + e at row r0 + 8i, column
@@ -664,22 +441,6 @@ struct Softmax {
   }
 };
 
-// P = hi + lo in bf16, laid out as the A fragments of P.V (for 16-bit
-// types the accumulator layout is the A layout).
-template <int BK>
-__device__ __forceinline__ void split_p(const float (&p)[BK / 2], uint32_t (&hi)[BK / 16][4],
-                                        uint32_t (&lo)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float p0 = p[8 * kk + 2 * r], p1 = p[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
-      const float2 hf = __bfloat1622float2(h2);
-      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[kk][r] = pack_bf16(p0 - hf.x, p1 - hf.y);
-    }
-}
 
 template <int HDP>
 __device__ __forceinline__ void rescale(float (&o)[HDP / 2], const float (&alpha)[2]) {
@@ -730,12 +491,18 @@ __device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
   wgmma_commit();
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
-attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int H,
-             int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
-             float scale_log2) {
+// The body of attention_tc (hd <= 128) and of attention_tc_stats, which
+// also writes the backward's statistics (`RowStats`): each its own kernel,
+// so a call without them runs PR 31's code. The maps are the kernels'
+// __grid_constant__ parameters, passed by reference (TMA reads them there).
+template <int HDP, bool kStats>
+__device__ __forceinline__ void attention_body(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                                               const CUtensorMap& vmap,
+                                               __nv_bfloat16* __restrict__ out,
+                                               float* __restrict__ lse, long long lse_b,
+                                               long long lse_h, float* __restrict__ o32, int H,
+                                               int K, int Sq, int Skv, int hd, Strides os,
+                                               int mode, int prefix_len, float scale_log2) {
   using L = Layout<HDP>;
   constexpr int kBQ = Cfg<HDP>::kBQ, kBK = Cfg<HDP>::kBK, kConsumers = Cfg<HDP>::kConsumers;
   constexpr int kAtoms = HDP / 64;  // 64-wide head-dim boxes per row
@@ -843,7 +610,10 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       release(empty_v + 8 * s);
     }
 
-    // epilogue: the row sums over the quad, O / max(l, 1e-30), bf16 pairs
+    // epilogue: the row sums over the quad, O / max(l, 1e-30), bf16 pairs;
+    // when asked, the backward's statistics: the row's log-sum-exp in the
+    // log2 domain of the exponent above (m c + log2 l, +inf for a row
+    // without a key: its weights are then exactly 0) and O before rounding
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float l = sm.l[i];
@@ -853,15 +623,43 @@ attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       if (row >= Sq) continue;
       const float den = fmaxf(l, 1e-30f);
       __nv_bfloat16* orow = out + b * os.b + h * os.h + row * os.s;
+      float* frow = o32 + ((static_cast<long long>(b) * H + h) * Sq + row) * hd;
+      if (kStats && qd == 0)
+        lse[b * lse_b + h * lse_h + row] = l > 0.0f ? sm.m[i] * scale_log2 + log2f(l) : INFINITY;
 #pragma unroll
       for (int j = 0; j < HDP / 8; ++j) {
         const int col = 8 * j + 2 * qd;
-        if (col < hd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
+        if (col < hd) {
+          const float x0 = o[4 * j + 2 * i] / den, x1 = o[4 * j + 2 * i + 1] / den;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
+          if constexpr (kStats) *reinterpret_cast<float2*>(frow + col) = make_float2(x0, x1);
+        }
       }
     }
   }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
+attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ lse, long long lse_b, long long lse_h, float* __restrict__ o32,
+             int H, int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
+             float scale_log2) {
+  attention_body<HDP, false>(qmap, kmap, vmap, out, lse, lse_b, lse_h, o32, H, K, Sq, Skv, hd, os,
+                             mode, prefix_len, scale_log2);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
+attention_tc_stats(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, long long lse_b, long long lse_h,
+                   float* __restrict__ o32, int H, int K, int Sq, int Skv, int hd, Strides os,
+                   int mode, int prefix_len, float scale_log2) {
+  attention_body<HDP, true>(qmap, kmap, vmap, out, lse, lse_b, lse_h, o32, H, K, Sq, Skv, hd, os,
+                            mode, prefix_len, scale_log2);
 }
 
 // hd 256: two consumer warpgroups of 64 query rows each and no producer
@@ -875,7 +673,8 @@ __global__ void __launch_bounds__(Cfg<256>::kThreads, 1)
 attention_tc<256>(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                  int H, int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
+                  float* __restrict__, long long, long long, float* __restrict__, int H, int K,
+                  int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
                   float scale_log2) {
   constexpr int HDP = 256;
   using L = Layout<HDP>;
@@ -1021,59 +820,26 @@ attention_tc<256>(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime,
-// so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-constexpr int kEncodeError = 100000;  // returned as kEncodeError + CUresult
+// What the backward reads from a forward call (bf16, hd <= 128): each
+// row's log-sum-exp at lse[b * lse_b + h * lse_h + i] and the output
+// before rounding, o32 [B, H, Sq, hd] contiguous; null pointers: neither.
+struct RowStats {
+  float* lse;
+  long long lse_b, lse_h;
+  float* o32;
+};
 
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-D map (hd, S, heads, B) of a strided bf16 view; boxes of 64
-// head-dim values x `rows` positions, zeros past either end.
-int encode(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B, Strides st,
-           int rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
-}
-
-template <int HDP>
-int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
-               int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os, int mode,
-               int prefix_len, float scale, cudaStream_t stream) {
+template <int HDP, bool kStats>
+int launch_kernel(const void* q, const void* k, const void* v, void* out, RowStats rs, int B,
+                  int H, int K, int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs,
+                  Strides os, int mode, int prefix_len, float scale, cudaStream_t stream) {
   using L = Layout<HDP>;
   using C = Cfg<HDP>;
-  auto kern = attention_tc<HDP>;
+  auto kern = [] {
+    if constexpr (kStats) return attention_tc_stats<HDP>;
+    else return attention_tc<HDP>;
+  }();
   static bool opted_in[kMaxDevices] = {};
   cudaError_t err = opt_in(kern, L::kBytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1099,24 +865,40 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(B * H, (Sq + C::kBQ - 1) / C::kBQ);
   const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   kern<<<grid, C::kThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
-                                              static_cast<__nv_bfloat16*>(out), H, K, Sq, Skv, hd,
-                                              os, mode, prefix_len, scale_log2);
+                                              static_cast<__nv_bfloat16*>(out), rs.lse, rs.lse_b,
+                                              rs.lse_h, rs.o32, H, K, Sq, Skv, hd, os, mode,
+                                              prefix_len, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(int hd, const void* q, const void* k, const void* v, void* out, int B, int H, int K,
-           int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os, int mode,
-           int prefix_len, float scale, cudaStream_t s) {
+template <int HDP>
+int launch_hdp(const void* q, const void* k, const void* v, void* out, RowStats rs, int B, int H,
+               int K, int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os,
+               int mode, int prefix_len, float scale, cudaStream_t stream) {
+  if constexpr (HDP <= 128) {
+    if (rs.lse != nullptr)
+      return launch_kernel<HDP, true>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os,
+                                      mode, prefix_len, scale, stream);
+  }
+  return launch_kernel<HDP, false>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode,
+                                   prefix_len, scale, stream);
+}
+
+int launch(int hd, const void* q, const void* k, const void* v, void* out, RowStats rs, int B,
+           int H, int K, int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
+           int mode, int prefix_len, float scale, cudaStream_t s) {
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)  // hd 16 and 32 ride in 64-wide boxes, zero-padded by the TMA
-    return launch_hdp<64>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
-                          scale, s);
+    return launch_hdp<64>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode,
+                          prefix_len, scale, s);
   if (hd == 128)
-    return launch_hdp<128>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
-                           scale, s);
-  return launch_hdp<256>(q, k, v, out, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode, prefix_len,
-                         scale, s);
+    return launch_hdp<128>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode,
+                           prefix_len, scale, s);
+  if (rs.lse != nullptr || rs.o32 != nullptr)  // the backward has no hd 256 instance
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hdp<256>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode,
+                         prefix_len, scale, s);
 }
 
 }  // namespace tc
@@ -1125,24 +907,33 @@ int launch(int hd, const void* q, const void* k, const void* v, void* out, int B
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). mode: 0
 // causal, 1 prefix, 2 full. Strides are in elements, [b, h, s] for each
-// of q, k, v, out; the head dimension is contiguous. hd must be 16, 32,
-// 64, 128 or 256. For bf16, q, k, v need 16-byte aligned bases and strides.
+// of q, k, v, out, then lse's [b, h]; the head dimension is contiguous. hd
+// must be 16, 32, 64, 128 or 256. For bf16, q, k, v need 16-byte aligned
+// bases and strides. lse and o32 (the backward's statistics, see
+// tc::RowStats) are both null or both given; only bf16 at hd <= 128
+// writes them.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int dtype, int B, int H, int K, int Sq, int Skv, int hd,
-                                      const long long* strides, int mode, int prefix_len,
-                                      float scale, void* stream) {
+                                      void* lse, void* o32, int dtype, int B, int H, int K,
+                                      int Sq, int Skv, int hd, const long long* strides,
+                                      int mode, int prefix_len, float scale, void* stream) {
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
+  const tc::RowStats rs{static_cast<float*>(lse), strides[12], strides[13],
+                        static_cast<float*>(o32)};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if ((lse == nullptr) != (o32 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return f32::launch(hd, q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len,
                        scale, s);
-  return tc::launch(hd, q, k, v, out, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len, scale, s);
+  }
+  return tc::launch(hd, q, k, v, out, rs, B, H, K, Sq, Skv, qs, ks, vs, os, mode, prefix_len,
+                    scale, s);
 }
 
 extern "C" const char* repro_error_string(int status) {
-  if (status >= tc::kEncodeError) return "cuTensorMapEncodeTiled refused the tensor map";
+  if (status >= kEncodeError) return "cuTensorMapEncodeTiled refused the tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

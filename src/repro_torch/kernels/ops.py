@@ -68,22 +68,33 @@ class _FlashAttention(torch.autograd.Function):
     """Forward: `flash_attention_plain` / `flash_attention_cuda`; backward:
     `flash_attention_bwd_plain` / `flash_attention_bwd_cuda`, both by
     `_pick`. q, k, v are saved only when one of them needs a gradient, so
-    a call without autograd (serving) saves nothing."""
+    a call without autograd (serving) saves nothing and asks for nothing.
+    Under autograd the bf16 kernel also writes what the bf16 backward
+    kernel reads, each row's log-sum-exp and the float32 output (`stats`),
+    and those are saved too (hd 16-128: the backward has no hd 256
+    instance)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask_mode, prefix_len):
         fn = _pick(q, _fa.flash_attention_plain, _fa.flash_attention_cuda, "flash_attention")
-        if any(ctx.needs_input_grad[:3]):
-            ctx.save_for_backward(q, k, v)
+        grad = any(ctx.needs_input_grad[:3])
         ctx.mask_mode, ctx.prefix_len = mask_mode, prefix_len
+        if (grad and fn is _fa.flash_attention_cuda and q.dtype == torch.bfloat16
+                and q.shape[-1] in _fa.BWD_HEAD_DIMS):
+            out, lse, o32 = fn(q, k, v, mask_mode=mask_mode, prefix_len=prefix_len, stats=True)
+            ctx.save_for_backward(q, k, v, lse, o32)
+            return out
+        if grad:
+            ctx.save_for_backward(q, k, v)
         return fn(q, k, v, mask_mode=mask_mode, prefix_len=prefix_len)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *stats = ctx.saved_tensors
         fn = _pick(q, _fa.flash_attention_bwd_plain, _fa.flash_attention_bwd_cuda,
                    "flash_attention_bwd")
-        dq, dk, dv = fn(q, k, v, dout, mask_mode=ctx.mask_mode, prefix_len=ctx.prefix_len)
+        kw = dict(zip(("lse", "o32"), stats))
+        dq, dk, dv = fn(q, k, v, dout, mask_mode=ctx.mask_mode, prefix_len=ctx.prefix_len, **kw)
         return dq, dk, dv, None, None
 
 

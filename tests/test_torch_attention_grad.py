@@ -18,7 +18,10 @@ In bf16 that adds O's rounding to every dS = P * (dP - D); the plain
 path's D = rowsum(P * dP) does not. Both forms are emulated here in
 float32 from bf16 inputs and held against the gradient of the float32
 inputs, with chip_smoke's bf16 gate (error within 1.5x the plain bf16
-path's): the kernel takes rowsum(P * dP), which is the plain path.
+path's): the float32 kernel takes rowsum(P * dP), which is the plain
+path. The bf16 kernel takes a third form, rowsum(dO * O32) over the
+forward's float32 output before its rounding: the same sum as
+rowsum(P * dP) in another order, which holds the gate too.
 """
 import math
 
@@ -143,8 +146,10 @@ def test_backward_cuda_wrapper_refuses_before_building(monkeypatch):
 
 def _emulated_grads(q, k, v, dout, delta):
     """dq, dk, dv in float32 from these inputs, causal, with D either
-    'probs' (rowsum(P * dP)) or 'output' (rowsum(dO * O), O the forward's
-    output rounded to q's dtype), each rounded to its input's dtype."""
+    'probs' (rowsum(P * dP)), 'output' (rowsum(dO * O), O the forward's
+    output rounded to q's dtype) or 'output32' (rowsum(dO * O32), O32 the
+    forward's float32 output before that rounding), each rounded to its
+    input's dtype."""
     B, H, S, hd = q.shape
     K, G, scale = k.shape[1], H // k.shape[1], 1.0 / math.sqrt(hd)
     qs = (q.float() * scale).reshape(B, K, G, S, hd)
@@ -156,8 +161,9 @@ def _emulated_grads(q, k, v, dout, delta):
     if delta == "probs":
         D = (p * dp).sum(-1, keepdim=True)
     else:
-        o = fa.flash_attention_plain(q, k, v).float().reshape(B, K, G, S, hd)
-        D = (g * o).sum(-1, keepdim=True)
+        o = (fa.flash_attention_plain(q, k, v).float() if delta == "output" else
+             fa.flash_attention_plain(q.float(), k.float(), v.float()))
+        D = (g * o.reshape(B, K, G, S, hd)).sum(-1, keepdim=True)
     ds = p * (dp - D)
     dq = (torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * scale).reshape(B, H, S, hd)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qs)
@@ -182,3 +188,21 @@ def test_delta_form_holds_the_bf16_gate(H, K, hd):
     # float32 gradient (dv does not read D)
     assert e_output[0] > e_probs[0] or e_output[1] > e_probs[1]
     assert e_output[2] == e_probs[2]
+
+
+@pytest.mark.parametrize("H,K,hd", [(4, 4, 64), (8, 2, 128)])
+def test_delta_from_the_float32_output_holds_the_bf16_gate(H, K, hd):
+    """The bf16 kernel's D: rowsum(dO * O32), O32 the forward's output
+    before rounding (sum_d dO_d sum_j P_j v_jd = sum_j P_j dP_j)."""
+    (q, k, v, g), _ = _inputs(1, H, K, 512, 512, hd, "bfloat16", seed=hd)
+    exact = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float())
+    plain = fa.flash_attention_bwd_plain(q, k, v, g)
+
+    def errors(grads):
+        return [float((a.float() - b).abs().max()) for a, b in zip(grads, exact)]
+
+    e_plain, e_o32 = errors(plain), errors(_emulated_grads(q, k, v, g, "output32"))
+    for p_, o_ in zip(e_plain, e_o32):
+        assert o_ <= 1.5 * p_
+    e_output = errors(_emulated_grads(q, k, v, g, "output"))
+    assert e_output[0] > e_o32[0] or e_output[1] > e_o32[1]  # O's rounding is what costs

@@ -46,3 +46,23 @@ def test_without_a_card_it_builds_nothing(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ap.main([]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_bwd_edit_applies_each_replacement_once():
+    ap = _module()
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    old = "constexpr int kStages = 2;"
+    assert src.count(old) == 1
+    name, text = ap._edit_source(src, f"stages3={old}=>constexpr int kStages = 3;@@"
+                                      "kThreads = 256;=>kThreads = 256;")
+    assert name == "stages3" and text.count("constexpr int kStages = 3;") == 1
+    assert text.replace("constexpr int kStages = 3;", old) == src
+
+
+@pytest.mark.parametrize("spec", ["nothing", "x=no arrow", "x=kThreads=>k",
+                                  "x=not in the source=>y"])
+def test_bwd_edit_refuses_what_it_cannot_apply_once(spec):
+    ap = _module()
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    with pytest.raises(SystemExit):
+        ap._edit_source(src, spec)
