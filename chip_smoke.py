@@ -417,9 +417,9 @@ ends with all of them and its total ("[wall]"):
    and the count of its SASS's FFMA
    and tf32 tensor-core (HGMMA/HMMA ...TF32) instructions (cuobjdump);
    flash_attention_bwd at the training shape from the forward's
-   statistics (SDPA's backward beside it, the forward with and without
-   the statistics), its issued tensor-core work and the ptxas registers
-   and spills of its three bf16 entries (a spill store fails the run);
+   statistics (SDPA's backward beside it), its issued tensor-core work
+   and the ptxas registers and spills of its three bf16 entries (a spill
+   store fails the run);
    greedy_fill with the QueueLength inputs too, its parts (every budget
    0: no walk; every score non-negative: keys only), each input's longest
    uncertified walk and its exact steps from `fill_walk_profile`, with
@@ -5618,12 +5618,9 @@ def main() -> int:
     tq, tk, tv, tg = (randn((TRAIN_BATCH, 16, TRAIN_SEQ, 64), bf16) for _ in range(4))
     _, lse, o32 = fa.flash_attention_cuda(tq, tk, tv, stats=True)
     bwd = lambda: fa.flash_attention_bwd_cuda(tq, tk, tv, tg, lse=lse, o32=o32)  # noqa: E731
-    ms = graph_ms(bwd, reps=5, inner=2)
-    call_ms = cuda_ms(bwd, reps=5, inner=2)
+    ms = graph_ms(bwd, reps=3, inner=1)
+    call_ms = cuda_ms(bwd, reps=3, inner=1)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(tq, tk, tv, tg), reps=2, inner=1)
-    fwd_ms = graph_ms(lambda: fa.flash_attention_cuda(tq, tk, tv), reps=5, inner=2)
-    fwd_stats_ms = graph_ms(lambda: fa.flash_attention_cuda(tq, tk, tv, stats=True), reps=5,
-                            inner=2)
     lq, lk, lv = (x.detach().requires_grad_(True) for x in (tq, tk, tv))
     lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), tg, retain_graph=True),
@@ -5638,7 +5635,6 @@ def main() -> int:
         nbytes=2 * 7 * B * H * S * hd, nops=5 * 2 * hd * pairs, ops_per_s=BF16_OPS_PER_S,
         library_ms=lib_ms)
     rows[-1]["launches_per_step"] = train_info["per_step"]["flash_attention_bwd"]
-    rows[-1]["forward_ms"] = {"plain_call": fwd_ms[1], "with_stats": fwd_stats_ms[1]}
     bwd_log = built["flash_attention_bwd"][1]
     rows[-1]["ptxas"] = [ln for e in ("bwd_delta", "bwd_dkdv_tc", "bwd_dq_tc")
                          for ln in ptxas_lines(bwd_log, e)]
@@ -5649,9 +5645,8 @@ def main() -> int:
         f"{issued / 1e12:.3f} TFLOP, {issued / BF16_OPS_PER_S * 1e3:.3f} ms at "
         f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; x {rows[-1]['launches_per_step']} layers = "
         f"{ms[1] * rows[-1]['launches_per_step']:.0f} ms of a {train_info['step_ms']:.0f} ms "
-        f"step; SDPA's backward {lib_ms:.3f} ms per eager call ({ms[1] / lib_ms:.2f}x); the "
-        f"forward at this shape {fwd_ms[1]:.5f} ms, with the statistics {fwd_stats_ms[1]:.5f} "
-        f"ms (cold L2); " + " | ".join(rows[-1]["ptxas"]))
+        f"step; SDPA's backward {lib_ms:.3f} ms per eager call ({ms[1] / lib_ms:.2f}x); "
+        + " | ".join(rows[-1]["ptxas"]))
     spills = [int(n) for ln in rows[-1]["ptxas"]
               for n in re.findall(r"(\d+) bytes spill stores", ln)]
     if not spills or any(spills):

@@ -69,12 +69,11 @@
 //   form (MN-major descriptor). While one warpgroup is in its softmax,
 //   the other's products keep the tensor cores busy. The epilogue divides
 //   by max(l, 1e-30) and stores bf16 pairs through the output strides.
-// - The backward's statistics (`attention_tc_stats`, hd <= 128: the same
-//   body with two more stores in its epilogue, launched only when the
-//   caller passes their pointers, as autograd does; a serving call runs
-//   attention_tc, whose code is unchanged): each row's log-sum-exp in the
-//   exponent's log2 domain, m c + log2 l (+inf for a row without a key),
-//   and the float32 output before its rounding (`RowStats`). The bf16
+// - The backward's statistics (hd <= 128): when the caller passes their
+//   pointers, as autograd does, the epilogue also stores each row's
+//   log-sum-exp in the exponent's log2 domain, m c + log2 l (+inf for a
+//   row without a key), and the float32 output before its rounding
+//   (`RowStats`); a serving call passes null and stores neither. The bf16
 //   output's bits are the same with or without them (chip_smoke.py 3c
 //   holds them equal). flash_attention_bwd.cu reads both: P = 2^(S c -
 //   lse) without a row pass, and D = rowsum(dO * O32).
@@ -491,18 +490,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
   wgmma_commit();
 }
 
-// The body of attention_tc (hd <= 128) and of attention_tc_stats, which
-// also writes the backward's statistics (`RowStats`): each its own kernel,
-// so a call without them runs PR 31's code. The maps are the kernels'
-// __grid_constant__ parameters, passed by reference (TMA reads them there).
-template <int HDP, bool kStats>
-__device__ __forceinline__ void attention_body(const CUtensorMap& qmap, const CUtensorMap& kmap,
-                                               const CUtensorMap& vmap,
-                                               __nv_bfloat16* __restrict__ out,
-                                               float* __restrict__ lse, long long lse_b,
-                                               long long lse_h, float* __restrict__ o32, int H,
-                                               int K, int Sq, int Skv, int hd, Strides os,
-                                               int mode, int prefix_len, float scale_log2) {
+// lse and o32: the backward's statistics (`RowStats`), written only when
+// lse is not null (o32 is then given too).
+template <int HDP>
+__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
+attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ lse, long long lse_b, long long lse_h, float* __restrict__ o32,
+             int H, int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
+             float scale_log2) {
   using L = Layout<HDP>;
   constexpr int kBQ = Cfg<HDP>::kBQ, kBK = Cfg<HDP>::kBK, kConsumers = Cfg<HDP>::kConsumers;
   constexpr int kAtoms = HDP / 64;  // 64-wide head-dim boxes per row
@@ -614,6 +610,7 @@ __device__ __forceinline__ void attention_body(const CUtensorMap& qmap, const CU
     // when asked, the backward's statistics: the row's log-sum-exp in the
     // log2 domain of the exponent above (m c + log2 l, +inf for a row
     // without a key: its weights are then exactly 0) and O before rounding
+    const bool stats = lse != nullptr;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float l = sm.l[i];
@@ -623,8 +620,8 @@ __device__ __forceinline__ void attention_body(const CUtensorMap& qmap, const CU
       if (row >= Sq) continue;
       const float den = fmaxf(l, 1e-30f);
       __nv_bfloat16* orow = out + b * os.b + h * os.h + row * os.s;
-      float* frow = o32 + ((static_cast<long long>(b) * H + h) * Sq + row) * hd;
-      if (kStats && qd == 0)
+      float* frow = stats ? o32 + ((static_cast<long long>(b) * H + h) * Sq + row) * hd : nullptr;
+      if (stats && qd == 0)
         lse[b * lse_b + h * lse_h + row] = l > 0.0f ? sm.m[i] * scale_log2 + log2f(l) : INFINITY;
 #pragma unroll
       for (int j = 0; j < HDP / 8; ++j) {
@@ -632,34 +629,11 @@ __device__ __forceinline__ void attention_body(const CUtensorMap& qmap, const CU
         if (col < hd) {
           const float x0 = o[4 * j + 2 * i] / den, x1 = o[4 * j + 2 * i + 1] / den;
           *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
-          if constexpr (kStats) *reinterpret_cast<float2*>(frow + col) = make_float2(x0, x1);
+          if (stats) *reinterpret_cast<float2*>(frow + col) = make_float2(x0, x1);
         }
       }
     }
   }
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
-attention_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-             float* __restrict__ lse, long long lse_b, long long lse_h, float* __restrict__ o32,
-             int H, int K, int Sq, int Skv, int hd, Strides os, int mode, int prefix_len,
-             float scale_log2) {
-  attention_body<HDP, false>(qmap, kmap, vmap, out, lse, lse_b, lse_h, o32, H, K, Sq, Skv, hd, os,
-                             mode, prefix_len, scale_log2);
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(Cfg<HDP>::kThreads, 1)
-attention_tc_stats(const __grid_constant__ CUtensorMap qmap,
-                   const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ lse, long long lse_b, long long lse_h,
-                   float* __restrict__ o32, int H, int K, int Sq, int Skv, int hd, Strides os,
-                   int mode, int prefix_len, float scale_log2) {
-  attention_body<HDP, true>(qmap, kmap, vmap, out, lse, lse_b, lse_h, o32, H, K, Sq, Skv, hd, os,
-                            mode, prefix_len, scale_log2);
 }
 
 // hd 256: two consumer warpgroups of 64 query rows each and no producer
@@ -830,16 +804,13 @@ struct RowStats {
   float* o32;
 };
 
-template <int HDP, bool kStats>
-int launch_kernel(const void* q, const void* k, const void* v, void* out, RowStats rs, int B,
-                  int H, int K, int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs,
-                  Strides os, int mode, int prefix_len, float scale, cudaStream_t stream) {
+template <int HDP>
+int launch_hdp(const void* q, const void* k, const void* v, void* out, RowStats rs, int B, int H,
+               int K, int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os,
+               int mode, int prefix_len, float scale, cudaStream_t stream) {
   using L = Layout<HDP>;
   using C = Cfg<HDP>;
-  auto kern = [] {
-    if constexpr (kStats) return attention_tc_stats<HDP>;
-    else return attention_tc<HDP>;
-  }();
+  auto kern = attention_tc<HDP>;
   static bool opted_in[kMaxDevices] = {};
   cudaError_t err = opt_in(kern, L::kBytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -869,19 +840,6 @@ int launch_kernel(const void* q, const void* k, const void* v, void* out, RowSta
                                               rs.lse_h, rs.o32, H, K, Sq, Skv, hd, os, mode,
                                               prefix_len, scale_log2);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int HDP>
-int launch_hdp(const void* q, const void* k, const void* v, void* out, RowStats rs, int B, int H,
-               int K, int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os,
-               int mode, int prefix_len, float scale, cudaStream_t stream) {
-  if constexpr (HDP <= 128) {
-    if (rs.lse != nullptr)
-      return launch_kernel<HDP, true>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os,
-                                      mode, prefix_len, scale, stream);
-  }
-  return launch_kernel<HDP, false>(q, k, v, out, rs, B, H, K, Sq, Skv, hd, qs, ks, vs, os, mode,
-                                   prefix_len, scale, stream);
 }
 
 int launch(int hd, const void* q, const void* k, const void* v, void* out, RowStats rs, int B,

@@ -81,9 +81,11 @@
 // bwd_dkdv_tc 197 registers at hd 64 and 207 at hd 128, bwd_dq_tc 128 and
 // 164, bwd_delta 31, no spills.
 // Timed at the training shape on an H100 (launch/attention_profile.py,
-// cold L2, in turns with this source; the edits are its --bwd-edit): this
-// design 3.099 ms (1.90 the key pass, 1.04 the query pass, 0.12 D), PR
-// 33's three CUDA-core passes 54.92-54.96 against 3.124-3.137. Dropped:
+// cold L2; each design below was an edited copy of this source, built
+// beside it and timed in turns with it; the copies are not kept): this
+// design 3.099 ms (1.90 the key pass, 1.04 the query pass, 0.12 D); the
+// float32 route's three passes run on bf16 inputs (commit 0dde21f's
+// only route) 54.92-54.96 against 3.124-3.137. Dropped:
 // three stages a ring, 3.154-3.177 against 3.124-3.131; 32-row query
 // tiles in the key pass at hd 64 (143 registers), 3.829-3.848 against
 // 3.110-3.139; one query-pass block an SM, 3.319-3.385 against
@@ -92,15 +94,15 @@
 // while dP^T's product runs (branch-free masks on every tile); K and V
 // (or Q and dO) held as register A fragments for the first products (its
 // one build also gave wrong gradients, unexamined).
-// Where the time goes (edits that miss the gate, for the measurement
+// Where the time goes (copies that miss the gate, for the measurement
 // only): without the lo products 2.491-2.502 against 3.111-3.113 (the
 // split costs 0.61 ms); without the key pass's P and dS arithmetic
 // 2.809-2.848 against 3.100-3.124, without the query pass's 2.829-2.832
 // against 3.131-3.147. The rest is the tensor cores: the issued work runs
 // at about 45% of the peak in m64n64 products.
 //
-// float32 route (`f32`, only float32 inputs): PR 33's three passes on the
-// CUDA cores, FA2's structure:
+// float32 route (`f32`, only float32 inputs): the first design's three
+// passes on the CUDA cores, FA2's structure:
 // 1. `bwd_stats`: one block of 128 threads per (64 query rows, head, batch)
 //    recomputes each row's max m, 1/l and D over 32-key tiles (an online
 //    softmax, as the forward runs it) into a float32 [3, B, H, Sq] scratch.

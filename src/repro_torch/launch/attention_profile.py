@@ -2,7 +2,7 @@
 two versions of the package on one card.
 
     python3 src/repro_torch/launch/attention_profile.py [--src DIR] [--label NAME]
-        [--split] [--old-bwd FILE] [--bwd-edit NAME=OLD=>NEW[@@OLD=>NEW...]]...
+        [--split] [--old-bwd FILE]
 
 `--src DIR` puts DIR first on the module path before `repro_torch` is
 imported (by default this checkout's `src`), so the script times the
@@ -29,19 +29,13 @@ read before each call, its own time subtracted) and warm (back to back):
     on K 16, S 4096, hd 64, causal), from the forward's statistics, with
     its three kernels' device times from torch.profiler, and the forward
     there with and without the statistics;
-  - with `--old-bwd FILE`, a flash_attention_bwd.cu of PR 33's interface
-    (the float32 scratch, no statistics: the CUDA-core kernel of commit
-    0dde21f) built beside the package and timed against the package's
+  - with `--old-bwd FILE`, a flash_attention_bwd.cu with the interface of
+    commit 0dde21f (the float32 scratch, no statistics: its CUDA-core
+    kernel) built beside the package and timed against the package's
     backward in turns (old, new, new, old) at that shape. The copy is
     taken from git before the run, into the ignored build directory, as
     `git show 0dde21f:src/repro_torch/kernels/csrc/flash_attention_bwd.cu
-    > build/pr33_flash_attention_bwd.cu`;
-  - with `--bwd-edit NAME=OLD=>NEW` (repeatable; several replacements
-    joined by `@@`, each OLD found exactly once), an edited copy of the
-    package's flash_attention_bwd.cu built beside it and timed against it
-    in turns (package, edit, edit, package) at that shape, with its
-    kernels' times, ptxas report and whether it holds the gate (a
-    diagnostic edit, such as dropping a product, need not);
+    > build/old_flash_attention_bwd.cu`.
 Every kernel is held to its plain version (chip_smoke.py's tolerances:
 bf16 1e-4 + 2^-7 |plain| forward; each backward gradient's error from the
 float32 plain gradient within 1.5x the plain bf16 path's) before it is
@@ -176,19 +170,14 @@ def _held_bwd(torch, fa, got, q, k, v, g) -> list:
 
 
 def _old_bwd(torch, build, fa, path: Path, q, k, v, g):
-    """PR 33's backward (its C interface: a float32 [3, B, H, S] scratch,
-    no statistics) built from `path` beside the package's libraries and
-    loaded on its own -> (a call on q, k, v, g, its outputs, ptxas)."""
-    edited = build.build_dir().parent / "attention_profile" / "old_bwd"
-    edited.mkdir(parents=True, exist_ok=True)
-    (edited / "flash_attention_bwd.cu").write_text(path.read_text())
-    csrc, build.CSRC = build.CSRC, edited
-    build._LIBS.pop("flash_attention_bwd", None)
+    """Commit 0dde21f's backward (its C interface: a float32 [3, B, H, S]
+    scratch, no statistics) built from `path` beside the package's
+    libraries and loaded on its own -> (a call on q, k, v, g that returns
+    its gradients, ptxas's report)."""
     try:
-        log = build.build_all(("flash_attention_bwd",))["flash_attention_bwd"][1]
+        log = _use_edited(build, "flash_attention_bwd", path.read_text(), "old_bwd")
         lib = build.load("flash_attention_bwd")
     finally:
-        build.CSRC = csrc
         _use_package(build, "flash_attention_bwd")  # the wrappers keep the package's
     lib.flash_attention_bwd_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
@@ -230,14 +219,11 @@ def _cut_source(src: str, kind: str) -> str:
 
 def _use_edited(build, name: str, text: str, tag: str) -> str:
     """Builds `text` as csrc/<name>.cu through build.py (the library keyed
-    by its source's hash, beside the package's; the package's csrc/
-    headers copied beside it) and makes the wrappers launch it until
-    `_use_package`; returns ptxas's report."""
+    by its source's hash, beside the package's) and makes the wrappers
+    launch it until `_use_package`; returns ptxas's report."""
     edited = build.build_dir().parent / "attention_profile" / tag
     edited.mkdir(parents=True, exist_ok=True)
     (edited / f"{name}.cu").write_text(text)
-    for header in build.CSRC.glob("*.cuh"):
-        (edited / header.name).write_text(header.read_text())
     csrc, build.CSRC = build.CSRC, edited
     try:
         build._LIBS.pop(name, None)
@@ -251,20 +237,6 @@ def _use_edited(build, name: str, text: str, tag: str) -> str:
 def _use_package(build, name: str) -> None:
     build._LIBS.pop(name, None)
     build.load(name)
-
-
-def _edit_source(src: str, spec: str) -> tuple:
-    """`NAME=OLD=>NEW[@@OLD=>NEW...]` applied to `src` -> (NAME, edited
-    text); each OLD must occur exactly once."""
-    name, _, edits = spec.partition("=")
-    if not name or not edits:
-        raise SystemExit(f"attention_profile: --bwd-edit {spec!r} is not NAME=OLD=>NEW")
-    for edit in edits.split("@@"):
-        old, sep, new = edit.partition("=>")
-        if not sep or src.count(old) != 1:
-            raise SystemExit(f"attention_profile: --bwd-edit {name}: {old!r} not found once")
-        src = src.replace(old, new)
-    return name, src
 
 
 def _split(torch, build, args_fn) -> dict:
@@ -281,11 +253,10 @@ def _split(torch, build, args_fn) -> dict:
     return res
 
 
-def _train_bwd(torch, build, fa, randn, old_bwd, edits) -> dict:
+def _train_bwd(torch, build, fa, randn, old_bwd) -> dict:
     """The backward at the training shape: the package's, its kernels,
-    the forward with and without the statistics, with `old_bwd` the two
-    backwards in turns (old, new, new, old), and each of `edits` (specs
-    of `_edit_source`) in turns with the package's."""
+    the forward with and without the statistics, and with `old_bwd` the
+    two backwards in turns (old, new, new, old)."""
     H, K, S, hd = TRAIN
     q, g = randn(B, H, S, hd), randn(B, H, S, hd)
     k, v = randn(B, K, S, hd), randn(B, K, S, hd)
@@ -307,25 +278,6 @@ def _train_bwd(torch, build, fa, randn, old_bwd, edits) -> dict:
                             for ln in _ptxas(log, e, None)]
         out["turns"] = [(name, _times(torch, old if name == "old" else new, reps=3, inner=1))
                         for name in ("old", "new", "new", "old")]
-    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    out["edits"] = {}
-    for spec in edits:
-        name, text = _edit_source(src, spec)
-        log = _use_edited(build, "flash_attention_bwd", text, f"bwd_{name}")
-        try:
-            held = _held_bwd(torch, fa, new(), q, k, v, g)
-        except SystemExit as e:
-            held = f"misses the gate: {e}"
-        entry = {"held": held, "kernels_ms": _kernel_ms(torch, new),
-                 "ptxas": [ln for e in BWD_ENTRIES for ln in _ptxas(log, e, None)], "turns": []}
-        for turn in ("package", name, name, "package"):
-            if turn == "package":
-                _use_package(build, "flash_attention_bwd")
-            else:
-                _use_edited(build, "flash_attention_bwd", text, f"bwd_{name}")
-            entry["turns"].append((turn, _times(torch, new, reps=5, inner=2)))
-        _use_package(build, "flash_attention_bwd")
-        out["edits"][name] = entry
     return out
 
 
@@ -335,9 +287,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this")
     ap.add_argument("--split", action="store_true", help="also decode_tc<256>'s split")
     ap.add_argument("--old-bwd", default=None, type=Path,
-                    help="a flash_attention_bwd.cu of PR 33's interface to time in turns")
-    ap.add_argument("--bwd-edit", action="append", default=[],
-                    help="NAME=OLD=>NEW[@@OLD=>NEW...]: an edited flash_attention_bwd.cu to time")
+                    help="a flash_attention_bwd.cu of commit 0dde21f to time in turns")
     args = ap.parse_args(argv)
     src = Path(args.src).resolve() if args.src else Path(__file__).resolve().parents[2]
     sys.path.insert(0, str(src))
@@ -387,7 +337,7 @@ def main(argv=None) -> int:
             line["decode_hd256"]["split"] = _split(torch, build, dec)
         del qd, kd, vd
     if "stats" in inspect.signature(fa.flash_attention_cuda).parameters:
-        line["bwd_train"] = _train_bwd(torch, build, fa, randn, args.old_bwd, args.bwd_edit)
+        line["bwd_train"] = _train_bwd(torch, build, fa, randn, args.old_bwd)
     else:  # a package before the bf16 backward read the forward's statistics
         line["bwd_train"] = "not timed: this package's forward writes no statistics"
     print(json.dumps(line), flush=True)
