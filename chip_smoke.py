@@ -35,17 +35,20 @@ width and one layer, in bf16 at the same batch and lengths; VLM serving,
 embeddings and text tokens, for PaliGemma-3B at full size in bf16 at the
 same batch and lengths; enc-dec serving, `Model.prefill` on a batch of
 speech frame embeddings and `Model.decode_step`, for SeamlessM4T-medium at
-full size in bf16 at the same batch and generated tokens.
+full size in bf16 at the same batch and generated tokens; training,
+`Model.loss` under `launch.train.train_loop`, for Qwen1.5-0.5B and
+mamba2-1.3B at full size in bf16, 8 x 4096 tokens a step.
 Phases, one or more lines each, run in the order 1-4c, 4d, 4e, 4f, 4g,
-4h, 4i, 5-6, 10, 11, 12, 13, 8, 9, 7 (phase 7 times every kernel with the
-launch counts of all paths; phases 10, 11, 12 and 13 free their models
-before phase 8 builds GLM-4-9B, which phase 7 keeps). Each phase prints its wall
+4h, 4i, 5-6, 10, 11, 12, 13, 13s, 8, 9, 7 (phase 7 times every kernel
+with the launch counts of all paths; phases 10, 11, 12, 13 and 13s free
+their models before phase 8 builds GLM-4-9B, which phase 7 keeps). Each phase prints its wall
 seconds on a line of its own when it ends ("[<phase> wall]"), and the run
 ends with all of them and its total ("[wall]"):
 
 1. device: name, compute capability (must be 9.0) and the nvidia-smi
    name / power limit;
-2. build: the ten kernels compiled from csrc/ with nvcc, in parallel;
+2. build: every kernel source in csrc/ (`build.SOURCES`) compiled with
+   nvcc, in parallel;
 3. kernels vs plain versions on the card, bitwise, at the main paths'
    shapes and at small, ragged and degenerate ones (route_scores in both
    of its rounding modes); for greedy_fill also the classified walk's
@@ -147,6 +150,12 @@ ends with all of them and its total ("[wall]"):
    16-byte boundary (rows moved 4 bytes at a time); at the prefill shape
    y_diag and S_c bitwise equal to the plain version's (the kernel sums
    in its order: phase 9's float32 gate needs the same bits);
+   ssd_chunk_intra_bwd vs its plain version within the same bound (each
+   output's sum|terms| from `ssd_chunk_intra_bwd_terms`) at mamba2-1.3B's
+   training shape (B 8, nc 16, l 256, H 64, P 64, N 128) with the init's,
+   strong and weak decays, l 1, 16, 17, 255, P 16 and N 16, B = nc = 1, a
+   ragged shape, N 256, a zero dS and a zero dy; every case twice,
+   bitwise equal;
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
    counters checked (threefry_draw once a run: the arrivals' 64 slots
@@ -396,6 +405,13 @@ ends with all of them and its total ("[wall]"):
    tokens, one step a task, one task a cloud a slot) with carbon_scores
    and greedy_fill once a slot; (e) kWh a task from the step time and
    the power limit beside `lm_task_energy_kwh`;
+13s. training, mamba2-1.3B (`configs/mamba2_1_3b.py`, 1,446,205,440
+   parameters, 48 layers, the port's seeded bf16 init) at the same
+   batch, `train_steps` (a)-(c) as phase 13's: the kernels' gradients vs
+   the plain SSD step and its plain backward swapped in
+   (`ops.ssd_chunk_intra_with`) on its first 12 layers, 96 ssd_chunk_intra (48 and
+   48 remat recomputes) and 48 ssd_chunk_intra_bwd launches a step, the
+   step's bound with the SSD steps' float32 work;
 7. each kernel's median time (CUDA events) at its main path's shapes
    beside its bound, its plain version's time and, for the attention
    kernels, `F.scaled_dot_product_attention`'s (timed here only; the port
@@ -419,7 +435,9 @@ ends with all of them and its total ("[wall]"):
    flash_attention_bwd at the training shape from the forward's
    statistics (SDPA's backward beside it), its issued tensor-core work
    and the ptxas registers and spills of its three bf16 entries (a spill
-   store fails the run);
+   store fails the run); ssd_chunk_intra_bwd at phase 13s's training
+   shape (its four launches timed together; no PyTorch call computes it)
+   with its float32 and bytes' bounds and its ptxas registers and spills;
    greedy_fill with the QueueLength inputs too, its parts (every budget
    0: no walk; every score non-negative: keys only), each input's longest
    uncertified walk and its exact steps from `fill_walk_profile`, with
@@ -816,6 +834,10 @@ LM_CACHE = LM_PROMPT + LM_GEN + 1
 # `paper_workloads.lm_workloads` costs a task by (8 x 4096 tokens a step),
 # and runs the GreenOrchestrator with two such jobs at 8 x 1024
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1_5_0_5b", 8, 4096, 4
+# phase 13s trains mamba2-1.3B (SSM_ARCH) at full size on the same bundle,
+# its kernels-vs-plain gradients (a) on the first COMPARE_LAYERS layers:
+# at full depth too every float32 leaf held a third of the gate (PERF.md),
+# but those four passes cost 28 s more of a run near its 1,200 s limit
 ORCH_SEQ, ORCH_SLOTS = 1024, 4
 # teacher-forced logits, kernels vs plain attention: with float32
 # activations (the same bf16 weights) both kernels agree with their plain
@@ -974,7 +996,8 @@ def fail(msg: str) -> None:
 
 class PhaseClock:
     """Each phase's wall seconds, printed on a line of its own when the
-    next phase starts (`start`) or the run ends (`stop`)."""
+    next phase starts (`start`) or the run ends (`stop`), with the memory
+    still allocated on the card then (what a phase did not free)."""
 
     def __init__(self):
         self.tag, self.t0, self.secs = None, None, {}
@@ -983,7 +1006,8 @@ class PhaseClock:
         now = time.perf_counter()
         if self.tag is not None:
             self.secs[self.tag] = now - self.t0
-            say(f"[{self.tag} wall] phase {self.tag}: {self.secs[self.tag]:.1f} s")
+            say(f"[{self.tag} wall] phase {self.tag}: {self.secs[self.tag]:.1f} s; "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
         self.tag, self.t0 = tag, now
 
     def stop(self) -> None:
@@ -2188,76 +2212,155 @@ def attention_bwd_cases(fa, randn, max_err):
     torch.cuda.empty_cache()
 
 
+def ssd_bwd_cases(sdc, inputs, randn, max_err):
+    """Phase 3d's backward cases: ssd_chunk_intra_bwd_cuda vs its plain
+    version on the card, every output within SSD_TOL x max(1, sum|terms|)
+    + SSD_TOL x |plain| (`ssd_chunk_intra_bwd_terms`: the terms of each
+    output's sums, the reverse prefix sum of da included), every case run
+    twice and the two bitwise equal (no atomics); max_err collects the
+    largest error. `inputs(B, nc, l, H, P, N, decays)` gives a, x, Bm, Cm;
+    the cotangents are seeded normals (zero where the case says)."""
+    f32 = torch.float32
+    max_err["ssd_chunk_intra_bwd"] = 0.0
+    cases = [  # B, nc, l, H, P, N, decays, cotangent
+        (TRAIN_BATCH, TRAIN_SEQ // 256, 256, 64, 64, 128, "init", ""),  # mamba2-1.3B's training
+        (TRAIN_BATCH, TRAIN_SEQ // 256, 256, 64, 64, 128, "strong", ""),
+        (TRAIN_BATCH, TRAIN_SEQ // 256, 256, 64, 64, 128, "weak", ""),
+        (2, 3, 1, 5, 16, 16, "init", ""),       # l 1
+        (2, 3, 16, 5, 16, 16, "strong", ""),    # l 16, P 16, N 16
+        (2, 3, 17, 5, 16, 16, "weak", ""),      # l 17: a ragged 64-row tile and scan block
+        (1, 2, 255, 12, 64, 128, "init", ""),   # l 255: the last tile ragged
+        (1, 1, 256, 64, 64, 128, "weak", ""),   # B = nc = 1
+        (1, 1, 100, 7, 33, 40, "strong", ""),   # ragged everything
+        (1, 2, 256, 40, 64, 256, "init", ""),   # N 256: four 64-state tiles
+        (2, 2, 65, 8, 64, 128, "init", "dS"),   # a zero dS (and dtot)
+        (2, 2, 65, 8, 64, 128, "weak", "dy"),   # a zero dy
+    ]
+    for B, nc, l, H, P, N, decays, zero in cases:
+        a, x, Bm, Cm = inputs(B, nc, l, H, P, N, decays)
+        dy = randn((B, nc, l, H, P), f32) * (zero != "dy")
+        dS, dtot = (randn(shape, f32) * (zero != "dS") for shape in ((B, nc, H, N, P), (B, nc, H)))
+        args = (a, x, Bm, Cm, dy, dS, dtot)
+        label = f"B{B} nc{nc} l{l} H{H} P{P} N{N} {decays} decays" + (f", zero {zero}" if zero else "")
+        got = sdc.ssd_chunk_intra_bwd_cuda(*args)
+        again = sdc.ssd_chunk_intra_bwd_cuda(*args)
+        want = sdc.ssd_chunk_intra_bwd_plain(*args)
+        terms = sdc.ssd_chunk_intra_bwd_terms(*args)
+        torch.cuda.synchronize()
+        if not all(same_bits(u, v) for u, v in zip(got, again)):
+            fail(f"ssd_chunk_intra_bwd {label}: two runs differ")
+        parts = []
+        for part, gv, wv, tv in zip(("da", "dx", "dB", "dC"), got, want, terms):
+            diff = (gv - wv).abs()
+            err = float(diff.max())
+            over = float((diff / (SSD_TOL * tv.clamp_min(1.0) + SSD_TOL * wv.abs())).max())
+            if not (torch.isfinite(gv).all() and over <= 1.0):
+                fail(f"ssd_chunk_intra_bwd {label}: {part} max abs err {err:.3e} beyond "
+                     f"{SSD_TOL:g} * max(1, sum|terms|) + {SSD_TOL:g}*|plain| ({over:.3f})")
+            max_err["ssd_chunk_intra_bwd"] = max(max_err["ssd_chunk_intra_bwd"], err)
+            parts.append(f"{part} {err:.3e} ({over:.3f} of the limit; {int((gv != wv).sum())} of "
+                         f"{gv.numel()} entries differ)")
+        say(f"[3d kernels] ssd_chunk_intra_bwd {label}: max abs err vs plain " + ", ".join(parts)
+            + "; two runs bitwise equal")
+        del args, got, again, want, terms, a, x, Bm, Cm, dy, dS, dtot
+    torch.cuda.empty_cache()
+
+
+def ssd_work(B, nc, l, H, P, N) -> tuple:
+    """(operations, bytes) of ssd_chunk_intra's function: y over the
+    causal (i, j) pairs, S_c over every (j, n) pair, the scores C.B once
+    per (batch, chunk) over the causal pairs, the decay weights and the
+    decayed x; a, x, B, C read and y, S_c, total written once, float32.
+    Also the products alone (the work a 3xTF32 route would triple)."""
+    pairs = l * (l + 1) // 2
+    products = B * nc * (H * pairs * 2 * P + H * l * P * 2 * N + pairs * 2 * N)
+    nops = products + B * nc * (H * pairs + H * l * P)
+    nbytes = 4 * (2 * B * nc * l * H * P + B * nc * l * H + 2 * B * nc * l * N
+                  + B * nc * H * N * P + B * nc * H)
+    return nops, nbytes, products
+
+
+def ssd_bwd_work(B, nc, l, H, P, N) -> tuple:
+    """(operations, bytes) of ssd_chunk_intra_bwd's function, 2 an FMA:
+    R and the dy term of dx over the causal pairs (P deep), U and the e x
+    dS term of dB (T's work) over every (j, n) pair (P and N deep), the
+    scores, dC and dB's dG term over the causal pairs (N deep), dG over
+    the heads, E = e (x . U), the weights W = G L and Q = W R; a, x, B, C,
+    dy, dS, dtot read and da, dx, dB, dC written once, float32."""
+    pairs = l * (l + 1) // 2
+    nops = B * nc * (2 * (2 * H * pairs * P + 2 * l * H * N * P + 3 * pairs * N + H * pairs
+                          + l * H * P) + 2 * H * pairs)
+    nbytes = 4 * B * nc * (2 * (l * H + l * H * P + 2 * l * N) + l * H * P + H * N * P + H)
+    return nops, nbytes
+
+
 def train_bounds(cfg, batch: int, seq: int) -> dict:
-    """The least time one training step of a dense config could take on
-    the card, from the shapes: the bf16 products (the forward, remat's
-    recompute of it and the backward's two products a weight; attention's
-    q.k and p.v over the causal pairs in the forward and the recompute,
-    and its backward's five: S, dP, dv, dq, dk) at BF16_OPS_PER_S, plus the
+    """The least time one training step could take on the card, from the
+    shapes: the bf16 products (the forward, remat's recompute of it and
+    the backward's two products a weight; a dense layer's attention, q.k
+    and p.v over the causal pairs in the forward and the recompute, and
+    its backward's five: S, dP, dv, dq, dk) at BF16_OPS_PER_S, plus the
     float32 unembed (its forward, the backward's recompute and its two
-    gradient products) at FP32_OPS_PER_S, as chunked_ce_loss computes it."""
+    gradient products) as chunked_ce_loss computes it and an ssm layer's
+    SSD step (`ssd_work` twice, the forward and its recompute, and
+    `ssd_bwd_work`) at FP32_OPS_PER_S."""
     tokens = batch * seq
-    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    layer_w = d * (H + 2 * K) * hd + H * hd * d + 3 * d * cfg.d_ff  # projections + SwiGLU
-    matmul = 2 * layer_w * tokens * cfg.n_layers * (1 + 1 + 2)
-    pairs = batch * H * seq * (seq + 1) // 2
-    attn = 2 * hd * pairs * cfg.n_layers * (2 + 2 + 5)
+    d, L = cfg.d_model, cfg.n_layers
+    attn = ssd = 0
+    if cfg.family == "ssm":
+        di, ds, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+        layer_w = d * (2 * di + 2 * ds + nh) + di * d  # in_proj, out_proj
+        l = min(cfg.ssm_chunk, seq)
+        nc = -(-seq // l)
+        ssd = L * (2 * ssd_work(batch, nc, l, nh, P, ds)[0] + ssd_bwd_work(batch, nc, l, nh, P, ds)[0])
+    else:
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        layer_w = d * (H + 2 * K) * hd + H * hd * d + 3 * d * cfg.d_ff  # projections + SwiGLU
+        attn = 2 * hd * (batch * H * seq * (seq + 1) // 2) * L * (2 + 2 + 5)
+    matmul = 2 * layer_w * tokens * L * (1 + 1 + 2)
     unembed = 2 * d * cfg.vocab_size * tokens * 4
-    bf16_s, f32_s = (matmul + attn) / BF16_OPS_PER_S, unembed / FP32_OPS_PER_S
-    return dict(matmul=matmul, attn=attn, unembed=unembed, bf16_s=bf16_s, f32_s=f32_s,
+    bf16_s, f32_s = (matmul + attn) / BF16_OPS_PER_S, (unembed + ssd) / FP32_OPS_PER_S
+    return dict(matmul=matmul, attn=attn, ssd=ssd, unembed=unembed, bf16_s=bf16_s, f32_s=f32_s,
                 total_s=bf16_s + f32_s)
 
 
-def train_phase(dev, ops, fa, smi):
-    """Phase 13: the training path for TRAIN_ARCH (Qwen1.5-0.5B) at full
-    size, batch TRAIN_BATCH x TRAIN_SEQ tokens from the synthetic stream
+def train_steps(tag, cfg, dev, ops, plain, per_layer, smi, compare_layers=None) -> dict:
+    """(a)-(c) of a training phase for `cfg` at full size, batch
+    TRAIN_BATCH x TRAIN_SEQ tokens from the synthetic stream
     (`data.make_batch_fn`), the port's seeded bf16 init:
     (a) one step's loss and every leaf's gradient through the kernels and
-        with the plain attention swapped in (`swapped`), float32 (params
-        and activations) within LOGIT_F32_TOL relative L2 a leaf, bf16 each
-        leaf's error from the float32 plain gradient at most LOGIT_ERR_RATIO
-        x the plain path's; every leaf's gradient nonzero through the
-        kernels (the autograd path reaches wq, wk, wv and their biases);
+        with the plain versions `plain` swapped in ({ops name: function},
+        `swapped`), float32 (params and activations) within LOGIT_F32_TOL
+        relative L2 a leaf, bf16 each leaf's error from the float32 plain
+        gradient at most LOGIT_ERR_RATIO x the plain path's; every leaf's
+        gradient nonzero through the kernels (the autograd path reaches
+        every leaf); with `compare_layers`, on the model's first
+        compare_layers layers (`cut_depth`: the same widths and shapes);
     (b) TRAIN_STEPS steps of `launch.train.train_loop` (AdamW, cosine
-        schedule) after one warm step, launches held to 48 forward (24 + 24
-        remat recomputes) and 24 backward a step, each step timed with
-        CUDA events; tokens/s, peak memory, MFU, one step profiled (idle
-        share, top kernels) beside `train_bounds`;
-    (c) two steps from the same state bitwise equal;
-    (d) the GreenOrchestrator on the card: restart bit-exact on the SMOKE
-        setup of tests/test_orchestrator.py, then ORCH_SLOTS slots with two
-        full-size jobs (seeds 0 and 1, ORCH_SEQ x TRAIN_BATCH, one step a
-        task, one task a cloud a slot);
-    (e) the card's kWh a task from the measured step time and power limit,
-        beside `lm_task_energy_kwh` given the card's peak and that MFU.
-    Returns {"per_step": launches a step, "launches": the timed run's,
-    "step_ms": the median}."""
-    from repro_torch.configs import registry
-    from repro_torch.configs.paper_workloads import lm_task_energy_kwh
-    from repro_torch.core.carbon import ConstantCarbonSource, UKRegionalTraceSource
-    from repro_torch.core.policies import CarbonIntensityPolicy
-    from repro_torch.core.queueing import NetworkSpec
+        schedule) after one warm step, launches held to `per_layer` x the
+        layers a step, each step timed with CUDA events; tokens/s, peak
+        memory, MFU, one step profiled (idle share, top kernels) beside
+        `train_bounds`;
+    (c) two steps from the same state bitwise equal.
+    Returns {"per_step", "launches" (the timed run's), "step_ms" (the
+    median), "mfu", "tokens"}; the model is freed."""
     from repro_torch.data import make_batch_fn
     from repro_torch.launch.train import train_loop
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, cosine_schedule, make_train_step
-    from repro_torch.orchestrator import Cloud, GreenOrchestrator, TrainJob
     from repro_torch.pytree import flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
-    tag = "13 train"
-    cfg = registry.get_config(TRAIN_ARCH)
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
-    names = [n for n, _ in flatten_with_path(params)]
     n_params = sum(x.numel() for x in tree_leaves(params))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     batch_fn = make_batch_fn(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=SEED, device=dev)
     say(f"[{tag}] {cfg.name}: {n_params:,} parameters ({cfg.param_dtype}) made on the card in "
         f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({tokens:,} a "
         f"step), remat {cfg.remat}, logit_chunk {cfg.logit_chunk}")
-    per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    per_step = {k: v * cfg.n_layers for k, v in per_layer.items()}
 
     def expect(counts, want, what):
         full = {k: 0 for k in counts}
@@ -2265,19 +2368,22 @@ def train_phase(dev, ops, fa, smi):
         if counts != full:
             fail(f"{tag} {what}: kernel launches {counts}, expected {full}")
 
-    # ---- (a) kernels vs plain attention: loss and every leaf's gradient
+    # ---- (a) kernels vs plain versions: loss and every leaf's gradient
     def loss_grads(m, p, batch):
         lv = [x.detach().requires_grad_(True) for x in tree_leaves(p)]
         loss, _ = m.loss(tree_unflatten(p, lv), batch)
         return loss.detach(), torch.autograd.grad(loss, lv)
 
     batch = batch_fn(0)
-    plain = {"flash_attention": fa.flash_attention_plain}
-    f32_model = build_model(dataclasses.replace(cfg, param_dtype="float32",
+    ccfg, cparams = cut_depth(cfg, params, compare_layers) if compare_layers else (cfg, params)
+    names = [n for n, _ in flatten_with_path(cparams)]
+    cmodel = build_model(ccfg, dev)
+    f32_model = build_model(dataclasses.replace(ccfg, param_dtype="float32",
                                                 compute_dtype="float32"), dev)
-    p32 = tree_map(lambda x: x.float(), params)
+    p32 = tree_map(lambda x: x.float(), cparams)
+    cut = f" (the first {ccfg.n_layers} of {cfg.n_layers} layers)" if compare_layers else ""
     res = {}
-    for key, m, p in (("bf16 kernels", model, params), ("bf16 plain", model, params),
+    for key, m, p in (("bf16 kernels", cmodel, cparams), ("bf16 plain", cmodel, cparams),
                       ("f32 kernels", f32_model, p32), ("f32 plain", f32_model, p32)):
         ctx = (lambda: swapped(ops, plain)) if "plain" in key else contextlib.nullcontext
         torch.cuda.synchronize()
@@ -2287,8 +2393,9 @@ def train_phase(dev, ops, fa, smi):
         with ctx():
             res[key] = loss_grads(m, p, batch)
         torch.cuda.synchronize()
-        expect(ops.launch_counts(), {} if "plain" in key else per_step, key)
-        say(f"[{tag}] (a) {key}: loss {float(res[key][0]):.6f}, one step's loss and gradients "
+        expect(ops.launch_counts(), {} if "plain" in key else
+               {k: v * ccfg.n_layers for k, v in per_layer.items()}, key)
+        say(f"[{tag}] (a) {key}{cut}: loss {float(res[key][0]):.6f}, one step's loss and gradients "
             f"{time.perf_counter() - t0:.2f} s, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
@@ -2314,13 +2421,13 @@ def train_phase(dev, ops, fa, smi):
         if not err_k <= LOGIT_ERR_RATIO * err_p:
             fail(f"{tag} (a) {n}: bf16 gradient error {err_k:.3e} beyond {LOGIT_ERR_RATIO:g} x "
                  f"the plain path's {err_p:.3e}")
-    say(f"[{tag}] (a) every leaf's gradient nonzero through the kernels; float32 loss kernels vs "
+    say(f"[{tag}] (a){cut} every leaf's gradient nonzero through the kernels; float32 loss kernels vs "
         f"plain {loss_gap:.3e}; per leaf: float32 kernels vs plain relative L2 (limit "
         f"{LOGIT_F32_TOL:g}), bf16 kernels / plain relative L2 error vs the float32 plain "
         f"gradient (ratio, limit {LOGIT_ERR_RATIO:g}): " + "; ".join(lines))
     say(f"[{tag}] (a) bf16 loss kernels {float(res['bf16 kernels'][0]):.6f}, plain "
         f"{float(res['bf16 plain'][0]):.6f}, float32 plain {float(res['f32 plain'][0]):.6f}")
-    del res, ref, p32, f32_model
+    del res, ref, p32, f32_model, cmodel, cparams
     torch.cuda.empty_cache()
 
     # ---- (b) TRAIN_STEPS timed steps of launch.train's loop
@@ -2368,9 +2475,9 @@ def train_phase(dev, ops, fa, smi):
     say(f"[{tag}] (b) the step's bound: bf16 products {(tb['matmul'] + tb['attn']) / 1e12:.2f} TFLOP "
         f"(matmuls {tb['matmul'] / 1e12:.2f}, attention {tb['attn'] / 1e12:.2f}) at "
         f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s = {tb['bf16_s'] * 1e3:.1f} ms, plus the float32 "
-        f"unembed {tb['unembed'] / 1e12:.2f} TFLOP at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
-        f"{tb['f32_s'] * 1e3:.1f} ms (the step's floor); {tb['total_s'] * 1e3:.1f} ms in all, "
-        f"{tb['total_s'] * 1e3 / med:.3f} of the measured step")
+        f"unembed {tb['unembed'] / 1e12:.2f} TFLOP and SSD steps {tb['ssd'] / 1e12:.2f} TFLOP at "
+        f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s = {tb['f32_s'] * 1e3:.1f} ms; "
+        f"{tb['total_s'] * 1e3:.1f} ms in all, {tb['total_s'] * 1e3 / med:.3f} of the measured step")
     prof, host = profile_slots(lambda: train_step(params, state, batch_fn(1 + TRAIN_STEPS)), slots=1)
     if prof is None:
         say(f"[{tag}] (b) one step's device time not measured (the profiler recorded no device "
@@ -2398,6 +2505,44 @@ def train_phase(dev, ops, fa, smi):
         f"moment bitwise equal, loss {float(ma['loss']):.6f} both")
     del pa, sa, pb, sb, model, params, state, train_step
     torch.cuda.empty_cache()
+    return {"per_step": per_step, "launches": launches, "step_ms": med, "mfu": mfu,
+            "tokens": tokens}
+
+
+def train_phase(dev, ops, fa, smi):
+    """Phase 13: the training path for TRAIN_ARCH (Qwen1.5-0.5B) at full
+    size: (a)-(c) `train_steps`, the plain attention swapped in for (a),
+    launches held to 48 forward (24 + 24 remat recomputes) and 24 backward
+    a step;
+    (d) the GreenOrchestrator on the card: restart bit-exact on the SMOKE
+        setup of tests/test_orchestrator.py, then ORCH_SLOTS slots with two
+        full-size jobs (seeds 0 and 1, ORCH_SEQ x TRAIN_BATCH, one step a
+        task, one task a cloud a slot);
+    (e) the card's kWh a task from the measured step time and power limit,
+        beside `lm_task_energy_kwh` given the card's peak and that MFU.
+    Returns `train_steps`' dict."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.paper_workloads import lm_task_energy_kwh
+    from repro_torch.core.carbon import ConstantCarbonSource, UKRegionalTraceSource
+    from repro_torch.core.policies import CarbonIntensityPolicy
+    from repro_torch.core.queueing import NetworkSpec
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, make_train_step
+    from repro_torch.orchestrator import Cloud, GreenOrchestrator, TrainJob
+    from repro_torch.pytree import flatten_with_path, tree_leaves
+
+    tag = "13 train"
+    cfg = registry.get_config(TRAIN_ARCH)
+    info = train_steps(tag, cfg, dev, ops, {"flash_attention": fa.flash_attention_plain},
+                       {"flash_attention": 2, "flash_attention_bwd": 1}, smi)
+    per_step, med, mfu, tokens = info["per_step"], info["step_ms"], info["mfu"], info["tokens"]
+
+    def expect(counts, want, what):
+        full = {k: 0 for k in counts}
+        full.update(want)
+        if counts != full:
+            fail(f"{tag} {what}: kernel launches {counts}, expected {full}")
 
     # ---- (d) the GreenOrchestrator on the card
     spec = NetworkSpec(pe=np.full(2, 1.0, np.float32), pc=np.full((2, 2), 5.0, np.float32),
@@ -2496,7 +2641,7 @@ def train_phase(dev, ops, fa, smi):
         f"{watts:.0f} W (the power limit) = {kwh:.4e} kWh; lm_task_energy_kwh(peak "
         f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {watts / 1e3:.3f} kW, MFU {mfu:.4f}) = "
         f"{model_kwh:.4e} kWh (equal by construction: the MFU is this step's)")
-    return {"per_step": per_step, "launches": launches, "step_ms": med}
+    return info
 
 
 def main() -> int:
@@ -3414,6 +3559,8 @@ def main() -> int:
                     fail(f"ssd_chunk_intra B{B} nc{nc} l{l} H{H} P{P} N{N} {decays}: {part} "
                          f"differs from the plain version's in {int((gv != wv).sum())} entries")
         del args, got, want, sum_abs, a, x, Bm, Cm
+
+    ssd_bwd_cases(sdc, ssd_inputs, randn, max_err)
 
     # ---- 4. main path at M4096xN256 --------------------------------
     clock.start("4")
@@ -5368,6 +5515,17 @@ def main() -> int:
     train_info = train_phase(dev, ops, fa, smi)
     torch.cuda.empty_cache()
 
+    # ---- 13s. training: mamba2-1.3B at full size -------------------------
+    # (after phase 13; its model is freed before phase 8 builds GLM-4-9B)
+    clock.start("13s")
+    ssm_train_info = train_steps(
+        "13s train ssm", registry.get_config(SSM_ARCH), dev, ops,
+        {"ssd_chunk_intra": ops.ssd_chunk_intra_with(sdc.ssd_chunk_intra_plain,
+                                                     sdc.ssd_chunk_intra_bwd_plain)},
+        {"ssd_chunk_intra": 2, "ssd_chunk_intra_bwd": 1}, smi,
+        compare_layers=COMPARE_LAYERS[registry.get_config(SSM_ARCH).name])
+    torch.cuda.empty_cache()
+
     # ---- 8. LM serving: GLM-4-9B, prefill + KV-cache decode ----------
     clock.start("8")
     lm_cfg = registry.get_config(LM_ARCH)
@@ -5719,11 +5877,7 @@ def main() -> int:
     # bound: the float32 operations on the CUDA cores (the kernel must sum
     # in the plain version's order); beside it the bytes' bound and the
     # same work as 3xTF32 on the tensor cores (three tf32 products each)
-    pairs = l * (l + 1) // 2
-    products = B * nc * (H * pairs * 2 * P + H * l * P * 2 * N + pairs * 2 * N)
-    nops = products + B * nc * (H * pairs + H * l * P)
-    nbytes = 4 * (2 * B * nc * l * H * P + B * nc * l * H + 2 * B * nc * l * N
-                  + B * nc * H * N * P + B * nc * H)
+    nops, nbytes, products = ssd_work(B, nc, l, H, P, N)
     tc_ms = (3 * products / TF32_OPS_PER_S + (nops - products) / FP32_OPS_PER_S) * 1e3
     row("ssd_chunk_intra", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "src/repro/kernels/ssd_chunk.py:62", ssm_launches["ssd_chunk_intra"], ms, call_ms,
@@ -5744,6 +5898,36 @@ def main() -> int:
     say(f"[7 time] ssd_chunk_intra: x {ssm_cfg.n_layers} layers = {ms[1] * ssm_cfg.n_layers:.1f} "
         "ms of the prefill")
     del ssd_main, a, x, Bm, Cm
+
+    # ssd_chunk_intra_bwd: phase 13s's training shape (mamba2-1.3B, B 8, nc
+    # 16, l 256, H 64, P 64, N 128; the init's decays, seeded cotangents);
+    # no single PyTorch call computes (da, dx, dB, dC)
+    gb = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (TRAIN_BATCH, TRAIN_SEQ // ssm_cfg.ssm_chunk, ssm_cfg.ssm_chunk, ssm_cfg.ssm_heads)
+    B, nc, l, H = shape
+    P, N = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state
+    bargs = (F.softplus(torch.randn(shape, generator=gb, device=dev))
+             * -(torch.rand((H,), generator=gb, device=dev) * 15.0 + 1.0),
+             *(torch.randn(sh, generator=gb, device=dev) for sh in (
+                 (B, nc, l, H, P), (B, nc, l, N), (B, nc, l, N), (B, nc, l, H, P),
+                 (B, nc, H, N, P), (B, nc, H))))
+    ms = graph_ms(lambda: sdc.ssd_chunk_intra_bwd_cuda(*bargs), reps=3, inner=1)
+    call_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_bwd_cuda(*bargs), reps=3, inner=1)
+    plain_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_bwd_plain(*bargs), reps=2, inner=1)
+    nops, nbytes = ssd_bwd_work(B, nc, l, H, P, N)
+    row("ssd_chunk_intra_bwd", "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "src/repro/models/mamba2.py:66",  # ssd_chunked: its XLA autodiff
+        ssm_train_info["launches"]["ssd_chunk_intra_bwd"], ms, call_ms, plain_ms, nbytes=nbytes,
+        nops=nops)
+    rows[-1]["launches_per_step"] = ssm_train_info["per_step"]["ssd_chunk_intra_bwd"]
+    rows[-1]["ptxas"] = [ln for e in ("bwd_scores", "bwd_head", "bwd_dg", "bwd_bc")
+                         for ln in ptxas_lines(built["ssd_chunk_bwd"][1], e)]
+    say(f"[7 time] ssd_chunk_intra_bwd bounds: float32 CUDA cores {nops / FP32_OPS_PER_S * 1e3:.5f} "
+        f"ms ({nops / 1e9:.2f} GFLOP at 67 TFLOP/s), bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"({nbytes / 1e6:.2f} MB at 3.35 TB/s); x {rows[-1]['launches_per_step']} layers = "
+        f"{ms[1] * rows[-1]['launches_per_step']:.0f} ms of a {ssm_train_info['step_ms']:.0f} ms "
+        "step; " + " | ".join(rows[-1]["ptxas"]))
+    del bargs
 
     # threefry_draw: the main path's arrivals (UniformArrivals at M4096),
     # the run's T_MAIN slots in one block draw, as phase 4 launches it,

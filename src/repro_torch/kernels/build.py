@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` compiles, on its own, into a shared library with a
 plain C interface (`build/repro_torch/<name>-<hash>.so`) that ctypes
 loads; no PyTorch headers are involved, so a build takes seconds. The
 file name carries a hash of the source, the csrc/ headers it includes
-(`hopper.cuh`, the attention kernels' Hopper building blocks) and the
+(`hopper.cuh`, the attention kernels' Hopper building blocks;
+`ssd_scan.cuh`, the SSD kernels' prefix sum) and the
 flags, so an edited source or header is rebuilt and a stale library is
 never loaded.
 
@@ -30,7 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("carbon_score", "route_score", "greedy_fill", "flash_attention", "flash_attention_bwd",
-           "flash_decode", "ssd_chunk", "threefry", "tap_scan", "tap_probe", "knapsack")
+           "flash_decode", "ssd_chunk", "ssd_chunk_bwd", "threefry", "tap_scan", "tap_probe",
+           "knapsack")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",

@@ -62,8 +62,8 @@
 //    tile ahead; each thread scales the x it loaded by decay_end, then the
 //    products. It also writes total.
 //  Both compute ci for their heads in shared memory in XLA:CPU's blocked
-//  order (`numerics.cumsum_xla`: running sums inside blocks of 16, plus the
-//  running sum of the block totals before them), the blocks in parallel;
+//  order (`numerics.cumsum_xla`; `scan_xla` in ssd_scan.cuh, shared with
+//  the backward), the blocks in parallel;
 //  total is bitwise the plain version's. Rows are moved 16 bytes at a time
 //  where P (x, y, S_c) or N (B) is a multiple of 4 and the base is 16-byte
 //  aligned, else 4 bytes at a time, so any shape and alignment are taken;
@@ -78,11 +78,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ssd_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // ssd_y_kernel's block
 constexpr int kMaxL = 256, kMaxP = 64, kMaxN = 256;
-constexpr int kScan = 16;        // XLA:CPU's scan block
 constexpr int kMaxDevices = 64;  // shared-memory opt-ins are kept per device
 constexpr int kStep = 32;        // positions j of a staged S_c tile
 constexpr int kCiLd = kMaxL + 1; // ci rows, odd: a column's loads hit distinct banks
@@ -179,45 +180,6 @@ __device__ __forceinline__ void zero8x8(float (&acc)[8][8]) {
     for (int q = 0; q < 8; ++q) acc[r][q] = 0.0f;
 }
 
-// Inclusive prefix sums of ci[col * kCiLd + 0..n-1] for col < ncols, in
-// place, in XLA:CPU's order (see the file note); the blocks of 16 of all
-// columns in parallel. tot holds kScan floats per column. Ends synced.
-__device__ void scan_xla(float* ci, int ncols, int n, float* tot) {
-  const int tid = threadIdx.x;
-  if (n <= kScan) {
-    for (int col = tid; col < ncols; col += blockDim.x) {
-      float* c = ci + col * kCiLd;
-      for (int i = 1; i < n; ++i) c[i] = c[i - 1] + c[i];
-    }
-    __syncthreads();
-    return;
-  }
-  const int nb = (n + kScan - 1) / kScan;
-  for (int w = tid; w < ncols * nb; w += blockDim.x) {
-    const int col = w / nb, k = w % nb, i0 = k * kScan, i1 = min(i0 + kScan, n);
-    float* c = ci + col * kCiLd;
-    for (int i = i0 + 1; i < i1; ++i) c[i] = c[i - 1] + c[i];
-    tot[col * kScan + k] = c[i1 - 1];
-  }
-  __syncthreads();
-  for (int col = tid; col < ncols; col += blockDim.x) {
-    float before = 0.0f;  // running sum of the totals of the blocks before
-    for (int k = 0; k < nb; ++k) {
-      const float t = tot[col * kScan + k];
-      tot[col * kScan + k] = before;
-      before = k == 0 ? t : before + t;
-    }
-  }
-  __syncthreads();
-  for (int w = tid; w < ncols * nb; w += blockDim.x) {
-    const int col = w / nb, k = w % nb, i0 = k * kScan, i1 = min(i0 + kScan, n);
-    float* c = ci + col * kCiLd;
-    const float before = tot[col * kScan + k];
-    for (int i = i0; i < i1; ++i) c[i] = c[i] + before;
-  }
-  __syncthreads();
-}
-
 // ci of heads h0..h0+nh-1 of one (b, c) into ci_s, scanned; other columns 0
 __device__ void load_ci(float* ci_s, float* tot_s, const float* a_bc, int ncols, int nh, int h0,
                         int l, int H) {
@@ -229,7 +191,7 @@ __device__ void load_ci(float* ci_s, float* tot_s, const float* a_bc, int ncols,
   cp_async_commit();
   cp_async_wait(0);
   __syncthreads();
-  scan_xla(ci_s, nh, l, tot_s);
+  scan_xla(ci_s, kCiLd, nh, l, tot_s);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

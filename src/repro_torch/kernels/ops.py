@@ -4,8 +4,8 @@
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, and a failed build or launch raises.
 There is no fallback from the card to the plain version.
-`flash_attention` is differentiable: an autograd Function whose forward
-and backward are each picked this way.
+`flash_attention` and `ssd_chunk_intra` are differentiable: autograd
+Functions whose forward and backward are each picked this way.
 """
 from __future__ import annotations
 
@@ -111,12 +111,44 @@ def flash_decode(q, k, v, pos):
     return fn(q, k, v, pos)
 
 
+class _SSDChunkIntra(torch.autograd.Function):
+    """Forward `fwd`, backward `bwd` (the (a, x, Bm, Cm) -> (y_diag, S_c,
+    total) step and its (dy, dS, dtot) -> (da, dx, dB, dC)). a, x, Bm and
+    Cm are saved only when one of them needs a gradient, so a call
+    without autograd (serving) saves nothing and launches no backward."""
+
+    @staticmethod
+    def forward(ctx, a, x, Bm, Cm, fwd, bwd):
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(a, x, Bm, Cm)
+            ctx.bwd = bwd
+        return fwd(a, x, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dS, dtot):
+        a, x, Bm, Cm = ctx.saved_tensors
+        grads = ctx.bwd(a, x, Bm, Cm, dy.contiguous(), dS.contiguous(), dtot.contiguous())
+        return (*grads, None, None)
+
+
 def ssd_chunk_intra(a, x, Bm, Cm):
     """Mamba-2 SSD intra-chunk step: a [B,nc,l,H], x [B,nc,l,H,P],
     Bm/Cm [B,nc,l,N] -> (y_diag [B,nc,l,H,P], S_c [B,nc,H,N,P], total
-    [B,nc,H]), float32."""
-    fn = _pick(a, _ssd.ssd_chunk_intra_plain, _ssd.ssd_chunk_intra_cuda, "ssd_chunk_intra")
-    return fn(a, x, Bm, Cm)
+    [B,nc,H]), float32. Differentiable in a, x, Bm and Cm."""
+    fwd = _pick(a, _ssd.ssd_chunk_intra_plain, _ssd.ssd_chunk_intra_cuda, "ssd_chunk_intra")
+    bwd = _pick(a, _ssd.ssd_chunk_intra_bwd_plain, _ssd.ssd_chunk_intra_bwd_cuda,
+                "ssd_chunk_intra_bwd")
+    return _SSDChunkIntra.apply(a, x, Bm, Cm, fwd, bwd)
+
+
+def ssd_chunk_intra_with(fwd, bwd):
+    """`ssd_chunk_intra` through the given forward and backward on any
+    device, for comparisons: e.g. the plain versions on the card, what a
+    kernels-vs-plain check of a training step swaps in (autograd through
+    the plain forward's einsums would form exp(ci_i - ci_j) above the
+    diagonal, which overflows at the init's decays, and multiply its
+    cotangent 0 by inf)."""
+    return lambda a, x, Bm, Cm: _SSDChunkIntra.apply(a, x, Bm, Cm, fwd, bwd)
 
 
 def threefry_draw(keys, t, n, *, finish="uniform", seg=None, fold_each=False, chain=None,
@@ -153,6 +185,7 @@ _COUNTERS = {"carbon_scores": (_cs, "launches"), "route_scores": (_rs, "launches
              "greedy_fill": (_gf, "launches"), "flash_attention": (_fa, "launches"),
              "flash_attention_bwd": (_fa, "bwd_launches"),
              "flash_decode": (_fd, "launches"), "ssd_chunk_intra": (_ssd, "launches"),
+             "ssd_chunk_intra_bwd": (_ssd, "bwd_launches"),
              "threefry_draw": (_tf, "launches"), "tap_scan": (_taps, "launches"),
              "tap_probe": (_taps, "probe_launches"), "knapsack_dp": (_kp, "launches")}
 

@@ -8,8 +8,8 @@ synthetic token stream, with checkpoint/restart: re-launching with the
 same --ckpt-dir resumes from the latest step (the step is the stream's
 cursor, so the batches continue exactly). On the CUDA card by default;
 --device cpu runs the kernels' plain versions. Parameters are random,
-from a seeded torch Generator. The dense family only
-(`transformer.require_trainable`).
+from a seeded torch Generator. The dense and ssm families
+(`transformer.require_trainable`), e.g. `--arch mamba2_1_3b --smoke`.
 """
 from __future__ import annotations
 

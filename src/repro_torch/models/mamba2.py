@@ -10,7 +10,9 @@ the Pallas kernel's counterpart; the JAX model computes the same terms
 with jnp einsums, and `tests/test_kernels.py` holds the two equal), then
 a loop over chunks carries the state, and the state at each chunk start
 gives the off-diagonal output term (a PyTorch product, as the JAX package
-leaves it to XLA).
+leaves it to XLA). Training differentiates the step with its backward
+kernel (`ops.ssd_chunk_intra` is an autograd Function) and the rest by
+autograd, as the JAX package differentiates its einsums.
 
 Parameters are dicts with the JAX package's names and layouts. Casts
 mirror the JAX function: projections in the compute dtype, the conv
@@ -88,13 +90,16 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None) -> Tuple[torch.Tensor, to
     # intra-chunk terms and chunk states (the kernel)
     y_diag, S_c, total = ops.ssd_chunk_intra(ac, xc, Bc, Cc)
 
-    # inter-chunk recurrence: the state at each chunk's start
+    # inter-chunk recurrence: the state at each chunk's start (stacked, not
+    # written into a buffer, so that autograd carries the gradient to h0,
+    # total and S_c)
     h = torch.zeros((B_, H, N, P), dtype=torch.float32, device=x.device) if h0 is None \
         else h0.float()
-    h_starts = torch.empty((B_, nc, H, N, P), dtype=torch.float32, device=x.device)
+    starts = []
     for c in range(nc):
-        h_starts[:, c] = h
+        starts.append(h)
         h = h * total[:, c, :, None, None] + S_c[:, c]
+    h_starts = torch.stack(starts, dim=1)
 
     # off-diagonal output: C_l . h_start, decayed from the chunk start
     decay_from_start = torch.exp(cumsum_xla(ac, dim=2))  # [B,nc,l,H]

@@ -6,8 +6,8 @@ and values "ck", "cv" of source_len positions to the self cache).
 
 `build_model(cfg, device)` gives a `Model` with
   init(generator) -> params
-  loss(params, batch) -> (scalar, metrics)  [the dense family's training
-                                             loss, `transformer.lm_loss`]
+  loss(params, batch) -> (scalar, metrics)  [the dense and ssm families'
+                                             training loss, `transformer.lm_loss`]
   prefill(params, batch, cache_len) -> (logits, cache)
   decode_step(params, token, cache) -> (logits, cache)
   cache_specs(seq_len, batch) -> {name: (shape, dtype)}
@@ -42,8 +42,8 @@ class Model:
 
     def loss(self, params, batch):
         """(loss, {"loss", "tokens"}) of a training batch {"tokens",
-        "labels"}; differentiable in the parameters. Dense family only
-        (`transformer.require_trainable`)."""
+        "labels"}; differentiable in the parameters. The dense and ssm
+        families (`transformer.require_trainable`)."""
         return transformer.lm_loss(params, batch, self.cfg)
 
     def prefill(self, params, batch, cache_len=None):

@@ -1,5 +1,5 @@
-"""Dense, MoE, SSM, VLM and enc-dec stacks, and the dense family's
-training loss (counterpart of the dense, moe, ssm, vlm and enc-dec parts
+"""Dense, MoE, SSM, VLM and enc-dec stacks, and the dense and ssm
+families' training loss (counterpart of the dense, moe, ssm, vlm and enc-dec parts
 of `repro.models.transformer`).
 
 Parameters are nested dicts with the JAX package's names, and the layer
@@ -15,12 +15,14 @@ tied embeddings, so no `unembed` leaf); its image prefix enters in
 decoder's "layers" and "cross" ({"ln", "attn"} a decoder layer: the
 cross-attention over the encoder's output, `decoder_forward_encdec`).
 
-Training (`lm_loss`, the dense family): `backbone` runs each layer under
+Training (`lm_loss`, the dense and ssm families): `backbone` runs each layer under
 `torch.utils.checkpoint` when autograd records and `cfg.remat` is
 "block", as the JAX package's `jax.checkpoint` saves only each block's
 input; `chunked_ce_loss` recomputes each chunk's float32 logits in the
 backward, as its `@jax.checkpoint` chunk does (`_ChunkCE`), so no
-[B, chunk, V] logits outlive their chunk. The other families' losses, hybrid stacks,
+[B, chunk, V] logits outlive their chunk; an ssm layer's SSD step is
+differentiated by its own backward kernel (`ops.ssd_chunk_intra`). The
+other families' losses, hybrid stacks,
 and MoE on every other layer (`moe_every` 2, which only the hybrid Jamba
 uses) are later slices (ROADMAP Queue 1).
 """
@@ -62,21 +64,19 @@ _NOT_TRAINABLE = {
     "vlm": "vlm training, which needs the attention backward at hd 256 (ROADMAP Queue 1, "
            "item 3.8)",
     "audio": "enc-dec training (ROADMAP Queue 1, item 3.9)",
-    "ssm": "ssm training, which needs an ssd_chunk_intra backward kernel (ROADMAP Queue 1, "
-           "item 3.10)",
 }
 
 
 def require_trainable(cfg) -> None:
-    """Admits the family the port trains, dense (`lm_loss`); raises
-    NotImplementedError naming the ROADMAP item of any other."""
+    """Admits the families the port trains, dense and ssm (`lm_loss`);
+    raises NotImplementedError naming the ROADMAP item of any other."""
     require_ported(cfg)
     family = "moe" if cfg.n_experts else cfg.family
-    if family != "dense" or cfg.is_encoder_decoder:
+    if family not in ("dense", "ssm") or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family's training loss is not ported to repro_torch "
             f"yet: {_NOT_TRAINABLE['audio' if cfg.is_encoder_decoder else family]}; the port "
-            "trains the dense family")
+            "trains the dense and ssm families")
 
 
 def tree_map(fn, tree):
@@ -335,11 +335,12 @@ def chunked_ce_loss(params, x: torch.Tensor, labels: torch.Tensor, cfg
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The causal LM training loss of a dense model on batch {"tokens",
-    "labels"} [B,S] (`repro.models.transformer.lm_loss`, its decoder-only
-    branch): the embedding in the compute dtype, the backbone under the
-    causal mask, `chunked_ce_loss`. The other families raise
-    NotImplementedError (`require_trainable`)."""
+    """The causal LM training loss of a dense or ssm model on batch
+    {"tokens", "labels"} [B,S] (`repro.models.transformer.lm_loss`, its
+    decoder-only branch): the embedding in the compute dtype, the backbone
+    (under the causal mask: an ssm stack is causal by construction),
+    `chunked_ce_loss`. The other families raise NotImplementedError
+    (`require_trainable`)."""
     require_trainable(cfg)
     cd = L.dtype_of(cfg.compute_dtype)
     x = F.embedding(batch["tokens"].long(), params["embed"].to(cd))

@@ -174,6 +174,7 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     assert ops.launch_counts() == {"carbon_scores": 0, "route_scores": 0, "greedy_fill": 0,
                                    "flash_attention": 0, "flash_attention_bwd": 0,
                                    "flash_decode": 0, "ssd_chunk_intra": 0,
+                                   "ssd_chunk_intra_bwd": 0,
                                    "threefry_draw": 0, "tap_scan": 0, "tap_probe": 0,
                                    "knapsack_dp": 0}
     with pytest.raises(ValueError, match="no kernel"):

@@ -3,13 +3,17 @@
 * `Model.loss` (`transformer.lm_loss`) and the gradient of every parameter
   leaf against `jax.value_and_grad(model.loss)` under `jit`, from the JAX
   model's parameters (`convert.params_from_reference`), for Qwen1.5 SMOKE
-  (MHA, QKV bias, tied embeddings) and GLM-4 SMOKE (GQA, partial rotary),
+  (MHA, QKV bias, tied embeddings), GLM-4 SMOKE (GQA, partial rotary) and
+  mamba2 SMOKE (the SSD step's backward, `ssd_chunk_intra_bwd_plain`),
   float32 and bf16. Tolerances: the loss rtol 1e-6 (f32) / 2e-3 (bf16);
   each leaf's gradient relative L2 2e-5 (f32) / 2e-2 (bf16: both packages
   round each op to bf16, at other places). A leaf whose gradient is all
   zero where JAX's is not fails on its own: that is the check that the
-  attention kernel's autograd path reaches wq, wk, wv and their biases.
-* Three `make_train_step` steps from the same parameters and AdamWState
+  attention kernel's autograd path reaches wq, wk, wv and their biases,
+  and the SSD step's reaches A_log, D, dt_bias, conv_w, conv_b and
+  gate_norm.
+* Three `make_train_step` steps (Qwen1.5 and mamba2 SMOKE) from the same
+  parameters and AdamWState
   (`convert.opt_state_from_reference`) with the cosine schedule: loss and
   grad_norm (f32 rtol 1e-5), lr bitwise, parameters (f32 max abs 2e-5,
   Adam's normalised steps move about 1e-3 a step; bf16 within the steps'
@@ -76,7 +80,7 @@ def _rel_l2(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "glm4_9b"])
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "glm4_9b", "mamba2_1_3b"])
 def test_loss_and_every_gradient_match_jax(arch, dtype):
     jm, jp, tm, tp = _pair(arch, dtype)
     batch = _batch(tm.cfg.vocab_size)
@@ -132,8 +136,9 @@ def test_chunked_loss_equals_one_chunk():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_three_train_steps_match_jax(dtype):
-    jm, jp, tm, tp = _pair("qwen1_5_0_5b", dtype)
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "mamba2_1_3b"])
+def test_three_train_steps_match_jax(arch, dtype):
+    jm, jp, tm, tp = _pair(arch, dtype)
     jopt = jadamw.AdamW(lr=jadamw.cosine_schedule(1e-3, 1, 10))
     topt = AdamW(lr=cosine_schedule(1e-3, 1, 10))
     js = jopt.init(jp)
@@ -194,6 +199,32 @@ def test_fma_f32_derivative_at_float32_midpoints():
         assert torch.equal(fma_f32(a, b, c), y)
 
 
+def test_tree_walks_and_a_train_step_leave_no_reference_cycle():
+    """With the cycle collector off, every tensor a tree walk or a train
+    step saw is freed when the last reference goes: a walk that is a
+    closure calling itself would keep its leaves in a cycle (on the card,
+    a mamba2-1.3B step's parameters, moments and gradients)."""
+    import gc
+    import weakref
+
+    _, _, tm, tp = _pair("mamba2_1_3b", "float32")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tm.cfg.vocab_size).items()}
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(tm, opt)
+    step(tp, opt.init(tp), batch)  # the first checkpoint call imports torch._dynamo lazily
+    gc.collect()
+    gc.disable()
+    try:
+        state = opt.init(tp)
+        new_p, new_s, _ = step(tp, state, batch)
+        names, leaves = zip(*flatten_with_path((new_p, new_s)))
+        refs = [weakref.ref(t) for t in tree_leaves(tree_unflatten((new_p, new_s), list(leaves)))]
+        del new_p, new_s, names, leaves, state
+        assert not [r for r in refs if r() is not None]
+    finally:
+        gc.enable()
+
+
 def test_adamw_reduces_quadratic():
     opt = AdamW(lr=0.1, weight_decay=0.0)
     params = {"w": torch.tensor([3.0, -2.0])}
@@ -216,8 +247,7 @@ def test_adamw_clipping_and_schedule():
     np.testing.assert_allclose(new["w"].numpy(), -0.1, rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "paligemma_3b", "mamba2_1_3b",
-                                  "seamless_m4t_medium"])
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "paligemma_3b", "seamless_m4t_medium"])
 def test_other_families_are_not_trainable_yet(arch):
     cfg = registry.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3"):
