@@ -154,8 +154,9 @@ ends with all of them and its total ("[wall]"):
    output's sum|terms| from `ssd_chunk_intra_bwd_terms`) at mamba2-1.3B's
    training shape (B 8, nc 16, l 256, H 64, P 64, N 128) with the init's,
    strong and weak decays, l 1, 16, 17, 255, P 16 and N 16, B = nc = 1, a
-   ragged shape, N 256, a zero dS and a zero dy; every case twice,
-   bitwise equal;
+   ragged shape, N 256, a zero dS and a zero dy, l 250 with H 60 (a row
+   tile off the tensor cores' 8-deep steps, a head group of 4); every
+   case twice, bitwise equal;
 4. main path, M4096xN256: `simulate` for both policies (T=64, summary
    records) under `torch.cuda.set_sync_debug_mode("error")`, launch
    counters checked (threefry_draw once a run: the arrivals' 64 slots
@@ -437,7 +438,10 @@ ends with all of them and its total ("[wall]"):
    and the ptxas registers and spills of its three bf16 entries (a spill
    store fails the run); ssd_chunk_intra_bwd at phase 13s's training
    shape (its four launches timed together; no PyTorch call computes it)
-   with its float32 and bytes' bounds and its ptxas registers and spills;
+   against the work it issues (its products 3xTF32 on the tensor cores,
+   the rest on the CUDA cores; the row's bound, above the bytes'), with
+   the float32 bound beside it (every operation on the CUDA cores) and
+   the ptxas registers and spills of its four entries;
    greedy_fill with the QueueLength inputs too, its parts (every budget
    0: no walk; every score non-negative: keys only), each input's longest
    uncertified walk and its exact steps from `fill_walk_profile`, with
@@ -2230,6 +2234,8 @@ def ssd_bwd_cases(sdc, inputs, randn, max_err):
         (2, 3, 16, 5, 16, 16, "strong", ""),    # l 16, P 16, N 16
         (2, 3, 17, 5, 16, 16, "weak", ""),      # l 17: a ragged 64-row tile and scan block
         (1, 2, 255, 12, 64, 128, "init", ""),   # l 255: the last tile ragged
+        (1, 2, 250, 60, 64, 128, "init", ""),   # l 250: a tile ending off the k8 steps; H 60:
+                                                # the last group of 8 heads holds 4
         (1, 1, 256, 64, 64, 128, "weak", ""),   # B = nc = 1
         (1, 1, 100, 7, 33, 40, "strong", ""),   # ragged everything
         (1, 2, 256, 40, 64, 256, "init", ""),   # N 256: four 64-state tiles
@@ -2280,20 +2286,6 @@ def ssd_work(B, nc, l, H, P, N) -> tuple:
     return nops, nbytes, products
 
 
-def ssd_bwd_work(B, nc, l, H, P, N) -> tuple:
-    """(operations, bytes) of ssd_chunk_intra_bwd's function, 2 an FMA:
-    R and the dy term of dx over the causal pairs (P deep), U and the e x
-    dS term of dB (T's work) over every (j, n) pair (P and N deep), the
-    scores, dC and dB's dG term over the causal pairs (N deep), dG over
-    the heads, E = e (x . U), the weights W = G L and Q = W R; a, x, B, C,
-    dy, dS, dtot read and da, dx, dB, dC written once, float32."""
-    pairs = l * (l + 1) // 2
-    nops = B * nc * (2 * (2 * H * pairs * P + 2 * l * H * N * P + 3 * pairs * N + H * pairs
-                          + l * H * P) + 2 * H * pairs)
-    nbytes = 4 * B * nc * (2 * (l * H + l * H * P + 2 * l * N) + l * H * P + H * N * P + H)
-    return nops, nbytes
-
-
 def train_bounds(cfg, batch: int, seq: int) -> dict:
     """The least time one training step could take on the card, from the
     shapes: the bf16 products (the forward, remat's recompute of it and
@@ -2303,7 +2295,9 @@ def train_bounds(cfg, batch: int, seq: int) -> dict:
     float32 unembed (its forward, the backward's recompute and its two
     gradient products) as chunked_ce_loss computes it and an ssm layer's
     SSD step (`ssd_work` twice, the forward and its recompute, and
-    `ssd_bwd_work`) at FP32_OPS_PER_S."""
+    `ssd_chunk.bwd_work`) at FP32_OPS_PER_S."""
+    from repro_torch.kernels.ssd_chunk import bwd_work
+
     tokens = batch * seq
     d, L = cfg.d_model, cfg.n_layers
     attn = ssd = 0
@@ -2312,7 +2306,7 @@ def train_bounds(cfg, batch: int, seq: int) -> dict:
         layer_w = d * (2 * di + 2 * ds + nh) + di * d  # in_proj, out_proj
         l = min(cfg.ssm_chunk, seq)
         nc = -(-seq // l)
-        ssd = L * (2 * ssd_work(batch, nc, l, nh, P, ds)[0] + ssd_bwd_work(batch, nc, l, nh, P, ds)[0])
+        ssd = L * (2 * ssd_work(batch, nc, l, nh, P, ds)[0] + bwd_work(batch, nc, l, nh, P, ds)[0])
     else:
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         layer_w = d * (H + 2 * K) * hd + H * hd * d + 3 * d * cfg.d_ff  # projections + SwiGLU
@@ -5562,9 +5556,12 @@ def main() -> int:
     rows = []
 
     def row(kname, source, replaces, launches, times, call_ms, plain_ms, nbytes, nops,
-            ops_per_s=FP32_OPS_PER_S, library_ms=None):
+            ops_per_s=FP32_OPS_PER_S, library_ms=None, ops_ms=None):
+        """ops_ms, where given, is the operations' bound in place of
+        nops / ops_per_s (operations of more than one type)."""
         warm_ms, ms = times
-        bound_b, bound_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = nops / ops_per_s * 1e3 if ops_ms is None else ops_ms
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err[kname], "ms": ms,
@@ -5914,17 +5911,29 @@ def main() -> int:
     ms = graph_ms(lambda: sdc.ssd_chunk_intra_bwd_cuda(*bargs), reps=3, inner=1)
     call_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_bwd_cuda(*bargs), reps=3, inner=1)
     plain_ms = cuda_ms(lambda: sdc.ssd_chunk_intra_bwd_plain(*bargs), reps=2, inner=1)
-    nops, nbytes = ssd_bwd_work(B, nc, l, H, P, N)
+    # bound: the work the kernel issues (its products 3xTF32 on the tensor
+    # cores, the rest on the CUDA cores) or its bytes; the float32 bound
+    # (every operation on the CUDA cores) beside it
+    nops, nbytes, products = sdc.bwd_work(B, nc, l, H, P, N)
+    bounds = sdc.bwd_bounds_ms((B, nc, l, H, P, N), FP32_OPS_PER_S, TF32_OPS_PER_S,
+                               HBM_BYTES_PER_S)
+    tc_ms = bounds["tf32x3"]
     row("ssd_chunk_intra_bwd", "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "src/repro/models/mamba2.py:66",  # ssd_chunked: its XLA autodiff
         ssm_train_info["launches"]["ssd_chunk_intra_bwd"], ms, call_ms, plain_ms, nbytes=nbytes,
-        nops=nops)
+        nops=nops, ops_ms=tc_ms)
     rows[-1]["launches_per_step"] = ssm_train_info["per_step"]["ssd_chunk_intra_bwd"]
-    rows[-1]["ptxas"] = [ln for e in ("bwd_scores", "bwd_head", "bwd_dg", "bwd_bc")
+    rows[-1]["f32_bound_ms"] = bounds["f32"]
+    rows[-1]["ptxas"] = [ln for e in ("bwd_scores_tc", "bwd_head_tc", "bwd_dgsum", "bwd_bc_tc")
                          for ln in ptxas_lines(built["ssd_chunk_bwd"][1], e)]
-    say(f"[7 time] ssd_chunk_intra_bwd bounds: float32 CUDA cores {nops / FP32_OPS_PER_S * 1e3:.5f} "
-        f"ms ({nops / 1e9:.2f} GFLOP at 67 TFLOP/s), bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
-        f"({nbytes / 1e6:.2f} MB at 3.35 TB/s); x {rows[-1]['launches_per_step']} layers = "
+    if any(int(n) for ln in rows[-1]["ptxas"] for n in re.findall(r"(\d+) bytes spill stores", ln)):
+        say("[7 time] ssd_chunk_intra_bwd: ptxas reports spill stores (its lines below)")
+    say(f"[7 time] ssd_chunk_intra_bwd bounds: the work the kernel issues, 3xTF32 on the tensor "
+        f"cores, {tc_ms:.5f} ms (3 x {products / 1e9:.2f} GFLOP at 495 TFLOP/s + "
+        f"{(nops - products) / 1e9:.2f} at 67; the row's bound, {ms[1] / tc_ms:.2f}x), bytes "
+        f"{bounds['bytes']:.5f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s), float32 CUDA cores "
+        f"{bounds['f32']:.5f} ms ({nops / 1e9:.2f} GFLOP at 67 TFLOP/s, "
+        f"{ms[1] / bounds['f32']:.2f}x); x {rows[-1]['launches_per_step']} layers = "
         f"{ms[1] * rows[-1]['launches_per_step']:.0f} ms of a {ssm_train_info['step_ms']:.0f} ms "
         "step; " + " | ".join(rows[-1]["ptxas"]))
     del bargs

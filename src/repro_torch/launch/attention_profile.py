@@ -49,13 +49,17 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import inspect
 import json
-import re
-import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location(  # beside this file: --src may lack it
+    "profile_util", Path(__file__).with_name("profile_util.py"))
+pu = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(pu)
 
 SEED = 0
 B, S_PROMPT, S_CACHE = 8, 4096, 4161
@@ -69,49 +73,6 @@ BWD_RATIO = 1.5  # chip_smoke.py's ATTN_BWD_RATIO
 BWD_ENTRIES = ("bwd_delta", "bwd_dkdv_tc", "bwd_dq_tc")
 
 
-def _replay_ms(torch, fn, reps: int, inner: int) -> float:
-    """Device ms a call: `inner` calls captured in one CUDA graph, the
-    median of `reps` replays between CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
-def _times(torch, fn, reps: int, inner: int) -> dict:
-    """{"ms": cold, "warm_ms": warm}, as chip_smoke.py's graph_ms."""
-    flush = torch.empty(32 * 2**20, device="cuda")
-    sink = torch.empty((), device="cuda")
-
-    def evict():
-        torch.sum(flush, dim=0, out=sink)
-
-    def cold():
-        evict()
-        fn()
-
-    warm = _replay_ms(torch, fn, reps, inner)
-    cold_ms = _replay_ms(torch, cold, reps, inner) - _replay_ms(torch, evict, reps, inner)
-    return {"ms": cold_ms, "warm_ms": warm}
-
-
 def _held(torch, got, want, what):
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -119,40 +80,6 @@ def _held(torch, got, want, what):
         raise SystemExit(f"attention_profile: {what} differs from its plain version by "
                          f"{float(diff.max()):.3e}")
     return float(diff.max())
-
-
-def _ptxas(log: str, entry: str, tags=("<128>", "<256>")) -> list:
-    out, keep, tag = [], False, ""
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            keep = entry in ln
-            tag = "<" + ",".join(re.findall(r"ILi(\d+)E", ln)) + ">"
-        elif keep and (tags is None or tag in tags) and ("registers" in ln or "spill" in ln):
-            out.append(f"{entry}{tag} " + ln.split(":", 1)[-1].strip())
-    return out
-
-
-def _kernel_ms(torch, fn, calls: int = 5) -> dict:
-    """Device ms a launch by kernel name (the first 40 characters): the
-    mean over the launches torch.profiler recorded in `calls` calls of
-    `fn` (a later profiler session in one process can miss launches, so
-    no total is divided by `calls`)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = {}, {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
-            key = evt.key[:40]
-            total[key] = total.get(key, 0.0) + evt.self_device_time_total / 1e3
-            count[key] = count.get(key, 0) + evt.count
-    return {key: total[key] / count[key] for key in total}
 
 
 def _held_bwd(torch, fa, got, q, k, v, g) -> list:
@@ -175,10 +102,10 @@ def _old_bwd(torch, build, fa, path: Path, q, k, v, g):
     libraries and loaded on its own -> (a call on q, k, v, g that returns
     its gradients, ptxas's report)."""
     try:
-        log = _use_edited(build, "flash_attention_bwd", path.read_text(), "old_bwd")
+        log = pu.use_edited(build, "flash_attention_bwd", path.read_text(), "old_bwd")
         lib = build.load("flash_attention_bwd")
     finally:
-        _use_package(build, "flash_attention_bwd")  # the wrappers keep the package's
+        pu.use_package(build, "flash_attention_bwd")  # the wrappers keep the package's
     lib.flash_attention_bwd_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -217,28 +144,6 @@ def _cut_source(src: str, kind: str) -> str:
     return src
 
 
-def _use_edited(build, name: str, text: str, tag: str) -> str:
-    """Builds `text` as csrc/<name>.cu through build.py (the library keyed
-    by its source's hash, beside the package's) and makes the wrappers
-    launch it until `_use_package`; returns ptxas's report."""
-    edited = build.build_dir().parent / "attention_profile" / tag
-    edited.mkdir(parents=True, exist_ok=True)
-    (edited / f"{name}.cu").write_text(text)
-    csrc, build.CSRC = build.CSRC, edited
-    try:
-        build._LIBS.pop(name, None)
-        log = build.build_all((name,))[name][1]
-        build.load(name)
-    finally:
-        build.CSRC = csrc
-    return log
-
-
-def _use_package(build, name: str) -> None:
-    build._LIBS.pop(name, None)
-    build.load(name)
-
-
 def _split(torch, build, args_fn) -> dict:
     """decode_tc<256>'s time with the package's source cut after the loads
     and before the combine."""
@@ -246,10 +151,10 @@ def _split(torch, build, args_fn) -> dict:
     res = {}
     try:
         for kind in ("loads", "no_combine"):
-            _use_edited(build, "flash_decode", _cut_source(src, kind), f"split_{kind}")
-            res[kind] = _times(torch, args_fn, reps=20, inner=50)
+            pu.use_edited(build, "flash_decode", _cut_source(src, kind), f"split_{kind}")
+            res[kind] = pu.times(torch, args_fn, reps=20, inner=50)
     finally:
-        _use_package(build, "flash_decode")
+        pu.use_package(build, "flash_decode")
     return res
 
 
@@ -265,18 +170,18 @@ def _train_bwd(torch, build, fa, randn, old_bwd) -> dict:
     def new():
         return fa.flash_attention_bwd_cuda(q, k, v, g, lse=lse, o32=o32)
 
-    out = {**_times(torch, new, reps=5, inner=2), "max_abs_err": _held_bwd(torch, fa, new(), q, k,
-                                                                           v, g),
-           "kernels_ms": _kernel_ms(torch, new),
-           "forward": _times(torch, lambda: fa.flash_attention_cuda(q, k, v), reps=5, inner=2),
-           "forward_stats": _times(torch, lambda: fa.flash_attention_cuda(q, k, v, stats=True),
+    out = {**pu.times(torch, new, reps=5, inner=2),
+           "max_abs_err": _held_bwd(torch, fa, new(), q, k, v, g),
+           "kernels_ms": pu.kernel_ms(torch, new),
+           "forward": pu.times(torch, lambda: fa.flash_attention_cuda(q, k, v), reps=5, inner=2),
+           "forward_stats": pu.times(torch, lambda: fa.flash_attention_cuda(q, k, v, stats=True),
                                    reps=5, inner=2)}
     if old_bwd is not None:
         old, log = _old_bwd(torch, build, fa, old_bwd, q, k, v, g)
         out["old_max_abs_err"] = _held_bwd(torch, fa, old(), q, k, v, g)
         out["old_ptxas"] = [ln for e in ("bwd_stats", "bwd_dkdv", "bwd_dq")
-                            for ln in _ptxas(log, e, None)]
-        out["turns"] = [(name, _times(torch, old if name == "old" else new, reps=3, inner=1))
+                            for ln in pu.ptxas(log, e, None)]
+        out["turns"] = [(name, pu.times(torch, old if name == "old" else new, reps=3, inner=1))
                         for name in ("old", "new", "new", "old")]
     return out
 
@@ -311,9 +216,10 @@ def main(argv=None) -> int:
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     line = {"label": args.label, "package": repro_torch.__file__, "torch": torch.__version__,
-            "ptxas": _ptxas(built["flash_attention"][1], "attention_tc")
-            + _ptxas(built["flash_decode"][1], "decode_tc")
-            + [ln for e in BWD_ENTRIES for ln in _ptxas(built["flash_attention_bwd"][1], e, None)]}
+            "ptxas": pu.ptxas(built["flash_attention"][1], "attention_tc")
+            + pu.ptxas(built["flash_decode"][1], "decode_tc")
+            + [ln for e in BWD_ENTRIES
+               for ln in pu.ptxas(built["flash_attention_bwd"][1], e, None)]}
     for name, (H, K, hd, mask, pl) in SHAPES.items():
         q, k, v = randn(B, H, S_PROMPT, hd), randn(B, K, S_PROMPT, hd), randn(B, K, S_PROMPT, hd)
 
@@ -322,7 +228,7 @@ def main(argv=None) -> int:
 
         err = _held(torch, attn(), fa.flash_attention_plain(q, k, v, mask_mode=mask,
                                                             prefix_len=pl), f"attention {name}")
-        line[f"attention_{name}"] = {**_times(torch, attn, reps=5, inner=3), "max_abs_err": err}
+        line[f"attention_{name}"] = {**pu.times(torch, attn, reps=5, inner=3), "max_abs_err": err}
         del q, k, v
         qd = randn(B, H, hd)
         kd, vd = randn(B, S_CACHE, K, hd), randn(B, S_CACHE, K, hd)
@@ -332,7 +238,7 @@ def main(argv=None) -> int:
             return fd.flash_decode_cuda(qd, kd, vd, pos)
 
         err = _held(torch, dec(), fd.flash_decode_plain(qd, kd, vd, pos), f"decode {name}")
-        line[f"decode_{name}"] = {**_times(torch, dec, reps=20, inner=50), "max_abs_err": err}
+        line[f"decode_{name}"] = {**pu.times(torch, dec, reps=20, inner=50), "max_abs_err": err}
         if args.split and hd == 256:
             line["decode_hd256"]["split"] = _split(torch, build, dec)
         del qd, kd, vd

@@ -4,7 +4,7 @@ changes in its last bits.
 
   python -m repro_torch.launch.ssm_f32_sensitivity [--batch 8] [--prompt 4096]
   python -m repro_torch.launch.ssm_f32_sensitivity --grad [--batch 8] [--prompt 4096] \
-      [--layers 12 48]
+      [--layers 12 48] [--tc]
 
 Builds the model as chip_smoke.py phase 9 does (the port's seeded init,
 bf16 weights, float32 activations, prompts from seed 0) and runs one
@@ -23,7 +23,10 @@ version and its backward from each source: the plain backward (the
 reference), the plain backward with its outputs (da, dx, dB, dC) changed
 by a relative 1e-7 or 1e-6 (random, seeded), the float64 backward rounded
 to float32, and the two CUDA kernels (forward and backward). For each it
-prints every leaf's relative L2 distance from the plain path's gradient.
+prints every leaf's relative L2 distance from the plain path's gradient
+and the largest of them. With --tc the backward's sources are the plain
+backward, its tensor-core arithmetic emulated (`ssd_chunk_intra_bwd_tc`:
+3xTF32, and one TF32 product) and the kernels.
 Runs on the CUDA card only.
 """
 from __future__ import annotations
@@ -71,14 +74,21 @@ def gradients(args, dev) -> None:
         return bwd
 
     plain = sdc.ssd_chunk_intra_plain
-    steps = {
-        "plain": (plain, sdc.ssd_chunk_intra_bwd_plain),
-        "plain backward x (1 + 1e-7 N(0,1))": (plain, jittered(1e-7)),
-        "plain backward x (1 + 1e-6 N(0,1))": (plain, jittered(1e-6)),
-        "float64 backward": (plain, lambda *t: tuple(
-            g.float() for g in sdc.ssd_chunk_intra_bwd_f64(*t))),
-        "kernels": (sdc.ssd_chunk_intra_cuda, sdc.ssd_chunk_intra_bwd_cuda),
-    }
+    steps = {"plain": (plain, sdc.ssd_chunk_intra_bwd_plain)}
+    if args.tc:
+        steps.update({
+            "3xTF32 backward (emulated)": (plain, sdc.ssd_chunk_intra_bwd_tc),
+            "1xTF32 backward (emulated)": (plain, lambda *t: sdc.ssd_chunk_intra_bwd_tc(
+                *t, terms=1)),
+        })
+    else:
+        steps.update({
+            "plain backward x (1 + 1e-7 N(0,1))": (plain, jittered(1e-7)),
+            "plain backward x (1 + 1e-6 N(0,1))": (plain, jittered(1e-6)),
+            "float64 backward": (plain, lambda *t: tuple(
+                g.float() for g in sdc.ssd_chunk_intra_bwd_f64(*t))),
+        })
+    steps["kernels"] = (sdc.ssd_chunk_intra_cuda, sdc.ssd_chunk_intra_bwd_cuda)
     saved = ops.ssd_chunk_intra
     print(f"mamba2-1.3b float32 gradients, batch {args.batch} x {args.prompt} tokens, seed "
           f"{args.seed} ({torch.cuda.get_device_name(dev)})")
@@ -98,9 +108,11 @@ def gradients(args, dev) -> None:
                     ref = grads
                     print(f"  {n} layers: plain loss {float(loss.detach()):.6f}")
                     continue
-                dist = [f"{k} {rel(g, r):.3e}" for k, g, r in zip(names, grads, ref)]
+                dists = [rel(g, r) for g, r in zip(grads, ref)]
+                dist = [f"{k} {d:.3e}" for k, d in zip(names, dists)]
                 print(f"  {n} layers, SSD {name}: loss {float(loss.detach()):.6f}; relative L2 from the "
-                      f"plain gradient, per leaf: " + ", ".join(dist), flush=True)
+                      f"plain gradient, largest {max(dists):.3e}, per leaf: " + ", ".join(dist),
+                      flush=True)
                 del grads
             del ref, model
             torch.cuda.empty_cache()
@@ -115,6 +127,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--grad", action="store_true", help="the gradients' sensitivity")
     ap.add_argument("--layers", type=int, nargs="+", default=[12, 48])
+    ap.add_argument("--tc", action="store_true",
+                    help="with --grad: the backward's tensor-core arithmetic, emulated")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     if args.grad:

@@ -95,7 +95,7 @@ def test_old_bwd_builds_a_copy_and_keeps_the_package_loaded(monkeypatch, tmp_pat
     q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     k = torch.zeros((1, 1, 8, 64), dtype=torch.bfloat16)
     run, log = ap._old_bwd(torch, build, fa, old, q, k, k, q)
-    copy = tmp_path / "build" / "attention_profile" / "old_bwd"
+    copy = tmp_path / "build" / "edited" / "old_bwd"
     assert (copy / "flash_attention_bwd.cu").read_text() == "// the old backward"
     assert log == f"built from {copy}"
     assert run.__closure__ is not None and any(
@@ -109,7 +109,7 @@ def test_use_edited_restores_the_package_sources_when_the_build_fails(monkeypatc
     build = _fake_build(monkeypatch, tmp_path, fail=True)
     package = build.CSRC
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        ap._use_edited(build, "flash_decode", "// an edited source", "split_loads")
+        ap.pu.use_edited(build, "flash_decode", "// an edited source", "split_loads")
     assert build.CSRC == package
     assert "flash_decode" not in build._LIBS
 

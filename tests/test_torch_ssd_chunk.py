@@ -165,89 +165,56 @@ def test_cuda_wrapper_checks_its_inputs_before_building():
 # ---- a tensor-core route's arithmetic, emulated on the CPU --------------
 # The kernel (csrc/ssd_chunk.cu) sums on the float32 CUDA cores in the
 # plain version's order, because the float32 model needs its bits (its
-# source note). On the tensor cores the products would run in TF32: each
-# float32 operand v split into big = tf32(v) and small = tf32(v - big)
-# (cvt.rna.tf32.f32: round to nearest, ties away from zero, 10 mantissa
-# bits), a product accumulating small.big + big.small + big.big in float32,
-# one k8 step at a time. The emulation follows that order of splits and
-# steps, with each product instruction's 8 products and the accumulator
-# summed exactly (float64) and rounded once to float32 toward zero, as the
-# tensor cores truncate their float32 accumulator, and holds the result to
-# chip_smoke 3d's bound: |err| <= SSD_TOL * max(1, sum|terms|) + SSD_TOL *
-# |plain|. It shows which of the two routes 3d's contract would admit.
+# source note). On the tensor cores the products would run in TF32, as the
+# backward's kernel runs them (csrc/ssd_chunk_bwd.cu): each float32
+# operand split into hi and lo, a product accumulating lo.hi + hi.lo +
+# hi.hi one k8 step at a time, each instruction's 8 products and the
+# accumulator summed exactly and rounded once to float32 toward zero
+# (`ssd_chunk.tf32_split`, `tc_step`, `tc_steps`, shared with the
+# backward's emulation). The emulation follows that order of splits and
+# steps and holds the result to chip_smoke 3d's bound: |err| <= SSD_TOL *
+# max(1, sum|terms|) + SSD_TOL * |plain|. It shows which of the two routes
+# 3d's contract would admit.
 SSD_TOL = 2e-5
-
-
-def _tf32(v):
-    bits = np.asarray(v, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _split(v):
-    """(big, small) of v."""
-    big = _tf32(v)
-    return big, _tf32((v - big).astype(np.float32))
-
-
-def _step(acc, a, b):
-    """acc + a . b with the products summed exactly, rounded once toward
-    zero."""
-    exact = acc.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64)
-    out = exact.astype(np.float32)
-    over = np.abs(out.astype(np.float64)) > np.abs(exact)  # rounded away from zero
-    out[over] = np.nextafter(out[over], np.float32(0))
-    return out
-
-
-def _steps(acc, a, b, terms):
-    """acc [M,N] += a [M,K] . b [K,N], K in steps of 8, each step's
-    products as the kernel issues them (3: small.big, big.small, big.big;
-    1: big.big), every product sum rounded once to float32 toward zero."""
-    (ab, as_), (bb, bs) = _split(a), _split(b)
-    pairs = [(as_, bb), (ab, bs), (ab, bb)] if terms == 3 else [(ab, bb)]
-    for k in range(0, a.shape[1], 8):
-        for pa, pb in pairs:
-            acc = _step(acc, pa[:, k:k + 8], pb[k:k + 8])
-    return acc
 
 
 def _tensor_core_emulation(a, x, Bm, Cm, terms):
     """(y_diag, S_c) of the tensor-core route for one batch row: the
-    scores with big.big and small terms in two accumulators each, by the
-    parity of the k8 step, then (big.big) + (small); the weights
+    scores with hi.hi and the small terms in two accumulators each, by the
+    parity of the k8 step, then (hi.hi) + (small); the weights
     G * exp(ci_i - ci_j) in float32, 0 above the diagonal; y and S_c over
     the positions j, the k order inside a step being irrelevant to an
     exact step sum."""
+    a, x, Bm, Cm = (torch.from_numpy(v) for v in (a, x, Bm, Cm))
     _, nc, l, H = a.shape
-    ci = cumsum_xla(torch.from_numpy(a), dim=2).numpy()
-    y = np.zeros(x.shape, np.float32)
-    S_c = np.zeros((1, nc, H, Bm.shape[-1], x.shape[-1]), np.float32)
-    tril = np.tril(np.ones((l, l), bool))
+    ci = cumsum_xla(a, dim=2)
+    y = torch.zeros(x.shape)
+    S_c = torch.zeros((1, nc, H, Bm.shape[-1], x.shape[-1]))
+    tril = torch.ones((l, l), dtype=torch.bool).tril()
     for c in range(nc):
         C, B = Cm[0, c], Bm[0, c]
         parts = []
         for par in (0, 1):
-            big = np.zeros((l, l), np.float32)
-            small = np.zeros((l, l), np.float32)
+            big, small = torch.zeros((l, l)), torch.zeros((l, l))
             for k in range(8 * par, C.shape[1], 16):
-                (cb, cs), (bb, bs) = _split(C[:, k:k + 8]), _split(B[:, k:k + 8])
+                (cb, cs), (bb, bs) = ssd_chunk.tf32_split(C[:, k:k + 8]), ssd_chunk.tf32_split(
+                    B[:, k:k + 8])
                 if terms == 3:
-                    small = _step(small, cs, bb.T)
-                    small = _step(small, cb, bs.T)
-                big = _step(big, cb, bb.T)
+                    small = ssd_chunk.tc_step(small, cs, bb.T)
+                    small = ssd_chunk.tc_step(small, cb, bs.T)
+                big = ssd_chunk.tc_step(big, cb, bb.T)
             parts.append((big, small))
         G = (parts[0][0] + parts[1][0]) + (parts[0][1] + parts[1][1])
         last = ci[0, c, -1]
         for h in range(H):
             cih = ci[0, c, :, h]
-            diff = np.where(tril, cih[:, None] - cih[None, :], np.float32(0))  # 0 above: no overflow
-            W = np.where(tril, G * np.exp(diff), np.float32(0))
-            y[0, c, :, h] = _steps(np.zeros((l, x.shape[-1]), np.float32), W,
-                                   x[0, c, :, h], terms)
-            xd = (x[0, c, :, h] * np.exp(last[h] - cih)[:, None]).astype(np.float32)
-            S_c[0, c, h] = _steps(np.zeros(S_c.shape[-2:], np.float32), np.ascontiguousarray(B.T),
-                                  xd, terms)
-    return y, S_c
+            diff = torch.where(tril, cih[:, None] - cih[None, :], 0.0)  # 0 above: no overflow
+            W = torch.where(tril, G * torch.exp(diff), 0.0)
+            y[0, c, :, h] = ssd_chunk.tc_steps(torch.zeros((l, x.shape[-1])), W, x[0, c, :, h],
+                                               terms)
+            xd = x[0, c, :, h] * torch.exp(last[h] - cih)[:, None]
+            S_c[0, c, h] = ssd_chunk.tc_steps(torch.zeros(S_c.shape[-2:]), B.T, xd, terms)
+    return y.numpy(), S_c.numpy()
 
 
 def _worst_over_tolerance(kind, terms):
